@@ -1,0 +1,25 @@
+"""controlnet_tpu_torch — the PyTorch/CUDA port of ``controlnet_tpu``.
+
+A second package beside the JAX one, which stays as the reference the port
+is held against.  The layout mirrors ``controlnet_tpu/`` module for module:
+
+  config.py              <- controlnet_tpu/config.py (own copy, no tpu_params)
+  schedules/linear.py    <- controlnet_tpu/schedules/linear.py
+  nn/layers.py           <- controlnet_tpu/nn/layers.py
+  nn/blocks.py           <- controlnet_tpu/nn/blocks.py
+  ops/attention.py       <- controlnet_tpu/ops/attention.py
+  ops/cuda_attention.py  <- controlnet_tpu/ops/pallas_attention.py (forward)
+  csrc/attention_fwd.cu  <- _attn_kernel_t, hand-written CUDA for sm_90a
+  models/unet.py         <- controlnet_tpu/models/unet.py (unconditioned)
+  models/controlnet.py   <- controlnet_tpu/models/controlnet.py (DDPM hint block)
+  io/jax_params.py       <- controlnet_tpu/io/torch_export.py layout rules
+  sample/ddpm.py         <- controlnet_tpu/sample/ddpm.py
+  tools/sample_ddpm_controlnet.py <- tools/sample_ddpm_controlnet.py
+
+Modules are NCHW with the reference PyTorch state-dict names, so a
+reference-format ``.pth`` loads with ``load_state_dict(strict=True)``.
+Nothing here imports ``jax`` or ``controlnet_tpu``; submodules are not
+imported eagerly.
+"""
+
+__version__ = "0.1.0"

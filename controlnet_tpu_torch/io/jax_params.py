@@ -1,0 +1,131 @@
+"""Weights carried across from the JAX package, and reference ``.pth`` files.
+
+``unet_state_dict_from_jax`` / ``controlnet_state_dict_from_jax`` take the
+JAX package's parameter trees (nested dicts and lists of numpy arrays) and
+return this package's ``state_dict``, which is the reference PyTorch one.
+This is the port's own numpy-only copy of the layout rules of
+``controlnet_tpu/io/torch_export.py``:
+
+  * Conv2d:           HWIO -> OIHW
+  * ConvTranspose2d:  the JAX kernel is stored spatially flipped; un-flip,
+                      then HWIO -> (in, out, kh, kw)
+  * Linear:           (in, out) -> (out, in)
+  * MultiheadAttention: wq/wk/wv packed into in_proj_weight (3D, D),
+                      out_proj transposed
+  * GroupNorm:        scale -> weight, bias -> bias
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+Params = Any
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x, np.float32)
+
+
+def _conv(p: Params, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = _np(p["w"]).transpose(3, 2, 0, 1)
+    if "b" in p:
+        out[f"{prefix}.bias"] = _np(p["b"])
+
+
+def _conv_transpose(p: Params, prefix: str, out: dict) -> None:
+    w = _np(p["w"])[::-1, ::-1]
+    out[f"{prefix}.weight"] = w.transpose(2, 3, 0, 1)
+    out[f"{prefix}.bias"] = _np(p["b"])
+
+
+def _linear(p: Params, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = _np(p["w"]).T
+    if "b" in p:
+        out[f"{prefix}.bias"] = _np(p["b"])
+
+
+def _norm(p: Params, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = _np(p["scale"])
+    out[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _attention(p: Params, prefix: str, out: dict) -> None:
+    out[f"{prefix}.in_proj_weight"] = np.concatenate(
+        [_np(p["wq"]).T, _np(p["wk"]).T, _np(p["wv"]).T], axis=0)
+    out[f"{prefix}.in_proj_bias"] = np.concatenate([_np(p["bq"]), _np(p["bk"]), _np(p["bv"])])
+    out[f"{prefix}.out_proj.weight"] = _np(p["wo"]).T
+    out[f"{prefix}.out_proj.bias"] = _np(p["bo"])
+
+
+def _block(p: Params, base: str, out: dict) -> None:
+    for j, rp in enumerate(p["resnets"]):
+        _norm(rp["norm1"], f"{base}.resnet_conv_first.{j}.0", out)
+        _conv(rp["conv1"], f"{base}.resnet_conv_first.{j}.2", out)
+        _norm(rp["norm2"], f"{base}.resnet_conv_second.{j}.0", out)
+        _conv(rp["conv2"], f"{base}.resnet_conv_second.{j}.2", out)
+        _conv(rp["skip"], f"{base}.residual_input_conv.{j}", out)
+        if "t_proj" in rp:
+            _linear(rp["t_proj"], f"{base}.t_emb_layers.{j}.1", out)
+    for j, ap in enumerate(p.get("attns", [])):
+        _norm(ap["norm"], f"{base}.attention_norms.{j}", out)
+        _attention(ap["attn"], f"{base}.attentions.{j}", out)
+    if p.get("xattns"):
+        raise NotImplementedError("cross-attention blocks are not ported yet")
+    if p.get("down"):
+        _conv(p["down"], f"{base}.down_sample_conv", out)
+    if p.get("up"):
+        _conv_transpose(p["up"], f"{base}.up_sample_conv", out)
+
+
+def _to_torch(sd: dict) -> dict:
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def _unet(p: Params, prefix: str, out: dict) -> None:
+    if "class_emb" in p or "cond_conv_in" in p:
+        raise NotImplementedError("UNet conditioning is not ported yet")
+    _conv(p["conv_in"], f"{prefix}conv_in", out)
+    _linear(p["t_proj1"], f"{prefix}t_proj.0", out)
+    _linear(p["t_proj2"], f"{prefix}t_proj.2", out)
+    for i, bp in enumerate(p["downs"]):
+        _block(bp, f"{prefix}downs.{i}", out)
+    for i, bp in enumerate(p["mids"]):
+        _block(bp, f"{prefix}mids.{i}", out)
+    if "ups" in p:
+        for i, bp in enumerate(p["ups"]):
+            _block(bp, f"{prefix}ups.{i}", out)
+        _norm(p["norm_out"], f"{prefix}norm_out", out)
+        _conv(p["conv_out"], f"{prefix}conv_out", out)
+
+
+def unet_state_dict_from_jax(params: Params, prefix: str = "") -> dict:
+    """JAX ``UNet`` parameter tree -> this package's ``UNet`` state dict."""
+    sd: dict = {}
+    _unet(params, prefix, sd)
+    return _to_torch(sd)
+
+
+def controlnet_state_dict_from_jax(params: Params) -> dict:
+    """JAX DDPM ``ControlNet`` tree -> this package's ``ControlNet`` state
+    dict.  The hint block is flat: the torch index of a conv is its
+    position in the JAX steps list, where each SiLU holds an empty slot."""
+    sd: dict = {}
+    _unet(params["trained_unet"], "trained_unet.", sd)
+    _unet(params["control_unet"], "control_copy_unet.", sd)
+    for i, lp in enumerate(params["hint_block"]["layers"]):
+        if lp:
+            _conv(lp, f"control_copy_unet_hint_block.{i}", sd)
+    for i, zp in enumerate(params["down_zero"]):
+        _conv(zp, f"control_copy_unet_down_zero_convs.{i}", sd)
+    for i, zp in enumerate(params["mid_zero"]):
+        _conv(zp, f"control_copy_unet_mid_zero_convs.{i}", sd)
+    return _to_torch(sd)
+
+
+def load_reference_checkpoint(path: str) -> dict:
+    """A reference-format ControlNet ``.pth`` (a bare state dict, as
+    ``tools/export_torch_checkpoint.py`` writes it) -> CPU tensors."""
+    return torch.load(path, map_location="cpu", weights_only=True)

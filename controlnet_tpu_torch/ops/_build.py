@@ -1,0 +1,103 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Every ``*.cu`` source under ``controlnet_tpu_torch/csrc/`` is compiled by
+``nvcc`` for ``sm_90a`` into an object file (one ``nvcc`` per source, all
+started together), then linked into ``build/kernels/libcontrolnet_kernels.so``
+at the repository root.  The sources have a plain C interface and include no
+PyTorch headers, so a build takes seconds.  The library is rebuilt when any
+source is newer than it.
+
+Nothing here runs at import time: this module is imported on hosts with no
+``nvcc`` (the CPU tests), where only the kernels' plain versions run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+LIB_PATH = BUILD_DIR / "libcontrolnet_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return path
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in sources())
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands concurrently; raise with the output of any that
+    fails, else return their outputs."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outputs, failures = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        outputs.append(out)
+        if proc.returncode != 0:
+            failures.append(f"$ {' '.join(cmd)}\n{out}")
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return outputs
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile and link the kernels into ``LIB_PATH`` (always rebuilds).
+    ``verbose`` prints ptxas's register / shared-memory / spill report."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ["-Xptxas", "-v"] if verbose else []
+    objs = [BUILD_DIR / f"{src.stem}.o" for src in sources()]
+    outputs = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(sources(), objs)])
+    if verbose:
+        print("\n".join(outputs), flush=True)
+    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]])
+    os.replace(tmp, LIB_PATH)
+    return LIB_PATH
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if it is missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            lib = ctypes.CDLL(str(LIB_PATH))
+            fn = lib.controlnet_attention_fwd_t
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

@@ -1,0 +1,113 @@
+"""Sample from a DDPM ControlNet: config -> schedule -> ControlNet -> sampler.
+
+Counterpart of ``tools/sample_ddpm_controlnet.py``.  Weights come from a
+reference-format ``.pth`` (what ``tools/export_torch_checkpoint.py`` writes
+from a JAX checkpoint).  Hints come from an ``.npy`` array of (N, H, W, 3)
+hint images in [0, 1]; ``num_samples`` of them are picked at random from
+``--seed``.  The hint features are computed once, the 1000-step ancestral
+loop runs on the device, and the hint grid plus one x_t grid per
+``--save_every`` steps are written as PNGs.
+
+    python -m controlnet_tpu_torch.tools.sample_ddpm_controlnet \\
+        --config config/mnist.yaml --hints hints.npy [--ckpt path.pth]
+
+Runs on the card; ``--device cpu`` runs it on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+
+import numpy as np
+import torch
+
+from controlnet_tpu_torch import config as cfg
+from controlnet_tpu_torch.device import resolve_device
+from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
+from controlnet_tpu_torch.models.controlnet import ControlNet
+from controlnet_tpu_torch.sample.ddpm import make_ddpm_sampler
+from controlnet_tpu_torch.schedules.linear import LinearSchedule, make_linear_schedule
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def gather_hints(hints: np.ndarray, num_samples: int, seed: int = 0) -> np.ndarray:
+    """``num_samples`` hints drawn at random (with replacement) from ``hints``."""
+    rng = random.Random(seed)
+    idxs = [rng.randint(0, len(hints) - 1) for _ in range(num_samples)]
+    return np.stack([hints[i] for i in idxs])
+
+
+def load_model(config: dict, ckpt_path: str | None, device=None) -> tuple[ControlNet, LinearSchedule]:
+    """The ControlNet (weights from ``ckpt_path``, strictly) and its schedule."""
+    device = resolve_device(device)
+    dp = cfg.diffusion_params(config)
+    mp = cfg.model_params(config)
+    sched = make_linear_schedule(dp["num_timesteps"], dp["beta_start"], dp["beta_end"],
+                                 device=device)
+    cn = ControlNet(mp["im_channels"], mp, model_locked=True)
+    if ckpt_path is not None:
+        cn.load_state_dict(load_reference_checkpoint(ckpt_path), strict=True)
+    return cn.to(device).eval(), sched
+
+
+def sample(cn: ControlNet, sched: LinearSchedule, hints: np.ndarray, seed: int = 0,
+           record_every: int | None = None, compute_dtype: torch.dtype | None = None):
+    """Sample one batch, one sample per hint ((B, H, W, 3) in [0, 1]).
+    Returns (x0, trajectory) as (B, C, H, W) / (T // record_every, B, C, H, W)
+    device tensors."""
+    device = next(cn.parameters()).device
+    T = sched.num_timesteps
+    record_every = T if record_every is None else record_every
+    hint = torch.as_tensor(np.asarray(hints, np.float32), device=device).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        feats = cn.hint_features(hint)
+    im = cn.trained_unet
+    shape = (hint.shape[0], im.im_channels, hint.shape[2], hint.shape[3])
+    sampler = make_ddpm_sampler(lambda m, x, t, f: m(x, t, hint_features=f), sched, shape,
+                                record_every, compute_dtype, device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    return sampler(cn, generator, feats)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="DDPM ControlNet sampling (PyTorch port)")
+    parser.add_argument("--config", dest="config_path", default="config/mnist.yaml")
+    parser.add_argument("--hints", required=True, help=".npy of (N, H, W, 3) hints in [0, 1]")
+    parser.add_argument("--ckpt", default=None,
+                        help="reference-format .pth (default: <task_name>/<controlnet_ckpt_name>)")
+    parser.add_argument("--num_samples", type=int, default=None)
+    parser.add_argument("--save_every", type=int, default=1)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--compute_dtype", choices=sorted(_DTYPES), default="float32")
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+
+    from controlnet_tpu_torch.io.images import save_image_grid
+
+    config = cfg.load_config(args.config_path)
+    train_config = cfg.train_params(config)
+    task_name = train_config["task_name"]
+    ckpt = args.ckpt or os.path.join(task_name, train_config["controlnet_ckpt_name"])
+    cn, sched = load_model(config, ckpt, args.device)
+
+    num_samples = args.num_samples or train_config["num_samples"]
+    nrow = train_config["num_grid_rows"]
+    hints = gather_hints(np.load(args.hints), num_samples, args.seed)
+    out_dir = os.path.join(task_name, "hint_samples")
+    save_image_grid(hints, os.path.join(out_dir, "hints.png"), nrow=nrow)
+
+    record_every = max(1, args.save_every)
+    _, traj = sample(cn, sched, hints, args.seed, record_every, _DTYPES[args.compute_dtype])
+    traj = traj.float().permute(0, 1, 3, 4, 2).cpu().numpy()
+    T = sched.num_timesteps
+    for k in range(traj.shape[0]):
+        t = T - (k + 1) * record_every
+        save_image_grid((traj[k] + 1.0) / 2.0, os.path.join(out_dir, f"x0_{t}.png"), nrow=nrow)
+    print(f"Wrote hint grid + {traj.shape[0]} step grids to {out_dir}")
+
+
+if __name__ == "__main__":
+    main()

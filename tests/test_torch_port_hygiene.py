@@ -1,0 +1,80 @@
+"""Rules of the PyTorch port that are not numerics: it imports no JAX and
+nothing of the JAX package, and its entry points never run on the CPU
+unless asked to."""
+
+import importlib
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import controlnet_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(controlnet_tpu_torch.__path__,
+                                                       "controlnet_tpu_torch."))
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    mods = _all_modules()
+    assert "controlnet_tpu_torch.ops.cuda_attention" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'controlnet_tpu' or m.startswith('controlnet_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_port_sources_name_no_jax():
+    """No module of the port names jax or controlnet_tpu in an import."""
+    for name in _all_modules():
+        src = importlib.util.find_spec(name).origin
+        with open(src) as f:
+            for line in f:
+                s = line.strip()
+                if s.startswith(("import ", "from ")):
+                    words = s.replace(",", " ").split()
+                    assert "jax" not in words and "controlnet_tpu" not in words, (src, s)
+                    assert not any(w.startswith(("jax.", "controlnet_tpu.")) for w in words), (src, s)
+
+
+def test_entry_points_without_device_raise_on_cuda_less_host(monkeypatch):
+    from controlnet_tpu_torch.sample.ddpm import make_ddpm_sampler
+    from controlnet_tpu_torch.schedules.linear import make_linear_schedule
+    from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_linear_schedule(10, 1e-4, 0.02)
+    sched = make_linear_schedule(10, 1e-4, 0.02, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_ddpm_sampler(lambda m, x, t: x, sched, (1, 1, 4, 4))
+    cfg = {"diffusion_params": {"num_timesteps": 10, "beta_start": 1e-4, "beta_end": 0.02},
+           "model_params": {}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.load_model(cfg, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.main(["--hints", "unused.npy", "--config", os.path.join(REPO, "config", "mnist.yaml"),
+                   "--ckpt", "unused.pth"])
+
+
+def test_kernel_library_is_not_built_on_import():
+    from controlnet_tpu_torch.ops import _build
+
+    assert _build._lib is None
+    assert [p.name for p in _build.sources()] == ["attention_fwd.cu"]
