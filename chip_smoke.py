@@ -22,7 +22,28 @@ Phases (each one that fails makes the script exit non-zero):
    ancestral loop at batch 64, f32 and bf16 compute.  Launch counters are
    set to 0 just before and read just after each run.  A 10-step sample is
    also checked against the same sample with the plain attention.
-5. A ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as the
+5. One full-width training step at batch 64 (the ControlNet trainer tool's
+   step, trunks from a seeded base UNet, hints from the port's canny on the
+   card on seeded digit-like images): 26 forward and 18 backward kernel
+   launches; the backward shapes are recorded for phase 6.
+6. The backward kernel against its plain version at every training shape
+   and the cross shape, f32 and bf16, and the forward kernel's saved
+   log-sum-exp against ``torch.logsumexp``; CUDA-event times of the kernel,
+   the plain version and the backward of ``scaled_dot_product_attention``
+   (a yardstick the port never calls), beside the least time the card
+   could take.
+7. Three training steps through the kernels against the same steps with
+   the plain attention forward and backward, from one generator, f32 and
+   bf16: losses, first-step gradients and the weights after.
+8. The training main path: 20 timed steps of the trainer's step at batch
+   64, f32 and bf16 compute, counters set to 0 just before and read just
+   after (exactly 26 forward and 18 backward launches a step), trainable
+   weights moved and frozen ones bit-identical; ms/step on the host clock
+   and a short torch.profiler window for device time.
+9. The trainer tools: ``train_ddpm`` and ``train_ddpm_controlnet`` for one
+   epoch over 256 seeded images, each resumed to a second epoch, then the
+   sampling tool loads the written ControlNet ``.pth`` for a 10-step sample.
+10. A ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and convolutions throughout, so float32 means
@@ -34,8 +55,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -55,6 +78,19 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # kernel moves the output by O(1); float32 reassociation by ~1e-6.
 MODEL_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 CROSS_SHAPE = (49, 7, 16)  # (Lq, Lk, head_dim): not on the main path
+# Kernel b against its plain version, relative to max|grad|: float32 sums in
+# another order (measured ~2e-6); bf16 forms D = rowsum(dO o O) from the
+# bf16-rounded output, where the plain version uses float32 P (measured
+# ~8e-3).  The lse that kernel a saves, absolute, natural log (float32 math
+# in both types).
+BWD_KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+LSE_TOL = 1e-4
+TRAIN_STEPS = 20    # timed steps of the training main path, per compute type
+TRAIN_WARMUP = 2
+PROFILE_STEPS = 5
+CHECK_STEPS = 3     # kernel-vs-plain training steps
+NOISE_FLOOR = 1e-6  # |gradient| below which Adam (eps 1e-8) amplifies float noise
+TOOL_IMAGES = 256   # the trainer tools' seeded dataset: 4 steps per epoch
 
 
 def log(msg: str) -> None:
@@ -67,14 +103,39 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+class _PlainAttention(torch.autograd.Function):
+    """The plain forward and the plain backward on any device: the comparison
+    model of the training phases (the port's own Function launches kernels a
+    and b on CUDA tensors)."""
+
+    @staticmethod
+    def forward(ctx, qt, kt, vt):
+        from controlnet_tpu_torch.ops import cuda_attention
+
+        ctx.save_for_backward(qt, kt, vt)
+        return cuda_attention.fused_attention_t_plain(qt, kt, vt)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from controlnet_tpu_torch.ops import cuda_attention
+
+        return cuda_attention.fused_attention_t_bwd_plain(*ctx.saved_tensors, dout)
+
+
 @contextlib.contextmanager
 def plain_attention():
-    """Route the attention of this process through its plain version (the
-    comparison model of phases 2 and 4); the port itself has no such switch."""
+    """Route the attention of this process, and its gradient, through the
+    plain versions (the comparison model of phases 2, 4 and 7); the port
+    itself has no such switch."""
     from controlnet_tpu_torch.ops import cuda_attention
 
+    def plain(qt, kt, vt):
+        if torch.is_grad_enabled() and (qt.requires_grad or kt.requires_grad or vt.requires_grad):
+            return _PlainAttention.apply(qt, kt, vt)
+        return cuda_attention.fused_attention_t_plain(qt, kt, vt)
+
     orig = cuda_attention.fused_attention_t
-    cuda_attention.fused_attention_t = cuda_attention.fused_attention_t_plain
+    cuda_attention.fused_attention_t = plain
     try:
         yield
     finally:
@@ -128,10 +189,36 @@ def attention_bound_ms(bh: int, lq: int, lk: int, dh: int, dtype: torch.dtype) -
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
+def attention_bwd_bound_ms(bh: int, lq: int, lk: int, dh: int,
+                           dtype: torch.dtype) -> tuple[float, str]:
+    """Least time for one backward call: q, k, v and dO read once and dq,
+    dk, dv written once at the HBM rate, or the five products the JAX cost
+    estimate counts (10*Lq*Lk*dh flops per slice) at the card's peak for the
+    input type, whichever is larger."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = itemsize * bh * dh * (3 * lq + 4 * lk)
+    flops = 10.0 * bh * lq * lk * dh
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
 def mnist_config() -> dict:
     from controlnet_tpu_torch import config as cfg
 
     return cfg.load_config(os.path.join(REPO, "config", "mnist.yaml"))
+
+
+def randomize_zero_convs(cn) -> None:
+    """Make every zero conv nonzero (normal, std 0.05, from the global torch
+    seed) so the control branch contributes, and takes gradient, from the
+    first step."""
+    zero_convs = (list(cn.control_copy_unet_down_zero_convs)
+                  + list(cn.control_copy_unet_mid_zero_convs)
+                  + [cn.control_copy_unet_hint_block[-1]])
+    with torch.no_grad():
+        for conv in zero_convs:
+            conv.weight.normal_(0.0, 0.05)
+            conv.bias.normal_(0.0, 0.05)
 
 
 def write_seeded_checkpoint(config: dict, path: str) -> None:
@@ -142,15 +229,42 @@ def write_seeded_checkpoint(config: dict, path: str) -> None:
     torch.manual_seed(SEED)
     mp = config["model_params"]
     cn = ControlNet(mp["im_channels"], mp)
-    zero_convs = (list(cn.control_copy_unet_down_zero_convs)
-                  + list(cn.control_copy_unet_mid_zero_convs)
-                  + [cn.control_copy_unet_hint_block[-1]])
-    with torch.no_grad():
-        for conv in zero_convs:
-            conv.weight.normal_(0.0, 0.05)
-            conv.bias.normal_(0.0, 0.05)
+    randomize_zero_convs(cn)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(cn.state_dict(), path)
+
+
+def seeded_unet_state_dict(config: dict) -> dict:
+    """The base UNet's state dict, random weights from SEED (what a
+    reference-format ddpm .pth holds)."""
+    from controlnet_tpu_torch.models.unet import UNet
+
+    torch.manual_seed(SEED)
+    mp = config["model_params"]
+    return UNet(mp["im_channels"], mp).state_dict()
+
+
+def seeded_digits(n: int, size: int = 28):
+    """uint8 (N, H, W) digit-like images from SEED: a bright anti-aliased
+    ring arc and a bar, 1-2.5 px thick, on black, which canny turns into
+    closed edge maps as it does MNIST digits."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[:size, :size].astype(np.float32)
+    out = np.zeros((n, size, size), np.float32)
+    for im in out:
+        cy, cx = rng.uniform(0.35 * size, 0.65 * size, 2)
+        r, w = rng.uniform(0.15 * size, 0.3 * size), rng.uniform(1.0, 2.5)
+        ring = np.clip(w + 0.5 - np.abs(np.hypot(yy - cy, xx - cx) - r), 0.0, 1.0)
+        ring *= (np.arctan2(yy - cy, xx - cx) < rng.uniform(0.0, np.pi))  # an arc
+        ang = rng.uniform(0.0, np.pi)
+        y0, x0 = rng.uniform(0.25 * size, 0.75 * size, 2)
+        across = np.abs((xx - x0) * np.sin(ang) - (yy - y0) * np.cos(ang))
+        along = np.abs((xx - x0) * np.cos(ang) + (yy - y0) * np.sin(ang))
+        bar = np.clip(w + 0.5 - across, 0.0, 1.0) * (along < rng.uniform(0.15, 0.35) * size)
+        im[:] = np.maximum(ring, bar) * rng.uniform(180, 255)
+    return out.round().astype(np.uint8)
 
 
 def seeded_hints(n: int, size: int):
@@ -301,6 +415,344 @@ def phase_main_path(config: dict, ckpt: str, device) -> dict:
     return results
 
 
+def train_setup(config: dict, base: dict, device, dtype_name: str):
+    """The trainer tool's ControlNet, train state and step at ``dtype_name``
+    compute, trunks from ``base``, zero convs made nonzero from SEED."""
+    from controlnet_tpu_torch.tools import train_ddpm_controlnet as tool
+
+    cfg = copy.deepcopy(config)
+    cfg["train_params"]["compute_dtype"] = dtype_name
+    cn, state, step = tool.make_trainer(cfg, base, device, seed=SEED)
+    randomize_zero_convs(cn)
+    return cn, state, step
+
+
+def train_batches(images: torch.Tensor, steps: int, epoch: int = 0):
+    """``steps`` batches of the trainer's shuffled order, with their canny
+    hints made on the card as the trainer tool makes them."""
+    from controlnet_tpu_torch.data.datasets import batch_indices
+    from controlnet_tpu_torch.tools.train_ddpm_controlnet import device_hints
+
+    done = 0
+    while done < steps:
+        for idx in batch_indices(len(images), BATCH, shuffle=True, seed=epoch):
+            if done == steps:
+                return
+            batch = images[torch.from_numpy(idx).to(images.device)]
+            yield batch, device_hints(batch)
+            done += 1
+        epoch += 1
+
+
+@contextlib.contextmanager
+def record_bwd_shapes(into: list):
+    from controlnet_tpu_torch.ops import cuda_attention
+
+    orig = cuda_attention._launch_bwd
+
+    def rec(qt, kt, vt, out, lse, dout):
+        into.append((qt.shape[3], kt.shape[3], qt.shape[2], qt.shape[0] * qt.shape[1]))
+        return orig(qt, kt, vt, out, lse, dout)
+
+    cuda_attention._launch_bwd = rec
+    try:
+        yield
+    finally:
+        cuda_attention._launch_bwd = orig
+
+
+def phase_train_shapes(config: dict, base: dict, images: torch.Tensor, device) -> list:
+    """One full-width training step; returns the backward attention shapes."""
+    from controlnet_tpu_torch.ops import cuda_attention
+
+    _, state, step = train_setup(config, base, device, "float32")
+    shapes: list = []
+    g = torch.Generator(device=device).manual_seed(SEED)
+    batch, hints = next(train_batches(images, 1))
+    before = cuda_attention.launches, cuda_attention.bwd_launches
+    with record_bwd_shapes(shapes):
+        loss = step(state, batch, hints, g)
+    torch.cuda.synchronize()
+    fwd = cuda_attention.launches - before[0]
+    bwd = cuda_attention.bwd_launches - before[1]
+    ok = fwd == 26 and bwd == 18 and len(shapes) == 18 and bool(torch.isfinite(loss))
+    log(f"training step, batch {BATCH}: attention launches forward {fwd} (expect 26), "
+        f"backward {bwd} (expect 18), loss {loss.item():.4f} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("full-width training step failed")
+    return shapes
+
+
+def phase_kernels_bwd(shapes: list, device) -> dict:
+    """Kernel b (and kernel a's lse) against the plain versions at every
+    training shape (q, k, v as slices of one packed projection, as the model
+    passes them) and the cross shape, f32 and bf16; timings."""
+    import collections
+
+    import torch.nn.functional as F
+
+    from controlnet_tpu_torch.ops import cuda_attention
+
+    mix = collections.Counter(shapes)
+    cases = sorted(mix, key=lambda s: (-s[0], -s[2])) + [(*CROSS_SHAPE, BATCH * 4)]
+    totals = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
+                   ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0, lse_err=0.0)
+        for lq, lk, dh, bh in cases:
+            heads = bh // BATCH
+            g = torch.Generator(device=device).manual_seed(SEED)
+            if lq == lk:
+                packed = torch.randn((BATCH, 3 * heads * dh, lq), generator=g,
+                                     device=device).to(dtype)
+                q, k, v = (packed[:, i * heads * dh:(i + 1) * heads * dh]
+                           .reshape(BATCH, heads, dh, lq) for i in range(3))
+            else:
+                q = torch.randn((BATCH, heads, dh, lq), generator=g, device=device).to(dtype)
+                k = torch.randn((BATCH, heads, dh, lk), generator=g, device=device).to(dtype)
+                v = torch.randn((BATCH, heads, dh, lk), generator=g, device=device).to(dtype)
+            dout = torch.randn((BATCH, heads, dh, lq), generator=g, device=device).to(dtype)
+            lse = torch.empty((BATCH, heads, lq), dtype=torch.float32, device=device)
+            out = cuda_attention._launch(q, k, v, lse)
+            ref_lse = torch.logsumexp(
+                torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float()) / dh ** 0.5, dim=-1)
+            lse_err = (lse - ref_lse).abs().max().item()
+            got = cuda_attention._launch_bwd(q, k, v, out, lse, dout)
+            ref = cuda_attention.fused_attention_t_bwd_plain(q, k, v, dout)
+            torch.cuda.synchronize()
+            abs_err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+            rel_err = max(((a.float() - r.float()).abs().max() / r.float().abs().max()).item()
+                          for a, r in zip(got, ref))
+            ok = (rel_err <= BWD_KERNEL_TOL[dtype] and lse_err <= LSE_TOL
+                  and all(bool(torch.isfinite(a).all()) for a in got))
+            ms = cuda_time_ms(lambda: cuda_attention._launch_bwd(q, k, v, out, lse, dout))
+            plain_ms = cuda_time_ms(lambda: cuda_attention.fused_attention_t_bwd_plain(q, k, v, dout))
+            qh, kh, vh = (a.transpose(-1, -2).contiguous().requires_grad_() for a in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qh, kh, vh)
+            gh = dout.transpose(-1, -2).contiguous()
+            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh,
+                                                              retain_graph=True))
+            del sdpa
+            bound_ms, bound_by = attention_bwd_bound_ms(bh, lq, lk, dh, dtype)
+            n = mix.get((lq, lk, dh, bh), 0)
+            where = f"x{n} per step" if n else "cross-attention, off the main path"
+            log(f"attention bwd {str(dtype)[6:]:8s} Lq {lq:4d} Lk {lk:4d} dh {dh:2d} BH {bh}: "
+                f"rel err {rel_err:.3g} (tol {BWD_KERNEL_TOL[dtype]:g}), abs {abs_err:.3g}, "
+                f"lse err {lse_err:.3g} (tol {LSE_TOL:g}) {'ok' if ok else 'FAIL'} | "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}) | {where}")
+            if not ok:
+                raise SystemExit("attention backward kernel disagrees with its plain version")
+            tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
+            tot["max_rel_err"] = max(tot["max_rel_err"], rel_err)
+            tot["lse_err"] = max(tot["lse_err"], lse_err)
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                             ("library_ms", lib_ms)):
+                tot[key] += n * val
+            tot["ops_ms"] += n * (bound_ms if bound_by == "operations" else 0.0)
+            tot["bytes_ms"] += n * (bound_ms if bound_by == "bytes" else 0.0)
+            tot["flops"] += n * 10.0 * bh * lq * lk * dh
+        tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+        totals[dtype] = tot
+        log(f"attention bwd {str(dtype)[6:]} per training step ({sum(mix.values())} calls): "
+            f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+            f"sdpa bwd {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP")
+    return totals
+
+
+def _check_steps(config, base, images, device, dtype_name: str, plain: bool):
+    """CHECK_STEPS training steps from one start and one generator; returns
+    (losses, first-step grads, params before, params after, noise-floor mask)."""
+    cn, state, step = train_setup(config, base, device, dtype_name)
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    g = torch.Generator(device=device).manual_seed(SEED)
+    losses, grads, noisy = [], None, {}
+    with plain_attention() if plain else contextlib.nullcontext():
+        for batch, hints in train_batches(images, CHECK_STEPS):
+            losses.append(step(state, batch, hints, g))
+            for k, p in state.params.items():
+                low = p.grad.abs() < NOISE_FLOOR
+                noisy[k] = low if k not in noisy else noisy[k] | low
+            if grads is None:
+                grads = {k: p.grad.detach().clone() for k, p in state.params.items()}
+    after = {k: p.detach().clone() for k, p in state.params.items()}
+    return torch.stack(losses).float().cpu(), grads, before, after, noisy
+
+
+def phase_train_parity(config: dict, base: dict, images: torch.Tensor, device,
+                       dtype: torch.dtype) -> dict:
+    """CHECK_STEPS steps through kernels a and b against the same steps with
+    the plain attention forward and backward.  Tolerances: losses and the
+    first step's gradients MODEL_TOL (relative); after three Adam steps the
+    weights whose gradients stayed above the noise floor within 1e-2 * lr
+    (f32), or, in bf16, whose rounding flips small gradients' signs, a mean
+    |difference| under 0.15 lr and a cosine of the two updates over 0.97."""
+    name = str(dtype)[6:]
+    lk, gk, before, ak, nk = _check_steps(config, base, images, device, name, plain=False)
+    lp, gp, _, ap, npl = _check_steps(config, base, images, device, name, plain=True)
+    lr = config["train_params"]["controlnet_lr"]
+    loss_err = ((lk - lp).abs().max() / lp.abs().max().clamp(min=1.0)).item()
+    gmax = max(g.abs().max().item() for g in gp.values())
+    grad_err = max((gk[k] - gp[k]).abs().max().item() for k in gp) / gmax
+    clean, allw, upd_k, upd_p = [], [], [], []
+    for k in before:
+        d = (ak[k] - ap[k]).abs()
+        keep = ~(nk[k] | npl[k])
+        clean.append(d[keep].flatten())
+        allw.append(d.flatten())
+        upd_k.append((ak[k] - before[k]).flatten())
+        upd_p.append((ap[k] - before[k]).flatten())
+    clean, allw, upd_k, upd_p = (torch.cat(x).double() for x in (clean, allw, upd_k, upd_p))
+    cos = (upd_k @ upd_p / (upd_k.norm() * upd_p.norm())).item()
+    clean_max = clean.max().item() / lr
+    mean_diff = allw.mean().item() / lr
+    ok = (bool(torch.isfinite(lk).all()) and loss_err <= MODEL_TOL[dtype]
+          and grad_err <= MODEL_TOL[dtype]
+          and (mean_diff < 0.15 and cos > 0.97 if dtype == torch.bfloat16 else clean_max < 1e-2))
+    log(f"training {name}, {CHECK_STEPS} steps kernels vs plain attention: losses "
+        f"{[round(x, 5) for x in lk.tolist()]} vs {[round(x, 5) for x in lp.tolist()]} "
+        f"(rel err {loss_err:.3g}), first-step grads rel err {grad_err:.3g} "
+        f"(tol {MODEL_TOL[dtype]:g}); weights after: max |diff| {clean_max:.3g} lr over the "
+        f"{clean.numel() / allw.numel():.3f} whose gradients stayed above {NOISE_FLOOR:g}, "
+        f"mean {mean_diff:.3g} lr over all, update cosine {cos:.6f} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"training ({name}) through the kernels disagrees with plain attention")
+    return dict(loss_err=loss_err, grad_err=grad_err, clean_max_lr=clean_max,
+                mean_diff_lr=mean_diff, cos=cos)
+
+
+def _device_ms(evt) -> float:
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name)) / 1e3
+    return 0.0
+
+
+def phase_train_main_path(config: dict, base: dict, images: torch.Tensor, device) -> dict:
+    """The training main path: the trainer tool's step at batch 64, full
+    width, hints from the port's canny on the card, f32 and bf16.  Counters
+    set to 0 just before the timed run and read just after; then a short
+    torch.profiler window for device time and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from controlnet_tpu_torch.ops import cuda_attention
+
+    results = {}
+    for name in ("float32", "bfloat16"):
+        cn, state, step = train_setup(config, base, device, name)
+        trainable, frozen = cn.split_params()
+        t_before = {k: p.detach().clone() for k, p in trainable.items()}
+        f_before = {k: p.detach().clone() for k, p in frozen.items()}
+        g = torch.Generator(device=device).manual_seed(SEED)
+        for batch, hints in train_batches(images, TRAIN_WARMUP, epoch=100):
+            step(state, batch, hints, g)
+        data = list(train_batches(images, TRAIN_STEPS + PROFILE_STEPS))
+        torch.cuda.synchronize()
+        cuda_attention.launches = 0
+        cuda_attention.bwd_launches = 0
+        start = time.perf_counter()
+        losses = [step(state, batch, hints, g) for batch, hints in data[:TRAIN_STEPS]]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        fwd, bwd = cuda_attention.launches, cuda_attention.bwd_launches
+        losses = torch.stack(losses).float()
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for batch, hints in data[TRAIN_STEPS:]:
+                step(state, batch, hints, g)
+            torch.cuda.synchronize()
+        # device activity without the ranges that annotate it (the optimizer's
+        # "Optimizer.step#Adam.step" spans its own kernels)
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        dev_ms = sum(_device_ms(e) for e in kernels) / PROFILE_STEPS
+        fwd_ms = sum(_device_ms(e) for e in kernels if "attention_fwd_t_kernel" in e.name)
+        bwd_ms = sum(_device_ms(e) for e in kernels if "attention_bwd_" in e.name)
+
+        moved = all(not torch.equal(p.detach(), t_before[k]) for k, p in trainable.items())
+        still = all(torch.equal(p.detach(), f_before[k]) for k, p in frozen.items())
+        ms_step = seconds * 1e3 / TRAIN_STEPS
+        ok = (fwd == 26 * TRAIN_STEPS and bwd == 18 * TRAIN_STEPS
+              and bool(torch.isfinite(losses).all()) and moved and still)
+        results[name] = dict(seconds=seconds, launches=fwd, bwd_launches=bwd,
+                             ms_per_step=ms_step, steps_per_s=TRAIN_STEPS / seconds,
+                             device_ms_per_step=dev_ms, busy=dev_ms / ms_step,
+                             kernels_per_step=len(kernels) / PROFILE_STEPS,
+                             attn_fwd_device_ms=fwd_ms / PROFILE_STEPS,
+                             attn_bwd_device_ms=bwd_ms / PROFILE_STEPS)
+        log(f"training main path {name}: {TRAIN_STEPS} steps, batch {BATCH}: {seconds:.3f} s, "
+            f"{ms_step:.3f} ms/step, {TRAIN_STEPS / seconds:.3f} steps/s, attention launches "
+            f"forward {fwd} (expect {26 * TRAIN_STEPS}), backward {bwd} "
+            f"(expect {18 * TRAIN_STEPS}), loss {losses[0].item():.4f} -> "
+            f"{losses[-1].item():.4f}, trainable moved {moved}, frozen unchanged {still} | "
+            f"profile ({PROFILE_STEPS} steps): device {dev_ms:.3f} ms/step, busy "
+            f"{dev_ms / ms_step:.3f}, {len(kernels) / PROFILE_STEPS:.1f} kernels/step, "
+            f"kernel a {fwd_ms / PROFILE_STEPS:.3f} ms/step, kernel b "
+            f"{bwd_ms / PROFILE_STEPS:.3f} ms/step -> {'ok' if ok else 'FAIL'}")
+        by_name: dict = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + _device_ms(e) / PROFILE_STEPS
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"training {name} top device kernels (ms/step): "
+            + "; ".join(f"{k.replace('void ', '')[:56]} {v:.3f}" for k, v in top))
+        if not ok:
+            raise SystemExit(f"training main path ({name}) failed")
+        del cn, state, step
+    return results
+
+
+def phase_tools(config: dict, device) -> None:
+    """Each trainer tool for one epoch over TOOL_IMAGES seeded images, then
+    resumed to a second epoch; the sampling tool then loads the written
+    ControlNet .pth and draws a 10-step sample."""
+    import numpy as np
+    import yaml
+
+    from controlnet_tpu_torch.ops.canny import canny_hints
+    from controlnet_tpu_torch.schedules.linear import make_linear_schedule
+    from controlnet_tpu_torch.tools import sample_ddpm_controlnet as sample_tool
+    from controlnet_tpu_torch.tools import train_ddpm, train_ddpm_controlnet
+
+    work = os.path.join(REPO, "build", "smoke", "tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    images = os.path.join(work, "images.npy")
+    np.save(images, seeded_digits(TOOL_IMAGES))
+
+    def config_path(epochs: int) -> str:
+        cfg = copy.deepcopy(config)
+        cfg["train_params"].update(task_name=os.path.join(work, "mnist"), num_epochs=epochs,
+                                   controlnet_epochs=epochs, ckpt_save_every_epochs=1)
+        path = os.path.join(work, f"mnist_{epochs}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    start = time.perf_counter()
+    runs = [(tool, epochs, tool.train(config_path(epochs), images))
+            for tool in (train_ddpm, train_ddpm_controlnet) for epochs in (1, 2)]
+    seconds = time.perf_counter() - start
+    ok = all(h["epochs"] == [epochs] and np.isfinite(h["losses"]).all() for _, epochs, h in runs)
+    tp = config["train_params"]
+    ckpt = os.path.join(work, "mnist", tp["controlnet_ckpt_name"])
+    ok = ok and all(os.path.exists(os.path.join(work, "mnist", name[:-4], "2.pt"))
+                    for name in (tp["ddpm_ckpt_name"], tp["controlnet_ckpt_name"]))
+    cn, _ = sample_tool.load_model(config, ckpt)
+    dp = config["diffusion_params"]
+    short = make_linear_schedule(10, dp["beta_start"], dp["beta_end"], device=device)
+    first = torch.from_numpy(np.load(images)[:4, :, :, None].astype(np.float32) / 255.0)
+    hints = canny_hints(first.to(device)).cpu().numpy()
+    x0, _ = sample_tool.sample(cn, short, hints, seed=SEED)
+    ok = ok and x0.shape == (4, 1, 28, 28) and bool(torch.isfinite(x0).all())
+    log(f"trainer tools: train_ddpm and train_ddpm_controlnet, 1 epoch then resumed to 2 "
+        f"over {TOOL_IMAGES} images ({seconds:.1f} s; epoch losses "
+        f"{[round(h['losses'][0], 4) for _, _, h in runs]}); sample tool on the written .pth, "
+        f"10 steps: x0 {tuple(x0.shape)} finite -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("trainer tools failed")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--verbose-build", action="store_true",
@@ -328,6 +780,7 @@ def main() -> int:
     config = mnist_config()
     ckpt = os.path.join(REPO, "build", "smoke", f"mnist_controlnet_seed{SEED}.pth")
     write_seeded_checkpoint(config, ckpt)
+    from controlnet_tpu_torch.data.datasets import to_unit
     from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
 
     cn, _ = tool.load_model(config, ckpt)
@@ -336,23 +789,43 @@ def main() -> int:
     kern = phase_kernels(shapes, device)
     main_path = phase_main_path(config, ckpt, device)
 
-    f32, bf16 = kern[torch.float32], kern[torch.bfloat16]
-    entry = {
-        "name": "attention_fwd_t",
-        "route": "cuda",
-        "source": "controlnet_tpu_torch/csrc/attention_fwd.cu",
-        "replaces": "controlnet_tpu/ops/pallas_attention.py:36",
-        "launches": main_path["float32"]["launches"],
-        "max_abs_err": f32["max_abs_err"],
-        # per ControlNet forward: the 26 calls at their main-path shapes, f32
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
-        "bf16": {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
-                 "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
-                 "max_abs_err": bf16["max_abs_err"],
-                 "launches": main_path["bfloat16"]["launches"]},
-    }
-    log(json.dumps({"kernels": [entry]}))
+    base = seeded_unet_state_dict(config)
+    images = torch.from_numpy(to_unit(seeded_digits(8 * BATCH)))[:, None].to(device)
+    bwd_shapes = phase_train_shapes(config, base, images, device)
+    kern_bwd = phase_kernels_bwd(bwd_shapes, device)
+    for dtype in (torch.float32, torch.bfloat16):
+        phase_train_parity(config, base, images, device, dtype)
+    train = phase_train_main_path(config, base, images, device)
+    phase_tools(config, device)
+
+    def kernel_entry(name, source, replaces, tots, launches, bf16_launches, per):
+        f32, bf16 = tots[torch.float32], tots[torch.bfloat16]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": f32["max_abs_err"],
+            # per ControlNet forward (kernel a) or training step (kernel b): every
+            # call at its main-path shape, f32
+            "per": per,
+            "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+            "bf16": {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
+                     "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
+                     "library_ms": bf16["library_ms"], "max_abs_err": bf16["max_abs_err"],
+                     "launches": bf16_launches},
+        }
+
+    fwd_entry = kernel_entry("attention_fwd_t", "controlnet_tpu_torch/csrc/attention_fwd.cu",
+                             "controlnet_tpu/ops/pallas_attention.py:36", kern,
+                             main_path["float32"]["launches"],
+                             main_path["bfloat16"]["launches"], "forward (26 calls)")
+    fwd_entry["train_launches"] = train["float32"]["launches"]
+    bwd_entry = kernel_entry("attention_bwd_t", "controlnet_tpu_torch/csrc/attention_bwd.cu",
+                             "controlnet_tpu/ops/pallas_attention.py:100", kern_bwd,
+                             train["float32"]["bwd_launches"],
+                             train["bfloat16"]["bwd_launches"], "training step (18 calls)")
+    bwd_entry["max_rel_err"] = kern_bwd[torch.float32]["max_rel_err"]
+    bwd_entry["lse_max_abs_err"] = max(t["lse_err"] for t in kern_bwd.values())
+    log(json.dumps({"kernels": [fwd_entry, bwd_entry]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,13 @@
 // cudaFuncSetAttribute, which the launcher sets.  DP is dh rounded up to a
 // power of two >= 4; padded dims hold zeros and add nothing.
 //
+// For training the kernel also writes each query row's log-sum-exp of the
+// scaled scores, lse = log(sum_j exp(q.k_j / sqrt(dh))), in NATURAL log units
+// (float32, (B*H, Lq)); the backward kernel (attention_bwd.cu) rebuilds the
+// softmax from it without a second pass.  The running max m lives in log2 units
+// here (exp2 softmax), so lse = m * ln(2) + ln(l).  On the inference path the
+// pointer is null and nothing is written.
+//
 // Launch from the host through `controlnet_attention_fwd_t` below (plain C, no
 // PyTorch headers): it launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
@@ -48,7 +55,7 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(128)
 attention_fwd_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
-                       int heads, int dh, int lq, int lk,
+                       float* __restrict__ lse, int heads, int dh, int lq, int lk,
                        int64_t q_bstride, int64_t k_bstride, int64_t v_bstride,
                        int kv_tile, float q_scale) {
   extern __shared__ float4 smem4[];
@@ -148,11 +155,12 @@ attention_fwd_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = 0; d < DP; ++d) {
       if (d < dh) store_f32(op + (int64_t)d * lq + qi, acc[d] * inv);
     }
+    if (lse != nullptr) lse[(int64_t)bh * lq + qi] = m * 0.6931471805599453f + logf(l);
   }
 }
 
 template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                    int heads, int dh, int lq, int lk, int64_t q_bstride,
                    int64_t k_bstride, int64_t v_bstride, int kv_tile, int threads,
                    cudaStream_t stream) {
@@ -168,43 +176,45 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   const float q_scale = 1.4426950408889634f / sqrtf((float)dh);
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), heads, dh, lq, lk, q_bstride, k_bstride, v_bstride,
+      static_cast<T*>(o), lse, heads, dh, lq, lk, q_bstride, k_bstride, v_bstride,
       kv_tile, q_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int bh,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                      int heads, int dh, int lq, int lk, int64_t qs, int64_t ks,
                      int64_t vs, int kv_tile, int threads, cudaStream_t stream) {
-  if (dh <= 4) return launch<T, 4>(q, k, v, o, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
-  if (dh <= 8) return launch<T, 8>(q, k, v, o, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
-  if (dh <= 16) return launch<T, 16>(q, k, v, o, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
-  if (dh <= 32) return launch<T, 32>(q, k, v, o, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
-  return launch<T, 64>(q, k, v, o, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
+  if (dh <= 4) return launch<T, 4>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
+  if (dh <= 8) return launch<T, 8>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
+  if (dh <= 16) return launch<T, 16>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
+  if (dh <= 32) return launch<T, 32>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
+  return launch<T, 64>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
 }
 
 }  // namespace
 
 // q: (B, H, dh, Lq), k and v: (B, H, dh, Lk), each (dh, L) panel contiguous and
-// batches `*_bstride` elements apart; o: contiguous (B, H, dh, Lq).
+// batches `*_bstride` elements apart; o: contiguous (B, H, dh, Lq); lse: null or
+// contiguous float32 (B, H, Lq), natural log.
 // dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t (0 on success).
 extern "C" int controlnet_attention_fwd_t(
-    const void* q, const void* k, const void* v, void* o, int batch, int heads,
-    int dh, int lq, int lk, long long q_bstride, long long k_bstride,
+    const void* q, const void* k, const void* v, void* o, void* lse_out, int batch,
+    int heads, int dh, int lq, int lk, long long q_bstride, long long k_bstride,
     long long v_bstride, int dtype, int kv_tile, int threads, void* stream) {
   if (batch < 1 || heads < 1 || dh < 1 || dh > 64 || lq < 1 || lk < 1 ||
       kv_tile < 1 || threads < 32 || threads > 128 || threads % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
+  float* lse = static_cast<float*>(lse_out);
   const int bh = batch * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)dispatch<float>(q, k, v, o, bh, heads, dh, lq, lk, q_bstride,
+    return (int)dispatch<float>(q, k, v, o, lse, bh, heads, dh, lq, lk, q_bstride,
                                 k_bstride, v_bstride, kv_tile, threads, s);
   }
   if (dtype == 1) {
-    return (int)dispatch<__nv_bfloat16>(q, k, v, o, bh, heads, dh, lq, lk, q_bstride,
+    return (int)dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, heads, dh, lq, lk, q_bstride,
                                         k_bstride, v_bstride, kv_tile, threads, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -15,7 +15,8 @@ zero-conv'd control skips are added to the frozen skips that feed the
 frozen decoder, and zero-conv'd control mids to the frozen mid outputs.
 The frozen mids run outside ``no_grad`` so gradients reach the control
 branch through them.  At init every zero conv outputs 0, so ControlNet(x,
-t, hint) equals the base UNet(x, t).
+t, hint) equals the base UNet(x, t).  A trainer calls ``freeze_trunk`` so
+the frozen weights take no gradient.
 """
 
 from __future__ import annotations
@@ -77,6 +78,18 @@ class ControlNet(nn.Module):
                 trainable[name] = p
             else:
                 frozen[name] = p
+        return trainable, frozen
+
+    def freeze_trunk(self) -> tuple[dict, dict]:
+        """``split_params`` for training: the frozen split stops requiring
+        gradients (autograd then records no graph for the frozen mid 0 and
+        computes no gradient for any frozen weight, as the JAX step never
+        differentiates its frozen tree), the trainable split requires them."""
+        trainable, frozen = self.split_params()
+        for p in trainable.values():
+            p.requires_grad_(True)
+        for p in frozen.values():
+            p.requires_grad_(False)
         return trainable, frozen
 
     def hint_features(self, hint: torch.Tensor) -> torch.Tensor:

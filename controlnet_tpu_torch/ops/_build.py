@@ -94,10 +94,17 @@ def load() -> ctypes.CDLL:
             if _stale():
                 build()
             lib = ctypes.CDLL(str(LIB_PATH))
-            fn = lib.controlnet_attention_fwd_t
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                           + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            # (q, k, v, o, lse), (batch, heads, dh, lq, lk), batch strides,
+            # (dtype, kv_tile, threads), stream
+            lib.controlnet_attention_fwd_t.argtypes = (
+                [ptr] * 5 + [i32] * 5 + [i64] * 3 + [i32] * 3 + [ptr])
+            # (q, k, v, o, dout, lse, delta, dq, dk, dv), (batch, heads, dh,
+            # lq, lk), batch strides, (dtype, kv_tile, q_tile, threads_q,
+            # threads_k), stream
+            lib.controlnet_attention_bwd_t.argtypes = (
+                [ptr] * 10 + [i32] * 5 + [i64] * 3 + [i32] * 5 + [ptr])
+            for fn in (lib.controlnet_attention_fwd_t, lib.controlnet_attention_bwd_t):
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib

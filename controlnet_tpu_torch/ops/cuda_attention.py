@@ -1,12 +1,15 @@
-"""Attention forward in the transposed (head_dim, L) layout: the wrapper of
-``csrc/attention_fwd.cu`` and its plain PyTorch version.
+"""Attention in the transposed (head_dim, L) layout and its gradient: the
+wrappers of ``csrc/attention_fwd.cu`` (kernel a) and ``csrc/attention_bwd.cu``
+(kernel b), and their plain PyTorch versions.
 
-Counterpart of ``controlnet_tpu/ops/pallas_attention.py``'s forward
-(``fused_attention_t`` / ``_attn_kernel_t``).  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.  There is no fallback
-from one to the other.
+Counterpart of ``controlnet_tpu/ops/pallas_attention.py``'s
+``fused_attention_t`` with its custom VJP (``_attn_kernel_t`` forward,
+``_attn_bwd_kernel_t`` backward).  A CPU tensor takes the plain versions; a
+CUDA tensor launches the kernels or raises.  There is no fallback from one to
+the other.
 
-``launches`` counts kernel launches (never plain-version calls).
+``launches`` counts launches of kernel a and ``bwd_launches`` of kernel b
+(never plain-version calls).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import ctypes
 import torch
 
 launches = 0
+bwd_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Shared memory for one key/value tile.  Small tiles keep many blocks
@@ -90,7 +94,42 @@ def _check(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> None:
                              f"got strides {x.stride()}")
 
 
-def _launch(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> torch.Tensor:
+def bwd_launch_config(dh: int, lq: int, lk: int) -> tuple[int, int, int, int]:
+    """(kv_tile, q_tile, threads_q, threads_k) of the backward kernel: keys
+    staged per tile by its dq pass and queries (with their lse and D) by its
+    dkv pass, each tile at most ``KV_TILE_BYTES``; threads per block of each
+    pass (64 for a short axis, else 128)."""
+    dp = _pow2_dim(dh)
+    kv_tile = max(1, min(lk, KV_TILE_BYTES // (2 * dp * 4)))
+    q_tile = max(1, min(lq, KV_TILE_BYTES // ((2 * dp + 2) * 4)))
+    return kv_tile, q_tile, 64 if lq <= 64 else 128, 64 if lk <= 64 else 128
+
+
+def fused_attention_t_bwd_plain(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                                dout: torch.Tensor):
+    """Plain version of the backward kernel, written as ``_attn_bwd_kernel_t``
+    computes it: recompute P in float32, then dV = dO P, dP = dO^T V,
+    dS = P o (dP - rowsum(dP o P)), dQ = scale K dS^T, dK = scale Q dS.
+    (B, H, dh, L) in; (dq, dk, dv) in the input type."""
+    scale = 1.0 / (qt.shape[2] ** 0.5)
+    q, k, v, do = (x.float() for x in (qt, kt, vt, dout))
+    probs = torch.softmax(torch.einsum("bhdq,bhdk->bhqk", q, k) * scale, dim=-1)
+    dv = torch.einsum("bhdq,bhqk->bhdk", do, probs)
+    dp = torch.einsum("bhdq,bhdk->bhqk", do, v)
+    ds = probs * (dp - (dp * probs).sum(-1, keepdim=True))
+    dq = scale * torch.einsum("bhdk,bhqk->bhdq", k, ds)
+    dk = scale * torch.einsum("bhdq,bhqk->bhdk", q, ds)
+    return tuple(x.to(qt.dtype) for x in (dq, dk, dv))
+
+
+def _stream(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _launch(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+            lse: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel a; with ``lse`` (float32 (B, H, Lq)) it also writes each query
+    row's log-sum-exp, which the backward kernel reads."""
     global launches
     from controlnet_tpu_torch.ops import _build
 
@@ -100,11 +139,11 @@ def _launch(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> torch.Tenso
     kv_tile, threads = launch_config(dh, lq, lk)
     lib = _build.load()
     with torch.cuda.device(qt.device):
-        stream = torch.cuda.current_stream(qt.device).cuda_stream
         err = lib.controlnet_attention_fwd_t(
             qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, h, dh, lq, lk, qt.stride(0), kt.stride(0), vt.stride(0),
-            _DTYPE_CODE[qt.dtype], kv_tile, threads, ctypes.c_void_p(stream))
+            _DTYPE_CODE[qt.dtype], kv_tile, threads, _stream(qt))
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err} "
                            f"(q{tuple(qt.shape)} k{tuple(kt.shape)} {qt.dtype})")
@@ -112,28 +151,72 @@ def _launch(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> torch.Tenso
     return out
 
 
-class _AttentionFwd(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qt, kt, vt):
-        return _launch(qt, kt, vt)
+def _launch_bwd(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, out: torch.Tensor,
+                lse: torch.Tensor, dout: torch.Tensor):
+    """Kernel b: (dq, dk, dv), contiguous, in the input type."""
+    global bwd_launches
+    from controlnet_tpu_torch.ops import _build
+
+    if dout.shape != out.shape or dout.dtype != out.dtype or dout.device != out.device:
+        raise ValueError(f"attention gradient {tuple(dout.shape)} {dout.dtype} does not "
+                         f"match the output {tuple(out.shape)} {out.dtype}")
+    dout = dout.contiguous()
+    b, h, dh, lq = qt.shape
+    lk = kt.shape[3]
+    dq = torch.empty((b, h, dh, lq), dtype=qt.dtype, device=qt.device)
+    dk = torch.empty((b, h, dh, lk), dtype=qt.dtype, device=qt.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=qt.device)
+    kv_tile, q_tile, threads_q, threads_k = bwd_launch_config(dh, lq, lk)
+    lib = _build.load()
+    with torch.cuda.device(qt.device):
+        err = lib.controlnet_attention_bwd_t(
+            qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, dh, lq, lk, qt.stride(0), kt.stride(0), vt.stride(0),
+            _DTYPE_CODE[qt.dtype], kv_tile, q_tile, threads_q, threads_k, _stream(qt))
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: cudaError {err} "
+                           f"(q{tuple(qt.shape)} k{tuple(kt.shape)} {qt.dtype})")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """The attention with its gradient.  On CUDA tensors the forward is kernel
+    a (saving the row log-sum-exp) and the backward kernel b; on CPU tensors
+    both are the plain versions."""
 
     @staticmethod
+    def forward(ctx, qt, kt, vt):
+        if qt.device.type == "cpu":
+            ctx.save_for_backward(qt, kt, vt)
+            return fused_attention_t_plain(qt, kt, vt)
+        b, h, _, lq = qt.shape
+        lse = torch.empty((b, h, lq), dtype=torch.float32, device=qt.device)
+        out = _launch(qt, kt, vt, lse)
+        ctx.save_for_backward(qt, kt, vt, out, lse)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        raise NotImplementedError(
-            "the attention backward kernel is the training slice's work; "
-            "sample under torch.no_grad() or torch.inference_mode()")
+        if dout.device.type == "cpu":
+            return fused_attention_t_bwd_plain(*ctx.saved_tensors, dout)
+        return _launch_bwd(*ctx.saved_tensors, dout)
 
 
 def fused_attention_t(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> torch.Tensor:
     """softmax(Q^T K / sqrt(dh)) in the transposed layout: qt (B, H, dh, Lq),
-    kt/vt (B, H, dh, Lk) -> (B, H, dh, Lq) in the input type."""
+    kt/vt (B, H, dh, Lk) -> (B, H, dh, Lq) in the input type.  Differentiable:
+    where a gradient is needed the call goes through ``_Attention``."""
     _check(qt, kt, vt)
-    if qt.device.type == "cpu":
-        return fused_attention_t_plain(qt, kt, vt)
-    if qt.device.type != "cuda":
+    if qt.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {qt.device}")
     if torch.is_grad_enabled() and (qt.requires_grad or kt.requires_grad or vt.requires_grad):
-        return _AttentionFwd.apply(qt, kt, vt)
+        return _Attention.apply(qt, kt, vt)
+    if qt.device.type == "cpu":
+        return fused_attention_t_plain(qt, kt, vt)
     return _launch(qt, kt, vt)
 
 

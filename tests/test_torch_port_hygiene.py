@@ -23,7 +23,10 @@ def _all_modules():
 
 def test_port_imports_no_jax_and_no_jax_package():
     mods = _all_modules()
-    assert "controlnet_tpu_torch.ops.cuda_attention" in mods
+    for name in ("ops.cuda_attention", "ops.canny", "train.loops", "train.state", "io.checkpoint",
+                 "cli", "data.datasets", "utils.diffusion_utils", "tools.train_ddpm",
+                 "tools.train_ddpm_controlnet", "tools.sample_ddpm_controlnet"):
+        assert f"controlnet_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -73,8 +76,23 @@ def test_entry_points_without_device_raise_on_cuda_less_host(monkeypatch):
                    "--ckpt", "unused.pth"])
 
 
+def test_trainer_entry_points_raise_on_cuda_less_host(monkeypatch):
+    """Both trainers run on the card unless device="cpu" is passed."""
+    from controlnet_tpu_torch.tools import train_ddpm, train_ddpm_controlnet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = os.path.join(REPO, "config", "mnist.yaml")
+    for call in (lambda: train_ddpm.train(config, "unused.npy"),
+                 lambda: train_ddpm_controlnet.train(config, "unused.npy"),
+                 lambda: train_ddpm.main(["--config", config, "--images", "unused.npy"]),
+                 lambda: train_ddpm_controlnet.main(["--config", config, "--images", "unused.npy"]),
+                 lambda: train_ddpm_controlnet.make_trainer({}, {})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_kernel_library_is_not_built_on_import():
     from controlnet_tpu_torch.ops import _build
 
     assert _build._lib is None
-    assert [p.name for p in _build.sources()] == ["attention_fwd.cu"]
+    assert [p.name for p in _build.sources()] == ["attention_bwd.cu", "attention_fwd.cu"]
