@@ -43,7 +43,25 @@ Phases (each one that fails makes the script exit non-zero):
 9. The trainer tools: ``train_ddpm`` and ``train_ddpm_controlnet`` for one
    epoch over 256 seeded images, each resumed to a second epoch, then the
    sampling tool loads the written ControlNet ``.pth`` for a 10-step sample.
-10. A ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as the
+10. The 3x3 transposed-layout conv kernel against its plain version at the
+   seven shapes of the CelebA-HQ hint encode (1024^2 hints, batch 16), f32
+   and bf16; CUDA-event times of the kernel, the plain version and
+   ``F.conv2d`` (a yardstick the port never calls for these convs), beside
+   the least time the card could take.
+11. The full-width hint encode at batch 16: exactly 7 conv-kernel launches
+   per chunk, the kernel route against the NCHW route through ``F.conv2d``,
+   and chunked (4 hints at a time) against unchunked.
+12. The full-width latent ControlNet forward (``config/celebhq.yaml``, batch
+   16) through the attention kernel against the plain attention, 22 launches
+   per forward; then the attention kernel against its plain version at
+   those shapes (B*H = 256; L 1024..16, head dims 8..48).
+13. The latent main path through the sample tool (seeded ``.pth`` weights,
+   ``.npy`` hints, batch 16): a 5-step sample with guidance through the kernels
+   against the plain versions; then ancestral 1000 steps, DPM-Solver++ 20
+   steps with ``cfg_scale`` 2.0 and DDIM 50 steps, f32 and bf16, each ending
+   in VAE-decoded (16, 3, 128, 128) images; counters set to 0 just before
+   and read just after each run.
+14. A ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and convolutions throughout, so float32 means
@@ -85,6 +103,12 @@ CROSS_SHAPE = (49, 7, 16)  # (Lq, Lk, head_dim): not on the main path
 # in both types).
 BWD_KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 LSE_TOL = 1e-4
+# Kernel c against its plain version, relative to max|out|: the plain version
+# is a float32 cuDNN convolution, which may sum in Winograd form (float32
+# errors up to ~1e-4 of the output's scale); in bf16 both round the same
+# float32 sums once (half an ulp, 2e-3 of the value).
+CONV_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+LDM_BATCH = 16      # train_params.ldm_batch_size of config/celebhq.yaml
 TRAIN_STEPS = 20    # timed steps of the training main path, per compute type
 TRAIN_WARMUP = 2
 PROFILE_STEPS = 5
@@ -202,6 +226,110 @@ def attention_bwd_bound_ms(bh: int, lq: int, lk: int, dh: int,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
+def conv_bound_ms(cin: int, cout: int, b: int, l: int, dtype: torch.dtype) -> tuple[float, str]:
+    """Least time for one 3x3 TL conv call: the input, the weights and the
+    bias read once and the output written once at the HBM rate, or
+    2*9*Cin*Cout*B*L flops at the card's peak for the input type, whichever
+    is larger."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = itemsize * ((cin + cout) * b * l + 9 * cin * cout) + 4 * cout
+    flops = 2.0 * 9 * cin * cout * b * l
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+@contextlib.contextmanager
+def record_conv_shapes(into: list):
+    """Record (Cin, Cout, H, W, B) of every 3x3 TL conv the hint encoder asks for."""
+    from controlnet_tpu_torch.ops import tl_conv
+
+    orig = tl_conv.conv3x3_tl
+
+    def rec(weight, bias, x, hw):
+        into.append((x.shape[0], weight.shape[0], int(hw[0]), int(hw[1]), x.shape[1]))
+        return orig(weight, bias, x, hw)
+
+    tl_conv.conv3x3_tl = rec
+    try:
+        yield
+    finally:
+        tl_conv.conv3x3_tl = orig
+
+
+def phase_conv_kernels(shapes: list, device) -> dict:
+    """Kernel c against its plain version at every shape of the hint encode
+    (inputs as (C, B, L) views of NCHW tensors, as the encoder passes them),
+    f32 and bf16; CUDA-event times of the kernel, the plain version and
+    ``F.conv2d`` on the contiguous NCHW tensor (the library yardstick, which
+    the port never calls for these convs)."""
+    import torch.nn.functional as F
+
+    from controlnet_tpu_torch.ops import cuda_conv
+
+    totals = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
+                   ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0)
+        for cin, cout, h, w, b in shapes:
+            g = torch.Generator(device=device).manual_seed(SEED)
+            img = torch.randn((b, cin, h, w), generator=g, device=device).to(dtype)
+            bound = 1.0 / (9 * cin) ** 0.5
+            weight = (torch.rand((cout, cin, 3, 3), generator=g, device=device) * 2 - 1) * bound
+            bias = (torch.rand((cout,), generator=g, device=device) * 2 - 1) * bound
+            x = cuda_conv.to_tl(img)
+            with torch.inference_mode():
+                out = cuda_conv.conv3x3_tl(weight, bias, x, (h, w))
+                ref = cuda_conv.conv3x3_tl_plain(weight, bias, x, (h, w))
+                torch.cuda.synchronize()
+                scale = ref.float().abs().max().item()
+                err = (out.float() - ref.float()).abs().max().item()
+                del ref
+                ok = (err <= CONV_TOL[dtype] * scale and bool(torch.isfinite(out).all())
+                      and out.shape == (cout, b, h * w) and out.is_contiguous())
+                del out
+                ms = cuda_time_ms(lambda: cuda_conv.conv3x3_tl(weight, bias, x, (h, w)))
+                plain_ms = cuda_time_ms(
+                    lambda: cuda_conv.conv3x3_tl_plain(weight, bias, x, (h, w)))
+                wd, bd = weight.to(dtype), bias.to(dtype)
+                lib_ms = cuda_time_ms(lambda: F.conv2d(img, wd, bd, stride=1, padding=1))
+            bound_ms, bound_by = conv_bound_ms(cin, cout, b, h * w, dtype)
+            flops = 2.0 * 9 * cin * cout * b * h * w
+            log(f"conv3x3_tl {str(dtype)[6:]:8s} {cin:3d}->{cout:3d} @{h}x{w} B {b}: "
+                f"err {err:.3g} (tol {CONV_TOL[dtype]:g} x max|out| {scale:.3g}) "
+                f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                f"F.conv2d {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            if not ok:
+                raise SystemExit("conv kernel disagrees with its plain version")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                             ("library_ms", lib_ms), ("flops", flops)):
+                tot[key] += val
+            tot["ops_ms"] += bound_ms if bound_by == "operations" else 0.0
+            tot["bytes_ms"] += bound_ms if bound_by == "bytes" else 0.0
+            del img, x
+        tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+        totals[dtype] = tot
+        log(f"conv3x3_tl {str(dtype)[6:]} per hint encode ({len(shapes)} calls): "
+            f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+            f"F.conv2d {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP")
+    return totals
+
+
+def hint_conv_shapes(hint_size: int, hint_channels: int, c0: int, factor: int,
+                     batch: int) -> list:
+    """(Cin, Cout, H, W, B) of the stride-1 3x3 convs of the dynamic hint
+    encoder, in call order (what ``record_conv_shapes`` sees on a real encode)."""
+    shapes = [(hint_channels, 16, hint_size, hint_size, batch)]
+    base, size = 16, hint_size
+    while factor > 1:
+        base, size, factor = base * 2, size // 2, factor // 2
+        shapes.append((base, base, size, size, batch))
+    return shapes + [(base, c0, size, size, batch)]
+
+
 def mnist_config() -> dict:
     from controlnet_tpu_torch import config as cfg
 
@@ -212,11 +340,8 @@ def randomize_zero_convs(cn) -> None:
     """Make every zero conv nonzero (normal, std 0.05, from the global torch
     seed) so the control branch contributes, and takes gradient, from the
     first step."""
-    zero_convs = (list(cn.control_copy_unet_down_zero_convs)
-                  + list(cn.control_copy_unet_mid_zero_convs)
-                  + [cn.control_copy_unet_hint_block[-1]])
     with torch.no_grad():
-        for conv in zero_convs:
+        for conv in cn.zero_convs():
             conv.weight.normal_(0.0, 0.05)
             conv.bias.normal_(0.0, 0.05)
 
@@ -311,8 +436,9 @@ def phase_forward(cn, device) -> list:
     return shapes
 
 
-def phase_kernels(shapes: list, device) -> dict:
-    """Kernel vs plain at every main-path shape, f32 and bf16; timings."""
+def phase_kernels(shapes: list, device, batch: int = BATCH, cross: bool = True) -> dict:
+    """Kernel vs plain at every main-path shape (and, with ``cross``, one
+    cross-attention shape), f32 and bf16; timings."""
     import collections
 
     import torch.nn.functional as F
@@ -320,16 +446,18 @@ def phase_kernels(shapes: list, device) -> dict:
     from controlnet_tpu_torch.ops import cuda_attention
 
     mix = collections.Counter(shapes)
-    cases = sorted(mix, key=lambda s: (-s[0], -s[2])) + [(*CROSS_SHAPE, BATCH * 4)]
+    cases = sorted(mix, key=lambda s: (-s[0], -s[2]))
+    if cross:
+        cases.append((*CROSS_SHAPE, batch * 4))
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
                    ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0)
         for lq, lk, dh, bh in cases:
             g = torch.Generator(device=device).manual_seed(SEED)
-            q = torch.randn((BATCH, bh // BATCH, dh, lq), generator=g, device=device).to(dtype)
-            k = torch.randn((BATCH, bh // BATCH, dh, lk), generator=g, device=device).to(dtype)
-            v = torch.randn((BATCH, bh // BATCH, dh, lk), generator=g, device=device).to(dtype)
+            q = torch.randn((batch, bh // batch, dh, lq), generator=g, device=device).to(dtype)
+            k = torch.randn((batch, bh // batch, dh, lk), generator=g, device=device).to(dtype)
+            v = torch.randn((batch, bh // batch, dh, lk), generator=g, device=device).to(dtype)
             with torch.inference_mode():
                 out = cuda_attention.fused_attention_t(q, k, v)
                 ref = cuda_attention.fused_attention_t_plain(q, k, v)
@@ -753,6 +881,243 @@ def phase_tools(config: dict, device) -> None:
         raise SystemExit("trainer tools failed")
 
 
+def celebhq_config() -> dict:
+    from controlnet_tpu_torch import config as cfg
+
+    return cfg.load_config(os.path.join(REPO, "config", "celebhq.yaml"))
+
+
+@contextlib.contextmanager
+def plain_conv():
+    """Route the 3x3 transposed-layout convs of this process through the plain
+    version (the comparison model of phase 13); the port itself has no such
+    switch."""
+    from controlnet_tpu_torch.ops import cuda_conv, tl_conv
+
+    orig = tl_conv.conv3x3_tl
+    tl_conv.conv3x3_tl = cuda_conv.conv3x3_tl_plain
+    try:
+        yield
+    finally:
+        tl_conv.conv3x3_tl = orig
+
+
+def write_seeded_ldm_checkpoints(config: dict, cn_path: str, vae_path: str) -> None:
+    """Reference-format .pth files of the latent ControlNet and the VAE at the
+    config's full width, random weights from SEED, every zero conv nonzero."""
+    from controlnet_tpu_torch.tools import sample_ldm_controlnet as tool
+
+    torch.manual_seed(SEED)
+    cn, vae, _ = tool.load_models(config, None, None, device="cpu")
+    randomize_zero_convs(cn)
+    os.makedirs(os.path.dirname(cn_path), exist_ok=True)
+    torch.save(cn.state_dict(), cn_path)
+    torch.save(vae.state_dict(), vae_path)
+
+
+def write_seeded_ldm_hints(n: int, size: int, path: str) -> None:
+    """An .npy of binary (N, size, size, 3) edge-like hints (uint8 0 / 1)."""
+    import numpy as np
+
+    np.save(path, seeded_hints(n, size).astype(np.uint8))
+
+
+def phase_hint_encode(cn, hints, device) -> list:
+    """The full-width hint encode at batch LDM_BATCH: launches per chunk, the
+    kernel route against the NCHW route, chunked against unchunked.  Returns
+    the recorded conv shapes."""
+    from controlnet_tpu_torch.ops import cuda_conv
+
+    hint = torch.as_tensor(hints, dtype=torch.float32, device=device)
+    hint = hint.permute(0, 3, 1, 2).contiguous()
+    shapes: list = []
+    with torch.inference_mode():
+        before = cuda_conv.launches
+        with record_conv_shapes(shapes):
+            feats = cn.hint_features(hint)
+        torch.cuda.synchronize()
+        per_encode = cuda_conv.launches - before
+        ref = cn.hint_block(hint)  # the same modules through F.conv2d, NCHW
+        torch.cuda.synchronize()
+        err = (feats - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        del ref
+        before = cuda_conv.launches
+        chunked = cn.hint_features_chunked(hint, chunk=4)
+        torch.cuda.synchronize()
+        per_chunked = cuda_conv.launches - before
+        chunk_err = (chunked - feats).abs().max().item()
+        start = time.perf_counter()
+        cn.hint_features_chunked(hint, chunk=LDM_BATCH)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - start) * 1e3
+    n_chunks = -(-hint.shape[0] // 4)
+    ok = (per_encode == 7 and len(shapes) == 7 and per_chunked == 7 * n_chunks
+          and feats.shape == (hint.shape[0], cn.trained_unet.down_channels[0],
+                              hint.shape[2] // cn.down_sample_factor,
+                              hint.shape[3] // cn.down_sample_factor)
+          and bool(torch.isfinite(feats).all())
+          and err <= MODEL_TOL[torch.float32] * max(scale, 1.0)
+          and chunk_err <= 1e-5 * max(scale, 1.0))
+    log(f"hint encode f32, batch {hint.shape[0]}, hints {tuple(hint.shape[2:])}: conv kernel "
+        f"launches {per_encode} (expect 7), chunked by 4: {per_chunked} (expect "
+        f"{7 * n_chunks}); features {tuple(feats.shape)}, max|f| {scale:.4g}; max abs err "
+        f"vs the NCHW F.conv2d route {err:.3g} (tol {MODEL_TOL[torch.float32]:g} x max|f|), "
+        f"chunked vs unchunked {chunk_err:.3g} "
+        f"({'bit-identical' if chunk_err == 0 else 'tol 1e-5 x max|f|'}); "
+        f"whole encode {encode_ms:.2f} ms on the host clock -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("full-width hint encode failed")
+    return shapes
+
+
+def phase_ldm_forward(cn, hints, device) -> list:
+    """Full-width latent ControlNet forward at batch LDM_BATCH, kernel vs
+    plain attention; returns the recorded attention shapes."""
+    from controlnet_tpu_torch.ops import cuda_attention
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    hint = torch.as_tensor(hints, dtype=torch.float32, device=device)
+    hint = hint.permute(0, 3, 1, 2).contiguous()
+    size = hint.shape[2] // cn.down_sample_factor
+    x = torch.randn((LDM_BATCH, cn.trained_unet.im_channels, size, size), generator=g,
+                    device=device)
+    t = torch.randint(0, 1000, (LDM_BATCH,), generator=g, device=device)
+    shapes: list = []
+    with torch.inference_mode():
+        feats32 = cn.hint_features_chunked(hint)
+        for dtype in (torch.float32, torch.bfloat16):
+            xin, feats = x.to(dtype), feats32.to(dtype)
+            before = cuda_attention.launches
+            rec: list = []
+            with record_shapes(rec):
+                out = cn(xin, t, hint_features=feats)
+            torch.cuda.synchronize()
+            launched = cuda_attention.launches - before
+            with plain_attention():
+                ref = cn(xin, t, hint_features=feats)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            ok = (launched == 22 and len(rec) == 22 and out.shape == x.shape
+                  and bool(torch.isfinite(out).all())
+                  and err <= MODEL_TOL[dtype] * max(scale, 1.0))
+            log(f"latent forward {str(dtype)[6:]}: batch {LDM_BATCH}, attention launches "
+                f"{launched} (expect 22), max|out| {scale:.4g}, max abs err vs plain {err:.3g} "
+                f"(tol {MODEL_TOL[dtype]:g} x max(1, max|out|)) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("full-width latent forward failed")
+            shapes = shapes or rec
+    return shapes
+
+
+LDM_MODES = (
+    ("ancestral", dict()),
+    ("dpm20_cfg2", dict(sampler="dpm", sampler_steps=20, cfg_scale=2.0)),
+    ("ddim50", dict(sampler="ddim", sampler_steps=50)),
+)
+
+
+def phase_ldm_main_path(config: dict, cn, vae, sched, hints_path: str, device) -> dict:
+    """The latent main path through the sample tool's functions: a short
+    sample with guidance, kernels vs plain versions; then the three sampler modes at
+    batch LDM_BATCH, f32 and bf16, counters set to 0 just before each run and
+    read just after."""
+    import numpy as np
+
+    from controlnet_tpu_torch.ops import cuda_attention, cuda_conv
+    from controlnet_tpu_torch.tools import sample_ldm_controlnet as tool
+
+    hints = tool.gather_hints(np.load(hints_path), LDM_BATCH, seed=SEED)
+
+    flags = dict(sampler="dpm", sampler_steps=5, cfg_scale=2.0)
+    img_k, _ = tool.sample(cn, vae, sched, hints[:2], seed=SEED, **flags)
+    with plain_attention(), plain_conv():
+        img_p, _ = tool.sample(cn, vae, sched, hints[:2], seed=SEED, **flags)
+    err = (img_k - img_p).abs().max().item()
+    scale = img_p.abs().max().item()
+    ok = bool(torch.isfinite(img_k).all()) and err <= MODEL_TOL[torch.float32] * max(scale, 1.0)
+    log(f"5-step latent sample with guidance + decode, batch 2: max abs err kernels vs plain "
+        f"{err:.3g} (max|image| {scale:.4g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("short latent sample disagrees with the plain versions")
+
+    T = sched.num_timesteps
+    im_size, z = config["dataset_params"]["im_size"], cn.trained_unet.im_channels
+    lsize = tool.latent_size(config["dataset_params"], config["autoencoder_params"])
+    results: dict = {}
+    for mode, mode_flags in LDM_MODES:
+        steps = mode_flags.get("sampler_steps", T)
+        with_cfg = "cfg_scale" in mode_flags
+        for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_attention.launches = 0
+            cuda_conv.launches = 0
+            start = time.perf_counter()
+            images, traj = tool.sample(cn, vae, sched, hints, seed=SEED, compute_dtype=dtype,
+                                       **mode_flags)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            attn, conv = cuda_attention.launches, cuda_conv.launches
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            # one encode of the hints, and one of the null hint under guidance
+            want_conv = 14 if with_cfg else 7
+            snapshots = 1 if mode == "ancestral" else steps
+            ok = (attn == 22 * steps and conv == want_conv
+                  and images.shape == (LDM_BATCH, 3, im_size, im_size)
+                  and traj.shape == (snapshots, LDM_BATCH, z, lsize, lsize)
+                  and bool(torch.isfinite(images).all()) and bool(torch.isfinite(traj).all()))
+            results[(mode, name)] = dict(
+                seconds=seconds, steps=steps, ms_per_step=seconds * 1e3 / steps,
+                samples_per_s=LDM_BATCH / seconds, attn_launches=attn, conv_launches=conv,
+                peak_gb=peak_gb)
+            log(f"latent main path {mode} {name}: {steps} steps, batch {LDM_BATCH}"
+                f"{' (x2 in the model call, for guidance)' if with_cfg else ''}: {seconds:.3f} s, "
+                f"{LDM_BATCH / seconds:.3f} samples/s, {seconds * 1e3 / steps:.3f} ms/step, "
+                f"attention launches {attn} (expect {22 * steps}), conv launches {conv} "
+                f"(expect {want_conv}), images {tuple(images.shape)} in "
+                f"[{images.min().item():.3g}, {images.max().item():.3g}], peak memory "
+                f"{peak_gb:.2f} GB -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"latent main path ({mode}, {name}) failed")
+            del images, traj
+    return results
+
+
+def phase_ldm(device) -> dict:
+    """Phases 10-13: the CelebA-HQ latent slice."""
+    import numpy as np
+
+    from controlnet_tpu_torch.tools import sample_ldm_controlnet as tool
+
+    config = celebhq_config()
+    work = os.path.join(REPO, "build", "smoke", "ldm")
+    os.makedirs(work, exist_ok=True)
+    cn_path = os.path.join(work, f"ldm_controlnet_seed{SEED}.pth")
+    vae_path = os.path.join(work, f"vae_seed{SEED}.pth")
+    hints_path = os.path.join(work, f"hints_seed{SEED}.npy")
+    start = time.perf_counter()
+    write_seeded_ldm_checkpoints(config, cn_path, vae_path)
+    write_seeded_ldm_hints(2 * LDM_BATCH, config["dataset_params"]["canny_im_size"], hints_path)
+    cn, vae, sched = tool.load_models(config, cn_path, vae_path)
+    n_params = sum(p.numel() for p in cn.parameters()) + sum(p.numel() for p in vae.parameters())
+    log(f"latent models: config/celebhq.yaml at full width, {n_params / 1e6:.1f} M parameters, "
+        f"hint factor {cn.down_sample_factor}; seeded .pth and .npy written and loaded in "
+        f"{time.perf_counter() - start:.1f} s")
+    hints = tool.gather_hints(np.load(hints_path), LDM_BATCH, seed=SEED)
+
+    conv_shapes = phase_hint_encode(cn, hints, device)
+    if conv_shapes != hint_conv_shapes(hints.shape[1], 3, cn.trained_unet.down_channels[0],
+                                       cn.down_sample_factor, LDM_BATCH):
+        raise SystemExit(f"unexpected conv shapes in the hint encode: {conv_shapes}")
+    kern_conv = phase_conv_kernels(conv_shapes, device)
+    attn_shapes = phase_ldm_forward(cn, hints, device)
+    kern_attn = phase_kernels(attn_shapes, device, batch=LDM_BATCH, cross=False)
+    runs = phase_ldm_main_path(config, cn, vae, sched, hints_path, device)
+    return dict(conv=kern_conv, attn=kern_attn, runs=runs)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--verbose-build", action="store_true",
@@ -797,6 +1162,9 @@ def main() -> int:
         phase_train_parity(config, base, images, device, dtype)
     train = phase_train_main_path(config, base, images, device)
     phase_tools(config, device)
+    del images
+    torch.cuda.empty_cache()
+    ldm = phase_ldm(device)
 
     def kernel_entry(name, source, replaces, tots, launches, bf16_launches, per):
         f32, bf16 = tots[torch.float32], tots[torch.bfloat16]
@@ -819,13 +1187,31 @@ def main() -> int:
                              main_path["float32"]["launches"],
                              main_path["bfloat16"]["launches"], "forward (26 calls)")
     fwd_entry["train_launches"] = train["float32"]["launches"]
+    # the latent main path: launches of each run, and the per-forward times at
+    # the latent shapes (22 calls, B*H = 256)
+    fwd_entry["ldm_launches"] = {f"{mode}_{name}": r["attn_launches"]
+                                 for (mode, name), r in ldm["runs"].items()}
+    ldm_fwd = kernel_entry("attention_fwd_t", "", "", ldm["attn"],
+                           ldm["runs"][("ancestral", "float32")]["attn_launches"],
+                           ldm["runs"][("ancestral", "bfloat16")]["attn_launches"],
+                           "latent forward (22 calls)")
+    fwd_entry["ldm"] = {k: ldm_fwd[k] for k in ("per", "launches", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms", "max_abs_err", "bf16")}
     bwd_entry = kernel_entry("attention_bwd_t", "controlnet_tpu_torch/csrc/attention_bwd.cu",
                              "controlnet_tpu/ops/pallas_attention.py:100", kern_bwd,
                              train["float32"]["bwd_launches"],
                              train["bfloat16"]["bwd_launches"], "training step (18 calls)")
     bwd_entry["max_rel_err"] = kern_bwd[torch.float32]["max_rel_err"]
     bwd_entry["lse_max_abs_err"] = max(t["lse_err"] for t in kern_bwd.values())
-    log(json.dumps({"kernels": [fwd_entry, bwd_entry]}))
+    conv_entry = kernel_entry("conv3x3_tl", "controlnet_tpu_torch/csrc/conv3x3_tl.cu",
+                              "controlnet_tpu/ops/pallas_conv.py:44", ldm["conv"],
+                              ldm["runs"][("ancestral", "float32")]["conv_launches"],
+                              ldm["runs"][("ancestral", "bfloat16")]["conv_launches"],
+                              "hint encode (7 calls)")
+    conv_entry["max_rel_err"] = ldm["conv"][torch.float32]["max_rel_err"]
+    conv_entry["ldm_launches"] = {f"{mode}_{name}": r["conv_launches"]
+                                  for (mode, name), r in ldm["runs"].items()}
+    log(json.dumps({"kernels": [fwd_entry, bwd_entry, conv_entry]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""Helpers the trainer tools share.
+"""Helpers the tools share.
 
 The port's own copy of the parts of ``controlnet_tpu/cli.py`` that the
-training slice needs: the compute type from YAML, checkpoint cadence and
-retention, and the per-epoch loss timer.
+ported tools need: the compute type from YAML, checkpoint cadence and
+retention, the per-epoch loss timer, and the sample tools' sampler and
+guidance flags.
 """
 
 from __future__ import annotations
@@ -54,3 +55,66 @@ def ckpt_max_to_keep(train_config: dict) -> int:
 def should_save_epoch(epoch_idx: int, num_epochs: int, every: int) -> bool:
     """Every ``every`` epochs, and always after the last one."""
     return (epoch_idx + 1) % max(every, 1) == 0 or (epoch_idx + 1) == num_epochs
+
+
+def add_sampler_args(parser) -> None:
+    """Sampler-selection flags shared by the sample tools: ``--sampler
+    ddim|dpm --sampler_steps N`` runs a few-step loop (``sample/ddim.py``
+    first-order, ``sample/dpm.py`` DPM-Solver++(2M) second-order) on the same
+    checkpoint; the default is the full-length ancestral sampler."""
+    parser.add_argument("--sampler", choices=["ancestral", "ddim", "dpm"], default="ancestral",
+                        help="ancestral, few-step ddim, or few-step dpm "
+                             "(DPM-Solver++ 2M, second-order)")
+    parser.add_argument("--sampler_steps", type=int, default=50,
+                        help="few-step sampler step count")
+    parser.add_argument("--eta", type=float, default=0.0,
+                        help="DDIM stochasticity; 0 = deterministic "
+                             "(--sampler ddim only; dpm is deterministic)")
+
+
+def add_cfg_args(parser) -> None:
+    """``--cfg_scale`` for the ControlNet sample tools: classifier-free
+    guidance over the hint condition (``sample/cfg.py``).  Unset keeps the
+    plain conditional model."""
+    parser.add_argument("--cfg_scale", type=float, default=None,
+                        help="classifier-free guidance scale (1 is the plain conditional "
+                             "model; >1 sharpens hint adherence; needs a checkpoint trained "
+                             "with train_params.cfg_drop_prob > 0 for a meaningful null branch)")
+
+
+def apply_cfg(cfg_scale: float | None, eps_fn, hint_arg, null_hint_fn):
+    """Honor ``--cfg_scale``: returns ``(eps_fn, hint_arg)``, wrapped for
+    guidance with a (conditional, null) hint pair when the scale is set,
+    unchanged otherwise.  ``null_hint_fn`` computes the null-hint features
+    and is called only when guidance is on."""
+    if cfg_scale is None:
+        return eps_fn, hint_arg
+    from controlnet_tpu_torch.sample.cfg import make_cfg_eps_fn
+
+    return make_cfg_eps_fn(eps_fn, cfg_scale), (hint_arg, null_hint_fn())
+
+
+def select_sampler(sampler: str, sampler_steps: int, eta: float, eps_fn, sched, shape,
+                   record_every: int, compute_dtype: torch.dtype | None = None, device=None):
+    """Honor the ``add_sampler_args`` flags: returns ``(sampler, step_ts)``
+    where ``step_ts`` is the few-step loop's visited timesteps (None for the
+    ancestral loop)."""
+    if sampler != "ancestral":
+        from controlnet_tpu_torch.sample import make_few_step_sampler
+
+        loop = make_few_step_sampler(sampler, eps_fn, sched, shape, num_steps=sampler_steps,
+                                     eta=eta, compute_dtype=compute_dtype, device=device)
+        return loop, loop.timesteps
+    from controlnet_tpu_torch.sample.ddpm import make_ddpm_sampler
+
+    return make_ddpm_sampler(eps_fn, sched, shape, record_every, compute_dtype, device), None
+
+
+def snapshot_timestep(k: int, step_ts, num_timesteps: int, record_every: int) -> int:
+    """Timestep label of trajectory snapshot ``k`` (0-based, newest last):
+    the few-step loop's entry when ``step_ts`` is set, else the ancestral
+    convention (snapshot k is the state after the denoising step at
+    t = T - 1 - (k * record_every + record_every - 1))."""
+    if step_ts is not None:
+        return step_ts[k]
+    return num_timesteps - 1 - (k * record_every + record_every - 1)

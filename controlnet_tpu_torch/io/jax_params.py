@@ -1,8 +1,9 @@
 """Weights carried across from the JAX package, and reference ``.pth`` files.
 
-``unet_state_dict_from_jax`` / ``controlnet_state_dict_from_jax`` take the
-JAX package's parameter trees (nested dicts and lists of numpy arrays) and
-return this package's ``state_dict``, which is the reference PyTorch one.
+``unet_state_dict_from_jax`` / ``controlnet_state_dict_from_jax`` /
+``vae_state_dict_from_jax`` take the JAX package's parameter trees (nested
+dicts and lists of numpy arrays) and return this package's ``state_dict``,
+which is the reference PyTorch one.
 This is the port's own numpy-only copy of the layout rules of
 ``controlnet_tpu/io/torch_export.py``:
 
@@ -108,24 +109,57 @@ def unet_state_dict_from_jax(params: Params, prefix: str = "") -> dict:
     return _to_torch(sd)
 
 
-def controlnet_state_dict_from_jax(params: Params) -> dict:
-    """JAX DDPM ``ControlNet`` tree -> this package's ``ControlNet`` state
-    dict.  The hint block is flat: the torch index of a conv is its
-    position in the JAX steps list, where each SiLU holds an empty slot."""
+def _hint_block(layers: list, prefix: str, nested: bool, out: dict) -> None:
+    """The JAX Sequential's per-step params (each activation an empty slot)
+    -> the reference key paths.  Flat (the DDPM hint block): the torch index
+    of a conv is its position in the steps list.  Nested (the LDM hint
+    block): one Sequential per stage; stage 0 is (conv, silu), each middle
+    stage (conv, silu, conv), the last (conv, silu, zero conv)."""
+    if not nested:
+        for i, lp in enumerate(layers):
+            if lp:
+                _conv(lp, f"{prefix}.{i}", out)
+        return
+    convs = [lp for lp in layers if lp]
+    n_stages = (len(convs) - 1) // 2  # 1 head conv + 2 per remaining stage
+    _conv(convs[0], f"{prefix}.0.0", out)
+    for stage in range(1, n_stages + 1):
+        _conv(convs[2 * stage - 1], f"{prefix}.{stage}.0", out)
+        _conv(convs[2 * stage], f"{prefix}.{stage}.2", out)
+
+
+def controlnet_state_dict_from_jax(params: Params, ldm: bool = False) -> dict:
+    """JAX ``ControlNet`` tree -> this package's ``ControlNet`` state dict.
+    ``ldm`` is the variant built with ``down_sample_factor``: the infix
+    ``control_unet`` and the nested hint block; else ``control_copy_unet``
+    and the flat one."""
+    infix = "control_unet" if ldm else "control_copy_unet"
     sd: dict = {}
     _unet(params["trained_unet"], "trained_unet.", sd)
-    _unet(params["control_unet"], "control_copy_unet.", sd)
-    for i, lp in enumerate(params["hint_block"]["layers"]):
-        if lp:
-            _conv(lp, f"control_copy_unet_hint_block.{i}", sd)
+    _unet(params["control_unet"], f"{infix}.", sd)
+    _hint_block(params["hint_block"]["layers"], f"{infix}_hint_block", ldm, sd)
     for i, zp in enumerate(params["down_zero"]):
-        _conv(zp, f"control_copy_unet_down_zero_convs.{i}", sd)
+        _conv(zp, f"{infix}_down_zero_convs.{i}", sd)
     for i, zp in enumerate(params["mid_zero"]):
-        _conv(zp, f"control_copy_unet_mid_zero_convs.{i}", sd)
+        _conv(zp, f"{infix}_mid_zero_convs.{i}", sd)
+    return _to_torch(sd)
+
+
+def vae_state_dict_from_jax(params: Params) -> dict:
+    """JAX ``VAE`` tree -> this package's ``VAE`` state dict."""
+    sd: dict = {}
+    for name in ("encoder_conv_in", "encoder_conv_out", "pre_quant_conv", "post_quant_conv",
+                 "decoder_conv_in", "decoder_conv_out"):
+        _conv(params[name], name, sd)
+    for name in ("encoder_layers", "encoder_mids", "decoder_mids", "decoder_layers"):
+        for i, bp in enumerate(params[name]):
+            _block(bp, f"{name}.{i}", sd)
+    _norm(params["encoder_norm_out"], "encoder_norm_out", sd)
+    _norm(params["decoder_norm_out"], "decoder_norm_out", sd)
     return _to_torch(sd)
 
 
 def load_reference_checkpoint(path: str) -> dict:
-    """A reference-format ControlNet ``.pth`` (a bare state dict, as
+    """A reference-format ControlNet or VAE ``.pth`` (a bare state dict, as
     ``tools/export_torch_checkpoint.py`` writes it) -> CPU tensors."""
     return torch.load(path, map_location="cpu", weights_only=True)

@@ -16,8 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from controlnet_tpu_torch.ops import attention as attention_ops
-
-Sequential = nn.Sequential  # the JAX Sequential's steps are modules here (nn.SiLU for "silu")
+from controlnet_tpu_torch.ops import tl_conv
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -56,6 +55,43 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, self.weight.to(x.dtype), _bias(self.bias, x.dtype),
                         self.stride, self.padding)
+
+    def tl(self, x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+        """Transposed-layout forward on (C, B, L) activations
+        (``ops/tl_conv.py``).  A stride-2 conv halves ``hw``; the caller
+        keeps track of it."""
+        shape = (self.kernel_size[0], self.stride[0], self.padding[0])
+        if shape == (3, 1, 1):
+            return tl_conv.conv3x3_tl(self.weight, self.bias, x, hw)
+        if shape == (1, 1, 0):
+            return tl_conv.conv1x1_tl(self.weight, self.bias, x)
+        if shape == (3, 2, 1):
+            return tl_conv.conv3x3s2_tl(self.weight, self.bias, x, hw)
+        raise ValueError(f"no transposed-layout forward for a conv of (kernel, stride, "
+                         f"padding) {shape}")
+
+
+class Sequential(nn.Sequential):
+    """``nn.Sequential`` (the JAX Sequential's steps are modules here:
+    ``nn.SiLU`` for "silu") with a transposed-layout forward."""
+
+    def tl(self, x: torch.Tensor, hw: tuple[int, int]) -> tuple[torch.Tensor, tuple[int, int]]:
+        """Transposed-layout forward on (C, B, L) activations for chains of
+        convs and activations (the hint encoders), nested or flat.  Follows
+        the spatial dims through stride-2 convs; returns (out, final hw)."""
+        h, w = hw
+        for step in self:
+            if isinstance(step, Sequential):
+                x, (h, w) = step.tl(x, (h, w))
+            elif isinstance(step, Conv2d):
+                x = step.tl(x, (h, w))
+                if step.stride[0] == 2:
+                    h, w = h // 2, w // 2
+            elif isinstance(step, nn.SiLU):
+                x = step(x)
+            else:
+                raise ValueError(f"no transposed-layout forward for {type(step).__name__}")
+        return x, (h, w)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

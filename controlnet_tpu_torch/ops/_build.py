@@ -104,7 +104,12 @@ def load() -> ctypes.CDLL:
             # threads_k), stream
             lib.controlnet_attention_bwd_t.argtypes = (
                 [ptr] * 10 + [i32] * 5 + [i64] * 3 + [i32] * 5 + [ptr])
-            for fn in (lib.controlnet_attention_fwd_t, lib.controlnet_attention_bwd_t):
+            # (x, w, bias, out), (cin, cout, batch, h, w), (channel, batch)
+            # strides of x, (dtype, channel groups), stream
+            lib.controlnet_conv3x3_tl.argtypes = (
+                [ptr] * 4 + [i32] * 5 + [i64] * 2 + [i32] * 2 + [ptr])
+            for fn in (lib.controlnet_attention_fwd_t, lib.controlnet_attention_bwd_t,
+                       lib.controlnet_conv3x3_tl):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -4,12 +4,15 @@ Counterpart of ``tools/sample_ddpm_controlnet.py``.  Weights come from a
 reference-format ``.pth`` (what ``tools/export_torch_checkpoint.py`` writes
 from a JAX checkpoint).  Hints come from an ``.npy`` array of (N, H, W, 3)
 hint images in [0, 1]; ``num_samples`` of them are picked at random from
-``--seed``.  The hint features are computed once, the 1000-step ancestral
-loop runs on the device, and the hint grid plus one x_t grid per
-``--save_every`` steps are written as PNGs.
+``--seed``.  The hint features are computed once, the sampling loop (the
+1000-step ancestral one, or ``--sampler ddim|dpm --sampler_steps N``, each
+with or without ``--cfg_scale``) runs on the device, and the hint grid plus
+one x_t grid per ``--save_every`` steps (per step of a few-step loop) are
+written as PNGs.
 
     python -m controlnet_tpu_torch.tools.sample_ddpm_controlnet \\
-        --config config/mnist.yaml --hints hints.npy [--ckpt path.pth]
+        --config config/mnist.yaml --hints hints.npy [--ckpt path.pth] \\
+        [--sampler dpm --sampler_steps 20] [--cfg_scale 2.0]
 
 Runs on the card; ``--device cpu`` runs it on the CPU.
 """
@@ -23,14 +26,15 @@ import random
 import numpy as np
 import torch
 
+from controlnet_tpu_torch import cli
 from controlnet_tpu_torch import config as cfg
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
 from controlnet_tpu_torch.models.controlnet import ControlNet
-from controlnet_tpu_torch.sample.ddpm import make_ddpm_sampler
+from controlnet_tpu_torch.sample.cfg import null_hint_features
 from controlnet_tpu_torch.schedules.linear import LinearSchedule, make_linear_schedule
 
-_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def gather_hints(hints: np.ndarray, num_samples: int, seed: int = 0) -> np.ndarray:
@@ -53,23 +57,40 @@ def load_model(config: dict, ckpt_path: str | None, device=None) -> tuple[Contro
     return cn.to(device).eval(), sched
 
 
-def sample(cn: ControlNet, sched: LinearSchedule, hints: np.ndarray, seed: int = 0,
-           record_every: int | None = None, compute_dtype: torch.dtype | None = None):
-    """Sample one batch, one sample per hint ((B, H, W, 3) in [0, 1]).
-    Returns (x0, trajectory) as (B, C, H, W) / (T // record_every, B, C, H, W)
-    device tensors."""
+def prepare(cn: ControlNet, sched: LinearSchedule, hints: np.ndarray,
+            record_every: int | None = None, compute_dtype: torch.dtype | None = None,
+            sampler: str = "ancestral", sampler_steps: int = 50, eta: float = 0.0,
+            cfg_scale: float | None = None):
+    """The hint features (computed once) and the sampling loop the flags ask
+    for.  Returns ``(loop, hint_arg, step_ts)``: ``loop(cn, generator,
+    hint_arg)`` samples one batch; ``step_ts`` is a few-step loop's visited
+    timesteps, None for the ancestral loop."""
     device = next(cn.parameters()).device
     T = sched.num_timesteps
     record_every = T if record_every is None else record_every
     hint = torch.as_tensor(np.asarray(hints, np.float32), device=device).permute(0, 3, 1, 2)
     with torch.inference_mode():
         feats = cn.hint_features(hint)
-    im = cn.trained_unet
-    shape = (hint.shape[0], im.im_channels, hint.shape[2], hint.shape[3])
-    sampler = make_ddpm_sampler(lambda m, x, t, f: m(x, t, hint_features=f), sched, shape,
-                                record_every, compute_dtype, device)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    return sampler(cn, generator, feats)
+        eps_fn, hint_arg = cli.apply_cfg(
+            cfg_scale, lambda m, x, t, f: m(x, t, hint_features=f), feats,
+            lambda: null_hint_features(cn.hint_features, hint))
+    shape = (hint.shape[0], cn.trained_unet.im_channels, hint.shape[2], hint.shape[3])
+    loop, step_ts = cli.select_sampler(sampler, sampler_steps, eta, eps_fn, sched, shape,
+                                       record_every, compute_dtype, device)
+    return loop, hint_arg, step_ts
+
+
+def sample(cn: ControlNet, sched: LinearSchedule, hints: np.ndarray, seed: int = 0,
+           record_every: int | None = None, compute_dtype: torch.dtype | None = None,
+           **sampler_flags):
+    """Sample one batch, one sample per hint ((B, H, W, 3) in [0, 1]);
+    ``sampler_flags`` are ``prepare``'s (sampler, sampler_steps, eta,
+    cfg_scale).  Returns (x0, trajectory) as (B, C, H, W) / (snapshots, B, C,
+    H, W) device tensors: T // record_every snapshots from the ancestral
+    loop, one per step from a few-step loop."""
+    loop, hint_arg, _ = prepare(cn, sched, hints, record_every, compute_dtype, **sampler_flags)
+    generator = torch.Generator(device=next(cn.parameters()).device).manual_seed(seed)
+    return loop(cn, generator, hint_arg)
 
 
 def main(argv=None) -> None:
@@ -81,8 +102,10 @@ def main(argv=None) -> None:
     parser.add_argument("--num_samples", type=int, default=None)
     parser.add_argument("--save_every", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--compute_dtype", choices=sorted(_DTYPES), default="float32")
+    parser.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default="float32")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    cli.add_sampler_args(parser)
+    cli.add_cfg_args(parser)
     args = parser.parse_args(argv)
 
     from controlnet_tpu_torch.io.images import save_image_grid
@@ -100,11 +123,14 @@ def main(argv=None) -> None:
     save_image_grid(hints, os.path.join(out_dir, "hints.png"), nrow=nrow)
 
     record_every = max(1, args.save_every)
-    _, traj = sample(cn, sched, hints, args.seed, record_every, _DTYPES[args.compute_dtype])
+    loop, hint_arg, step_ts = prepare(cn, sched, hints, record_every,
+                                      COMPUTE_DTYPES[args.compute_dtype], args.sampler,
+                                      args.sampler_steps, args.eta, args.cfg_scale)
+    generator = torch.Generator(device=next(cn.parameters()).device).manual_seed(args.seed)
+    _, traj = loop(cn, generator, hint_arg)
     traj = traj.float().permute(0, 1, 3, 4, 2).cpu().numpy()
-    T = sched.num_timesteps
     for k in range(traj.shape[0]):
-        t = T - (k + 1) * record_every
+        t = cli.snapshot_timestep(k, step_ts, sched.num_timesteps, record_every)
         save_image_grid((traj[k] + 1.0) / 2.0, os.path.join(out_dir, f"x0_{t}.png"), nrow=nrow)
     print(f"Wrote hint grid + {traj.shape[0]} step grids to {out_dir}")
 

@@ -22,6 +22,24 @@ MNIST_CONFIG = dict(
     num_heads=4,
 )
 
+# config/celebhq.yaml's ldm_params in structure (three attended downsampling
+# levels, one mid block), cut in width and layers
+NARROW_LDM = dict(
+    hint_channels=3,
+    down_channels=[16, 24, 32, 48],
+    mid_channels=[48, 32],
+    down_sample=[True, True, True],
+    attn_down=[True, True, True],
+    time_emb_dim=16,
+    norm_channels=8,
+    num_heads=4,
+    conv_out_channels=16,
+    num_down_layers=1,
+    num_mid_layers=1,
+    num_up_layers=1,
+)
+Z = 2  # latent channels
+
 
 def to_nchw(x_nhwc) -> torch.Tensor:
     return torch.from_numpy(np.array(np.asarray(x_nhwc, np.float32).transpose(0, 3, 1, 2)))

@@ -25,7 +25,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     mods = _all_modules()
     for name in ("ops.cuda_attention", "ops.canny", "train.loops", "train.state", "io.checkpoint",
                  "cli", "data.datasets", "utils.diffusion_utils", "tools.train_ddpm",
-                 "tools.train_ddpm_controlnet", "tools.sample_ddpm_controlnet"):
+                 "tools.train_ddpm_controlnet", "tools.sample_ddpm_controlnet",
+                 "ops.cuda_conv", "ops.tl_conv", "models.vae", "sample.ddim", "sample.dpm",
+                 "sample.cfg", "tools.sample_ldm_controlnet"):
         assert f"controlnet_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -76,6 +78,43 @@ def test_entry_points_without_device_raise_on_cuda_less_host(monkeypatch):
                    "--ckpt", "unused.pth"])
 
 
+def test_ldm_entry_points_raise_on_cuda_less_host(monkeypatch):
+    """The latent sample tool and the few-step samplers run on the card
+    unless device="cpu" is passed."""
+    from controlnet_tpu_torch.sample import make_few_step_sampler, make_ldm_sampler
+    from controlnet_tpu_torch.schedules.linear import make_linear_schedule
+    from controlnet_tpu_torch.tools import sample_ldm_controlnet as tool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sched = make_linear_schedule(10, 1e-4, 0.02, device="cpu")
+    eps = lambda m, x, t: x  # noqa: E731
+    for call in (lambda: make_few_step_sampler("ddim", eps, sched, (1, 1, 4, 4), 5),
+                 lambda: make_few_step_sampler("dpm", eps, sched, (1, 1, 4, 4), 5),
+                 lambda: make_ldm_sampler(eps, lambda v, z: z, sched, (1, 1, 4, 4)),
+                 lambda: tool.load_models({"diffusion_params": {}}, None, None),
+                 lambda: tool.main(["--hints", "unused.npy", "--config",
+                                    os.path.join(REPO, "config", "celebhq.yaml"),
+                                    "--ckpt", "unused.pth", "--vae_ckpt", "unused.pth"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_conv_wrapper_has_no_cpu_fallback(monkeypatch):
+    """Only a CPU tensor takes the plain version.  Any other tensor (here one
+    on the meta device) goes to the kernel's launcher, which launches or
+    raises."""
+    from controlnet_tpu_torch.ops import cuda_conv
+
+    def refuse(*args):
+        raise RuntimeError("launcher reached")
+
+    monkeypatch.setattr(cuda_conv, "_launch", refuse)
+    monkeypatch.setattr(cuda_conv, "conv3x3_tl_plain", lambda *a: pytest.fail("fell back"))
+    with pytest.raises(RuntimeError, match="launcher reached"):
+        cuda_conv._forward(torch.zeros(3, 2, 3, 3, device="meta"), None,
+                           torch.zeros(2, 1, 16, device="meta"), (4, 4))
+
+
 def test_trainer_entry_points_raise_on_cuda_less_host(monkeypatch):
     """Both trainers run on the card unless device="cpu" is passed."""
     from controlnet_tpu_torch.tools import train_ddpm, train_ddpm_controlnet
@@ -95,4 +134,5 @@ def test_kernel_library_is_not_built_on_import():
     from controlnet_tpu_torch.ops import _build
 
     assert _build._lib is None
-    assert [p.name for p in _build.sources()] == ["attention_bwd.cu", "attention_fwd.cu"]
+    assert [p.name for p in _build.sources()] == ["attention_bwd.cu", "attention_fwd.cu",
+                                                  "conv3x3_tl.cu"]
