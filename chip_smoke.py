@@ -57,11 +57,35 @@ Phases (each one that fails makes the script exit non-zero):
    those shapes (B*H = 256; L 1024..16, head dims 8..48).
 13. The latent main path through the sample tool (seeded ``.pth`` weights,
    ``.npy`` hints, batch 16): a 5-step sample with guidance through the kernels
-   against the plain versions; then ancestral 1000 steps, DPM-Solver++ 20
-   steps with ``cfg_scale`` 2.0 and DDIM 50 steps, f32 and bf16, each ending
+   against the plain versions; then the ancestral loop (cut to a 250-step
+   schedule, which leaves time for the later phases: its ms/step is what is
+   read), DPM-Solver++ 20 steps with ``cfg_scale`` 2.0 and DDIM 50 steps on
+   the 1000-step schedule, f32 and bf16, each ending
    in VAE-decoded (16, 3, 128, 128) images; counters set to 0 just before
    and read just after each run.
-14. A ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as the
+14. The fused projection + attention layer (kernel d) switched on: the
+   full-width MNIST forward at batch 64 launches it 24 times and the
+   attention kernel twice (head dim 4), the full-width latent forward at
+   batch 16 launches it 22 times; each against the same forward with the
+   switch off and with the plain versions, f32 and bf16.
+15. Kernel d against its plain version at the six MNIST shapes (batch 16,
+   the server's largest bucket, and batch 64) and the seven latent shapes
+   (batch 16), on the channel-major activations the model passes, f32 and
+   bf16; CUDA-event times of the kernel, the plain version, the split path
+   the port runs with the switch off (projection, attention kernel,
+   projection) and ``F.multi_head_attention_forward`` (a yardstick the port
+   never calls), beside the least time the card could take.
+16. The serving main path: the serve tool's ``make_server`` on a free port,
+   ``dpm_controlnet`` from the seeded ``.pth``, buckets up to 16, up to 20
+   steps, switch on.  ``/healthz``; ``/generate_batch`` of 16 rows at 4, 10
+   and 20 steps with the counters set to 0 just before and read just after;
+   ``/generate`` when PIL imports; a pinned-x_T batch through
+   ``build_generator``, kernels against plain versions; 32 concurrent
+   one-row clients (in a process of their own) with and without dynamic
+   batching; the two 400s; the same 16-row request, in turns, to servers with
+   the switch off and with ``ddim_controlnet``; a profiler window over one
+   generation; shutdown.
+17. A ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and convolutions throughout, so float32 means
@@ -108,6 +132,23 @@ LSE_TOL = 1e-4
 # errors up to ~1e-4 of the output's scale); in bf16 both round the same
 # float32 sums once (half an ulp, 2e-3 of the value).
 CONV_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+# Kernel d against its plain version, relative to max|out|: float32 sums in
+# another order (three chained products); in bf16 a sum that lands near a
+# rounding boundary rounds the other way in q, k, v, the head outputs or y
+# (one bf16 ulp is 0.8% of a value).
+PROJ_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The fused layer against the split path inside a whole forward: in bf16 the
+# two round at different places (the split path rounds the probabilities to
+# bf16 before the product with V, the fused layer never does).
+FUSED_VS_SPLIT_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
+SERVE_BATCH = 16    # the serve tool's default largest bucket
+SERVE_STEPS = (4, 10, 20)
+SERVE_CLIENTS = 32
+# (L, C, heads, calls per forward) of the self-attention layers kernel d takes
+MNIST_PROJ_SHAPES = [(784, 64, 4, 4), (196, 128, 4, 4), (196, 32, 4, 2), (49, 256, 4, 8),
+                     (49, 128, 4, 4), (49, 64, 4, 2)]
+LDM_PROJ_SHAPES = [(1024, 384, 16, 4), (1024, 128, 16, 2), (256, 512, 16, 4),
+                   (256, 256, 16, 2), (64, 768, 16, 4), (64, 384, 16, 2), (16, 512, 16, 4)]
 LDM_BATCH = 16      # train_params.ldm_batch_size of config/celebhq.yaml
 TRAIN_STEPS = 20    # timed steps of the training main path, per compute type
 TRAIN_WARMUP = 2
@@ -183,6 +224,39 @@ def record_shapes(into: list):
         cuda_attention.fused_attention_t = orig
 
 
+@contextlib.contextmanager
+def plain_attention_proj():
+    """Route the fused projection + attention layer of this process through
+    its plain version (the comparison model of phases 14 and 16); the port
+    itself has no such switch."""
+    from controlnet_tpu_torch.ops import cuda_attention_proj
+
+    orig = cuda_attention_proj.fused_attention_proj
+    cuda_attention_proj.fused_attention_proj = cuda_attention_proj.fused_attention_proj_plain
+    try:
+        yield
+    finally:
+        cuda_attention_proj.fused_attention_proj = orig
+
+
+@contextlib.contextmanager
+def record_proj_shapes(into: list):
+    """Record (L, C, heads, channel-major?) of every fused-layer call."""
+    from controlnet_tpu_torch.ops import cuda_attention_proj
+
+    orig = cuda_attention_proj.fused_attention_proj
+
+    def rec(x, in_w, in_b, out_w, out_b, heads):
+        into.append((x.shape[1], x.shape[2], heads, x.stride(1) == 1))
+        return orig(x, in_w, in_b, out_w, out_b, heads)
+
+    cuda_attention_proj.fused_attention_proj = rec
+    try:
+        yield
+    finally:
+        cuda_attention_proj.fused_attention_proj = orig
+
+
 def cuda_time_ms(fn, min_ms: float = 30.0) -> float:
     """Mean milliseconds per call, CUDA events around a run of calls."""
     for _ in range(3):
@@ -222,6 +296,18 @@ def attention_bwd_bound_ms(bh: int, lq: int, lk: int, dh: int,
     itemsize = torch.tensor([], dtype=dtype).element_size()
     nbytes = itemsize * bh * dh * (3 * lq + 4 * lk)
     flops = 10.0 * bh * lq * lk * dh
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def proj_bound_ms(b: int, l: int, c: int, dtype: torch.dtype) -> tuple[float, str]:
+    """Least time for one fused layer call (D = C): x, the weights and the
+    biases read once and y written once at the HBM rate, or the layer's
+    (8*L*C^2 + 4*L^2*C)*B flops, each projection counted once, at the card's
+    peak for the input type, whichever is larger."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = itemsize * (2 * b * l * c + 4 * c * c + 4 * c)
+    flops = (8.0 * l * c * c + 4.0 * l * l * c) * b
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
@@ -1011,6 +1097,23 @@ def phase_ldm_forward(cn, hints, device) -> list:
     return shapes
 
 
+def phase_ldm_fused_forward(cn, hints, device) -> None:
+    """The full-width latent forward of ``phase_ldm_forward`` with the fused
+    layer on: every attention layer has a head dim of 8..48, so all 22 go to
+    kernel d and none to kernel a."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    hint = torch.as_tensor(hints, dtype=torch.float32, device=device)
+    hint = hint.permute(0, 3, 1, 2).contiguous()
+    size = hint.shape[2] // cn.down_sample_factor
+    x = torch.randn((LDM_BATCH, cn.trained_unet.im_channels, size, size), generator=g,
+                    device=device)
+    t = torch.randint(0, 1000, (LDM_BATCH,), generator=g, device=device)
+    with torch.inference_mode():
+        feats = cn.hint_features_chunked(hint)
+    phase_fused_forward(cn, x, t, feats, LDM_PROJ_SHAPES, 0, "latent")
+
+
+LDM_ANCESTRAL_STEPS = 250  # the ancestral loop's schedule length in phase 13
 LDM_MODES = (
     ("ancestral", dict()),
     ("dpm20_cfg2", dict(sampler="dpm", sampler_steps=20, cfg_scale=2.0)),
@@ -1042,12 +1145,17 @@ def phase_ldm_main_path(config: dict, cn, vae, sched, hints_path: str, device) -
     if not ok:
         raise SystemExit("short latent sample disagrees with the plain versions")
 
-    T = sched.num_timesteps
+    from controlnet_tpu_torch.schedules.linear import make_linear_schedule
+
+    dp = config["diffusion_params"]
+    ancestral_sched = make_linear_schedule(LDM_ANCESTRAL_STEPS, dp["beta_start"],
+                                           dp["beta_end"], ldm_scheduler=True, device=device)
     im_size, z = config["dataset_params"]["im_size"], cn.trained_unet.im_channels
     lsize = tool.latent_size(config["dataset_params"], config["autoencoder_params"])
     results: dict = {}
     for mode, mode_flags in LDM_MODES:
-        steps = mode_flags.get("sampler_steps", T)
+        run_sched = ancestral_sched if mode == "ancestral" else sched
+        steps = mode_flags.get("sampler_steps", run_sched.num_timesteps)
         with_cfg = "cfg_scale" in mode_flags
         for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
             torch.cuda.synchronize()
@@ -1055,8 +1163,8 @@ def phase_ldm_main_path(config: dict, cn, vae, sched, hints_path: str, device) -
             cuda_attention.launches = 0
             cuda_conv.launches = 0
             start = time.perf_counter()
-            images, traj = tool.sample(cn, vae, sched, hints, seed=SEED, compute_dtype=dtype,
-                                       **mode_flags)
+            images, traj = tool.sample(cn, vae, run_sched, hints, seed=SEED,
+                                       compute_dtype=dtype, **mode_flags)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - start
             attn, conv = cuda_attention.launches, cuda_conv.launches
@@ -1114,8 +1222,446 @@ def phase_ldm(device) -> dict:
     kern_conv = phase_conv_kernels(conv_shapes, device)
     attn_shapes = phase_ldm_forward(cn, hints, device)
     kern_attn = phase_kernels(attn_shapes, device, batch=LDM_BATCH, cross=False)
+    phase_ldm_fused_forward(cn, hints, device)
+    kern_proj = phase_proj_kernels(LDM_PROJ_SHAPES, LDM_BATCH, device, "latent forward")
     runs = phase_ldm_main_path(config, cn, vae, sched, hints_path, device)
-    return dict(conv=kern_conv, attn=kern_attn, runs=runs)
+    return dict(conv=kern_conv, attn=kern_attn, proj=kern_proj, runs=runs)
+
+
+def proj_inputs(b: int, l: int, c: int, dtype: torch.dtype, device):
+    """Seeded inputs of one fused layer call: channel-major (B, C, L) unit
+    normal activations, as the GroupNorm before the layer leaves them, and
+    parameters drawn as ``nn.MultiheadAttention`` initialises its weights,
+    with nonzero biases."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+
+    def uniform(shape, bound):
+        return ((torch.rand(shape, generator=g, device=device) * 2 - 1) * bound).to(dtype)
+
+    xt = torch.randn((b, c, l), generator=g, device=device).to(dtype)
+    return (xt, uniform((3 * c, c), (6.0 / (4 * c)) ** 0.5), uniform((3 * c,), 0.1),
+            uniform((c, c), 1.0 / c ** 0.5), uniform((c,), 0.1))
+
+
+def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
+    """Kernel d against its plain version at ``cases`` ((L, C, heads, calls
+    per forward)), f32 and bf16, on the (B, L, C) view of channel-major
+    activations that the model passes; timings of the kernel, the plain
+    version, the split path and ``F.multi_head_attention_forward``."""
+    import torch.nn.functional as F
+
+    from controlnet_tpu_torch.ops import attention as attention_ops
+    from controlnet_tpu_torch.ops import cuda_attention_proj as proj
+
+    totals = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, split_ms=0.0, flops=0.0,
+                   ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0)
+        for l, c, heads, n in cases:
+            xt, in_w, in_b, out_w, out_b = proj_inputs(batch, l, c, dtype, device)
+            x = xt.transpose(1, 2)
+            args = (in_w, in_b, out_w, out_b, heads)
+
+            def split():
+                qkv = torch.matmul(in_w, xt) + in_b[:, None]
+                out_t = attention_ops.multi_head_attention_t(
+                    qkv[:, :c], qkv[:, c:2 * c], qkv[:, 2 * c:], heads)
+                return torch.matmul(out_w, out_t) + out_b[:, None]
+
+            xl = x.transpose(0, 1).contiguous()  # (L, B, C), the library call's layout
+
+            def library():
+                return F.multi_head_attention_forward(
+                    xl, xl, xl, c, heads, in_w, in_b, None, None, False, 0.0, out_w, out_b,
+                    training=False, need_weights=False)[0]
+
+            with torch.inference_mode():
+                out = proj.fused_attention_proj(x, *args)
+                ref = proj.fused_attention_proj_plain(x, *args)
+                torch.cuda.synchronize()
+                scale = ref.float().abs().max().item()
+                err = (out.float() - ref.float()).abs().max().item()
+                # the same layer on contiguous (B, L, C) tokens
+                err_tok = (proj.fused_attention_proj(x.contiguous(), *args).float()
+                           - ref.float()).abs().max().item()
+                err_split = (split().transpose(1, 2).float() - ref.float()).abs().max().item()
+                err_lib = (library().transpose(0, 1).float() - ref.float()).abs().max().item()
+                ok = (max(err, err_tok) <= PROJ_TOL[dtype] * scale
+                      and bool(torch.isfinite(out).all()) and out.shape == x.shape
+                      and out.stride() == x.stride())
+                del ref
+                ms = cuda_time_ms(lambda: proj.fused_attention_proj(x, *args))
+                plain_ms = cuda_time_ms(lambda: proj.fused_attention_proj_plain(x, *args))
+                split_ms = cuda_time_ms(split)
+                lib_ms = cuda_time_ms(library)
+            bound_ms, bound_by = proj_bound_ms(batch, l, c, dtype)
+            flops = (8.0 * l * c * c + 4.0 * l * l * c) * batch
+            rows = proj.tile_rows(l, c, heads, dtype)
+            # K and V are projected once per query tile: the kernel's projection
+            # flops over the layer's own 8*L*C^2
+            recompute = (4 + 4 * -(-l // rows)) / 8
+            log(f"attention_proj {str(dtype)[6:]:8s} L {l:4d} C {c:3d} dh {c // heads:2d} B {batch}: "
+                f"err {err:.3g}, on contiguous tokens {err_tok:.3g} (tol {PROJ_TOL[dtype]:g} x "
+                f"max|out| {scale:.3g}) {'ok' if ok else 'FAIL'}; split path vs plain "
+                f"{err_split:.3g}, library vs plain {err_lib:.3g} | kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.2f} TFLOP/s of the layer's flops; {rows} rows per block, "
+                f"projection work x{recompute:.1f}), plain "
+                f"{plain_ms:.4f} ms, split path {split_ms:.4f} ms, F.mha {lib_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}) | x{n} per {what}")
+            if not ok:
+                raise SystemExit("fused projection + attention kernel disagrees with its "
+                                 "plain version")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err, err_tok)
+            tot["max_rel_err"] = max(tot["max_rel_err"], max(err, err_tok) / scale)
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                             ("library_ms", lib_ms), ("split_ms", split_ms), ("flops", flops)):
+                tot[key] += n * val
+            tot["ops_ms"] += n * (bound_ms if bound_by == "operations" else 0.0)
+            tot["bytes_ms"] += n * (bound_ms if bound_by == "bytes" else 0.0)
+        tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+        totals[dtype] = tot
+        log(f"attention_proj {str(dtype)[6:]} per {what} at batch {batch} "
+            f"({sum(n for *_, n in cases)} calls): kernel {tot['ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, split path {tot['split_ms']:.4f} ms, F.mha "
+            f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}), "
+            f"{tot['flops'] / 1e9:.2f} GFLOP")
+    return totals
+
+
+def phase_fused_forward(cn, x, t, feats32, expect: list, want_a: int, what: str) -> dict:
+    """One full-width forward with the fused layer switched on: launches of
+    kernel d (one per entry of ``expect``) and of kernel a, against the same
+    forward with the switch off and with the plain versions, f32 and bf16.
+    Returns kernel d's counted launches of that forward by dtype name."""
+    import collections
+
+    from controlnet_tpu_torch.nn.layers import set_attn_fused_proj
+    from controlnet_tpu_torch.ops import cuda_attention, cuda_attention_proj
+
+    want_d = sum(n for *_, n in expect)
+    want = collections.Counter({(l, c, h, True): n for l, c, h, n in expect})
+    launches = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            xin, feats = x.to(dtype), feats32.to(dtype)
+            off = cn(xin, t, hint_features=feats)
+            set_attn_fused_proj(cn, True)
+            try:
+                before = cuda_attention_proj.launches, cuda_attention.launches
+                rec: list = []
+                with record_proj_shapes(rec):
+                    out = cn(xin, t, hint_features=feats)
+                torch.cuda.synchronize()
+                got_d = cuda_attention_proj.launches - before[0]
+                got_a = cuda_attention.launches - before[1]
+                with plain_attention(), plain_attention_proj():
+                    ref = cn(xin, t, hint_features=feats)
+                torch.cuda.synchronize()
+            finally:
+                set_attn_fused_proj(cn, False)
+            scale = max(ref.float().abs().max().item(), 1.0)
+            err = (out.float() - ref.float()).abs().max().item()
+            err_off = (out.float() - off.float()).abs().max().item()
+            ok = (got_d == want_d and got_a == want_a and collections.Counter(rec) == want
+                  and out.shape == x.shape and bool(torch.isfinite(out).all())
+                  and err <= MODEL_TOL[dtype] * scale
+                  and err_off <= FUSED_VS_SPLIT_TOL[dtype] * scale)
+            log(f"{what} forward, fused layer on, {str(dtype)[6:]}: batch {x.shape[0]}, kernel d "
+                f"launches {got_d} (expect {want_d}), kernel a {got_a} (expect {want_a}), all on "
+                f"channel-major activations; max abs err vs the plain versions {err:.3g} (tol "
+                f"{MODEL_TOL[dtype]:g} x max(1, max|out|) = {MODEL_TOL[dtype] * scale:.3g}), vs "
+                f"the switch off {err_off:.3g} (tol {FUSED_VS_SPLIT_TOL[dtype]:g} x the same) -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{what} forward with the fused layer failed")
+            launches[str(dtype)[6:]] = got_d
+    return launches
+
+
+def phase_mnist_fused_forward(cn, device) -> dict:
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn((BATCH, 1, 28, 28), generator=g, device=device)
+    t = torch.randint(0, 1000, (BATCH,), generator=g, device=device)
+    hint = (torch.rand((BATCH, 3, 28, 28), generator=g, device=device) < 0.15).float()
+    with torch.inference_mode():
+        feats = cn.hint_features(hint)
+    return phase_fused_forward(cn, x, t, feats, MNIST_PROJ_SHAPES, 2, "MNIST")
+
+
+# The concurrent clients of phase 16, run as ``python -c`` in a process of
+# their own: argv = (url, number of clients), the request body on stdin.  Each
+# thread posts the body once, all released together; prints one JSON object.
+CLIENT_SCRIPT = """
+import io, json, sys, threading, time, urllib.request
+import numpy as np
+url, n = sys.argv[1], int(sys.argv[2])
+body = sys.stdin.buffer.read()
+out = [None] * n
+gate = threading.Barrier(n + 1)
+def client(i):
+    gate.wait()
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(urllib.request.Request(url, data=body, method="POST"),
+                                timeout=300) as r:
+        status, rows, raw = r.status, int(r.headers["X-Batch-Rows"]), r.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    with np.load(io.BytesIO(raw)) as z:
+        s = z["samples"]
+    out[i] = (status, rows, ms, list(s.shape), bool(np.isfinite(s).all()))
+threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+for t in threads:
+    t.start()
+gate.wait()
+t0 = time.perf_counter()
+for t in threads:
+    t.join()
+wall = time.perf_counter() - t0
+assert all(o is not None for o in out), "a client failed"
+print(json.dumps({"wall_s": wall, "statuses": [o[0] for o in out], "rows": [o[1] for o in out],
+                  "client_ms": [o[2] for o in out], "shapes": [o[3] for o in out],
+                  "finite": [o[4] for o in out]}))
+"""
+
+
+def _post(url: str, body: bytes, timeout: float = 300.0):
+    """POST; returns (status, headers, body, client seconds)."""
+    import urllib.error
+    import urllib.request
+
+    start = time.perf_counter()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=body, method="POST"),
+                                    timeout=timeout) as r:
+            status, headers, out = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        status, headers, out = e.code, dict(e.headers), e.read()
+    return status, headers, out, time.perf_counter() - start
+
+
+def _npz(**arrays) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    return buf.getvalue()
+
+
+def phase_serve(config: dict, ckpt: str, device) -> dict:
+    """The serving main path through the serve tool, on the card."""
+    import io
+    import threading
+    import types
+    import urllib.request
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from controlnet_tpu_torch.ops import cuda_attention, cuda_attention_proj
+    from controlnet_tpu_torch.sample.ddim import ddim_timesteps
+    from controlnet_tpu_torch.tools import serve
+
+    T = config["diffusion_params"]["num_timesteps"]
+    hints = seeded_hints(SERVE_BATCH, 28)
+    mid = SERVE_STEPS[1]  # the step count of the comparisons
+
+    def make_args(**kw):
+        base = dict(config_path=os.path.join(REPO, "config", "mnist.yaml"),
+                    model="dpm_controlnet", host="127.0.0.1", port=0, seed=SEED,
+                    max_batch=SERVE_BATCH, max_steps=max(SERVE_STEPS), dynamic_batching=True,
+                    batch_window_ms=2.0, ckpt=ckpt, device=None, attn_fused_proj=True)
+        return types.SimpleNamespace(**{**base, **kw})
+
+    def dispatchers() -> int:
+        return sum(th.name == "serve-microbatcher" for th in threading.enumerate())
+
+    @contextlib.contextmanager
+    def serving(**kw):
+        before = dispatchers()
+        start = time.perf_counter()
+        server = serve.make_server(make_args(**kw), config)
+        warm_s = time.perf_counter() - start
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            yield f"http://127.0.0.1:{server.server_address[1]}", warm_s
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(10)
+            if thread.is_alive() or dispatchers() != before:
+                raise SystemExit("the server did not shut down: its dispatcher thread is left")
+
+    def batch_request(base: str, rows: np.ndarray, steps: int):
+        status, headers, body, seconds = _post(f"{base}/generate_batch?steps={steps}",
+                                               _npz(hints=rows))
+        if status != 200:
+            raise SystemExit(f"/generate_batch?steps={steps} answered {status}: {body[:200]!r}")
+        with np.load(io.BytesIO(body)) as z:
+            samples = z["samples"]
+        return (samples, float(headers["X-Latency-Ms"]), int(headers["X-Batch-Rows"]),
+                seconds * 1e3)
+
+    def clients(base: str) -> dict:
+        """SERVE_CLIENTS one-row clients, released together, in a process of
+        their own (threads of this process would share the interpreter lock
+        with the server's dispatcher, which real clients do not)."""
+        body = _npz(hints=hints[:1])
+        out = subprocess.run(
+            [sys.executable, "-c", CLIENT_SCRIPT, f"{base}/generate_batch?steps={mid}",
+             str(SERVE_CLIENTS)], input=body, capture_output=True, timeout=600)
+        if out.returncode != 0:
+            raise SystemExit(f"the concurrent clients failed: {out.stderr.decode()[-2000:]}")
+        r = json.loads(out.stdout)
+        lat = sorted(r["client_ms"])
+        good = (r["statuses"] == [200] * SERVE_CLIENTS
+                and r["shapes"] == [[1, 28, 28, 1]] * SERVE_CLIENTS and all(r["finite"]))
+        return dict(requests_per_s=SERVE_CLIENTS / r["wall_s"], p50_ms=lat[len(lat) // 2],
+                    p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                    mean_rows=sum(r["rows"]) / len(r["rows"]), max_rows=max(r["rows"]),
+                    good=good)
+
+    res: dict = {}
+    with serving() as (base, warm_s), serving(attn_fused_proj=False) as (base_off, _), \
+            serving(model="ddim_controlnet") as (base_ddim, _):
+        health = json.loads(urllib.request.urlopen(f"{base}/healthz", timeout=30).read())
+        ok = health == {"status": "ok", "model": "dpm_controlnet", "warm": True,
+                        "max_batch": SERVE_BATCH, "max_steps": max(SERVE_STEPS),
+                        "batch_window_ms": 2.0}
+        log(f"server: dpm_controlnet, fused layer on, warm in {warm_s:.2f} s (one generation "
+            f"per bucket 1..{SERVE_BATCH}); /healthz {health} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("/healthz is wrong")
+        first = batch_request(base, hints, SERVE_STEPS[0])
+        log(f"the first request after warm-up ({SERVE_BATCH} rows, {SERVE_STEPS[0]} steps): "
+            f"X-Latency-Ms {first[1]:.2f}")
+
+        # the serving main path: counters set to 0 just before, read just after
+        torch.cuda.synchronize()
+        cuda_attention_proj.launches = 0
+        cuda_attention.launches = 0
+        calls = 0
+        for steps in SERVE_STEPS:
+            runs = [batch_request(base, hints, steps) for _ in range(3)]
+            calls += 3 * len(ddim_timesteps(T, steps))
+            ok = all(samples.shape == (SERVE_BATCH, 28, 28, 1) and samples.dtype == np.float32
+                     and bool(np.isfinite(samples).all())
+                     and float(np.abs(samples).max()) <= 1.0 and rows == SERVE_BATCH
+                     for samples, _, rows, _ in runs)
+            latency_ms, client_ms = (sorted(r[i] for r in runs)[1] for i in (1, 3))
+            res[f"steps{steps}"] = dict(latency_ms=latency_ms, client_ms=client_ms)
+            samples = runs[0][0]
+            log(f"/generate_batch?steps={steps}, {SERVE_BATCH} rows, median of 3: X-Latency-Ms "
+                f"{latency_ms:.2f} ({latency_ms / steps:.2f} ms/step), client {client_ms:.2f} ms, "
+                f"samples {samples.shape} in [{samples.min():.3g}, {samples.max():.3g}] -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"/generate_batch at {steps} steps failed")
+        res["launches_d"], res["launches_a"] = cuda_attention_proj.launches, cuda_attention.launches
+        ok = res["launches_d"] == 24 * calls and res["launches_a"] == 2 * calls
+        log(f"serving main path: {calls} model calls, kernel d launches {res['launches_d']} "
+            f"(expect {24 * calls}), kernel a {res['launches_a']} (expect {2 * calls}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the served requests did not go through the kernels as expected")
+
+        try:
+            import PIL  # noqa: F401
+            have_pil = True
+        except ImportError:
+            have_pil = False
+        if have_pil:
+            from PIL import Image
+
+            from controlnet_tpu_torch.io.images import encode_sample_png
+
+            status, headers, body, _ = _post(f"{base}/generate?steps={SERVE_STEPS[0]}",
+                                             encode_sample_png(hints[0][:, :, :1] * 2 - 1))
+            ok = status == 200 and Image.open(io.BytesIO(body)).size == (28, 28)
+            log(f"/generate?steps={SERVE_STEPS[0]} (PNG in, PNG out): {status}, X-Batch-Rows "
+                f"{headers.get('X-Batch-Rows')} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("/generate failed")
+        else:
+            log("/generate not driven: PIL does not import on this machine "
+                "(/generate_batch needs numpy only)")
+
+        bad = [_post(f"{base}/generate_batch?steps={s}", _npz(hints=hints))[0]
+               for s in (max(SERVE_STEPS) + 1, "abc")]
+        log(f"steps={max(SERVE_STEPS) + 1} and steps=abc answer {bad} (expect [400, 400])")
+        if bad != [400, 400]:
+            raise SystemExit("an out-of-range or unparseable steps was not a 400")
+
+        # the same request to the three servers in turns (on, off, ddim, ddim, off, on)
+        turns = [("on_ms", base), ("off_ms", base_off), ("ddim_ms", base_ddim)]
+        seen: dict = {name: [] for name, _ in turns}
+        for order in (turns, turns[::-1]) * 3:
+            for name, url in order:
+                seen[name].append(batch_request(url, hints, mid)[1])
+        for name, vals in seen.items():
+            vals.sort()
+            res[name] = (vals[2] + vals[3]) / 2
+        log(f"{SERVE_BATCH}-row request at {mid} steps, X-Latency-Ms, median of 6 taken in "
+            f"turns: dpm_controlnet fused layer on {res['on_ms']:.2f} (range {seen['on_ms'][0]:.2f}"
+            f"-{seen['on_ms'][-1]:.2f}), off {res['off_ms']:.2f} ({seen['off_ms'][0]:.2f}-"
+            f"{seen['off_ms'][-1]:.2f}); ddim_controlnet on {res['ddim_ms']:.2f} "
+            f"({seen['ddim_ms'][0]:.2f}-{seen['ddim_ms'][-1]:.2f})")
+
+        res["batched"] = clients(base)
+    with serving(dynamic_batching=False) as (base, _):
+        res["unbatched"] = clients(base)
+    for name in ("batched", "unbatched"):
+        r = res[name]
+        log(f"{SERVE_CLIENTS} concurrent one-row clients in another process, steps {mid}, "
+            f"{'dynamic batching' if name == 'batched' else '--no-dynamic-batching'}: "
+            f"{r['requests_per_s']:.3f} requests/s, client p50 {r['p50_ms']:.1f} ms, p99 "
+            f"{r['p99_ms']:.1f} ms, X-Batch-Rows mean {r['mean_rows']:.2f}, max {r['max_rows']}")
+    ok = (res["batched"]["good"] and res["unbatched"]["good"] and res["batched"]["max_rows"] > 1
+          and res["unbatched"]["max_rows"] == 1)
+    if not ok:
+        raise SystemExit("concurrent clients: bad samples, or batching did not behave")
+
+    # a pinned x_T through build_generator: kernels against the plain versions
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x_start = torch.randn((SERVE_BATCH, 1, 28, 28), generator=g, device=device)
+    gen = serve.build_generator(make_args(), config)[0]
+    out_k = gen(hints, None, 4, x_start=x_start)
+    with plain_attention(), plain_attention_proj():
+        out_p = gen(hints, None, 4, x_start=x_start)
+    err = (out_k - out_p).abs().max().item()
+    ok = (out_k.shape == (SERVE_BATCH, 1, 28, 28) and bool(torch.isfinite(out_k).all())
+          and err <= MODEL_TOL[torch.float32])
+    log(f"generate, 4 steps, x_T pinned, batch {SERVE_BATCH}: max abs err kernels vs plain "
+        f"versions {err:.3g} (tol {MODEL_TOL[torch.float32]:g}; samples in [-1, 1]) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the served sample disagrees with the plain versions")
+
+    # device time of one generation, switch on and off: the wall time of a run
+    # without the profiler, then the device time of the same run under it
+    for name, on in (("on", True), ("off", False)):
+        gen = serve.build_generator(make_args(attn_fused_proj=on), config)[0]
+        gen(hints, None, mid, x_start=x_start)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        gen(hints, None, mid, x_start=x_start).cpu()
+        wall_ms = (time.perf_counter() - start) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            gen(hints, None, mid, x_start=x_start)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        dev_ms = sum(_device_ms(e) for e in kernels)
+        d_ms = sum(_device_ms(e) for e in kernels if "attention_proj_kernel" in e.name)
+        a_ms = sum(_device_ms(e) for e in kernels if "attention_fwd_t_kernel" in e.name)
+        res[f"profile_{name}"] = dict(wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms,
+                                      kernels=len(kernels), d_ms=d_ms, a_ms=a_ms)
+        log(f"one {SERVE_BATCH}-row {mid}-step generation, fused layer {name}: {wall_ms:.2f} ms on "
+            f"the host clock; under the profiler {dev_ms:.2f} ms of device time (busy "
+            f"{dev_ms / wall_ms:.3f}), {len(kernels)} kernels, kernel d {d_ms:.3f} ms, kernel a "
+            f"{a_ms:.3f} ms")
+    return res
 
 
 def main() -> int:
@@ -1150,6 +1696,7 @@ def main() -> int:
 
     cn, _ = tool.load_model(config, ckpt)
     shapes = phase_forward(cn, device)
+    fused_launches = phase_mnist_fused_forward(cn, device)
     del cn
     kern = phase_kernels(shapes, device)
     main_path = phase_main_path(config, ckpt, device)
@@ -1165,6 +1712,9 @@ def main() -> int:
     del images
     torch.cuda.empty_cache()
     ldm = phase_ldm(device)
+    proj16 = phase_proj_kernels(MNIST_PROJ_SHAPES, SERVE_BATCH, device, "MNIST forward")
+    proj64 = phase_proj_kernels(MNIST_PROJ_SHAPES, BATCH, device, "MNIST forward")
+    served = phase_serve(config, ckpt, device)
 
     def kernel_entry(name, source, replaces, tots, launches, bf16_launches, per):
         f32, bf16 = tots[torch.float32], tots[torch.bfloat16]
@@ -1211,7 +1761,29 @@ def main() -> int:
     conv_entry["max_rel_err"] = ldm["conv"][torch.float32]["max_rel_err"]
     conv_entry["ldm_launches"] = {f"{mode}_{name}": r["conv_launches"]
                                   for (mode, name), r in ldm["runs"].items()}
-    log(json.dumps({"kernels": [fwd_entry, bwd_entry, conv_entry]}))
+    fwd_entry["serve_launches"] = served["launches_a"]
+    # kernel d: launches of the served requests (24 per model call); times per
+    # MNIST forward at the server's largest bucket, then at batch 64 and per
+    # latent forward at batch 16, each beside the split path's time
+    proj_entry = kernel_entry("attention_proj", "controlnet_tpu_torch/csrc/attention_proj.cu",
+                              "controlnet_tpu/ops/pallas_attention.py:358", proj16,
+                              served["launches_d"], None,
+                              f"MNIST forward at batch {SERVE_BATCH} (24 calls)")
+    keys = ("ms", "plain_ms", "split_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+            "max_rel_err")
+    proj_entry["split_ms"] = proj16[torch.float32]["split_ms"]
+    proj_entry["max_rel_err"] = proj16[torch.float32]["max_rel_err"]
+    proj_entry["bf16"] = {k: proj16[torch.bfloat16][k] for k in keys}
+    # no served run computes in bf16; these are the counts of the one fused
+    # MNIST forward of each dtype at batch 64, read from the counter around it
+    proj_entry["fused_forward_launches"] = fused_launches
+    for name, tots in ((f"batch{BATCH}", proj64), ("ldm", ldm["proj"])):
+        proj_entry[name] = {str(dtype)[6:]: {k: tots[dtype][k] for k in keys}
+                            for dtype in (torch.float32, torch.bfloat16)}
+    proj_entry["served"] = {k: served[k] for k in (
+        *(f"steps{n}" for n in SERVE_STEPS), "on_ms", "off_ms", "ddim_ms", "batched",
+        "unbatched", "profile_on", "profile_off")}
+    log(json.dumps({"kernels": [fwd_entry, bwd_entry, conv_entry, proj_entry]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

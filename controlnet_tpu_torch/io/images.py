@@ -1,7 +1,10 @@
-"""PNG image grids (the port's copy of ``controlnet_tpu/io/images.py``)."""
+"""PNG image grids (the port's copy of ``controlnet_tpu/io/images.py``) and the
+PNG codec of the serve tool's ``/generate`` endpoint.  PIL is imported where
+it is used: not every host of the port has it."""
 
 from __future__ import annotations
 
+import io
 import os
 
 import numpy as np
@@ -30,3 +33,24 @@ def save_image_grid(images: np.ndarray, path: str, nrow: int = 8) -> None:
     if grid.shape[-1] == 1:
         grid = grid[:, :, 0]
     Image.fromarray(grid).save(path)
+
+
+def decode_hint_png(raw: bytes, im_size: int, hint_channels: int) -> np.ndarray:
+    """PNG (or any format PIL reads) bytes -> one (1, im_size, im_size,
+    hint_channels) float32 hint in [0, 1]: converted to grayscale, resized,
+    repeated over the hint channels."""
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(raw)).convert("L").resize((im_size, im_size))
+    hint = np.asarray(img, np.float32) / 255.0
+    return np.repeat(hint[None, :, :, None], hint_channels, axis=-1)
+
+
+def encode_sample_png(sample: np.ndarray) -> bytes:
+    """One (H, W, C) sample in [-1, 1] -> PNG bytes (grayscale when C is 1)."""
+    from PIL import Image
+
+    out8 = (np.clip((sample + 1.0) / 2.0, 0, 1) * 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(out8[:, :, 0] if out8.shape[-1] == 1 else out8).save(buf, format="PNG")
+    return buf.getvalue()

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from controlnet_tpu_torch.ops import attention as attention_ops
-from controlnet_tpu_torch.ops import tl_conv
+from controlnet_tpu_torch.ops import cuda_attention_proj, tl_conv
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -154,7 +154,15 @@ class MultiheadAttention(nn.Module):
     The projection writes q|k|v straight into the transposed (B, D, L)
     layout that the attention kernel reads; q, k and v are slices of one
     (B, 3D, L) tensor, passed on without a copy.  Cross attention takes
-    ``kv_in`` of width D (the blocks project the context to D first)."""
+    ``kv_in`` of width D (the blocks project the context to D first).
+
+    With ``fused_proj`` on (off by default; ``set_attn_fused_proj`` sets it
+    below a model), a self-attention call whose shape
+    ``cuda_attention_proj.fused_proj_supported`` takes runs as one kernel,
+    projections included (forward only: the sampling and serving paths);
+    every other call takes the split path."""
+
+    fused_proj = False
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -172,6 +180,11 @@ class MultiheadAttention(nn.Module):
         dt = q_in.dtype
         d = self.embed_dim
         w = self.in_proj_weight.to(dt)
+        if (kv_in is None and self.fused_proj and cuda_attention_proj.fused_proj_supported(
+                q_in.shape[1], q_in.shape[2], d, self.num_heads, dt)):
+            return cuda_attention_proj.fused_attention_proj(
+                q_in, w, self.in_proj_bias.to(dt), self.out_proj.weight.to(dt),
+                self.out_proj.bias.to(dt), self.num_heads)
         bias = self.in_proj_bias.to(dt)[:, None]
         if kv_in is None:
             # (3D, C) @ (B, C, L) -> (B, 3D, L), contiguous
@@ -185,3 +198,11 @@ class MultiheadAttention(nn.Module):
         out_t = attention_ops.multi_head_attention_t(qt, kt, vt, self.num_heads)
         out = torch.matmul(self.out_proj.weight.to(dt), out_t) + self.out_proj.bias.to(dt)[:, None]
         return out.transpose(1, 2)  # (B, L, C)
+
+
+def set_attn_fused_proj(module: nn.Module, on: bool) -> None:
+    """Switch the fused projection + attention layer on or off for every
+    ``MultiheadAttention`` below ``module``."""
+    for m in module.modules():
+        if isinstance(m, MultiheadAttention):
+            m.fused_proj = bool(on)

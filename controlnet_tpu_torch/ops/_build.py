@@ -108,8 +108,12 @@ def load() -> ctypes.CDLL:
             # strides of x, (dtype, channel groups), stream
             lib.controlnet_conv3x3_tl.argtypes = (
                 [ptr] * 4 + [i32] * 5 + [i64] * 2 + [i32] * 2 + [ptr])
+            # (x, in_w, in_b, out_w, out_b, y), (batch, l, c, d, heads), (batch,
+            # row, channel) strides of x and of y, (dtype, rows per block), stream
+            lib.controlnet_attention_proj.argtypes = (
+                [ptr] * 6 + [i32] * 5 + [i64] * 6 + [i32] * 2 + [ptr])
             for fn in (lib.controlnet_attention_fwd_t, lib.controlnet_attention_bwd_t,
-                       lib.controlnet_conv3x3_tl):
+                       lib.controlnet_conv3x3_tl, lib.controlnet_attention_proj):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -12,7 +12,7 @@ written as PNGs.
 
     python -m controlnet_tpu_torch.tools.sample_ddpm_controlnet \\
         --config config/mnist.yaml --hints hints.npy [--ckpt path.pth] \\
-        [--sampler dpm --sampler_steps 20] [--cfg_scale 2.0]
+        [--sampler dpm --sampler_steps 20] [--cfg_scale 2.0] [--attn_fused_proj]
 
 Runs on the card; ``--device cpu`` runs it on the CPU.
 """
@@ -31,6 +31,7 @@ from controlnet_tpu_torch import config as cfg
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
 from controlnet_tpu_torch.models.controlnet import ControlNet
+from controlnet_tpu_torch.nn.layers import set_attn_fused_proj
 from controlnet_tpu_torch.sample.cfg import null_hint_features
 from controlnet_tpu_torch.schedules.linear import LinearSchedule, make_linear_schedule
 
@@ -104,6 +105,9 @@ def main(argv=None) -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--compute_dtype", choices=sorted(COMPUTE_DTYPES), default="float32")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--attn_fused_proj", action="store_true",
+                        help="run each self-attention layer the fused kernel takes as one "
+                             "launch, projections included (off by default)")
     cli.add_sampler_args(parser)
     cli.add_cfg_args(parser)
     args = parser.parse_args(argv)
@@ -115,6 +119,7 @@ def main(argv=None) -> None:
     task_name = train_config["task_name"]
     ckpt = args.ckpt or os.path.join(task_name, train_config["controlnet_ckpt_name"])
     cn, sched = load_model(config, ckpt, args.device)
+    set_attn_fused_proj(cn, args.attn_fused_proj)
 
     num_samples = args.num_samples or train_config["num_samples"]
     nrow = train_config["num_grid_rows"]

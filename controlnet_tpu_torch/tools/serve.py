@@ -1,0 +1,448 @@
+"""HTTP serving of the few-step ControlNet teacher.
+
+Counterpart of the JAX package's ``tools/serve.py`` for its
+``ddim_controlnet`` / ``dpm_controlnet`` models: the (non-distilled) DDPM
+ControlNet checkpoint sampled with a few-step solver, ``?steps=`` model
+evaluations per image.  The distilled students are not served yet.
+
+    python -m controlnet_tpu_torch.tools.serve --config config/mnist.yaml \\
+        --model dpm_controlnet [--ckpt path.pth] [--attn_fused_proj] --port 8000
+
+Endpoints (the JAX server's contract):
+  GET  /healthz             -> {"status": "ok", "model": ..., "warm": true,
+                               "max_batch": ..., "max_steps": ...,
+                               "batch_window_ms": ...}
+  POST /generate[?steps=N]  -> body: hint PNG bytes (grayscale or RGB, resized
+                               to im_size); response: sample PNG.
+  POST /generate_batch[?steps=N] -> body: npz with array "hints"
+                               (B, im_size, im_size, hint_channels) float32;
+                               response: npz with "samples" (B, H, W, C).
+Both POSTs answer with the headers X-Latency-Ms (host clock around the
+generation, the copy of the samples back to the host included, so the device
+has finished) and X-Batch-Rows (rows of the dispatch the request rode in).
+``steps`` defaults to 1; an unparseable or out-of-range value, a bad body or a
+bad shape is a 400; a generation error is a 500 for every member of its batch.
+
+Serving model: a ThreadingHTTPServer, so PNG / npz codec work overlaps across
+requests, and one dispatcher thread that owns the device.  Requests are
+batched dynamically across clients (``_MicroBatcher``) and padded to
+power-of-two buckets up to ``--max-batch``.  Warm-up runs one generation per
+bucket before the server accepts requests; on the card that is where the CUDA
+kernels are built, so no request pays for it.
+
+Runs on the card; ``--device cpu`` runs it on the CPU.  Arrays are NHWC on the
+wire and NCHW inside, permuted at the boundary.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import contextlib
+import io
+import json
+import os
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+import torch
+
+from controlnet_tpu_torch import config as cfg
+from controlnet_tpu_torch.device import resolve_device
+from controlnet_tpu_torch.io import images
+from controlnet_tpu_torch.nn.layers import set_attn_fused_proj
+from controlnet_tpu_torch.tools import sample_ddpm_controlnet as sample_tool
+
+MODELS = ("ddim_controlnet", "dpm_controlnet")
+
+
+def build_generator(args, config):
+    """Load the ControlNet and return ``(generate, im_size, im_channels,
+    hint_channels, steps_cap)``.
+
+    ``generate(hints_nhwc, generator, steps, x_start=None)`` encodes the
+    hints once, runs the ``steps``-step solver of ``args.model`` and clamps to
+    [-1, 1]; it returns a (B, C, H, W) tensor on the model's device.
+    ``x_start`` replaces the x_T drawn from ``generator``.  ``steps_cap`` is
+    the schedule length: a solver walks a subsequence of it."""
+    if args.model not in MODELS:
+        raise ValueError(f"unknown model {args.model!r} (one of {', '.join(MODELS)})")
+    model_config = cfg.model_params(config)
+    train_config = cfg.train_params(config)
+    ckpt = getattr(args, "ckpt", None) or os.path.join(
+        train_config["task_name"], train_config["controlnet_ckpt_name"])
+    cn, sched = sample_tool.load_model(config, ckpt, getattr(args, "device", None))
+    set_attn_fused_proj(cn, getattr(args, "attn_fused_proj", False))
+    solver = args.model.split("_")[0]  # "ddim" | "dpm"
+
+    def generate(hints: np.ndarray, generator: torch.Generator | None, steps: int = 1,
+                 x_start: torch.Tensor | None = None) -> torch.Tensor:
+        with torch.inference_mode():
+            loop, hint_arg, _ = sample_tool.prepare(cn, sched, hints, sampler=solver,
+                                                    sampler_steps=steps)
+            x0, _ = loop(cn, generator, hint_arg, x_start=x_start)
+            # few-step x0 estimates can slightly overshoot the image range
+            return torch.clamp(x0, -1.0, 1.0)
+
+    return (generate, model_config["im_size"], model_config["im_channels"],
+            model_config["hint_channels"], sched.num_timesteps)
+
+
+def _bucket(b: int, max_batch: int) -> int:
+    """Next power of two >= b, capped at max_batch.
+
+    Eager PyTorch does not recompile per shape, but few batch shapes keep
+    cuDNN's algorithm choice stable and are what a later CUDA-graph capture
+    needs.  The cap is exact: with a ``max_batch`` that is no power of two
+    the last bucket is max_batch itself, never the power of two above it, so
+    the operator's memory cap is not exceeded."""
+    n = 1
+    while n < b and n * 2 <= max_batch:
+        n *= 2
+    return n if n >= b else max_batch
+
+
+@dataclass
+class _Request:
+    """One client's generation request, parked until its batch resolves."""
+
+    hints: np.ndarray  # (n, H, W, C)
+    steps: int
+    event: threading.Event = field(default_factory=threading.Event)
+    samples: np.ndarray | None = None
+    latency_ms: float = 0.0
+    batch_rows: int = 0
+    error: Exception | None = None
+    cancelled: bool = False  # submit() timed out; do not spend device time
+
+
+class _MicroBatcher:
+    """Cross-request dynamic batching in front of one device.
+
+    One dispatcher thread pulls requests off a queue and coalesces those
+    with the same ``steps`` value into a single device call of up to
+    ``max_batch`` rows.  Two mechanisms fill batches:
+
+    * backpressure coalescing: while the device executes batch k, arrivals
+      queue up and are drained (without blocking) into batch k+1, which costs
+      idle requests nothing;
+    * an arrival window: after the first request of a batch, up to
+      ``window_ms`` is spent waiting for near-simultaneous requests, so that a
+      burst hitting an idle device still shares one dispatch (0 disables).
+
+    Requests that do not fit the current batch (other steps, or rows past
+    max_batch) are deferred in FIFO order to the next batch.
+    """
+
+    def __init__(self, run_fn, max_batch: int, window_ms: float):
+        self._run = run_fn
+        self._max_batch = max_batch
+        self._window_s = max(0.0, window_ms) / 1000.0
+        self._queue: queue.Queue = queue.Queue()
+        self._pending: collections.deque = collections.deque()
+        self._drain_lock = threading.Lock()
+        self._stop = False
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="serve-microbatcher")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop = True
+        self._thread.join(timeout=5.0)
+        # Fail any still-parked requests instead of leaving their handler
+        # threads (and clients) to sit out the full submit timeout.
+        self._fail_parked()
+
+    def _fail_parked(self) -> None:
+        """Complete every queued / pending request with a shutdown error.
+        Guarded by a lock so that stop() and late submit() calls can both
+        drain without completing a request twice."""
+        with self._drain_lock:
+            leftovers = list(self._pending)
+            self._pending.clear()
+            while True:
+                try:
+                    leftovers.append(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+        for r in leftovers:
+            r.error = RuntimeError("server shutting down")
+            r.event.set()
+
+    def submit(self, hints: np.ndarray, steps: int,
+               timeout: float = 600.0) -> tuple[np.ndarray, float, int]:
+        """Enqueue and block until the batch containing this request ran.
+        Returns (samples, latency_ms, dispatched_batch_rows)."""
+        if self._stop:
+            raise RuntimeError("server shutting down")
+        req = _Request(hints, steps)
+        self._queue.put(req)
+        if self._stop:
+            # stop() may have drained between the check above and the put;
+            # with the dispatcher gone nothing else would ever complete this
+            # request, so drain again and let it fail fast.
+            self._fail_parked()
+        if not req.event.wait(timeout):
+            # Mark it dead so the dispatcher sheds it instead of spending a
+            # device call on a result nobody will read.
+            req.cancelled = True
+            raise TimeoutError("generation timed out in the batching queue")
+        if req.error is not None:
+            raise req.error
+        return req.samples, req.latency_ms, req.batch_rows
+
+    # ---- dispatcher thread ----
+    def _loop(self) -> None:
+        pending = self._pending
+        while not self._stop:
+            if pending:
+                head = pending.popleft()
+            else:
+                try:
+                    head = self._queue.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+            if head.cancelled:
+                continue
+            group, rows = [head], head.hints.shape[0]
+            deferred = []
+            deadline = time.monotonic() + self._window_s
+            while rows < self._max_batch:
+                if pending:
+                    nxt = pending.popleft()
+                else:
+                    remaining = deadline - time.monotonic()
+                    try:
+                        # what is already queued is drained even after the
+                        # window has closed (block=False)
+                        nxt = self._queue.get(block=remaining > 0,
+                                              timeout=max(remaining, 0.0))
+                    except queue.Empty:
+                        break
+                if nxt.cancelled:
+                    continue
+                if (nxt.steps != head.steps
+                        or rows + nxt.hints.shape[0] > self._max_batch):
+                    deferred.append(nxt)
+                    continue
+                group.append(nxt)
+                rows += nxt.hints.shape[0]
+            pending.extendleft(reversed(deferred))
+            self._dispatch(group, rows)
+
+    def _dispatch(self, group: list, rows: int) -> None:
+        try:
+            hints = (group[0].hints if len(group) == 1
+                     else np.concatenate([r.hints for r in group]))
+            samples, latency_ms = self._run(hints, group[0].steps)
+            off = 0
+            for r in group:
+                n = r.hints.shape[0]
+                r.samples = samples[off:off + n]
+                off += n
+                r.latency_ms = latency_ms
+                r.batch_rows = rows
+                r.event.set()
+        except Exception as e:  # surfaced per request as a 500
+            for r in group:
+                r.error = e
+                r.event.set()
+
+
+def _buckets(max_batch: int) -> list[int]:
+    """Every batch size ``_bucket`` can return: the powers of two up to
+    max_batch, and max_batch itself when it is not one."""
+    out, b = [], 1
+    while b <= max_batch:
+        out.append(b)
+        b *= 2
+    if out[-1] != max_batch:
+        out.append(max_batch)
+    return out
+
+
+def make_server(args, config, warm: bool = True) -> ThreadingHTTPServer:
+    """Build the (not yet running) HTTP server; tests drive it in a thread."""
+    device = resolve_device(getattr(args, "device", None))
+    gen, im_size, _, hint_channels, steps_cap = build_generator(args, config)
+    max_batch = getattr(args, "max_batch", 8)
+    # A solver cannot take more steps than the schedule has: the schedule
+    # length caps the operator's --max-steps, and a request above it is a 400.
+    max_steps = min(getattr(args, "max_steps", 8), steps_cap)
+    window_ms = getattr(args, "batch_window_ms", 2.0)
+
+    if warm:
+        warm_gen = torch.Generator(device=device).manual_seed(0)
+        for b in _buckets(max_batch):
+            gen(np.zeros((b, im_size, im_size, hint_channels), np.float32), warm_gen, 1).cpu()
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    def device_scope():
+        return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+    def run(hints: np.ndarray, steps: int) -> tuple[np.ndarray, float]:
+        """Pad to the bucket, generate, unpad.  Only the batcher's dispatcher
+        thread calls this, so the device, the generator and the kernels'
+        launch counters have one user.  Returns (samples NHWC, latency_ms);
+        the copy to the host makes the clock wait for the device."""
+        b = hints.shape[0]
+        nb = _bucket(b, max_batch)
+        if nb != b:
+            hints = np.concatenate(
+                [hints, np.zeros((nb - b,) + hints.shape[1:], hints.dtype)])
+        t0 = time.time()
+        # the current device is per thread, as is the inference mode that
+        # ``gen`` enters: both are set here, in the dispatcher thread
+        with device_scope():
+            out = gen(hints, generator, steps).permute(0, 2, 3, 1).cpu().numpy()
+        latency_ms = (time.time() - t0) * 1000.0
+        return out[:b], latency_ms
+
+    # --no-dynamic-batching: a coalescing cap of 1, every request its own
+    # device call (the control of an A/B, and an operational escape hatch).
+    coalesce_cap = max_batch if getattr(args, "dynamic_batching", True) else 1
+    batcher = _MicroBatcher(run, coalesce_cap, window_ms)
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *a):  # quiet
+            pass
+
+        def _reply(self, code: int, body: bytes, ctype: str, extra: dict | None = None):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in (extra or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _generate(self, hints: np.ndarray, steps: int):
+            """(samples, reply headers), or None after a 500 was sent."""
+            try:
+                samples, latency_ms, rows = batcher.submit(hints, steps)
+            except Exception as e:
+                self._reply(500, f"generation failed: {e}".encode(), "text/plain")
+                return None
+            return samples, {"X-Latency-Ms": f"{latency_ms:.2f}", "X-Batch-Rows": str(rows)}
+
+        def do_GET(self):
+            if self.path.startswith("/healthz"):
+                body = json.dumps({"status": "ok", "model": args.model, "warm": warm,
+                                   "max_batch": max_batch, "max_steps": max_steps,
+                                   "batch_window_ms": window_ms}).encode()
+                self._reply(200, body, "application/json")
+            else:
+                self._reply(404, b"", "text/plain")
+
+        def do_POST(self):
+            # ``steps`` is read from the query string by its exact name (a
+            # substring match would misread e.g. ?num_steps=4).
+            steps = 1
+            qs = parse_qs(urlparse(self.path).query)
+            if "steps" in qs:
+                try:
+                    steps = int(qs["steps"][-1])
+                except ValueError:
+                    self._reply(400, b"steps must be an integer", "text/plain")
+                    return
+                if not 1 <= steps <= max_steps:
+                    self._reply(400, f"steps must be in [1, {max_steps}]".encode(), "text/plain")
+                    return
+            length = int(self.headers.get("Content-Length", 0))
+            raw = self.rfile.read(length)
+
+            if self.path.startswith("/generate_batch"):
+                try:
+                    with np.load(io.BytesIO(raw)) as z:
+                        hints = np.asarray(z["hints"], np.float32)
+                except Exception as e:
+                    self._reply(400, f"bad npz body: {e}".encode(), "text/plain")
+                    return
+                if (hints.ndim != 4 or hints.shape[0] < 1 or hints.shape[0] > max_batch
+                        or hints.shape[1:] != (im_size, im_size, hint_channels)):
+                    self._reply(400, f"bad hints shape {hints.shape}".encode(), "text/plain")
+                    return
+                done = self._generate(hints, steps)
+                if done is None:
+                    return
+                buf = io.BytesIO()
+                np.savez_compressed(buf, samples=done[0])
+                self._reply(200, buf.getvalue(), "application/octet-stream", done[1])
+                return
+
+            if not self.path.startswith("/generate"):
+                self._reply(404, b"", "text/plain")
+                return
+            try:
+                hint = images.decode_hint_png(raw, im_size, hint_channels)
+            except Exception as e:
+                self._reply(400, f"bad image body: {e}".encode(), "text/plain")
+                return
+            done = self._generate(hint, steps)
+            if done is None:
+                return
+            self._reply(200, images.encode_sample_png(done[0][0]), "image/png", done[1])
+
+    class Server(ThreadingHTTPServer):
+        # socketserver's default listen backlog of 5 makes a burst of clients
+        # wait out TCP connection retries (1 s, 3 s, 7 s, ...) before the
+        # batcher ever sees them
+        request_queue_size = 128
+
+        def server_close(self):
+            batcher.stop()
+            super().server_close()
+
+    return Server((args.host, args.port), Handler)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        description="Serve the few-step ControlNet teacher over HTTP (PyTorch port)")
+    parser.add_argument("--config", dest="config_path", default="config/mnist.yaml")
+    parser.add_argument("--model", choices=MODELS, default="dpm_controlnet",
+                        help="few-step sampling from the ControlNet checkpoint; ?steps= is the "
+                             "solver's step count (dpm is second-order: matched quality at "
+                             "roughly half the DDIM steps; raise --max-steps for "
+                             "quality-critical serving)")
+    parser.add_argument("--ckpt", default=None,
+                        help="reference-format .pth (default: <task_name>/<controlnet_ckpt_name>)")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--attn_fused_proj", action="store_true",
+                        help="run each self-attention layer the fused kernel takes as one "
+                             "launch, projections included (off by default)")
+    parser.add_argument("--max-batch", dest="max_batch", type=int, default=16,
+                        help="largest batch bucket")
+    parser.add_argument("--max-steps", dest="max_steps", type=int, default=8,
+                        help="largest allowed ?steps= value (capped at the schedule length)")
+    parser.add_argument("--no-dynamic-batching", dest="dynamic_batching", action="store_false",
+                        help="one request per device call (the control of an A/B)")
+    parser.add_argument("--batch-window-ms", dest="batch_window_ms", type=float, default=2.0,
+                        help="arrival window of the cross-request batching: after the first "
+                             "request of a batch, wait up to this long for more before "
+                             "dispatching (0 disables; coalescing while the device is busy "
+                             "always happens)")
+    args = parser.parse_args(argv)
+
+    config = cfg.load_config(args.config_path)
+    server = make_server(args, config)
+    print(f"warm; serving {args.model} on {args.host}:{server.server_address[1]}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

@@ -27,14 +27,16 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "cli", "data.datasets", "utils.diffusion_utils", "tools.train_ddpm",
                  "tools.train_ddpm_controlnet", "tools.sample_ddpm_controlnet",
                  "ops.cuda_conv", "ops.tl_conv", "models.vae", "sample.ddim", "sample.dpm",
-                 "sample.cfg", "tools.sample_ldm_controlnet"):
+                 "sample.cfg", "tools.sample_ldm_controlnet", "ops.cuda_attention_proj",
+                 "tools.serve"):
         assert f"controlnet_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
-        "             or m == 'controlnet_tpu' or m.startswith('controlnet_tpu.'))\n"
+        "             or m == 'controlnet_tpu' or m.startswith('controlnet_tpu.')\n"
+        "             or m == 'tools' or m.startswith('tools.'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -55,7 +57,9 @@ def test_port_sources_name_no_jax():
                 if s.startswith(("import ", "from ")):
                     words = s.replace(",", " ").split()
                     assert "jax" not in words and "controlnet_tpu" not in words, (src, s)
-                    assert not any(w.startswith(("jax.", "controlnet_tpu.")) for w in words), (src, s)
+                    assert "tools" not in words, (src, s)  # the root tools package imports JAX
+                    assert not any(w.startswith(("jax.", "controlnet_tpu.", "tools."))
+                                   for w in words), (src, s)
 
 
 def test_entry_points_without_device_raise_on_cuda_less_host(monkeypatch):
@@ -130,9 +134,43 @@ def test_trainer_entry_points_raise_on_cuda_less_host(monkeypatch):
             call()
 
 
+def test_serve_entry_point_raises_on_cuda_less_host(monkeypatch):
+    """The serve tool runs on the card unless --device cpu is passed."""
+    import types
+
+    from controlnet_tpu_torch.tools import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = os.path.join(REPO, "config", "mnist.yaml")
+    args = types.SimpleNamespace(model="dpm_controlnet", host="127.0.0.1", port=0, seed=0,
+                                 ckpt="unused.pth", device=None)
+    for call in (lambda: serve.main(["--config", config, "--ckpt", "unused.pth", "--port", "0"]),
+                 lambda: serve.make_server(args, serve.cfg.load_config(config)),
+                 lambda: serve.build_generator(args, serve.cfg.load_config(config))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_fused_proj_wrapper_launches_or_raises_off_the_cpu(monkeypatch):
+    """A CUDA tensor inside the kernel's rule goes to the launcher, never to
+    the plain version; the launcher refuses a layout it cannot read."""
+    from controlnet_tpu_torch.ops import cuda_attention_proj as proj
+
+    monkeypatch.setattr(proj, "fused_attention_proj_plain", lambda *a: pytest.fail("fell back"))
+    x = torch.zeros(2, 4, 16, 2, device="meta")[..., 0]  # rows and channels both strided
+    params = [torch.zeros(s, device="meta") for s in ((48, 16), (48,), (16, 16), (16,))]
+    with pytest.raises(ValueError, match="contiguous rows"):
+        proj._launch(x, *params, 2)
+    with pytest.raises(ValueError, match="does not take"):
+        proj._launch(torch.zeros(2, 4, 16, device="meta"), *params, 4)  # head dim 4
+    with pytest.raises(ValueError, match="must be contiguous"):
+        proj._launch(torch.zeros(2, 4, 16, device="meta"), params[0].t().contiguous().t(),
+                     *params[1:], 2)
+
+
 def test_kernel_library_is_not_built_on_import():
     from controlnet_tpu_torch.ops import _build
 
     assert _build._lib is None
     assert [p.name for p in _build.sources()] == ["attention_bwd.cu", "attention_fwd.cu",
-                                                  "conv3x3_tl.cu"]
+                                                  "attention_proj.cu", "conv3x3_tl.cu"]
