@@ -7,7 +7,10 @@
 Phases (each one that fails makes the script exit non-zero):
 
 1. Print the card (``nvidia-smi`` name and power limit) and build the CUDA
-   kernels from the sources in this checkout (``build/kernels/``).
+   kernels from the sources in this checkout (``build/kernels/``); count the
+   tensor-core instructions (HMMA) of each kernel in ``cuobjdump -sass`` of
+   the library: every bfloat16 instantiation of kernels a and d must have
+   some, and no float32 one any (float32 means float32, no TF32).
 2. Full-width MNIST ControlNet forward at batch 64 with weights from a
    seeded reference-format ``.pth``: through the kernel against the same
    model with the attention's plain version, f32 and bf16.  The kernel's
@@ -74,7 +77,9 @@ Phases (each one that fails makes the script exit non-zero):
    bf16; CUDA-event times of the kernel, the plain version, the split path
    the port runs with the switch off (projection, attention kernel,
    projection) and ``F.multi_head_attention_forward`` (a yardstick the port
-   never calls), beside the least time the card could take.
+   never calls), beside the least time the card could take; the launch plan
+   (rows, cluster, shared memory, clusters the card holds at once) and the
+   kernel's clock cycles a block by phase.
 16. The serving main path: the serve tool's ``make_server`` on a free port,
    ``dpm_controlnet`` from the seeded ``.pth``, buckets up to 16, up to 20
    steps, switch on.  ``/healthz``; ``/generate_batch`` of 16 rows at 4, 10
@@ -255,6 +260,51 @@ def record_proj_shapes(into: list):
         yield
     finally:
         cuda_attention_proj.fused_attention_proj = orig
+
+
+# (label, a part of the kernel's mangled name, whether its template type is
+# bf16: True / False / None for either) -> cuobjdump's functions of the kernel
+SASS_KERNELS = (
+    ("a bf16 (attention_fwd_bf16.cu)", "attention_fwd_bf16_kernel", None),
+    ("a f32 (attention_fwd.cu)", "attention_fwd_t_kernel", None),
+    ("b (attention_bwd.cu)", "attention_bwd", None),
+    ("c (conv3x3_tl.cu)", "conv3x3", None),
+    ("d bf16 (attention_proj.cuh)", "attention_proj_kernel", True),
+    ("d f32 (attention_proj.cuh)", "attention_proj_kernel", False),
+)
+
+
+def phase_sass(lib_path: str, nvcc: str) -> dict:
+    """HMMA instructions per kernel in the built library's SASS: every bf16
+    instantiation of kernels a and d runs its products on the tensor cores,
+    and no float32 instantiation does."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    funcs: dict = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = 0
+        elif name is not None and "HMMA" in line:
+            funcs[name] += 1
+    counts = {}
+    for label, key, bf16 in SASS_KERNELS:
+        mine = [n for n in funcs
+                if key in n and (bf16 is None or ("__nv_bfloat16" in n) == bf16)]
+        hmma = [funcs[n] for n in mine]
+        counts[label] = dict(instantiations=len(mine), hmma=sum(hmma),
+                             min_hmma=min(hmma) if hmma else 0)
+        log(f"SASS {label}: {len(mine)} instantiations, HMMA {sum(hmma)} in all, "
+            f"{min(hmma) if hmma else 0} in the fewest")
+    for label in ("a bf16 (attention_fwd_bf16.cu)", "d bf16 (attention_proj.cuh)"):
+        if counts[label]["instantiations"] == 0 or counts[label]["min_hmma"] == 0:
+            raise SystemExit(f"kernel {label}: no tensor-core instructions in its SASS")
+    for label in ("a f32 (attention_fwd.cu)", "d f32 (attention_proj.cuh)"):
+        if counts[label]["instantiations"] == 0 or counts[label]["hmma"] != 0:
+            raise SystemExit(f"kernel {label}: missing, or tensor-core instructions in float32")
+    return counts
 
 
 def cuda_time_ms(fn, min_ms: float = 30.0) -> float:
@@ -836,6 +886,11 @@ def phase_train_parity(config: dict, base: dict, images: torch.Tensor, device,
                 mean_diff_lr=mean_diff, cos=cos)
 
 
+def is_kernel_a(name: str) -> bool:
+    """A profiler kernel name of kernel a: its float32 or its bf16 kernel."""
+    return "attention_fwd_t_kernel" in name or "attention_fwd_bf16_kernel" in name
+
+
 def _device_ms(evt) -> float:
     for name in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, name):
@@ -881,7 +936,7 @@ def phase_train_main_path(config: dict, base: dict, images: torch.Tensor, device
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)]
         dev_ms = sum(_device_ms(e) for e in kernels) / PROFILE_STEPS
-        fwd_ms = sum(_device_ms(e) for e in kernels if "attention_fwd_t_kernel" in e.name)
+        fwd_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name))
         bwd_ms = sum(_device_ms(e) for e in kernels if "attention_bwd_" in e.name)
 
         moved = all(not torch.equal(p.detach(), t_before[k]) for k, p in trainable.items())
@@ -1286,6 +1341,7 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
                            - ref.float()).abs().max().item()
                 err_split = (split().transpose(1, 2).float() - ref.float()).abs().max().item()
                 err_lib = (library().transpose(0, 1).float() - ref.float()).abs().max().item()
+                phases = proj.phase_profile(x, *args)
                 ok = (max(err, err_tok) <= PROJ_TOL[dtype] * scale
                       and bool(torch.isfinite(out).all()) and out.shape == x.shape
                       and out.stride() == x.stride())
@@ -1296,18 +1352,25 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
                 lib_ms = cuda_time_ms(library)
             bound_ms, bound_by = proj_bound_ms(batch, l, c, dtype)
             flops = (8.0 * l * c * c + 4.0 * l * l * c) * batch
-            rows = proj.tile_rows(l, c, heads, dtype)
-            # K and V are projected once per query tile: the kernel's projection
-            # flops over the layer's own 8*L*C^2
-            recompute = (4 + 4 * -(-l // rows)) / 8
+            rows, q_tiles, groups, smem = proj.launch_plan(l, c, c, heads, dtype)
+            clusters = proj.max_active_clusters(l, c, c, heads, dtype)
+            # The query tiles partition L, and each block projects K and V for
+            # its own rows only: each key's K and V is projected once per batch
+            # element (the kernel's projection flops over the layer's own
+            # 8*L*C^2, tiles padded to whole rows apart).
+            projections_per_key = 1 if rows * (q_tiles - 1) < l <= rows * q_tiles else q_tiles
+            recompute = (4 + 4 * projections_per_key) / 8
             log(f"attention_proj {str(dtype)[6:]:8s} L {l:4d} C {c:3d} dh {c // heads:2d} B {batch}: "
                 f"err {err:.3g}, on contiguous tokens {err_tok:.3g} (tol {PROJ_TOL[dtype]:g} x "
                 f"max|out| {scale:.3g}) {'ok' if ok else 'FAIL'}; split path vs plain "
                 f"{err_split:.3g}, library vs plain {err_lib:.3g} | kernel {ms:.4f} ms "
                 f"({flops / ms / 1e9:.2f} TFLOP/s of the layer's flops; {rows} rows per block, "
-                f"projection work x{recompute:.1f}), plain "
+                f"cluster {q_tiles} tiles x {groups} head groups, {clusters} clusters at once for "
+                f"{batch}, {smem} B shared, projection "
+                f"work x{recompute:.1f}, padded rows x{rows * q_tiles / l:.2f}), plain "
                 f"{plain_ms:.4f} ms, split path {split_ms:.4f} ms, F.mha {lib_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}) | x{n} per {what}")
+                f"{bound_ms:.4f} ms ({bound_by}) | x{n} per {what} | cycles a block by phase: "
+                + ", ".join(f"{p} {phases[p]:.0f}" for p in proj.PHASES))
             if not ok:
                 raise SystemExit("fused projection + attention kernel disagrees with its "
                                  "plain version")
@@ -1654,7 +1717,7 @@ def phase_serve(config: dict, ckpt: str, device) -> dict:
                    and not getattr(e, "is_user_annotation", False)]
         dev_ms = sum(_device_ms(e) for e in kernels)
         d_ms = sum(_device_ms(e) for e in kernels if "attention_proj_kernel" in e.name)
-        a_ms = sum(_device_ms(e) for e in kernels if "attention_fwd_t_kernel" in e.name)
+        a_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name))
         res[f"profile_{name}"] = dict(wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms,
                                       kernels=len(kernels), d_ms=d_ms, a_ms=a_ms)
         log(f"one {SERVE_BATCH}-row {mid}-step generation, fused layer {name}: {wall_ms:.2f} ms on "
@@ -1687,6 +1750,7 @@ def main() -> int:
     _build.load()
     log(f"kernel build: {time.perf_counter() - start:.2f} s ({_build.LIB_PATH.name} from "
         f"{', '.join(p.name for p in _build.sources())})")
+    sass = phase_sass(str(_build.LIB_PATH), _build._nvcc())
 
     config = mnist_config()
     ckpt = os.path.join(REPO, "build", "smoke", f"mnist_controlnet_seed{SEED}.pth")
@@ -1783,6 +1847,8 @@ def main() -> int:
     proj_entry["served"] = {k: served[k] for k in (
         *(f"steps{n}" for n in SERVE_STEPS), "on_ms", "off_ms", "ddim_ms", "batched",
         "unbatched", "profile_on", "profile_off")}
+    fwd_entry["sass"] = {k: v for k, v in sass.items() if k.startswith("a ")}
+    proj_entry["sass"] = {k: v for k, v in sass.items() if k.startswith("d ")}
     log(json.dumps({"kernels": [fwd_entry, bwd_entry, conv_entry, proj_entry]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

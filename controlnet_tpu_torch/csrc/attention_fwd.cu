@@ -1,19 +1,21 @@
-// Attention forward in the transposed (head_dim, L) layout, for Hopper (sm_90a).
+// Attention forward in the transposed (head_dim, L) layout, for Hopper (sm_90a):
+// the float32 path of kernel a, and the C entry point of both paths.
 //
 // Replaces the TPU kernel `_attn_kernel_t` (controlnet_tpu/ops/pallas_attention.py,
 // reached through `_fused_attention_fwd_impl` and `fused_attention_t`): for every
 // (batch, head) slice, out_t = V_t softmax(Q_t^T K_t / sqrt(dh))^T, with q, k, v
-// and out laid out (B*H, dh, L).  Math in float32, output in the input type
-// (float32 or bfloat16).  Any dh from 1 to 64 and any Lq, Lk (Lq != Lk for
-// cross-attention); the ragged tails of both axes are masked here.
+// and out laid out (B*H, dh, L).  Math in float32, output in the input type.
+// Any dh from 1 to 64 and any Lq, Lk (Lq != Lk for cross-attention); the ragged
+// tails of both axes are masked here.  bfloat16 inputs go to the tensor-core
+// kernel in attention_fwd_bf16.cu; this file keeps float32 on the CUDA cores,
+// where it beats one scaled_dot_product_attention call at every model shape
+// (PERF.md), and TF32 is not float32.
 //
 // What bounds it on this card.  At the MNIST ControlNet shapes (L = 49..784,
 // dh = 4..64) one (batch, head) slice moves 4*dh*L values but does 4*dh*Lq*Lk
 // multiply-adds-and-exps, so the work is operations, not bytes: the scores
-// never leave the SM.  This first version does the products on the CUDA cores
-// in float32 (one thread per query row), so its ceiling is the card's float32
-// rate and the exponential unit, far below the tensor cores' bf16 rate.  Tensor
-// cores (wgmma) and TMA loads are later work.
+// never leave the SM.  In float32 the ceiling is the card's float32 rate
+// (67 TFLOP/s) and the exponential unit.
 //
 // Design.  One block per (batch*head, tile of queries), one thread per query
 // row.  The thread keeps its query row (pre-scaled by log2(e)/sqrt(dh)) and its
@@ -194,10 +196,19 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 
 }  // namespace
 
+// The bfloat16 kernel (attention_fwd_bf16.cu).
+cudaError_t controlnet_attention_fwd_t_bf16(const void* q, const void* k, const void* v, void* o,
+                                            float* lse, int batch, int heads, int dh, int lq,
+                                            int lk, long long q_bs, long long k_bs,
+                                            long long v_bs, int warps, cudaStream_t stream);
+
 // q: (B, H, dh, Lq), k and v: (B, H, dh, Lk), each (dh, L) panel contiguous and
 // batches `*_bstride` elements apart; o: contiguous (B, H, dh, Lq); lse: null or
-// contiguous float32 (B, H, Lq), natural log.
-// dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t (0 on success).
+// contiguous float32 (B, H, Lq), natural log.  dtype 0 float32: `kv_tile` keys
+// per shared-memory tile and `threads` (= query rows) per block; dtype 1
+// bfloat16: `kv_tile` must be 64 (the tensor-core kernel's key tile) and
+// `threads` is 32 per warp of 16 query rows (32..128).  Returns a cudaError_t
+// (0 on success).
 extern "C" int controlnet_attention_fwd_t(
     const void* q, const void* k, const void* v, void* o, void* lse_out, int batch,
     int heads, int dh, int lq, int lk, long long q_bstride, long long k_bstride,
@@ -207,15 +218,14 @@ extern "C" int controlnet_attention_fwd_t(
     return (int)cudaErrorInvalidValue;
   }
   float* lse = static_cast<float*>(lse_out);
-  const int bh = batch * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)dispatch<float>(q, k, v, o, lse, bh, heads, dh, lq, lk, q_bstride,
+    return (int)dispatch<float>(q, k, v, o, lse, batch * heads, heads, dh, lq, lk, q_bstride,
                                 k_bstride, v_bstride, kv_tile, threads, s);
   }
-  if (dtype == 1) {
-    return (int)dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, heads, dh, lq, lk, q_bstride,
-                                        k_bstride, v_bstride, kv_tile, threads, s);
+  if (dtype == 1 && kv_tile == 64) {
+    return (int)controlnet_attention_fwd_t_bf16(q, k, v, o, lse, batch, heads, dh, lq, lk,
+                                                q_bstride, k_bstride, v_bstride, threads / 32, s);
   }
   return (int)cudaErrorInvalidValue;
 }

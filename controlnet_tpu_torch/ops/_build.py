@@ -3,9 +3,9 @@
 Every ``*.cu`` source under ``controlnet_tpu_torch/csrc/`` is compiled by
 ``nvcc`` for ``sm_90a`` into an object file (one ``nvcc`` per source, all
 started together), then linked into ``build/kernels/libcontrolnet_kernels.so``
-at the repository root.  The sources have a plain C interface and include no
-PyTorch headers, so a build takes seconds.  The library is rebuilt when any
-source is newer than it.
+at the repository root.  The sources (and the ``*.cuh`` headers they share)
+have a plain C interface and include no PyTorch headers.  The library is
+rebuilt when any source or header is newer than it.
 
 Nothing here runs at import time: this module is imported on hosts with no
 ``nvcc`` (the CPU tests), where only the kernels' plain versions run.
@@ -46,11 +46,15 @@ def _nvcc() -> str:
     return path
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _stale() -> bool:
     if not LIB_PATH.exists():
         return True
     built = LIB_PATH.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in sources())
+    return any(src.stat().st_mtime > built for src in sources() + headers())
 
 
 def _run_all(cmds: list[list[str]]) -> list[str]:
@@ -109,11 +113,17 @@ def load() -> ctypes.CDLL:
             lib.controlnet_conv3x3_tl.argtypes = (
                 [ptr] * 4 + [i32] * 5 + [i64] * 2 + [i32] * 2 + [ptr])
             # (x, in_w, in_b, out_w, out_b, y), (batch, l, c, d, heads), (batch,
-            # row, channel) strides of x and of y, (dtype, rows per block), stream
+            # row, channel) strides of x and of y, (dtype, rows per block,
+            # query tiles, head groups, shared bytes), stream, phase counters
             lib.controlnet_attention_proj.argtypes = (
-                [ptr] * 6 + [i32] * 5 + [i64] * 6 + [i32] * 2 + [ptr])
+                [ptr] * 6 + [i32] * 5 + [i64] * 6 + [i32] * 5 + [ptr] * 2)
+            # (l, c, d, heads, dtype, rows, q_tiles, head_groups, shared
+            # bytes), out: clusters the card holds at once
+            lib.controlnet_attention_proj_clusters.argtypes = (
+                [i32] * 9 + [ctypes.POINTER(ctypes.c_int)])
             for fn in (lib.controlnet_attention_fwd_t, lib.controlnet_attention_bwd_t,
-                       lib.controlnet_conv3x3_tl, lib.controlnet_attention_proj):
+                       lib.controlnet_conv3x3_tl, lib.controlnet_attention_proj,
+                       lib.controlnet_attention_proj_clusters):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -1,6 +1,7 @@
 """Attention in the transposed (head_dim, L) layout and its gradient: the
-wrappers of ``csrc/attention_fwd.cu`` (kernel a) and ``csrc/attention_bwd.cu``
-(kernel b), and their plain PyTorch versions.
+wrappers of ``csrc/attention_fwd.cu`` (kernel a: float32 on the CUDA cores,
+bfloat16 on the tensor cores in ``csrc/attention_fwd_bf16.cu``) and
+``csrc/attention_bwd.cu`` (kernel b), and their plain PyTorch versions.
 
 Counterpart of ``controlnet_tpu/ops/pallas_attention.py``'s
 ``fused_attention_t`` with its custom VJP (``_attn_kernel_t`` forward,
@@ -28,6 +29,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # above 48 KB are allowed (the launcher raises the limit).
 KV_TILE_BYTES = 16 * 1024
 MAX_HEAD_DIM = 64
+# The bf16 kernel (csrc/attention_fwd_bf16.cu, tensor cores): keys per
+# shared-memory tile, double-buffered.
+MMA_KV_TILE = 64
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -56,12 +60,28 @@ def _pow2_dim(dh: int) -> int:
 
 
 def launch_config(dh: int, lq: int, lk: int) -> tuple[int, int]:
-    """(kv_tile, threads): keys staged per shared-memory tile (at most
-    ``KV_TILE_BYTES``), and threads (= query rows) per block."""
+    """(kv_tile, threads) of the float32 kernel: keys staged per
+    shared-memory tile (at most ``KV_TILE_BYTES``), and threads (= query
+    rows) per block."""
     dp = _pow2_dim(dh)
     kv_tile = max(1, min(lk, KV_TILE_BYTES // (2 * dp * 4)))
     threads = 64 if lq <= 64 else 128
     return kv_tile, threads
+
+
+def mma_launch_config(dh: int, lq: int) -> tuple[int, int, int]:
+    """(padded head dim, warps, shared bytes) of the bf16 kernel: dh padded
+    with zeros to a multiple of 16 (the mma's depth); one warp per 16 query
+    rows, up to 4 a block (fewer where Lq is short); the (dh, rows) query tile
+    and two (dh, 64) K and V tiles in bf16, rows padded as ``row_pitch`` in
+    csrc/mma_attention.cuh pads them."""
+    dp = (dh + 15) // 16 * 16
+    warps = min(4, -(-lq // 16))
+
+    def pitch(k: int) -> int:  # k bf16 values plus padding to an odd count of 16 bytes
+        return k + 8 * (1 if (k // 8) % 2 == 0 else 2)
+
+    return dp, warps, 2 * dp * (pitch(16 * warps) + 4 * pitch(MMA_KV_TILE))
 
 
 def _panel_ok(x: torch.Tensor) -> bool:
@@ -136,7 +156,10 @@ def _launch(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     b, h, dh, lq = qt.shape
     lk = kt.shape[3]
     out = torch.empty((b, h, dh, lq), dtype=qt.dtype, device=qt.device)
-    kv_tile, threads = launch_config(dh, lq, lk)
+    if qt.dtype == torch.bfloat16:
+        kv_tile, threads = MMA_KV_TILE, 32 * mma_launch_config(dh, lq)[1]
+    else:
+        kv_tile, threads = launch_config(dh, lq, lk)
     lib = _build.load()
     with torch.cuda.device(qt.device):
         err = lib.controlnet_attention_fwd_t(

@@ -1,15 +1,24 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels with ptxas's report, then hold the fused
-projection + attention kernel (controlnet_tpu_torch/csrc/attention_proj.cu)
-against its plain version, and time it beside the split path,
-F.multi_head_attention_forward and its bound, at the six MNIST and the seven
-latent self-attention shapes on one CUDA card.
+"""Build the port's CUDA kernels with ptxas's report and count each kernel's
+tensor-core instructions, then hold the fused projection + attention kernel
+(kernel d, controlnet_tpu_torch/csrc/attention_proj.cuh) against its plain
+version, and time it beside the split path, F.multi_head_attention_forward and
+its bound, at the six MNIST and the seven latent self-attention shapes on one
+CUDA card, with the launch plan (rows per block, cluster, shared memory) of
+each shape.
 
-    python3 scripts/port_attention_proj_check.py [--batch 16] [--serve]
+    python3 scripts/port_attention_proj_check.py [--batch 16] [--serve] [--phases] [--attention]
+    python3 scripts/port_attention_proj_check.py --check-only
 
 ``--serve`` also runs the full-width MNIST forward with the fused layer on
-and the serve tool's phase.  The shapes and the checks are chip_smoke.py's;
-this script runs those phases alone, for work on the kernel or the server.
+and the serve tool's phase; ``--phases`` prints kernel d's clock cycles per
+block by phase (``cuda_attention_proj.phase_profile``) at every shape;
+``--attention`` checks and times kernel a (both types) at the MNIST and latent
+shapes beside SDPA.  ``--check-only`` times nothing: it holds kernel d
+against its plain version once at every shape (batch 16 and 64), and kernel a
+(both types, with its saved log-sum-exp) at the MNIST and latent attention
+shapes, which is the quick first call after a change to either kernel.  The
+shapes and the checks are chip_smoke.py's.
 """
 
 import argparse
@@ -25,17 +34,109 @@ import chip_smoke  # noqa: E402
 from controlnet_tpu_torch.ops import _build  # noqa: E402
 
 
+# kernel a's (L, head_dim, calls per forward) on the MNIST (batch 64) and latent
+# (batch 16) forwards, B*H 256 in both
+A_MNIST = ((784, 16, 4), (784, 4, 2), (196, 32, 4), (196, 8, 2), (49, 64, 8), (49, 32, 4),
+           (49, 16, 2))
+A_LATENT = ((1024, 24, 4), (1024, 8, 2), (256, 32, 4), (256, 16, 2), (64, 48, 4), (64, 24, 2),
+            (16, 32, 4))
+A_SHAPES = ([(l, l, dh, 256) for l, dh, _ in A_MNIST + A_LATENT]
+            + [(*chip_smoke.CROSS_SHAPE, 64)])
+
+
+def check_only(device) -> None:
+    """Each kernel once against its plain version at every shape; no timing."""
+    from controlnet_tpu_torch.ops import cuda_attention
+    from controlnet_tpu_torch.ops import cuda_attention_proj as proj
+
+    failed = []
+    for batch, shapes in ((chip_smoke.SERVE_BATCH, chip_smoke.MNIST_PROJ_SHAPES),
+                          (chip_smoke.BATCH, chip_smoke.MNIST_PROJ_SHAPES),
+                          (chip_smoke.LDM_BATCH, chip_smoke.LDM_PROJ_SHAPES)):
+        for l, c, heads, _ in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                xt, *params = chip_smoke.proj_inputs(batch, l, c, dtype, device)
+                x = xt.transpose(1, 2)
+                with torch.inference_mode():
+                    ref = proj.fused_attention_proj_plain(x, *params, heads).float()
+                    errs = [(proj.fused_attention_proj(t, *params, heads).float() - ref)
+                            .abs().max().item() for t in (x, x.contiguous())]
+                torch.cuda.synchronize()
+                scale = ref.abs().max().item()
+                ok = max(errs) <= chip_smoke.PROJ_TOL[dtype] * scale
+                print(f"d {str(dtype)[6:]:8s} B {batch:2d} L {l:4d} C {c:3d} heads {heads}: plan "
+                      f"{proj.launch_plan(l, c, c, heads, dtype)}, rel err {max(errs) / scale:.3g} "
+                      f"(tol {chip_smoke.PROJ_TOL[dtype]:g}) {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    failed.append(("d", batch, l, c, dtype))
+    for lq, lk, dh, bh in A_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
+            q = torch.randn((bh // 4, 4, dh, lq), generator=g, device=device).to(dtype)
+            k, v = (torch.randn((bh // 4, 4, dh, lk), generator=g, device=device).to(dtype)
+                    for _ in range(2))
+            lse = torch.empty((bh // 4, 4, lq), device=device)
+            with torch.inference_mode():
+                out = cuda_attention._launch(q, k, v, lse)
+                ref = cuda_attention.fused_attention_t_plain(q, k, v)
+                s = torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float()) / dh ** 0.5
+                lse_err = (lse - torch.logsumexp(s, -1)).abs().max().item()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = err <= chip_smoke.KERNEL_TOL[dtype] and lse_err <= chip_smoke.LSE_TOL
+            print(f"a {str(dtype)[6:]:8s} Lq {lq:4d} Lk {lk:4d} dh {dh:2d} BH {bh}: err {err:.3g} "
+                  f"(tol {chip_smoke.KERNEL_TOL[dtype]:g}), lse err {lse_err:.3g} (tol "
+                  f"{chip_smoke.LSE_TOL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failed.append(("a", lq, lk, dh, dtype))
+    if failed:
+        raise SystemExit(f"kernels disagree with their plain versions: {failed}")
+
+
+def phases(batch: int, device) -> None:
+    """Kernel d's cycles per block by phase (thread 0's clock64), each shape."""
+    from controlnet_tpu_torch.ops import cuda_attention_proj as proj
+
+    for l, c, heads, _ in chip_smoke.MNIST_PROJ_SHAPES + chip_smoke.LDM_PROJ_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            xt, *params = chip_smoke.proj_inputs(batch, l, c, dtype, device)
+            proj.phase_profile(xt.transpose(1, 2), *params, heads)  # warm
+            prof = proj.phase_profile(xt.transpose(1, 2), *params, heads)
+            total = sum(prof[p] for p in proj.PHASES)
+            print(f"phases d {str(dtype)[6:]:8s} L {l:4d} C {c:3d}: {prof['blocks']} blocks, "
+                  f"{total:.0f} cycles a block: " + ", ".join(
+                      f"{p} {prof[p]:.0f} ({prof[p] / total:.0%})" for p in proj.PHASES),
+                  flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="check and time the fused layer kernel alone")
     parser.add_argument("--batch", type=int, default=chip_smoke.SERVE_BATCH)
     parser.add_argument("--serve", action="store_true",
                         help="also run the fused MNIST forward and the serve phase")
+    parser.add_argument("--check-only", action="store_true",
+                        help="kernels d and a against their plain versions once; no timing")
+    parser.add_argument("--phases", action="store_true",
+                        help="also print kernel d's cycles per block by phase at every shape")
+    parser.add_argument("--attention", action="store_true",
+                        help="also check and time kernel a at the MNIST and latent shapes")
     args = parser.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     print(f"card: {chip_smoke.nvidia_smi_line()}; torch {torch.__version__}", flush=True)
     _build.build(verbose=True)
+    chip_smoke.phase_sass(str(_build.LIB_PATH), _build._nvcc())
+    if args.check_only:
+        check_only(device)
+        return
+    if args.phases:
+        phases(args.batch, device)
+    if args.attention:
+        for what, mix in (("MNIST", A_MNIST), ("latent", A_LATENT)):
+            print(f"kernel a, {what} forward:", flush=True)
+            chip_smoke.phase_kernels([(l, l, dh, 256) for l, dh, n in mix for _ in range(n)],
+                                     device, batch=64 if what == "MNIST" else 16, cross=False)
     chip_smoke.phase_proj_kernels(chip_smoke.MNIST_PROJ_SHAPES, args.batch, device,
                                   "MNIST forward")
     chip_smoke.phase_proj_kernels(chip_smoke.LDM_PROJ_SHAPES, args.batch, device,

@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's CUDA attention kernel at the main-path shapes under a few
-shared-memory key/value tile budgets (controlnet_tpu_torch.ops.cuda_attention
-.KV_TILE_BYTES), f32 and bf16, batch*heads 256.  Needs one CUDA card:
+"""Time the port's float32 CUDA attention kernel (kernel a's float32 path,
+csrc/attention_fwd.cu) at the main-path shapes under a few shared-memory
+key/value tile budgets (controlnet_tpu_torch.ops.cuda_attention
+.KV_TILE_BYTES), batch*heads 256.  The bf16 path runs on the tensor cores with
+a fixed 64-key tile (csrc/attention_fwd_bf16.cu, ``MMA_KV_TILE``) and takes no
+budget; scripts/port_attention_proj_check.py --attention times it.  Needs one
+CUDA card:
 
     python3 scripts/port_attention_tile_sweep.py
 """
@@ -37,18 +41,17 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}")
-    for dtype in (torch.float32, torch.bfloat16):
-        for budget in BUDGETS:
-            cuda_attention.KV_TILE_BYTES = budget
-            total = 0.0
-            parts = []
-            for l, dh, n in SHAPES:
-                q, k, v = (torch.randn(64, 4, dh, l, device="cuda").to(dtype) for _ in range(3))
-                ms = time_ms(lambda: cuda_attention.fused_attention_t(q, k, v))
-                total += n * ms
-                parts.append(f"L{l}/dh{dh} {ms:.4f}")
-            print(f"{str(dtype)[6:]:8s} tile {budget // 1024:3d} KB: per forward {total:.4f} ms | "
-                  + ", ".join(parts), flush=True)
+    for budget in BUDGETS:
+        cuda_attention.KV_TILE_BYTES = budget
+        total = 0.0
+        parts = []
+        for l, dh, n in SHAPES:
+            q, k, v = (torch.randn(64, 4, dh, l, device="cuda") for _ in range(3))
+            ms = time_ms(lambda: cuda_attention.fused_attention_t(q, k, v))
+            total += n * ms
+            parts.append(f"L{l}/dh{dh} {ms:.4f}")
+        print(f"float32 tile {budget // 1024:3d} KB: per forward {total:.4f} ms | "
+              + ", ".join(parts), flush=True)
 
 
 if __name__ == "__main__":

@@ -226,27 +226,30 @@ def test_a_tensor_that_requires_grad_raises(which):
     (49, 48, 48, 4, torch.float32, False),       # head dim 12, no multiple of 8
     (49, 64, 64, 4, torch.float16, False),       # float32 and bfloat16 only
     (49, 64, 64, 3, torch.float32, False),       # heads do not divide D
-    (16, 4096, 4096, 64, torch.float32, False),  # the 32-row output tile does not fit
+    (16, 4096, 4096, 64, torch.float32, False),  # the rows x D head outputs do not fit
 ])
 def test_fused_proj_supported(l, c, d, heads, dtype, ok):
     assert cuda_attention_proj.fused_proj_supported(l, c, d, heads, dtype) is ok
 
 
 @pytest.mark.parametrize("l,c,heads,rows_f32,rows_bf16", [
-    (784, 64, 4, 128, 128), (196, 128, 4, 128, 128), (196, 32, 4, 128, 128),
-    (49, 256, 4, 64, 64), (49, 128, 4, 64, 64), (49, 64, 4, 64, 64),
-    (1024, 384, 16, 64, 128), (1024, 128, 16, 128, 128), (256, 512, 16, 64, 128),
-    (256, 256, 16, 128, 128), (64, 768, 16, 32, 64), (64, 384, 16, 64, 64),
-    (16, 512, 16, 32, 32),
+    (784, 64, 4, 64, 64), (196, 128, 4, 32, 32), (196, 32, 4, 32, 32),
+    (49, 256, 4, 16, 16), (49, 128, 4, 16, 16), (49, 64, 4, 16, 16),
+    (1024, 384, 16, 64, 64), (1024, 128, 16, 64, 64), (256, 512, 16, 32, 32),
+    (256, 256, 16, 32, 32), (64, 768, 16, 16, 16), (64, 384, 16, 16, 16),
+    (16, 512, 16, 16, 16),
 ])
 def test_tile_rows_at_the_model_shapes(l, c, heads, rows_f32, rows_bf16):
-    """Rows per block at the 13 self-attention shapes of the two models: the
-    tallest tile whose shared memory fits one block."""
+    """Rows per block at the 13 self-attention shapes of the two models, as
+    the launch planner picks them: 64 past L = 256, 32 past 64, else 16, so
+    that one batch element's query tiles fit one cluster of at most 16
+    blocks; the plan's shared memory fits one block."""
     for dtype, rows in ((torch.float32, rows_f32), (torch.bfloat16, rows_bf16)):
-        assert cuda_attention_proj.tile_rows(l, c, heads, dtype) == rows
+        got_rows, q_tiles, groups, smem = cuda_attention_proj.launch_plan(l, c, c, heads, dtype)
+        assert got_rows == rows and q_tiles == -(-l // rows)
         itemsize = torch.tensor([], dtype=dtype).element_size()
-        assert (cuda_attention_proj.shared_bytes(rows, c // heads, c, itemsize)
-                <= cuda_attention_proj.MAX_SHARED_BYTES)
+        assert (cuda_attention_proj.shared_bytes(rows, c // heads, c, heads, groups, itemsize)
+                == smem <= cuda_attention_proj.MAX_SHARED_BYTES)
 
 
 def test_wrapper_checks_and_has_no_cpu_fallback(monkeypatch):
