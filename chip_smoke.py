@@ -9,8 +9,8 @@ Phases (each one that fails makes the script exit non-zero):
 1. Print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from the sources in this checkout (``build/kernels/``); count the
    tensor-core instructions (HMMA) of each kernel in ``cuobjdump -sass`` of
-   the library: every bfloat16 instantiation of kernels a and d must have
-   some, and no float32 one any (float32 means float32, no TF32).
+   the library: every bfloat16 instantiation of kernels a, b, c and d must
+   have some, and no float32 one any (float32 means float32, no TF32).
 2. Full-width MNIST ControlNet forward at batch 64 with weights from a
    seeded reference-format ``.pth``: through the kernel against the same
    model with the attention's plain version, f32 and bf16.  The kernel's
@@ -18,9 +18,10 @@ Phases (each one that fails makes the script exit non-zero):
    of that forward are recorded for phase 3.
 3. The attention kernel against its plain version at every main-path shape
    (B*H = 256) and one cross-attention shape, f32 and bf16, with the stated
-   tolerances; CUDA-event times of the kernel, the plain version and
-   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
-   port never calls), beside the least time the card could take.
+   tolerances; device times (``device_time_ms``) of the kernel, the plain
+   version and ``torch.nn.functional.scaled_dot_product_attention`` (a
+   yardstick the port never calls; the backend that ran is printed), beside
+   the least time the card could take.
 4. The main path: the sampling tool's ``sample`` over the 1000-step
    ancestral loop at batch 64, f32 and bf16 compute.  Launch counters are
    set to 0 just before and read just after each run.  A 10-step sample is
@@ -30,11 +31,13 @@ Phases (each one that fails makes the script exit non-zero):
    card on seeded digit-like images): 26 forward and 18 backward kernel
    launches; the backward shapes are recorded for phase 6.
 6. The backward kernel against its plain version at every training shape
-   and the cross shape, f32 and bf16, and the forward kernel's saved
-   log-sum-exp against ``torch.logsumexp``; CUDA-event times of the kernel,
-   the plain version and the backward of ``scaled_dot_product_attention``
-   (a yardstick the port never calls), beside the least time the card
-   could take.
+   and the cross shape, f32 and bf16, its row term D against rowsum(dP o P)
+   from float32 P (beside the rowsum(dO o O) it was formed from before), and
+   the forward kernel's saved log-sum-exp against ``torch.logsumexp``;
+   device times of the kernel, the plain version and the backward of
+   ``scaled_dot_product_attention`` (a yardstick the port never calls; the
+   backend that ran is printed), beside the least time the card could
+   take.
 7. Three training steps through the kernels against the same steps with
    the plain attention forward and backward, from one generator, f32 and
    bf16: losses, first-step gradients and the weights after.
@@ -47,17 +50,19 @@ Phases (each one that fails makes the script exit non-zero):
    epoch over 256 seeded images, each resumed to a second epoch, then the
    sampling tool loads the written ControlNet ``.pth`` for a 10-step sample.
 10. The 3x3 transposed-layout conv kernel against its plain version at the
-   seven shapes of the CelebA-HQ hint encode (1024^2 hints, batch 16), f32
-   and bf16; CUDA-event times of the kernel, the plain version and
-   ``F.conv2d`` (a yardstick the port never calls for these convs), beside
-   the least time the card could take.
+   seven shapes of the CelebA-HQ hint encode (1024^2 hints, batch 16) and
+   one ragged shape (24 -> 40 channels at 30 x 30), f32 and bf16; device
+   times of the kernel (its own share beside the wrapper's casts), the plain
+   version and ``F.conv2d`` (a yardstick the port never calls for these
+   convs), beside the least time the card could take.
 11. The full-width hint encode at batch 16: exactly 7 conv-kernel launches
    per chunk, the kernel route against the NCHW route through ``F.conv2d``,
    and chunked (4 hints at a time) against unchunked.
 12. The full-width latent ControlNet forward (``config/celebhq.yaml``, batch
    16) through the attention kernel against the plain attention, 22 launches
    per forward; then the attention kernel against its plain version at
-   those shapes (B*H = 256; L 1024..16, head dims 8..48).
+   those shapes (B*H = 256; L 1024..16, head dims 8..48), timed as in
+   phase 3.
 13. The latent main path through the sample tool (seeded ``.pth`` weights,
    ``.npy`` hints, batch 16): a 5-step sample with guidance through the kernels
    against the plain versions; then the ancestral loop (cut to a 250-step
@@ -74,10 +79,10 @@ Phases (each one that fails makes the script exit non-zero):
 15. Kernel d against its plain version at the six MNIST shapes (batch 16,
    the server's largest bucket, and batch 64) and the seven latent shapes
    (batch 16), on the channel-major activations the model passes, f32 and
-   bf16; CUDA-event times of the kernel, the plain version, the split path
-   the port runs with the switch off (projection, attention kernel,
-   projection) and ``F.multi_head_attention_forward`` (a yardstick the port
-   never calls), beside the least time the card could take; the launch plan
+   bf16; device times of the kernel, the plain version, the split path the
+   port runs with the switch off (projection, attention kernel, projection)
+   and ``F.multi_head_attention_forward`` (a yardstick the port never
+   calls), beside the least time the card could take; the launch plan
    (rows, cluster, shared memory, clusters the card holds at once) and the
    kernel's clock cycles a block by phase.
 16. The serving main path: the serve tool's ``make_server`` on a free port,
@@ -93,14 +98,20 @@ Phases (each one that fails makes the script exit non-zero):
 17. A ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
-TF32 is off for matmuls and convolutions throughout, so float32 means
-float32.  Exits non-zero, printing no result, without a CUDA device or
+Kernel, plain-version and library times are device time: the profiler's sum
+of the GPU work a call launches (``device_time_ms``), the wrappers' own casts
+included, taken by the timing phases (3, 6, 10, 12, 15) each in a process of
+its own (``in_fresh_process``).  Beside each, the CUDA-event time of a loop of
+calls (``cuda_time_ms``, the yardstick of earlier runs) is printed once more
+for comparison.  TF32 is off for matmuls and convolutions throughout, so float32
+means float32.  Exits non-zero, printing no result, without a CUDA device or
 without the package beside it.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import json
@@ -126,11 +137,12 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 MODEL_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 CROSS_SHAPE = (49, 7, 16)  # (Lq, Lk, head_dim): not on the main path
 # Kernel b against its plain version, relative to max|grad|: float32 sums in
-# another order (measured ~2e-6); bf16 forms D = rowsum(dO o O) from the
-# bf16-rounded output, where the plain version uses float32 P (measured
-# ~8e-3).  The lse that kernel a saves, absolute, natural log (float32 math
-# in both types).
-BWD_KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# another order (measured ~2e-6); in bf16 both compute in float32 from the
+# same bf16 operands (P and dS enter their products as hi + lo, ~2^-17), so a
+# gradient differs where a float32 sum lands on the other side of a bf16
+# rounding boundary: one bf16 ulp, at most 2^-7 = 7.8e-3 of max|grad|.  The
+# lse that kernel a saves, absolute, natural log (float32 math in both types).
+BWD_KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 LSE_TOL = 1e-4
 # Kernel c against its plain version, relative to max|out|: the plain version
 # is a float32 cuDNN convolution, which may sum in Winograd form (float32
@@ -142,9 +154,10 @@ CONV_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
 # rounding boundary rounds the other way in q, k, v, the head outputs or y
 # (one bf16 ulp is 0.8% of a value).
 PROJ_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# The fused layer against the split path inside a whole forward: in bf16 the
-# two round at different places (the split path rounds the probabilities to
-# bf16 before the product with V, the fused layer never does).
+# The fused layer against the split path inside a whole forward: in bf16 both
+# round q|k|v, the head outputs and y, but from float32 sums taken in another
+# order, so a sum near a rounding boundary rounds the other way and the
+# forward's later layers carry it on.
 FUSED_VS_SPLIT_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
 SERVE_BATCH = 16    # the serve tool's default largest bucket
 SERVE_STEPS = (4, 10, 20)
@@ -262,22 +275,26 @@ def record_proj_shapes(into: list):
         cuda_attention_proj.fused_attention_proj = orig
 
 
-# (label, a part of the kernel's mangled name, whether its template type is
-# bf16: True / False / None for either) -> cuobjdump's functions of the kernel
+# (label, parts of the kernel's mangled name ("!part": a part it must not
+# have), whether its template type is bf16: True / False / None for either)
+# -> cuobjdump's functions of the kernel.
+# Every "bf16" label must have HMMA in each instantiation, no "f32" one any.
 SASS_KERNELS = (
-    ("a bf16 (attention_fwd_bf16.cu)", "attention_fwd_bf16_kernel", None),
-    ("a f32 (attention_fwd.cu)", "attention_fwd_t_kernel", None),
-    ("b (attention_bwd.cu)", "attention_bwd", None),
-    ("c (conv3x3_tl.cu)", "conv3x3", None),
-    ("d bf16 (attention_proj.cuh)", "attention_proj_kernel", True),
-    ("d f32 (attention_proj.cuh)", "attention_proj_kernel", False),
+    ("a bf16 (attention_fwd_bf16.cu)", ("attention_fwd_bf16_kernel",), None),
+    ("a f32 (attention_fwd.cu)", ("attention_fwd_t_kernel",), None),
+    ("b bf16 (attention_bwd_bf16.cu)", ("attention_bwd_", "_bf16_kernel"), None),
+    ("b f32 (attention_bwd.cu)", ("attention_bwd_", "!_bf16_kernel"), None),
+    ("c bf16 (conv3x3_tl_bf16.cu)", ("conv3x3_tl_bf16_kernel",), None),
+    ("c f32 (conv3x3_tl.cu)", ("conv3x3_tl_kernel",), None),
+    ("d bf16 (attention_proj.cuh)", ("attention_proj_kernel",), True),
+    ("d f32 (attention_proj.cuh)", ("attention_proj_kernel",), False),
 )
 
 
 def phase_sass(lib_path: str, nvcc: str) -> dict:
     """HMMA instructions per kernel in the built library's SASS: every bf16
-    instantiation of kernels a and d runs its products on the tensor cores,
-    and no float32 instantiation does."""
+    instantiation of kernels a, b, c and d runs its products on the tensor
+    cores, and no float32 instantiation does."""
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
                           timeout=300).stdout
@@ -290,25 +307,30 @@ def phase_sass(lib_path: str, nvcc: str) -> dict:
         elif name is not None and "HMMA" in line:
             funcs[name] += 1
     counts = {}
-    for label, key, bf16 in SASS_KERNELS:
-        mine = [n for n in funcs
-                if key in n and (bf16 is None or ("__nv_bfloat16" in n) == bf16)]
+    for label, parts, bf16 in SASS_KERNELS:
+        mine = [n for n in funcs if all((p[1:] not in n) if p[0] == "!" else (p in n)
+                                        for p in parts)
+                and (bf16 is None or ("__nv_bfloat16" in n) == bf16)]
         hmma = [funcs[n] for n in mine]
         counts[label] = dict(instantiations=len(mine), hmma=sum(hmma),
                              min_hmma=min(hmma) if hmma else 0)
         log(f"SASS {label}: {len(mine)} instantiations, HMMA {sum(hmma)} in all, "
             f"{min(hmma) if hmma else 0} in the fewest")
-    for label in ("a bf16 (attention_fwd_bf16.cu)", "d bf16 (attention_proj.cuh)"):
-        if counts[label]["instantiations"] == 0 or counts[label]["min_hmma"] == 0:
+    for label, c in counts.items():
+        if c["instantiations"] == 0:
+            raise SystemExit(f"kernel {label}: missing from the library")
+        if " bf16 " in label and c["min_hmma"] == 0:
             raise SystemExit(f"kernel {label}: no tensor-core instructions in its SASS")
-    for label in ("a f32 (attention_fwd.cu)", "d f32 (attention_proj.cuh)"):
-        if counts[label]["instantiations"] == 0 or counts[label]["hmma"] != 0:
-            raise SystemExit(f"kernel {label}: missing, or tensor-core instructions in float32")
+        if " f32 " in label and c["hmma"] != 0:
+            raise SystemExit(f"kernel {label}: tensor-core instructions in float32")
     return counts
 
 
 def cuda_time_ms(fn, min_ms: float = 30.0) -> float:
-    """Mean milliseconds per call, CUDA events around a run of calls."""
+    """Mean milliseconds per call, CUDA events around a run of calls: the
+    yardstick of earlier runs, kept beside ``device_time_ms`` for comparison.
+    Where issuing a call on the host takes longer than its device work, it
+    reads host time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -324,6 +346,95 @@ def cuda_time_ms(fn, min_ms: float = 30.0) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_events(prof) -> list:
+    """The device activity of a profiler window (kernels, copies, fills),
+    without the ranges that annotate it (the optimizer's "Optimizer.step#
+    Adam.step" spans its own kernels)."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _device_ms(evt) -> float:
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name)) / 1e3
+    return 0.0
+
+
+# device_time_ms's windows, and the device records in them launched elsewhere
+PROFILER_WINDOWS = {"measurements": 0, "windows": 0, "foreign": 0}
+
+
+def device_time_ms(fn, calls: int = 5, tries: int = 8) -> tuple[float, dict]:
+    """Device time per call: after a warm-up, a torch.profiler window (CPU +
+    CUDA) over ``calls`` calls; the device time of all the GPU work those
+    calls launched (the wrappers' casts and copies included), summed and
+    divided by ``calls``.  Returns (ms, {kernel name: ms per call}).
+
+    Only device records whose launch (a `cuda*` or `cu*` API call, matched
+    by correlation id) lies in the window count: a process that has launched
+    millions of kernels since its first window was seen to report an old
+    window's records in every later one (why the timing phases run in fresh
+    processes).  Even a fresh process now and then loses some of a window's
+    records, so a window counts only when another window of the same calls
+    kept as many, a nonzero multiple of ``calls``.  No agreement in ``tries`` windows fails the run: there is no
+    fallback to events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    counts = []
+    PROFILER_WINDOWS["measurements"] += 1
+    for _ in range(tries):
+        PROFILER_WINDOWS["windows"] += 1
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched = {e.id for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cu")}
+        everything = device_events(prof)
+        events = [e for e in everything if e.id in launched]
+        if len(events) != len(everything):
+            PROFILER_WINDOWS["foreign"] += len(everything) - len(events)
+        if events and len(events) % calls == 0 and len(events) in counts:
+            names: dict = {}
+            for e in events:
+                names[e.name] = names.get(e.name, 0.0) + _device_ms(e) / calls
+            return sum(names.values()), names
+        counts.append(len(events))
+        last = collections.Counter(e.name[:48] for e in everything).most_common(6)
+    raise SystemExit(f"the profiler recorded no consistent device time (device records per "
+                     f"window: {counts}; the last window's, launched there or not: {last})")
+
+
+def time_calls(**fns) -> dict:
+    """For each named call: ``device_time_ms`` under its name, the kernel
+    names of its window under ``<name>_names`` and the CUDA-event time under
+    ``<name>_events``."""
+    out = {}
+    for key, fn in fns.items():
+        out[key], out[f"{key}_names"] = device_time_ms(fn)
+        out[f"{key}_events"] = cuda_time_ms(fn)
+    return out
+
+
+def own_ms(names: dict, *keys: str) -> float:
+    """Device time of the kernels whose names hold one of ``keys``."""
+    return sum(v for k, v in names.items() if any(key in k for key in keys))
+
+
+def sdpa_backend(names: dict) -> str:
+    """Which scaled_dot_product_attention backend ran, from its kernel names."""
+    joined = " ".join(names).lower()
+    for backend, marks in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                           ("efficient", ("fmha", "memeff", "mem_eff"))):
+        if any(m in joined for m in marks):
+            return backend
+    return "math"
 
 
 def attention_bound_ms(bh: int, lq: int, lk: int, dh: int, dtype: torch.dtype) -> tuple[float, str]:
@@ -392,21 +503,28 @@ def record_conv_shapes(into: list):
         tl_conv.conv3x3_tl = orig
 
 
+RAGGED_CONV_SHAPE = (24, 40, 30, 30, LDM_BATCH)  # (Cin, Cout, H, W, B): every edge masked
+
+
 def phase_conv_kernels(shapes: list, device) -> dict:
     """Kernel c against its plain version at every shape of the hint encode
-    (inputs as (C, B, L) views of NCHW tensors, as the encoder passes them),
-    f32 and bf16; CUDA-event times of the kernel, the plain version and
-    ``F.conv2d`` on the contiguous NCHW tensor (the library yardstick, which
-    the port never calls for these convs)."""
+    and RAGGED_CONV_SHAPE (inputs as (C, B, L) views of NCHW tensors, as the
+    encoder passes them), f32 and bf16; device times of the kernel (and of
+    its own launch, without the wrapper's weight cast), the plain version
+    and ``F.conv2d`` on the contiguous NCHW tensor (the library yardstick,
+    which the port never calls for these convs).  The per-encode totals sum
+    ``shapes`` only."""
     import torch.nn.functional as F
 
     from controlnet_tpu_torch.ops import cuda_conv
 
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
+        tot = dict(ms=0.0, own_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
+                   ms_events=0.0, plain_ms_events=0.0, library_ms_events=0.0,
                    ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0)
-        for cin, cout, h, w, b in shapes:
+        for cin, cout, h, w, b in list(shapes) + [RAGGED_CONV_SHAPE]:
+            on_path = (cin, cout, h, w, b) != RAGGED_CONV_SHAPE
             g = torch.Generator(device=device).manual_seed(SEED)
             img = torch.randn((b, cin, h, w), generator=g, device=device).to(dtype)
             bound = 1.0 / (9 * cin) ** 0.5
@@ -423,34 +541,45 @@ def phase_conv_kernels(shapes: list, device) -> dict:
                 ok = (err <= CONV_TOL[dtype] * scale and bool(torch.isfinite(out).all())
                       and out.shape == (cout, b, h * w) and out.is_contiguous())
                 del out
-                ms = cuda_time_ms(lambda: cuda_conv.conv3x3_tl(weight, bias, x, (h, w)))
-                plain_ms = cuda_time_ms(
-                    lambda: cuda_conv.conv3x3_tl_plain(weight, bias, x, (h, w)))
                 wd, bd = weight.to(dtype), bias.to(dtype)
-                lib_ms = cuda_time_ms(lambda: F.conv2d(img, wd, bd, stride=1, padding=1))
+                t = time_calls(
+                    ms=lambda: cuda_conv.conv3x3_tl(weight, bias, x, (h, w)),
+                    plain_ms=lambda: cuda_conv.conv3x3_tl_plain(weight, bias, x, (h, w)),
+                    library_ms=lambda: F.conv2d(img, wd, bd, stride=1, padding=1))
+            own = own_ms(t["ms_names"], "conv3x3_tl_kernel", "conv3x3_tl_bf16_kernel")
             bound_ms, bound_by = conv_bound_ms(cin, cout, b, h * w, dtype)
             flops = 2.0 * 9 * cin * cout * b * h * w
             log(f"conv3x3_tl {str(dtype)[6:]:8s} {cin:3d}->{cout:3d} @{h}x{w} B {b}: "
                 f"err {err:.3g} (tol {CONV_TOL[dtype]:g} x max|out| {scale:.3g}) "
-                f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms "
-                f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
-                f"F.conv2d {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                f"{'ok' if ok else 'FAIL'} | device: kernel {t['ms']:.4f} ms, its own launch "
+                f"{own:.4f} ms ({flops / own / 1e9:.2f} TFLOP/s, {bound_ms / own:.3f} of the "
+                f"bound), plain {t['plain_ms']:.4f} ms, F.conv2d {t['library_ms']:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}) | events: kernel {t['ms_events']:.4f}, plain "
+                f"{t['plain_ms_events']:.4f}, F.conv2d {t['library_ms_events']:.4f} ms"
+                f"{'' if on_path else ' | ragged, off the main path'}")
             if not ok:
                 raise SystemExit("conv kernel disagrees with its plain version")
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
-            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                             ("library_ms", lib_ms), ("flops", flops)):
-                tot[key] += val
+            del img, x
+            if not on_path:
+                continue
+            for key in ("ms", "plain_ms", "library_ms", "ms_events", "plain_ms_events",
+                        "library_ms_events"):
+                tot[key] += t[key]
+            tot["own_ms"] += own
+            tot["bound_ms"] += bound_ms
+            tot["flops"] += flops
             tot["ops_ms"] += bound_ms if bound_by == "operations" else 0.0
             tot["bytes_ms"] += bound_ms if bound_by == "bytes" else 0.0
-            del img, x
         tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
         totals[dtype] = tot
-        log(f"conv3x3_tl {str(dtype)[6:]} per hint encode ({len(shapes)} calls): "
-            f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
-            f"F.conv2d {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
-            f"({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP")
+        log(f"conv3x3_tl {str(dtype)[6:]} per hint encode ({len(shapes)} calls), device: "
+            f"kernel {tot['ms']:.4f} ms (own launches {tot['own_ms']:.4f}), plain "
+            f"{tot['plain_ms']:.4f} ms, F.conv2d {tot['library_ms']:.4f} ms, bound "
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP | "
+            f"events: kernel {tot['ms_events']:.4f}, plain {tot['plain_ms_events']:.4f}, "
+            f"F.conv2d {tot['library_ms_events']:.4f} ms")
     return totals
 
 
@@ -574,9 +703,7 @@ def phase_forward(cn, device) -> list:
 
 def phase_kernels(shapes: list, device, batch: int = BATCH, cross: bool = True) -> dict:
     """Kernel vs plain at every main-path shape (and, with ``cross``, one
-    cross-attention shape), f32 and bf16; timings."""
-    import collections
-
+    cross-attention shape), f32 and bf16; device times, and the SDPA backend."""
     import torch.nn.functional as F
 
     from controlnet_tpu_torch.ops import cuda_attention
@@ -588,7 +715,8 @@ def phase_kernels(shapes: list, device, batch: int = BATCH, cross: bool = True) 
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
-                   ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0)
+                   ms_events=0.0, plain_ms_events=0.0, library_ms_events=0.0,
+                   ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, sdpa_backends=set())
         for lq, lk, dh, bh in cases:
             g = torch.Generator(device=device).manual_seed(SEED)
             q = torch.randn((batch, bh // batch, dh, lq), generator=g, device=device).to(dtype)
@@ -601,31 +729,40 @@ def phase_kernels(shapes: list, device, batch: int = BATCH, cross: bool = True) 
                 err = (out.float() - ref.float()).abs().max().item()
                 ok = err <= KERNEL_TOL[dtype] and bool(torch.isfinite(out).all())
                 qh, kh, vh = (a.transpose(-1, -2).contiguous() for a in (q, k, v))
-                ms = cuda_time_ms(lambda: cuda_attention.fused_attention_t(q, k, v))
-                plain_ms = cuda_time_ms(lambda: cuda_attention.fused_attention_t_plain(q, k, v))
-                lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+                t = time_calls(
+                    ms=lambda: cuda_attention.fused_attention_t(q, k, v),
+                    plain_ms=lambda: cuda_attention.fused_attention_t_plain(q, k, v),
+                    library_ms=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            backend = sdpa_backend(t["library_ms_names"])
             bound_ms, bound_by = attention_bound_ms(bh, lq, lk, dh, dtype)
             n = mix.get((lq, lk, dh, bh), 0)
             where = f"x{n} per forward" if n else "cross-attention, off the main path"
             log(f"attention {str(dtype)[6:]:8s} Lq {lq:4d} Lk {lk:4d} dh {dh:2d} BH {bh}: "
-                f"err {err:.3g} (tol {KERNEL_TOL[dtype]:g}) {'ok' if ok else 'FAIL'} | "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}) | {where}")
+                f"err {err:.3g} (tol {KERNEL_TOL[dtype]:g}) {'ok' if ok else 'FAIL'} | device: "
+                f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa ({backend}) "
+                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | events: kernel "
+                f"{t['ms_events']:.4f}, plain {t['plain_ms_events']:.4f}, sdpa "
+                f"{t['library_ms_events']:.4f} ms | {where}")
             if not ok:
                 raise SystemExit("attention kernel disagrees with its plain version")
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
-            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                             ("library_ms", lib_ms)):
-                tot[key] += n * val
+            tot["sdpa_backends"].add(backend)
+            for key in ("ms", "plain_ms", "library_ms", "ms_events", "plain_ms_events",
+                        "library_ms_events"):
+                tot[key] += n * t[key]
+            tot["bound_ms"] += n * bound_ms
             tot["ops_ms"] += n * (bound_ms if bound_by == "operations" else 0.0)
             tot["bytes_ms"] += n * (bound_ms if bound_by == "bytes" else 0.0)
             tot["flops"] += n * 4.0 * bh * lq * lk * dh
         tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+        tot["sdpa_backends"] = sorted(tot["sdpa_backends"])
         totals[dtype] = tot
-        log(f"attention {str(dtype)[6:]} per forward ({sum(mix.values())} calls): "
-            f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
-            f"sdpa {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
-            f"({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP")
+        log(f"attention {str(dtype)[6:]} per forward ({sum(mix.values())} calls), device: "
+            f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa "
+            f"({'/'.join(tot['sdpa_backends'])}) {tot['library_ms']:.4f} ms, bound "
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP | "
+            f"events: kernel {tot['ms_events']:.4f}, plain {tot['plain_ms_events']:.4f}, sdpa "
+            f"{tot['library_ms_events']:.4f} ms")
     return totals
 
 
@@ -750,9 +887,9 @@ def phase_train_shapes(config: dict, base: dict, images: torch.Tensor, device) -
 def phase_kernels_bwd(shapes: list, device) -> dict:
     """Kernel b (and kernel a's lse) against the plain versions at every
     training shape (q, k, v as slices of one packed projection, as the model
-    passes them) and the cross shape, f32 and bf16; timings."""
-    import collections
-
+    passes them) and the cross shape, f32 and bf16; b's row term D against
+    rowsum(dP o P) from float32 P, beside rowsum(dO o O) over the output (how
+    it was formed before); device times, and the SDPA backend."""
     import torch.nn.functional as F
 
     from controlnet_tpu_torch.ops import cuda_attention
@@ -762,7 +899,9 @@ def phase_kernels_bwd(shapes: list, device) -> dict:
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
-                   ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0, lse_err=0.0)
+                   ms_events=0.0, plain_ms_events=0.0, library_ms_events=0.0,
+                   ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0, lse_err=0.0,
+                   d_err=0.0, d_err_from_o=0.0, sdpa_backends=set())
         for lq, lk, dh, bh in cases:
             heads = bh // BATCH
             g = torch.Generator(device=device).manual_seed(SEED)
@@ -777,51 +916,73 @@ def phase_kernels_bwd(shapes: list, device) -> dict:
                 v = torch.randn((BATCH, heads, dh, lk), generator=g, device=device).to(dtype)
             dout = torch.randn((BATCH, heads, dh, lq), generator=g, device=device).to(dtype)
             lse = torch.empty((BATCH, heads, lq), dtype=torch.float32, device=device)
+            delta = torch.empty((BATCH, heads, lq), dtype=torch.float32, device=device)
             out = cuda_attention._launch(q, k, v, lse)
-            ref_lse = torch.logsumexp(
-                torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float()) / dh ** 0.5, dim=-1)
-            lse_err = (lse - ref_lse).abs().max().item()
-            got = cuda_attention._launch_bwd(q, k, v, out, lse, dout)
+            scores = torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float()) / dh ** 0.5
+            lse_err = (lse - torch.logsumexp(scores, dim=-1)).abs().max().item()
+            got = cuda_attention._launch_bwd(q, k, v, out, lse, dout, delta)
             ref = cuda_attention.fused_attention_t_bwd_plain(q, k, v, dout)
+            # D as the TPU kernel forms it, and as rowsum(dO o O) over the output
+            probs = torch.softmax(scores, dim=-1)
+            del scores
+            d_ref = (torch.einsum("bhdq,bhdk->bhqk", dout.float(), v.float()) * probs).sum(-1)
+            del probs
+            d_max = d_ref.abs().max().item()
+            d_err = (delta - d_ref).abs().max().item() / d_max
+            d_err_o = ((dout.float() * out.float()).sum(2) - d_ref).abs().max().item() / d_max
+            del d_ref
             torch.cuda.synchronize()
             abs_err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
             rel_err = max(((a.float() - r.float()).abs().max() / r.float().abs().max()).item()
                           for a, r in zip(got, ref))
             ok = (rel_err <= BWD_KERNEL_TOL[dtype] and lse_err <= LSE_TOL
                   and all(bool(torch.isfinite(a).all()) for a in got))
-            ms = cuda_time_ms(lambda: cuda_attention._launch_bwd(q, k, v, out, lse, dout))
-            plain_ms = cuda_time_ms(lambda: cuda_attention.fused_attention_t_bwd_plain(q, k, v, dout))
             qh, kh, vh = (a.transpose(-1, -2).contiguous().requires_grad_() for a in (q, k, v))
             sdpa = F.scaled_dot_product_attention(qh, kh, vh)
             gh = dout.transpose(-1, -2).contiguous()
-            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh,
-                                                              retain_graph=True))
+            t = time_calls(
+                ms=lambda: cuda_attention._launch_bwd(q, k, v, out, lse, dout),
+                plain_ms=lambda: cuda_attention.fused_attention_t_bwd_plain(q, k, v, dout),
+                library_ms=lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh,
+                                                       retain_graph=True))
             del sdpa
+            backend = sdpa_backend(t["library_ms_names"])
             bound_ms, bound_by = attention_bwd_bound_ms(bh, lq, lk, dh, dtype)
             n = mix.get((lq, lk, dh, bh), 0)
             where = f"x{n} per step" if n else "cross-attention, off the main path"
             log(f"attention bwd {str(dtype)[6:]:8s} Lq {lq:4d} Lk {lk:4d} dh {dh:2d} BH {bh}: "
                 f"rel err {rel_err:.3g} (tol {BWD_KERNEL_TOL[dtype]:g}), abs {abs_err:.3g}, "
-                f"lse err {lse_err:.3g} (tol {LSE_TOL:g}) {'ok' if ok else 'FAIL'} | "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}) | {where}")
+                f"lse err {lse_err:.3g} (tol {LSE_TOL:g}), D err {d_err:.3g} of max|D| "
+                f"(rowsum(dO o O) {d_err_o:.3g}) {'ok' if ok else 'FAIL'} | device: kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa bwd ({backend}) "
+                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | events: "
+                f"kernel {t['ms_events']:.4f}, plain {t['plain_ms_events']:.4f}, sdpa bwd "
+                f"{t['library_ms_events']:.4f} ms | {where}")
             if not ok:
                 raise SystemExit("attention backward kernel disagrees with its plain version")
             tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
             tot["max_rel_err"] = max(tot["max_rel_err"], rel_err)
             tot["lse_err"] = max(tot["lse_err"], lse_err)
-            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                             ("library_ms", lib_ms)):
-                tot[key] += n * val
+            tot["d_err"] = max(tot["d_err"], d_err)
+            tot["d_err_from_o"] = max(tot["d_err_from_o"], d_err_o)
+            tot["sdpa_backends"].add(backend)
+            for key in ("ms", "plain_ms", "library_ms", "ms_events", "plain_ms_events",
+                        "library_ms_events"):
+                tot[key] += n * t[key]
+            tot["bound_ms"] += n * bound_ms
             tot["ops_ms"] += n * (bound_ms if bound_by == "operations" else 0.0)
             tot["bytes_ms"] += n * (bound_ms if bound_by == "bytes" else 0.0)
             tot["flops"] += n * 10.0 * bh * lq * lk * dh
         tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+        tot["sdpa_backends"] = sorted(tot["sdpa_backends"])
         totals[dtype] = tot
-        log(f"attention bwd {str(dtype)[6:]} per training step ({sum(mix.values())} calls): "
-            f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
-            f"sdpa bwd {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
-            f"({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP")
+        log(f"attention bwd {str(dtype)[6:]} per training step ({sum(mix.values())} calls), "
+            f"device: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa bwd "
+            f"({'/'.join(tot['sdpa_backends'])}) {tot['library_ms']:.4f} ms, bound "
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP; "
+            f"D err {tot['d_err']:.3g} of max|D| (rowsum(dO o O) {tot['d_err_from_o']:.3g}), "
+            f"grad rel err {tot['max_rel_err']:.3g} | events: kernel {tot['ms_events']:.4f}, "
+            f"plain {tot['plain_ms_events']:.4f}, sdpa bwd {tot['library_ms_events']:.4f} ms")
     return totals
 
 
@@ -891,13 +1052,6 @@ def is_kernel_a(name: str) -> bool:
     return "attention_fwd_t_kernel" in name or "attention_fwd_bf16_kernel" in name
 
 
-def _device_ms(evt) -> float:
-    for name in ("device_time_total", "cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name)) / 1e3
-    return 0.0
-
-
 def phase_train_main_path(config: dict, base: dict, images: torch.Tensor, device) -> dict:
     """The training main path: the trainer tool's step at batch 64, full
     width, hints from the port's canny on the card, f32 and bf16.  Counters
@@ -931,10 +1085,7 @@ def phase_train_main_path(config: dict, base: dict, images: torch.Tensor, device
             for batch, hints in data[TRAIN_STEPS:]:
                 step(state, batch, hints, g)
             torch.cuda.synchronize()
-        # device activity without the ranges that annotate it (the optimizer's
-        # "Optimizer.step#Adam.step" spans its own kernels)
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)]
+        kernels = device_events(prof)
         dev_ms = sum(_device_ms(e) for e in kernels) / PROFILE_STEPS
         fwd_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name))
         bwd_ms = sum(_device_ms(e) for e in kernels if "attention_bwd_" in e.name)
@@ -1274,11 +1425,12 @@ def phase_ldm(device) -> dict:
     if conv_shapes != hint_conv_shapes(hints.shape[1], 3, cn.trained_unet.down_channels[0],
                                        cn.down_sample_factor, LDM_BATCH):
         raise SystemExit(f"unexpected conv shapes in the hint encode: {conv_shapes}")
-    kern_conv = phase_conv_kernels(conv_shapes, device)
+    kern_conv = in_fresh_process("phase_conv_kernels", conv_shapes)
     attn_shapes = phase_ldm_forward(cn, hints, device)
-    kern_attn = phase_kernels(attn_shapes, device, batch=LDM_BATCH, cross=False)
+    kern_attn = in_fresh_process("phase_kernels", attn_shapes, batch=LDM_BATCH, cross=False)
     phase_ldm_fused_forward(cn, hints, device)
-    kern_proj = phase_proj_kernels(LDM_PROJ_SHAPES, LDM_BATCH, device, "latent forward")
+    kern_proj = in_fresh_process("phase_proj_kernels", LDM_PROJ_SHAPES, LDM_BATCH,
+                                 what="latent forward")
     runs = phase_ldm_main_path(config, cn, vae, sched, hints_path, device)
     return dict(conv=kern_conv, attn=kern_attn, proj=kern_proj, runs=runs)
 
@@ -1302,7 +1454,8 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
     """Kernel d against its plain version at ``cases`` ((L, C, heads, calls
     per forward)), f32 and bf16, on the (B, L, C) view of channel-major
     activations that the model passes; timings of the kernel, the plain
-    version, the split path and ``F.multi_head_attention_forward``."""
+    version, the split path and ``F.multi_head_attention_forward`` (device
+    time, with the CUDA-event time beside)."""
     import torch.nn.functional as F
 
     from controlnet_tpu_torch.ops import attention as attention_ops
@@ -1311,7 +1464,9 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, split_ms=0.0, flops=0.0,
-                   ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0)
+                   ms_events=0.0, plain_ms_events=0.0, library_ms_events=0.0,
+                   split_ms_events=0.0, ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0,
+                   max_rel_err=0.0)
         for l, c, heads, n in cases:
             xt, in_w, in_b, out_w, out_b = proj_inputs(batch, l, c, dtype, device)
             x = xt.transpose(1, 2)
@@ -1346,10 +1501,10 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
                       and bool(torch.isfinite(out).all()) and out.shape == x.shape
                       and out.stride() == x.stride())
                 del ref
-                ms = cuda_time_ms(lambda: proj.fused_attention_proj(x, *args))
-                plain_ms = cuda_time_ms(lambda: proj.fused_attention_proj_plain(x, *args))
-                split_ms = cuda_time_ms(split)
-                lib_ms = cuda_time_ms(library)
+                t = time_calls(ms=lambda: proj.fused_attention_proj(x, *args),
+                               plain_ms=lambda: proj.fused_attention_proj_plain(x, *args),
+                               split_ms=split, library_ms=library)
+            ms = t["ms"]
             bound_ms, bound_by = proj_bound_ms(batch, l, c, dtype)
             flops = (8.0 * l * c * c + 4.0 * l * l * c) * batch
             rows, q_tiles, groups, smem = proj.launch_plan(l, c, c, heads, dtype)
@@ -1363,31 +1518,38 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
             log(f"attention_proj {str(dtype)[6:]:8s} L {l:4d} C {c:3d} dh {c // heads:2d} B {batch}: "
                 f"err {err:.3g}, on contiguous tokens {err_tok:.3g} (tol {PROJ_TOL[dtype]:g} x "
                 f"max|out| {scale:.3g}) {'ok' if ok else 'FAIL'}; split path vs plain "
-                f"{err_split:.3g}, library vs plain {err_lib:.3g} | kernel {ms:.4f} ms "
+                f"{err_split:.3g}, library vs plain {err_lib:.3g} | device: kernel {ms:.4f} ms "
                 f"({flops / ms / 1e9:.2f} TFLOP/s of the layer's flops; {rows} rows per block, "
                 f"cluster {q_tiles} tiles x {groups} head groups, {clusters} clusters at once for "
                 f"{batch}, {smem} B shared, projection "
                 f"work x{recompute:.1f}, padded rows x{rows * q_tiles / l:.2f}), plain "
-                f"{plain_ms:.4f} ms, split path {split_ms:.4f} ms, F.mha {lib_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}) | x{n} per {what} | cycles a block by phase: "
+                f"{t['plain_ms']:.4f} ms, split path {t['split_ms']:.4f} ms, F.mha "
+                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | events: "
+                f"kernel {t['ms_events']:.4f}, plain {t['plain_ms_events']:.4f}, split path "
+                f"{t['split_ms_events']:.4f}, F.mha {t['library_ms_events']:.4f} ms | x{n} per "
+                f"{what} | cycles a block by phase: "
                 + ", ".join(f"{p} {phases[p]:.0f}" for p in proj.PHASES))
             if not ok:
                 raise SystemExit("fused projection + attention kernel disagrees with its "
                                  "plain version")
             tot["max_abs_err"] = max(tot["max_abs_err"], err, err_tok)
             tot["max_rel_err"] = max(tot["max_rel_err"], max(err, err_tok) / scale)
-            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                             ("library_ms", lib_ms), ("split_ms", split_ms), ("flops", flops)):
-                tot[key] += n * val
+            for key in ("ms", "plain_ms", "library_ms", "split_ms", "ms_events",
+                        "plain_ms_events", "library_ms_events", "split_ms_events"):
+                tot[key] += n * t[key]
+            tot["bound_ms"] += n * bound_ms
+            tot["flops"] += n * flops
             tot["ops_ms"] += n * (bound_ms if bound_by == "operations" else 0.0)
             tot["bytes_ms"] += n * (bound_ms if bound_by == "bytes" else 0.0)
         tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
         totals[dtype] = tot
         log(f"attention_proj {str(dtype)[6:]} per {what} at batch {batch} "
-            f"({sum(n for *_, n in cases)} calls): kernel {tot['ms']:.4f} ms, plain "
+            f"({sum(n for *_, n in cases)} calls), device: kernel {tot['ms']:.4f} ms, plain "
             f"{tot['plain_ms']:.4f} ms, split path {tot['split_ms']:.4f} ms, F.mha "
             f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}), "
-            f"{tot['flops'] / 1e9:.2f} GFLOP")
+            f"{tot['flops'] / 1e9:.2f} GFLOP | events: kernel {tot['ms_events']:.4f}, plain "
+            f"{tot['plain_ms_events']:.4f}, split path {tot['split_ms_events']:.4f}, F.mha "
+            f"{tot['library_ms_events']:.4f} ms")
     return totals
 
 
@@ -1396,8 +1558,6 @@ def phase_fused_forward(cn, x, t, feats32, expect: list, want_a: int, what: str)
     kernel d (one per entry of ``expect``) and of kernel a, against the same
     forward with the switch off and with the plain versions, f32 and bf16.
     Returns kernel d's counted launches of that forward by dtype name."""
-    import collections
-
     from controlnet_tpu_torch.nn.layers import set_attn_fused_proj
     from controlnet_tpu_torch.ops import cuda_attention, cuda_attention_proj
 
@@ -1713,8 +1873,7 @@ def phase_serve(config: dict, ckpt: str, device) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             gen(hints, None, mid, x_start=x_start)
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)]
+        kernels = device_events(prof)
         dev_ms = sum(_device_ms(e) for e in kernels)
         d_ms = sum(_device_ms(e) for e in kernels if "attention_proj_kernel" in e.name)
         a_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name))
@@ -1727,10 +1886,54 @@ def phase_serve(config: dict, ckpt: str, device) -> dict:
     return res
 
 
+# The kernel-timing phases (3, 6, 10, 12 and 15).  Each runs in a process of
+# its own (``in_fresh_process``): on the H100 a process that has launched
+# millions of kernels since its first profiler window loses device records in
+# later windows, often all of a window's own, while a fresh one does not.
+TIMING_PHASES = ("phase_kernels", "phase_kernels_bwd", "phase_conv_kernels",
+                 "phase_proj_kernels")
+
+
+def in_fresh_process(phase: str, *args, **kwargs) -> dict:
+    """Run the timing phase ``phase`` (one of TIMING_PHASES) with JSON-able
+    ``args`` / ``kwargs`` and ``device`` set to the card, in a new Python
+    process on the same card; pass its log lines on and return its totals by
+    dtype.  A failure there fails the run."""
+    spec = json.dumps([phase, args, kwargs])
+    torch.cuda.empty_cache()  # the child allocates its own inputs
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--timing-phase", spec],
+                          stdout=subprocess.PIPE, text=True, timeout=1200, check=False)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0 or not lines:
+        raise SystemExit(f"{phase} failed in its own process (exit code {proc.returncode})")
+    result = json.loads(lines[-1])
+    for key in PROFILER_WINDOWS:
+        PROFILER_WINDOWS[key] += result["profiler_windows"][key]
+    return {getattr(torch, name): tot for name, tot in result["totals"].items()}
+
+
+def timing_phase(spec: str) -> int:
+    """The child side of ``in_fresh_process``: run the phase, print its
+    totals and this process's profiler windows as the last line."""
+    phase, args, kwargs = json.loads(spec)
+    if phase not in TIMING_PHASES:
+        raise SystemExit(f"no timing phase {phase!r}")
+    # shape lists come back from JSON as lists of lists; the phases count them
+    args = [[tuple(x) for x in a] if isinstance(a, list) and a and isinstance(a[0], list) else a
+            for a in args]
+    totals = globals()[phase](*args, device=torch.device(DEVICE), **kwargs)
+    print(json.dumps({"totals": {str(d)[6:]: tot for d, tot in totals.items()},
+                      "profiler_windows": PROFILER_WINDOWS}), flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--verbose-build", action="store_true",
                         help="print nvcc's register and shared-memory report")
+    parser.add_argument("--timing-phase", help=argparse.SUPPRESS)  # set by in_fresh_process
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1741,6 +1944,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.timing_phase:
+        _build.load()
+        return timing_phase(args.timing_phase)
     device = torch.device(DEVICE)
     smi = nvidia_smi_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1762,13 +1968,13 @@ def main() -> int:
     shapes = phase_forward(cn, device)
     fused_launches = phase_mnist_fused_forward(cn, device)
     del cn
-    kern = phase_kernels(shapes, device)
+    kern = in_fresh_process("phase_kernels", shapes)
     main_path = phase_main_path(config, ckpt, device)
 
     base = seeded_unet_state_dict(config)
     images = torch.from_numpy(to_unit(seeded_digits(8 * BATCH)))[:, None].to(device)
     bwd_shapes = phase_train_shapes(config, base, images, device)
-    kern_bwd = phase_kernels_bwd(bwd_shapes, device)
+    kern_bwd = in_fresh_process("phase_kernels_bwd", bwd_shapes)
     for dtype in (torch.float32, torch.bfloat16):
         phase_train_parity(config, base, images, device, dtype)
     train = phase_train_main_path(config, base, images, device)
@@ -1776,24 +1982,29 @@ def main() -> int:
     del images
     torch.cuda.empty_cache()
     ldm = phase_ldm(device)
-    proj16 = phase_proj_kernels(MNIST_PROJ_SHAPES, SERVE_BATCH, device, "MNIST forward")
-    proj64 = phase_proj_kernels(MNIST_PROJ_SHAPES, BATCH, device, "MNIST forward")
+    proj16 = in_fresh_process("phase_proj_kernels", MNIST_PROJ_SHAPES, SERVE_BATCH,
+                              what="MNIST forward")
+    proj64 = in_fresh_process("phase_proj_kernels", MNIST_PROJ_SHAPES, BATCH,
+                              what="MNIST forward")
     served = phase_serve(config, ckpt, device)
 
     def kernel_entry(name, source, replaces, tots, launches, bf16_launches, per):
         f32, bf16 = tots[torch.float32], tots[torch.bfloat16]
+        # the CUDA-event times of the same calls (the yardstick of earlier runs)
+        events = ("ms_events", "plain_ms_events", "library_ms_events")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": f32["max_abs_err"],
             # per ControlNet forward (kernel a) or training step (kernel b): every
-            # call at its main-path shape, f32
+            # call at its main-path shape, f32; device time (device_time_ms)
             "per": per,
             "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+            **{k: f32[k] for k in events},
             "bf16": {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                      "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
                      "library_ms": bf16["library_ms"], "max_abs_err": bf16["max_abs_err"],
-                     "launches": bf16_launches},
+                     "launches": bf16_launches, **{k: bf16[k] for k in events}},
         }
 
     fwd_entry = kernel_entry("attention_fwd_t", "controlnet_tpu_torch/csrc/attention_fwd.cu",
@@ -1817,12 +2028,23 @@ def main() -> int:
                              train["bfloat16"]["bwd_launches"], "training step (18 calls)")
     bwd_entry["max_rel_err"] = kern_bwd[torch.float32]["max_rel_err"]
     bwd_entry["lse_max_abs_err"] = max(t["lse_err"] for t in kern_bwd.values())
+    for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        tot = kern_bwd[dtype]
+        bwd_entry[f"d_err_{key}"] = tot["d_err"]
+        bwd_entry[f"d_err_from_o_{key}"] = tot["d_err_from_o"]
+        bwd_entry[f"sdpa_backends_{key}"] = tot["sdpa_backends"]
+    bwd_entry["bf16"]["max_rel_err"] = kern_bwd[torch.bfloat16]["max_rel_err"]
+    bwd_entry["bf16"]["source"] = "controlnet_tpu_torch/csrc/attention_bwd_bf16.cu"
     conv_entry = kernel_entry("conv3x3_tl", "controlnet_tpu_torch/csrc/conv3x3_tl.cu",
                               "controlnet_tpu/ops/pallas_conv.py:44", ldm["conv"],
                               ldm["runs"][("ancestral", "float32")]["conv_launches"],
                               ldm["runs"][("ancestral", "bfloat16")]["conv_launches"],
                               "hint encode (7 calls)")
     conv_entry["max_rel_err"] = ldm["conv"][torch.float32]["max_rel_err"]
+    conv_entry["bf16"]["max_rel_err"] = ldm["conv"][torch.bfloat16]["max_rel_err"]
+    conv_entry["bf16"]["source"] = "controlnet_tpu_torch/csrc/conv3x3_tl_bf16.cu"
+    conv_entry["own_ms"] = ldm["conv"][torch.float32]["own_ms"]
+    conv_entry["bf16"]["own_ms"] = ldm["conv"][torch.bfloat16]["own_ms"]
     conv_entry["ldm_launches"] = {f"{mode}_{name}": r["conv_launches"]
                                   for (mode, name), r in ldm["runs"].items()}
     fwd_entry["serve_launches"] = served["launches_a"]
@@ -1834,7 +2056,8 @@ def main() -> int:
                               served["launches_d"], None,
                               f"MNIST forward at batch {SERVE_BATCH} (24 calls)")
     keys = ("ms", "plain_ms", "split_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
-            "max_rel_err")
+            "max_rel_err", "ms_events", "plain_ms_events", "split_ms_events",
+            "library_ms_events")
     proj_entry["split_ms"] = proj16[torch.float32]["split_ms"]
     proj_entry["max_rel_err"] = proj16[torch.float32]["max_rel_err"]
     proj_entry["bf16"] = {k: proj16[torch.bfloat16][k] for k in keys}
@@ -1847,8 +2070,13 @@ def main() -> int:
     proj_entry["served"] = {k: served[k] for k in (
         *(f"steps{n}" for n in SERVE_STEPS), "on_ms", "off_ms", "ddim_ms", "batched",
         "unbatched", "profile_on", "profile_off")}
-    fwd_entry["sass"] = {k: v for k, v in sass.items() if k.startswith("a ")}
-    proj_entry["sass"] = {k: v for k, v in sass.items() if k.startswith("d ")}
+    for entry, kernel in ((fwd_entry, "a"), (bwd_entry, "b"), (conv_entry, "c"),
+                          (proj_entry, "d")):
+        entry["sass"] = {k: v for k, v in sass.items() if k.startswith(kernel + " ")}
+    fwd_entry["sdpa_backends"] = {str(d)[6:]: kern[d]["sdpa_backends"] for d in kern}
+    log(f"device_time_ms: {PROFILER_WINDOWS['windows']} profiler windows for "
+        f"{PROFILER_WINDOWS['measurements']} measurements (2 each when no window lost records), "
+        f"{PROFILER_WINDOWS['foreign']} device records left out as launched outside a window")
     log(json.dumps({"kernels": [fwd_entry, bwd_entry, conv_entry, proj_entry]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

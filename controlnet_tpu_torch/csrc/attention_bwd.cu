@@ -6,9 +6,10 @@
 // P = softmax(S) over the keys and dO the output's gradient, it computes
 //     dV = dO P            dP = dO^T V           D = rowsum(dP o P)
 //     dS = P o (dP - D)    dQ = scale K dS^T     dK = scale Q dS
-// all in the (B*H, dh, L) layout, math in float32, gradients in the input type
-// (float32 or bfloat16).  Any dh from 1 to 64 and any Lq, Lk; ragged tails are
-// handled by loop bounds.
+// all in the (B*H, dh, L) layout, math and gradients in float32.  Any dh from 1
+// to 64 and any Lq, Lk; ragged tails are handled by loop bounds.  This file is
+// the float32 path and the C entry point; bfloat16 goes to the tensor-core
+// kernels in attention_bwd_bf16.cu, which form D from float32 P.
 //
 // Differences from the TPU kernel, and why.  The TPU kernel recomputes P with a
 // full (chunk, Lk) score block in VMEM and reduces D = rowsum(dP o P) from it.
@@ -16,15 +17,13 @@
 // row log-sum-exp that the forward kernel saved (attention_fwd.cu, `lse`, natural
 // log units) and rebuilds each probability alone, p = exp(s - lse); and it takes
 // D = rowsum(dO o O), which equals rowsum(dP o P) since O = V P^T (the FlashAttention
-// identity).  With bfloat16 inputs, O and dO are rounded to bfloat16 before D is
-// formed, so D differs from the TPU kernel's by bf16 rounding.
+// identity); in float32 the two differ by float32 rounding only.
 //
 // What bounds it on this card.  A slice moves ~7*dh*L values but does ~10*dh*Lq*Lk
 // operations (the five products the JAX cost estimate counts), so it is bound by
-// operations.  This first version does every product on the CUDA cores in float32
+// operations.  The float32 path does every product on the CUDA cores (no TF32)
 // and recomputes s and dP in both passes below (14*dh*Lq*Lk flops in all), so its
-// ceiling is the card's float32 rate, far below the tensor cores'.  Tensor cores
-// and TMA are later work.
+// ceiling is the card's float32 rate.
 //
 // Design: three kernels, no atomics.
 //   1. rowdot: D[i] = sum_d dO[d, i] O[d, i], one thread per query row.
@@ -47,7 +46,6 @@
 // allocates nothing (the caller passes the D scratch) and returns the first
 // cudaError_t so the caller can raise on a refused launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,9 +55,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // Sum over the SPLIT adjacent lanes that share one row.
 template <int SPLIT>
@@ -341,12 +337,21 @@ cudaError_t dispatch(const BwdArgs& a) {
 
 }  // namespace
 
+cudaError_t controlnet_attention_bwd_t_bf16(const void* q, const void* k, const void* v,
+                                            const void* dout, const float* lse, float* delta,
+                                            void* dq, void* dk, void* dv, int batch, int heads,
+                                            int dh, int lq, int lk, long long q_bs,
+                                            long long k_bs, long long v_bs, int warps_q,
+                                            int warps_k, cudaStream_t stream);
+
 // q: (B, H, dh, Lq), k and v: (B, H, dh, Lk), each (dh, L) panel contiguous and
 // batches `*_bstride` elements apart.  o (the forward's output), dout, dq:
 // contiguous (B, H, dh, Lq); dk, dv: contiguous (B, H, dh, Lk).  lse: the
 // forward's float32 (B, H, Lq) row log-sum-exp, natural log.  delta: float32
-// scratch of (B, H, Lq).  dtype: 0 float32, 1 bfloat16.  threads_q / threads_k:
-// threads per block of the dq / dkv kernels (32..128, a multiple of 32).
+// (B, H, Lq), where D is written.  dtype: 0 float32, 1 bfloat16 (o, kv_tile and
+// q_tile unused: the tensor-core kernels form D from P and tile by 32).
+// threads_q / threads_k: threads per block of the dq / dkv kernels (32..128, a
+// multiple of 32).
 // Returns a cudaError_t (0 on success).
 extern "C" int controlnet_attention_bwd_t(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
@@ -362,6 +367,10 @@ extern "C" int controlnet_attention_bwd_t(
                   dq, dk, dv, batch * heads, heads, dh, lq, lk, (int64_t)q_bstride,
                   (int64_t)k_bstride, (int64_t)v_bstride, kv_tile, q_tile, threads_q, threads_k, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return (int)dispatch<float>(a);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a);
+  if (dtype == 1) {
+    return (int)controlnet_attention_bwd_t_bf16(
+        q, k, v, dout, a.lse, a.delta, dq, dk, dv, batch, heads, dh, lq, lk, q_bstride,
+        k_bstride, v_bstride, threads_q / 32, threads_k / 32, a.stream);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -19,17 +19,20 @@
 // for a short Lq) owns 16 W rows of one (batch, head) slice.  The block
 // stages the query tile once and walks the keys in tiles of 64 through a
 // double buffer in shared memory, filled by cp.async (16-byte chunks where Lq
-// and Lk are multiples of 8 and the panels are 16-byte aligned, element loads
-// otherwise).  The panels keep their (dh, L) layout in shared memory; ldmatrix
+// and Lk are multiples of 8, 4-byte ones where they are even, element loads
+// for an odd L; `load_tile`).  The panels keep their (dh, L) layout in shared memory; ldmatrix
 // .trans turns the Q and K tiles into A and B operands and the plain ldmatrix
 // the V tile into the B operand of P V.  dh is padded with zeros to DP, a
 // multiple of 16 (4 and 8 -> 16, 24 -> 32, 40 -> 48, 56 -> 64).
 //
-// Roundings.  The exponentiated scores are rounded to bf16 before P V, as the
-// plain version rounds the probabilities to the input type (the final
-// division by the row sum comes after the product here).  The row sum, and
-// the saved log-sum-exp, are summed from the float32 values.  The output is
-// staged through shared memory in the (dh, Lq) layout and stored coalesced.
+// Roundings.  The TPU kernel contracts float32 P with V upcast to float32,
+// so P is not rounded to bf16 before P V: each exponentiated score enters the
+// product as bf16 hi + lo (hi = bf16(p), lo = bf16(p - hi)), two mma per
+// step, which keeps ~16 bits of p (relative error ~2^-17) at twice the P V
+// mma work (1.5x the kernel's products).  The division by the row sum comes
+// after the product.  The row sum, and the saved log-sum-exp, are summed from
+// the float32 values.  The output is staged through shared memory in the
+// (dh, Lq) layout and stored coalesced.
 
 #include "mma_attention.cuh"
 
@@ -49,31 +52,8 @@ struct Panels {
   int heads, dh, lq, lk;
   int64_t q_bs, k_bs, v_bs;
   float scale_log2;
-  int vec;  // 16-byte cp.async loads are allowed
+  int vec;  // values a load_tile copy moves (8, 2 or 1)
 };
-
-// rows [0, DP) x columns [col0, col0 + ncols) of a (dh, L) panel into dst
-// (row pitch `pitch`); rows >= dh and columns >= L are zeros.
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, int pitch, const bf16* src, int L, int dh,
-                                          int col0, int ncols, bool vec) {
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  if (vec) {
-    const int chunks = ncols / 8;
-    for (int idx = tid; idx < DP * chunks; idx += nthreads) {
-      const int d = idx / chunks, c = idx - (idx / chunks) * chunks;
-      const int col = col0 + 8 * c;
-      const bool ok = d < dh && col < L;  // L % 8 == 0: a chunk is all in or all out
-      cp_async16(dst + d * pitch + 8 * c, ok ? src + (int64_t)d * L + col : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int idx = tid; idx < DP * ncols; idx += nthreads) {
-      const int d = idx / ncols, c = idx - (idx / ncols) * ncols;
-      const int col = col0 + c;
-      dst[d * pitch + c] = (d < dh && col < L) ? src[(int64_t)d * L + col] : __float2bfloat16(0.f);
-    }
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(128) attention_fwd_bf16_kernel(Panels a) {
@@ -95,7 +75,7 @@ __global__ void __launch_bounds__(128) attention_fwd_bf16_kernel(Panels a) {
   const bf16* qp = a.q + b * a.q_bs + (int64_t)h * a.dh * a.lq;
   const bf16* kp = a.k + b * a.k_bs + (int64_t)h * a.dh * a.lk;
   const bf16* vp = a.v + b * a.v_bs + (int64_t)h * a.dh * a.lk;
-  const bool vec = a.vec != 0;
+  const int vec = a.vec;
 
   load_tile<DP>(qs, q_pitch, qp, a.lq, a.dh, q0, rows, vec);
   load_tile<DP>(kv, kPitch, kp, a.lk, a.dh, 0, kKeys, vec);
@@ -143,7 +123,7 @@ __global__ void __launch_bounds__(128) attention_fwd_bf16_kernel(Panels a) {
       }
     }
     online_softmax<NS, NDT>(s, kt * kKeys, a.lk, a.scale_log2, m, l, o, lane);
-    pv_mma<NS, NDT, false, false>(s, vs, kPitch, o, lane);
+    pv_mma<NS, NDT, false>(s, vs, kPitch, o, lane);
     __syncthreads();  // this buffer is refilled two tiles on
   }
 
@@ -217,9 +197,9 @@ cudaError_t controlnet_attention_fwd_t_bf16(const void* q, const void* k, const 
   p.k_bs = k_bs;
   p.v_bs = v_bs;
   p.scale_log2 = 1.4426950408889634f / sqrtf((float)dh);
-  const auto aligned = [](const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; };
-  p.vec = lq % 8 == 0 && lk % 8 == 0 && q_bs % 8 == 0 && k_bs % 8 == 0 && v_bs % 8 == 0 &&
-          aligned(q) && aligned(k) && aligned(v);
+  p.vec = tile_copy_width(lq, lk, q_bs, k_bs, v_bs,
+                          reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                              reinterpret_cast<uintptr_t>(v));
   const int bh = batch * heads;
   if (dh <= 16) return launch<16>(p, bh, warps, stream);
   if (dh <= 32) return launch<32>(p, bh, warps, stream);

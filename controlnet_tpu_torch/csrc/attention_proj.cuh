@@ -580,7 +580,7 @@ __global__ void __launch_bounds__(kThreads) attention_proj_kernel(const Args<T> 
         }
         online_softmax<NS, NDT>(s, j * R, a.L, a.scale_log2, m, l, o, lane);
         if constexpr (kBf16) {
-          pv_mma<NS, NDT, true, true>(s, vs, PV, o, lane);
+          pv_mma<NS, NDT, true>(s, vs, PV, o, lane);
         } else {
           pv_ffma<NS, NDT>(s, vs, PV, o, lane);
         }

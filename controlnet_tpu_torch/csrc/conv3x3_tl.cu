@@ -8,17 +8,16 @@
 //
 // with zeros outside the image, L = H*W flattened row-major, the weights in
 // the TPU kernel's flat (Cout, 9*Cin) tap-major order (tap = 3*(dy+1) + (dx+1)),
-// float32 accumulation, a float32 bias, and one rounding to the input type
-// (float32 or bfloat16) at the end.
+// float32 accumulation and a float32 bias.  This file is the float32 path and
+// the C entry point; bfloat16 goes to the tensor-core kernel in
+// conv3x3_tl_bf16.cu.
 //
 // What bounds it on this card.  A call reads Cin*B*L values and writes
 // Cout*B*L, and does 2*9*Cin*Cout*B*L operations: 18*Cin*Cout/(Cin+Cout)
 // operations per value moved.  From 32 -> 32 channels up (288 and more per
 // value) it is bound by operations; only the 3 -> 16 stem (45 per value, and
-// a gigabyte written at 1024^2) is bound by bytes.  This first version does
-// the products in float32 on the CUDA cores, so its ceiling is the card's
-// float32 rate; the tensor cores (wgmma on bf16 tiles) and TMA loads of the
-// halo tile are later work.
+// a gigabyte written at 1024^2) is bound by bytes.  Float32 products run on
+// the CUDA cores (no TF32), so the ceiling is the card's float32 rate.
 //
 // Design.  Nothing of the TPU kernel's shape is carried over: no im2col block
 // in memory, no padding of L to a lane multiple, no iota masks.  A block owns
@@ -45,7 +44,6 @@
 // PyTorch headers): it launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,21 +57,11 @@ constexpr int kCI = 8;      // input channels per slab
 constexpr int kPitch = 35;  // row pitch of the staged tile (kTW + 2, then odd)
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // Four neighbouring outputs in one store; `p` is aligned to four values.
 __device__ __forceinline__ void store4_f32(float* p, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4_f32(__nv_bfloat16* p, float a, float b, float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 packed;
-  packed.x = *reinterpret_cast<unsigned int*>(&lo);
-  packed.y = *reinterpret_cast<unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = packed;
 }
 
 // COG: output-channel groups per block (1, 2 or 4).
@@ -219,10 +207,17 @@ cudaError_t dispatch(int cog, const void* x, const void* w, const float* bias, v
 
 }  // namespace
 
+cudaError_t controlnet_conv3x3_tl_bf16(const void* x, const void* w, const float* bias, void* out,
+                                       int cin, int cout, int batch, int h, int wd,
+                                       long long x_cstride, long long x_bstride, int cog,
+                                       cudaStream_t stream);
+
 // x: (Cin, B, H*W) read at x_cstride / x_bstride (in values; rows of H*W values
-// contiguous); w: contiguous (Cout, 9*Cin), tap-major, in x's type; bias:
-// float32 (Cout); out: contiguous (Cout, B, H*W) in x's type.
-// dtype: 0 float32, 1 bfloat16.  cog: output-channel groups per block (1, 2, 4).
+// contiguous); w: contiguous (Cout, 9*Cin), tap-major, in x's type, for
+// bfloat16 with Cin padded with zero channels to a multiple of 16 (Cout, 9 *
+// Cin16); bias: float32 (Cout); out: contiguous (Cout, B, H*W) in x's type.
+// dtype: 0 float32, 1 bfloat16.  cog: output channels per block in groups of
+// 16 (1, 2, 4).
 // Returns a cudaError_t (0 on success).
 extern "C" int controlnet_conv3x3_tl(
     const void* x, const void* w, const void* bias, void* out, int cin, int cout, int batch,
@@ -236,8 +231,8 @@ extern "C" int controlnet_conv3x3_tl(
                                 x_bstride, s);
   }
   if (dtype == 1) {
-    return (int)dispatch<__nv_bfloat16>(cog, x, w, bp, out, cin, cout, batch, h, wd,
-                                        x_cstride, x_bstride, s);
+    return (int)controlnet_conv3x3_tl_bf16(x, w, bp, out, cin, cout, batch, h, wd, x_cstride,
+                                           x_bstride, cog, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
-// The attention core on Hopper's tensor cores, shared by the bf16 attention
-// forward (attention_fwd_bf16.cu, kernel a) and the fused projection +
-// attention layer (attention_proj.cuh, kernel d).
+// The mma core on Hopper's tensor cores, shared by the bf16 attention forward
+// (attention_fwd_bf16.cu, kernel a) and backward (attention_bwd_bf16.cu,
+// kernel b), the fused projection + attention layer (attention_proj.cuh,
+// kernel d) and the bf16 3x3 conv (conv3x3_tl_bf16.cu, kernel c).
 //
 // Everything here works on the fragments of one warp's mma.sync.m16n8k16:
 // a 16 x 8 float32 accumulator tile is held as c[4] per thread, with thread
@@ -72,6 +73,14 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, co
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously (through L1); src_bytes
+// 0 writes zeros (src must still be a valid address).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
                : "memory");
 }
 
@@ -184,14 +193,14 @@ __device__ __forceinline__ void online_softmax(float (&s)[NS][4], int key0, int 
   }
 }
 
-// o += p v over NS / 2 steps of 16 keys on the tensor cores.  p is the
-// exponentiated score tile (float32); V is bf16, key-major (key j at
-// v + j * pitch, KEY_MAJOR) or d-major (column d at v + d * pitch).  Without
-// HILO, p is rounded to bf16 (kernel a: the plain version rounds the
-// probabilities to the input type).  With HILO, p = hi + lo with hi = bf16(p)
-// and lo = bf16(p - hi), two products per step: p keeps ~16 bits (kernel d:
-// the plain version never rounds e).
-template <int NS, int NDT, bool HILO, bool KEY_MAJOR>
+// o += p v over NS / 2 steps of 16 keys on the tensor cores.  p is a float32
+// accumulator tile (16 rows x 8 NS columns: exponentiated scores, or in the
+// backward P and dS); V is bf16, key-major (key j at v + j * pitch,
+// KEY_MAJOR) or d-major (column d at v + d * pitch).  p enters as bf16
+// hi + lo, hi = bf16(p) and lo = bf16(p - hi), two products per step: p
+// keeps ~16 bits (relative error ~2^-17), as the TPU kernels contract
+// float32 probabilities and gradients (kernels a, b and d).
+template <int NS, int NDT, bool KEY_MAJOR>
 __device__ __forceinline__ void pv_mma(const float (&p)[NS][4], const __nv_bfloat16* v,
                                        int pitch, float (&o)[NDT][4], int lane) {
   static_assert(NS % 2 == 0, "keys come in steps of 16");
@@ -199,16 +208,13 @@ __device__ __forceinline__ void pv_mma(const float (&p)[NS][4], const __nv_bfloa
   for (int ks = 0; ks < NS / 2; ++ks) {
     const float* p0 = p[2 * ks];
     const float* p1 = p[2 * ks + 1];
-    uint32_t hi[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
-                      pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
-    uint32_t lo[4];
-    if (HILO) {
-      float r[8] = {p0[0], p0[1], p0[2], p0[3], p1[0], p1[1], p1[2], p1[3]};
+    const float r[8] = {p0[0], p0[1], p0[2], p0[3], p1[0], p1[1], p1[2], p1[3]};
+    uint32_t hi[4], lo[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi[q]);
-        lo[q] = pack_bf16(r[2 * q] - __low2float(h), r[2 * q + 1] - __high2float(h));
-      }
+    for (int q = 0; q < 4; ++q) {
+      hi[q] = pack_bf16(r[2 * q], r[2 * q + 1]);
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi[q]);
+      lo[q] = pack_bf16(r[2 * q] - __low2float(h), r[2 * q + 1] - __high2float(h));
     }
 #pragma unroll
     for (int dt = 0; dt < NDT; ++dt) {
@@ -219,7 +225,7 @@ __device__ __forceinline__ void pv_mma(const float (&p)[NS][4], const __nv_bfloa
         load_b_nmajor(b0, b1, v + (dt * 8) * pitch + ks * 16, pitch, lane);
       }
       mma_bf16(o[dt], hi, b0, b1);
-      if (HILO) mma_bf16(o[dt], lo, b0, b1);
+      mma_bf16(o[dt], lo, b0, b1);
     }
   }
 }
@@ -229,6 +235,60 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x;
+}
+
+// load_tile's copies of W values (W = 8: 16 bytes, W = 2: 4 bytes) by
+// cp.async; a chunk past dh or L is zero-filled.  W is a template parameter
+// so that the chunk arithmetic folds to shifts for a constant ncols.
+template <int DP, int W>
+__device__ __forceinline__ void copy_chunks(__nv_bfloat16* dst, int pitch,
+                                            const __nv_bfloat16* src, int L, int dh, int col0,
+                                            int ncols) {
+  const int chunks = ncols / W;
+  for (int idx = threadIdx.x; idx < DP * chunks; idx += blockDim.x) {
+    const int d = idx / chunks, c = idx - (idx / chunks) * chunks;
+    const int col = col0 + W * c;
+    const bool ok = d < dh && col < L;  // L % W == 0: a chunk is all in or all out
+    const __nv_bfloat16* from = ok ? src + (int64_t)d * L + col : src;
+    if (W == 8) {
+      cp_async16(dst + d * pitch + 8 * c, from, ok ? 16 : 0);
+    } else {
+      cp_async4(dst + d * pitch + 2 * c, from, ok ? 4 : 0);
+    }
+  }
+}
+
+// rows [0, DP) x columns [col0, col0 + ncols) of a (dh, L) bf16 panel into
+// dst (row pitch `pitch`, even); rows >= dh and columns >= L are zeros.  vec
+// is the values one copy moves: 8 (16-byte cp.async: L a multiple of 8, the
+// panel 16-byte aligned), 2 (4-byte cp.async: L even, the panel 4-byte
+// aligned) or 1 (element loads, for an odd L); the caller commits the
+// copies.  ncols and col0 are multiples of 8.
+template <int DP>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int pitch, const __nv_bfloat16* src,
+                                          int L, int dh, int col0, int ncols, int vec) {
+  if (vec == 8) {
+    copy_chunks<DP, 8>(dst, pitch, src, L, dh, col0, ncols);
+  } else if (vec == 2) {
+    copy_chunks<DP, 2>(dst, pitch, src, L, dh, col0, ncols);
+  } else {
+    for (int idx = threadIdx.x; idx < DP * ncols; idx += blockDim.x) {
+      const int d = idx / ncols, c = idx - (idx / ncols) * ncols;
+      const int col = col0 + c;
+      dst[d * pitch + c] = (d < dh && col < L) ? src[(int64_t)d * L + col] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The widest copy load_tile may use for panels of lengths lq and lk at these
+// batch strides (in values of 2 bytes), with `ptrs` the OR of the panels'
+// addresses.
+__host__ inline int tile_copy_width(long long lq, long long lk, long long q_bs, long long k_bs,
+                                    long long v_bs, uintptr_t ptrs) {
+  const long long all = lq | lk | q_bs | k_bs | v_bs;
+  if (all % 8 == 0 && ptrs % 16 == 0) return 8;
+  if (all % 2 == 0 && ptrs % 4 == 0) return 2;
+  return 1;
 }
 
 // A shared-memory row pitch, in elements of `itemsize` bytes, for rows of

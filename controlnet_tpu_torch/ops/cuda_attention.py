@@ -1,7 +1,9 @@
 """Attention in the transposed (head_dim, L) layout and its gradient: the
 wrappers of ``csrc/attention_fwd.cu`` (kernel a: float32 on the CUDA cores,
 bfloat16 on the tensor cores in ``csrc/attention_fwd_bf16.cu``) and
-``csrc/attention_bwd.cu`` (kernel b), and their plain PyTorch versions.
+``csrc/attention_bwd.cu`` (kernel b: float32 on the CUDA cores, bfloat16 on
+the tensor cores in ``csrc/attention_bwd_bf16.cu``), and their plain PyTorch
+versions.
 
 Counterpart of ``controlnet_tpu/ops/pallas_attention.py``'s
 ``fused_attention_t`` with its custom VJP (``_attn_kernel_t`` forward,
@@ -29,8 +31,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # above 48 KB are allowed (the launcher raises the limit).
 KV_TILE_BYTES = 16 * 1024
 MAX_HEAD_DIM = 64
-# The bf16 kernel (csrc/attention_fwd_bf16.cu, tensor cores): keys per
-# shared-memory tile, double-buffered.
+# The bf16 kernels (tensor cores): keys per shared-memory tile of the
+# forward (csrc/attention_fwd_bf16.cu), double-buffered.
 MMA_KV_TILE = 64
 
 
@@ -47,9 +49,13 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
 
 
 def fused_attention_t_plain(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor) -> torch.Tensor:
-    """Plain version of the kernel: (B, H, dh, L) in, (B, H, dh, Lq) out."""
-    out = reference_attention(qt.transpose(-1, -2), kt.transpose(-1, -2), vt.transpose(-1, -2))
-    return out.transpose(-1, -2).contiguous()
+    """Plain version of the kernel, written as ``_attn_kernel_t`` computes it:
+    scores, softmax and the product with V in float32 (V upcast, P never
+    rounded), one rounding to the input type.  (B, H, dh, L) in,
+    (B, H, dh, Lq) out."""
+    scale = 1.0 / (qt.shape[2] ** 0.5)
+    probs = torch.softmax(torch.einsum("bhdq,bhdk->bhqk", qt.float(), kt.float()) * scale, dim=-1)
+    return torch.einsum("bhdk,bhqk->bhdq", vt.float(), probs).to(qt.dtype).contiguous()
 
 
 def _pow2_dim(dh: int) -> int:
@@ -82,6 +88,13 @@ def mma_launch_config(dh: int, lq: int) -> tuple[int, int, int]:
         return k + 8 * (1 if (k // 8) % 2 == 0 else 2)
 
     return dp, warps, 2 * dp * (pitch(16 * warps) + 4 * pitch(MMA_KV_TILE))
+
+
+def mma_bwd_tile(dh: int) -> int:
+    """Keys (dq pass) and queries (dkv pass) per shared-memory tile of the
+    bf16 backward (csrc/attention_bwd_bf16.cu, ``tile_for``): 64 where dh
+    padded to a multiple of 16 is at most 32, else 32."""
+    return 64 if (dh + 15) // 16 * 16 <= 32 else 32
 
 
 def _panel_ok(x: torch.Tensor) -> bool:
@@ -175,8 +188,10 @@ def _launch(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
 
 
 def _launch_bwd(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, out: torch.Tensor,
-                lse: torch.Tensor, dout: torch.Tensor):
-    """Kernel b: (dq, dk, dv), contiguous, in the input type."""
+                lse: torch.Tensor, dout: torch.Tensor, delta: torch.Tensor | None = None):
+    """Kernel b: (dq, dk, dv), contiguous, in the input type.  ``delta``, a
+    float32 (B, H, Lq) tensor, receives each query row's D (a scratch is
+    made when it is None)."""
     global bwd_launches
     from controlnet_tpu_torch.ops import _build
 
@@ -189,8 +204,16 @@ def _launch_bwd(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor, out: torch
     dq = torch.empty((b, h, dh, lq), dtype=qt.dtype, device=qt.device)
     dk = torch.empty((b, h, dh, lk), dtype=qt.dtype, device=qt.device)
     dv = torch.empty_like(dk)
-    delta = torch.empty((b, h, lq), dtype=torch.float32, device=qt.device)
-    kv_tile, q_tile, threads_q, threads_k = bwd_launch_config(dh, lq, lk)
+    if delta is None:
+        delta = torch.empty((b, h, lq), dtype=torch.float32, device=qt.device)
+    elif (delta.shape != (b, h, lq) or delta.dtype != torch.float32
+          or delta.device != qt.device or not delta.is_contiguous()):
+        raise ValueError(f"delta must be a contiguous float32 {(b, h, lq)} tensor on {qt.device}")
+    if qt.dtype == torch.bfloat16:
+        kv_tile = q_tile = mma_bwd_tile(dh)
+        threads_q, threads_k = (32 * mma_launch_config(dh, n)[1] for n in (lq, lk))
+    else:
+        kv_tile, q_tile, threads_q, threads_k = bwd_launch_config(dh, lq, lk)
     lib = _build.load()
     with torch.cuda.device(qt.device):
         err = lib.controlnet_attention_bwd_t(

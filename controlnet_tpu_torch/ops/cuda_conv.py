@@ -1,5 +1,7 @@
 """3x3 stride-1 pad-1 convolution in the transposed (C, B, L) layout: the
-wrapper of ``csrc/conv3x3_tl.cu`` (kernel c) and its plain PyTorch version.
+wrapper of ``csrc/conv3x3_tl.cu`` (kernel c: float32 on the CUDA cores,
+bfloat16 on the tensor cores in ``csrc/conv3x3_tl_bf16.cu``) and its plain
+PyTorch version.
 
 Counterpart of ``controlnet_tpu/ops/pallas_conv.py``'s ``pallas_conv3x3_tl``
 (``_conv_kernel`` with its custom VJP).  A CPU tensor takes the plain
@@ -9,10 +11,11 @@ code (``torch.nn.grad``), on both devices.
 
 Weights are ``(Cout, Cin, 3, 3)`` as ``nn.Conv2d`` holds them; the wrapper
 flattens them to the kernel's ``(Cout, 9*Cin)`` tap-major order and casts
-them to the activation's type.  The input may be any ``(C, B, L)`` view whose
-rows of L values are contiguous (the ``to_tl`` view of an NCHW tensor is
-one): the kernel reads it through its channel and batch strides, and no copy
-is made.  The output is contiguous.
+them to the activation's type (for bfloat16 with Cin padded with zero
+channels to a multiple of 16, the tensor-core kernel's slab).  The input may
+be any ``(C, B, L)`` view whose rows of L values are contiguous (the
+``to_tl`` view of an NCHW tensor is one): the kernel reads it through its
+channel and batch strides, and no copy is made.  The output is contiguous.
 
 ``launches`` counts launches of kernel c (never plain-version calls).
 """
@@ -28,6 +31,13 @@ launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535  # the kernel's grid carries the batch and the channel tiles in y and z
+_GRID_X_LIMIT = 2**31 - 1  # pixel tiles
+# The bf16 kernel (csrc/conv3x3_tl_bf16.cu): output pixels of a block (rows,
+# columns of one image), input channels per slab, double-buffered stages.
+MMA_PIXEL_TILE = (8, 32)
+MMA_SLAB = 16
+MMA_STAGES = 2
+MAX_SHARED_BYTES = 232448  # a block's shared memory on an H100
 
 
 def from_tl(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
@@ -42,11 +52,17 @@ def to_tl(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, c, h * w).permute(1, 0, 2)
 
 
-def flat_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(Cout, Cin, 3, 3) -> contiguous (Cout, 9*Cin), tap-major
-    (column = (3*ky + kx) * Cin + c), in ``dtype``."""
+def flat_weight(weight: torch.Tensor, dtype: torch.dtype,
+                channel_multiple: int = 1) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> contiguous (Cout, 9*Cp), tap-major
+    (column = (3*ky + kx) * Cp + c), in ``dtype``; Cp is Cin rounded up to
+    ``channel_multiple``, the extra channels zero."""
     cout, cin = weight.shape[:2]
-    return weight.permute(0, 2, 3, 1).reshape(cout, 9 * cin).to(dtype).contiguous()
+    taps = weight.permute(0, 2, 3, 1).to(dtype)
+    pad = -cin % channel_multiple
+    if pad:
+        taps = F.pad(taps, (0, pad))
+    return taps.reshape(cout, 9 * (cin + pad)).contiguous()
 
 
 def conv3x3_tl_plain(weight: torch.Tensor, bias: torch.Tensor | None, x: torch.Tensor,
@@ -62,9 +78,27 @@ def conv3x3_tl_plain(weight: torch.Tensor, bias: torch.Tensor | None, x: torch.T
 
 def launch_config(cout: int) -> int:
     """Output-channel groups per block (16 channels each): 1, 2 or 4, the
-    fewest that cover ``cout`` up to the kernel's 64 channels a block.  The
-    block's tile of pixels is 32 wide and 32 / groups high."""
+    fewest that cover ``cout`` up to the kernels' 64 channels a block.  The
+    float32 kernel's tile of pixels is 32 wide and 32 / groups high."""
     return 1 if cout <= 16 else 2 if cout <= 32 else 4
+
+
+def mma_launch_config(cin: int, cout: int, h: int, w: int,
+                      b: int) -> tuple[tuple[int, int], int, int, int]:
+    """(pixel tile, channel tile, stages, shared bytes) of the bf16 kernel:
+    8 x 32 output pixels and 16, 32 or 64 output channels a block (as
+    ``launch_config``; ragged H, W and Cout are masked), and per stage the
+    (10 x 34)-pixel halo tile of one 16-channel slab, pixel-major at a
+    24-value pitch, beside the slab's (channels, 9 taps x 16) weights at a
+    152-value pitch, in bf16 (pitches as ``row_pitch`` in
+    csrc/mma_attention.cuh).  Raises where the grid cannot hold the call."""
+    th, tw = MMA_PIXEL_TILE
+    tco = 16 * launch_config(cout)
+    tiles = -(-h // th) * -(-w // tw)
+    if tiles > _GRID_X_LIMIT or -(-cout // tco) > _GRID_LIMIT or b > _GRID_LIMIT:
+        raise ValueError(f"conv of {cin}->{cout} @{h}x{w} B {b} beyond the kernel's grid")
+    stage = (th + 2) * (tw + 2) * (MMA_SLAB + 8) + tco * (9 * MMA_SLAB + 8)
+    return (th, tw), tco, MMA_STAGES, 2 * MMA_STAGES * stage
 
 
 def _check(weight: torch.Tensor, bias: torch.Tensor | None, x: torch.Tensor,
@@ -98,7 +132,9 @@ def _launch(weight: torch.Tensor, bias: torch.Tensor | None, x: torch.Tensor,
     cog = launch_config(cout)
     if b > _GRID_LIMIT or -(-cout // (16 * cog)) > _GRID_LIMIT:
         raise ValueError(f"batch {b} or Cout {cout} beyond the kernel's grid")
-    w_flat = flat_weight(weight, x.dtype)
+    if x.dtype == torch.bfloat16:
+        mma_launch_config(cin, cout, hw[0], hw[1], b)  # raises beyond the grid
+    w_flat = flat_weight(weight, x.dtype, MMA_SLAB if x.dtype == torch.bfloat16 else 1)
     b32 = (torch.zeros(cout, dtype=torch.float32, device=x.device) if bias is None
            else bias.float().contiguous())
     out = torch.empty((cout, b, l), dtype=x.dtype, device=x.device)

@@ -15,10 +15,12 @@ and the serve tool's phase; ``--phases`` prints kernel d's clock cycles per
 block by phase (``cuda_attention_proj.phase_profile``) at every shape;
 ``--attention`` checks and times kernel a (both types) at the MNIST and latent
 shapes beside SDPA.  ``--check-only`` times nothing: it holds kernel d
-against its plain version once at every shape (batch 16 and 64), and kernel a
+against its plain version once at every shape (batch 16 and 64), kernel a
 (both types, with its saved log-sum-exp) at the MNIST and latent attention
-shapes, which is the quick first call after a change to either kernel.  The
-shapes and the checks are chip_smoke.py's.
+shapes, and kernel b (both types, with its row term D against rowsum(dP o P)
+from float32 P) at the MNIST attention shapes and the cross shape, which is
+the quick first call after a change to any of the three.  The shapes and the
+checks are chip_smoke.py's.
 """
 
 import argparse
@@ -89,6 +91,31 @@ def check_only(device) -> None:
                   f"{chip_smoke.LSE_TOL:g}) {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failed.append(("a", lq, lk, dh, dtype))
+    b_shapes = [(l, l, dh, 256) for l, dh, _ in A_MNIST] + [(*chip_smoke.CROSS_SHAPE, 256)]
+    for lq, lk, dh, bh in b_shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
+            q, dout = (torch.randn((64, bh // 64, dh, lq), generator=g, device=device).to(dtype)
+                       for _ in range(2))
+            k, v = (torch.randn((64, bh // 64, dh, lk), generator=g, device=device).to(dtype)
+                    for _ in range(2))
+            lse, delta = (torch.empty((64, bh // 64, lq), device=device) for _ in range(2))
+            out = cuda_attention._launch(q, k, v, lse)
+            got = cuda_attention._launch_bwd(q, k, v, out, lse, dout, delta)
+            ref = cuda_attention.fused_attention_t_bwd_plain(q, k, v, dout)
+            probs = torch.softmax(torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float())
+                                  / dh ** 0.5, -1)
+            d_ref = (torch.einsum("bhdq,bhdk->bhqk", dout.float(), v.float()) * probs).sum(-1)
+            torch.cuda.synchronize()
+            err = max(((a.float() - r.float()).abs().max() / r.float().abs().max()).item()
+                      for a, r in zip(got, ref))
+            d_err = ((delta - d_ref).abs().max() / d_ref.abs().max()).item()
+            ok = err <= chip_smoke.BWD_KERNEL_TOL[dtype]
+            print(f"b {str(dtype)[6:]:8s} Lq {lq:4d} Lk {lk:4d} dh {dh:2d} BH {bh}: rel err "
+                  f"{err:.3g} (tol {chip_smoke.BWD_KERNEL_TOL[dtype]:g}), D err {d_err:.3g} of "
+                  f"max|D| {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failed.append(("b", lq, lk, dh, dtype))
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: {failed}")
 

@@ -1,6 +1,6 @@
-"""The tensor-core redesign of kernels a (bf16 attention forward) and d (the
-fused projection + attention layer), checked on the CPU before any card
-sees them.
+"""The tensor-core kernels (bf16 attention forward a and backward b, the bf16
+3x3 conv c, the fused projection + attention layer d), checked on the CPU
+before any card sees them.
 
 Three kinds of test:
 
@@ -9,20 +9,26 @@ Three kinds of test:
   the query tiles partition L (each key row's K and V is projected by exactly
   one block: projection work 1.0), one cluster of at most 16 blocks per batch
   element, shared memory within a block's 227 KB;
-* kernel a's bf16 launch configuration at the MNIST and latent shapes;
+* kernel a's bf16 launch configuration at the MNIST and latent shapes, and
+  kernel c's (``cuda_conv.mma_launch_config``) at the 7 hint-encode shapes
+  and a ragged one;
 * a model of each kernel's arithmetic written in torch on the CPU (bf16
-  operands, float32 sums, the online softmax over the kernel's key tiles; e
-  split into bf16 hi + lo for d, bf16 P for a), held against the JAX
-  functions (Pallas kernels in interpret mode) and the port's plain versions
-  on numpy-seeded inputs at real shapes, batch 1-2.  The last fixes the bf16
-  tolerances that chip_smoke.py holds the CUDA kernels to: PROJ_TOL 2e-2 of
-  max|out| for d, KERNEL_TOL 3e-2 absolute for a, LSE_TOL 1e-4 for a's
-  log-sum-exp.  In float32 the models agree with the plain versions to float32
-  reassociation (1e-5).
+  operands, float32 sums; for a and d the online softmax over the kernel's
+  key tiles, for b the two sweeps over key tiles and the query tiles, for c
+  the halo tiles, taps and 16-channel slabs; every float32 probability or
+  gradient that enters a product split into bf16 hi + lo), held against the
+  JAX functions (Pallas kernels in interpret mode) and the port's plain
+  versions on numpy-seeded inputs at real or small shapes, batch 1-2.  The
+  last fixes the bf16 tolerances that chip_smoke.py holds the CUDA kernels
+  to: PROJ_TOL 2e-2 of max|out| for d, KERNEL_TOL 3e-2 absolute for a,
+  BWD_KERNEL_TOL 1e-2 of max|grad| for b, CONV_TOL 1e-2 of max|out| for c,
+  LSE_TOL 1e-4 for a's log-sum-exp.  In float32 the models agree with the
+  plain versions to float32 reassociation (1e-5).
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,11 +36,14 @@ import torch
 
 from controlnet_tpu.ops.pallas_attention import fused_attention_proj as jax_fused_attention_proj
 from controlnet_tpu.ops.pallas_attention import fused_attention_t as jax_fused_attention_t
-from controlnet_tpu_torch.ops import cuda_attention, cuda_attention_proj
+from controlnet_tpu.ops.pallas_conv import pallas_conv3x3_tl
+from controlnet_tpu_torch.ops import cuda_attention, cuda_attention_proj, cuda_conv
 
 # chip_smoke.py's tolerances for the kernels against their plain versions
 PROJ_TOL_BF16 = 2e-2   # relative to max|out|
 KERNEL_TOL_BF16 = 3e-2  # absolute
+BWD_TOL_BF16 = 1e-2    # relative to max|grad|: one bf16 ulp, at most 2^-7
+CONV_TOL_BF16 = 1e-2   # relative to max|out|: one bf16 ulp, at most 2^-7
 LSE_TOL = 1e-4
 
 # (L, C, heads) -> (rows, q_tiles, head_groups), the same in both types
@@ -94,6 +103,15 @@ def test_bf16_launch_config(dh, lq, expect):
     assert smem <= 48 * 1024
 
 
+@pytest.mark.parametrize("dh,tile", [(4, 64), (8, 64), (16, 64), (24, 64), (32, 64), (48, 32),
+                                     (64, 32)])
+def test_bf16_backward_tile(dh, tile):
+    """Kernel b in bf16 takes 64 keys (dq pass) or queries (dkv pass) a tile
+    up to a padded head dim of 32, 32 beyond, where S, dP and two gradient
+    accumulators of 16 rows would not fit a warp's registers."""
+    assert cuda_attention.mma_bwd_tile(dh) == tile
+
+
 # --- models of the kernels' arithmetic ---------------------------------------------------
 
 def _as_bf16(t):
@@ -120,13 +138,13 @@ def _online_softmax_pv(s, v, tile, round_p):
 
 
 def model_attention_a(qt, kt, vt):
-    """Kernel a: (B, H, dh, L) in; bf16 on the tensor cores (P rounded to
-    bf16, row sums from the float32 P), float32 as float32.  Returns the
-    output in the input type and the natural-log lse."""
+    """Kernel a: (B, H, dh, L) in; bf16 on the tensor cores (P split into
+    bf16 hi + lo for P V, row sums from the float32 P), float32 as float32.
+    Returns the output in the input type and the natural-log lse."""
     dh = qt.shape[2]
     q, k, v = (t.float().transpose(-1, -2) for t in (qt, kt, vt))
     s = (q @ k.transpose(-1, -2)) * (math.log2(math.e) / math.sqrt(dh))
-    round_p = _as_bf16 if qt.dtype == torch.bfloat16 else (lambda p: p)
+    round_p = _hi_lo if qt.dtype == torch.bfloat16 else (lambda p: p)
     o, l, m = _online_softmax_pv(s, v, cuda_attention.MMA_KV_TILE, round_p)
     out = (o / l[..., None]).to(qt.dtype).transpose(-1, -2)
     return out, m * math.log(2.0) + torch.log(l)
@@ -204,6 +222,11 @@ def test_hi_lo_split_keeps_16_bits():
                                        (2, 2, 4, 196)],
                          ids=["mnist-L784", "latent-L1024", "latent-L64", "mnist-L196-dh4"])
 def test_kernel_a_model_against_jax_and_plain(b, h, dh, lq, dtype):
+    """Kernel a follows the Pallas kernel, which contracts float32 P with V
+    upcast: with P as hi + lo the bf16 model sits within one bf16 ulp of the
+    largest output (2^-7 max|out|) of both the plain version and the Pallas
+    kernel (measured: at most 1.8e-3 max|out| from each; the old bf16-P
+    rounding was up to 6.5e-3 max|out| from the Pallas kernel)."""
     rng = np.random.default_rng(dh + lq)
     q, k, v = (rng.standard_normal((b, h, dh, lq)).astype(np.float32) for _ in range(3))
     dt = DTYPES[dtype]
@@ -212,10 +235,185 @@ def test_kernel_a_model_against_jax_and_plain(b, h, dh, lq, dtype):
     plain = cuda_attention.fused_attention_t_plain(qt, kt, vt)
     ref = jax_fused_attention_t(*(jnp.asarray(a, dtype) for a in (q, k, v)), interpret=True)
     ref = torch.from_numpy(np.asarray(ref, np.float32))
-    err_plain = (out.float() - plain.float()).abs().max().item()
-    err_jax = (out.float() - ref).abs().max().item()
-    tol = KERNEL_TOL_BF16 if dt == torch.bfloat16 else 1e-5
-    assert err_plain < tol and err_jax < tol
+    scale = plain.float().abs().max().item()
+    err_plain = (out.float() - plain.float()).abs().max().item() / scale
+    err_jax = (out.float() - ref).abs().max().item() / scale
+    if dt == torch.bfloat16:
+        assert err_plain < 2.0 ** -7
+        assert err_jax < 2.0 ** -7
+    else:
+        assert err_plain < 1e-5
+        assert err_jax < 1e-5
     # the saved lse: from the float32 P, whatever the input type
     s = torch.einsum("bhdq,bhdk->bhqk", qt.float(), kt.float()) / math.sqrt(dh)
     assert (lse - torch.logsumexp(s, -1)).abs().max().item() < LSE_TOL
+
+
+def model_attention_bwd_b(qt, kt, vt, dout, lse):
+    """Kernel b: (B, H, dh, L) in, (dq, dk, dv) in the input type.  P from the
+    saved lse in float32; the dq pass sums D = rowsum(dP o P) over the
+    kernel's key tiles (``mma_bwd_tile``), then forms dS = P o (dP - D) and
+    dQ over the same tiles; the dkv pass takes the queries in tiles of the
+    same size for dV and dK.  In bf16 P and dS enter their products as
+    hi + lo."""
+    tile = cuda_attention.mma_bwd_tile(qt.shape[2])
+    split = _hi_lo if qt.dtype == torch.bfloat16 else (lambda x: x)
+    scale = 1.0 / math.sqrt(qt.shape[2])
+    q, k, v, do = (t.float() for t in (qt, kt, vt, dout))
+    s = torch.einsum("bhdq,bhdk->bhqk", q, k)
+    p = torch.exp2(s * (scale * math.log2(math.e)) - lse[..., None] * math.log2(math.e))
+    dp = torch.einsum("bhdq,bhdk->bhqk", do, v)
+    lk, lq = k.shape[3], q.shape[3]
+    d = torch.zeros(p.shape[:-1])
+    for k0 in range(0, lk, tile):
+        d = d + (dp[..., k0:k0 + tile] * p[..., k0:k0 + tile]).sum(-1)
+    ds = p * (dp - d[..., None])
+    dq = torch.zeros_like(q)
+    for k0 in range(0, lk, tile):
+        dq = dq + torch.einsum("bhdk,bhqk->bhdq", k[..., k0:k0 + tile],
+                               split(ds[..., k0:k0 + tile]))
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, lq, tile):
+        rows = slice(q0, q0 + tile)
+        dv = dv + torch.einsum("bhdq,bhqk->bhdk", do[..., rows], split(p[:, :, rows]))
+        dk = dk + torch.einsum("bhdq,bhqk->bhdk", q[..., rows], split(ds[:, :, rows]))
+    grads = (dq * scale, dk * scale, dv)
+    return tuple(g.to(qt.dtype) for g in grads), d
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,h,dh,lq,lk", [(1, 2, 16, 196, 196), (2, 2, 24, 64, 64),
+                                          (2, 2, 16, 49, 7)],
+                         ids=["mnist-L196", "latent-L64-dh24", "cross-49x7"])
+def test_kernel_b_model_against_jax_vjp_and_plain(b, h, dh, lq, lk, dtype):
+    """Kernel b against jax.vjp of the Pallas forward (its backward is
+    ``_attn_bwd_kernel_t``, interpret mode) and against the plain backward,
+    each relative to max|grad| of the reference: bf16 within one bf16 ulp of
+    the largest gradient (2^-7; chip_smoke.py's BWD_KERNEL_TOL), float32 to
+    reassociation (1e-5).  D, formed from float32 P, within 1e-5 of max|D| of
+    the plain rowsum(dP o P) in both types."""
+    rng = np.random.default_rng(dh + lq + lk)
+    q, dout = (rng.standard_normal((b, h, dh, lq)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, h, dh, lk)).astype(np.float32) for _ in range(2))
+    dt = DTYPES[dtype]
+    qt, kt, vt, dot = (torch.from_numpy(a).to(dt) for a in (q, k, v, dout))
+    _, lse = model_attention_a(qt, kt, vt)
+    got, d = model_attention_bwd_b(qt, kt, vt, dot, lse)
+    plain = cuda_attention.fused_attention_t_bwd_plain(qt, kt, vt, dot)
+    _, vjp = jax.vjp(lambda *a: jax_fused_attention_t(*a, interpret=True),
+                     *(jnp.asarray(a, dtype) for a in (q, k, v)))
+    ref = [torch.from_numpy(np.asarray(g, np.float32)) for g in vjp(jnp.asarray(dout, dtype))]
+    tol = BWD_TOL_BF16 if dt == torch.bfloat16 else 1e-5
+    for mine, p_ref, j_ref in zip(got, plain, ref):
+        assert mine.dtype == dt
+        assert (mine.float() - p_ref.float()).abs().max() <= tol * p_ref.float().abs().max()
+        assert (mine.float() - j_ref).abs().max() <= tol * j_ref.abs().max()
+    scale = 1.0 / math.sqrt(dh)
+    probs = torch.softmax(torch.einsum("bhdq,bhdk->bhqk", qt.float(), kt.float()) * scale, -1)
+    d_ref = (torch.einsum("bhdq,bhdk->bhqk", dot.float(), vt.float()) * probs).sum(-1)
+    assert (d - d_ref).abs().max() <= 1e-5 * d_ref.abs().max()
+
+
+def test_kernel_b_d_from_float32_p_not_the_rounded_output():
+    """In bf16, rowsum(dO o O) over the bf16 output (how kernel b formed D
+    before) is off rowsum(dP o P) by the output's rounding, far more than
+    D from float32 P is."""
+    rng = np.random.default_rng(7)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal((1, 2, 16, 196)).astype(np.float32))
+                     .bfloat16() for _ in range(4))
+    out, lse = model_attention_a(q, k, v)
+    _, d = model_attention_bwd_b(q, k, v, dout, lse)
+    probs = torch.softmax(torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float()) / 4.0, -1)
+    d_ref = (torch.einsum("bhdq,bhdk->bhqk", dout.float(), v.float()) * probs).sum(-1)
+    scale = d_ref.abs().max()
+    err_p = ((d - d_ref).abs().max() / scale).item()
+    err_o = (((dout.float() * out.float()).sum(2) - d_ref).abs().max() / scale).item()
+    assert err_p < 1e-5 and err_o > 100 * err_p
+
+
+# --- kernel c: the bf16 3x3 conv on the tensor cores -------------------------------------
+
+# (Cin, Cout, H, W, B): the hint encode's seven convs at batch 16 (1024^2
+# hints, factor 32; chip_smoke.hint_conv_shapes) and chip_smoke's ragged shape
+CONV_SHAPES = [(3, 16, 1024, 1024, 16), (32, 32, 512, 512, 16), (64, 64, 256, 256, 16),
+               (128, 128, 128, 128, 16), (256, 256, 64, 64, 16), (512, 512, 32, 32, 16),
+               (512, 256, 32, 32, 16), (24, 40, 30, 30, 16)]
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", CONV_SHAPES)
+def test_conv_mma_launch_config(cin, cout, h, w, b):
+    """8 x 32 pixels and the fewest of 16 / 32 / 64 channels that cover Cout
+    a block; two stages of the halo tile and the slab's weights; two blocks
+    fit an SM (the kernel's launch bounds); the grid within its limits."""
+    (th, tw), tco, stages, smem = cuda_conv.mma_launch_config(cin, cout, h, w, b)
+    assert (th, tw) == cuda_conv.MMA_PIXEL_TILE == (8, 32) and stages == 2
+    assert tco == {16: 16, 32: 32}.get(cout, 64)
+    assert smem == {16: 42368, 32: 52096, 64: 71552}[tco]
+    assert 2 * smem <= cuda_conv.MAX_SHARED_BYTES == 232448
+    assert -(-h // th) * -(-w // tw) < 2 ** 31 and -(-cout // tco) <= 65535 and b <= 65535
+
+
+def test_conv_mma_launch_config_refuses_what_the_grid_cannot_hold():
+    with pytest.raises(ValueError, match="grid"):
+        cuda_conv.mma_launch_config(3, 16, 64, 64, 65536)
+
+
+def model_conv_c(weight, bias, x, hw):
+    """Kernel c in bf16: per block a tile of 8 x 32 output pixels and a tile
+    of output channels; the input channels in slabs of 16 (Cin padded with
+    zeros); per slab the (10, 34) halo tile, zeros outside the image, and for
+    each of the 9 taps the slab's (channels, 16) weights times the tap's
+    shifted (16, 8 x 32) window, bf16 operands and float32 sums; then the
+    float32 bias and one rounding.  (C, B, L) in, (Cout, B, L) out."""
+    cin, b, _ = x.shape
+    cout = weight.shape[0]
+    h, w = hw
+    (th, tw), tco, _, _ = cuda_conv.mma_launch_config(cin, cout, h, w, b)
+    slab = cuda_conv.MMA_SLAB
+    wf = cuda_conv.flat_weight(weight, torch.bfloat16, slab).float()
+    cinp = wf.shape[1] // 9
+    wf = wf.reshape(cout, 9, cinp)
+    ht, wt = -(-h // th) * th, -(-w // tw) * tw
+    xp = torch.zeros(b, cinp, ht + 2, wt + 2)
+    xp[:, :cin, 1:h + 1, 1:w + 1] = cuda_conv.from_tl(x, hw).float()
+    out = torch.zeros(cout, b, ht, wt)
+    for y0 in range(0, ht, th):
+        for x0 in range(0, wt, tw):
+            halo = xp[:, :, y0:y0 + th + 2, x0:x0 + tw + 2]
+            for co0 in range(0, cout, tco):
+                wtile = wf[co0:co0 + tco]
+                acc = torch.zeros(wtile.shape[0], b, th, tw)
+                for c0 in range(0, cinp, slab):
+                    for tap in range(9):
+                        dy, dx = divmod(tap, 3)
+                        win = halo[:, c0:c0 + slab, dy:dy + th, dx:dx + tw]
+                        acc += torch.einsum("oc,bcyx->obyx", wtile[:, tap, c0:c0 + slab], win)
+                acc += bias[co0:co0 + tco].float()[:, None, None, None]
+                out[co0:co0 + tco, :, y0:y0 + th, x0:x0 + tw] = acc
+    return out[:, :, :h, :w].reshape(cout, b, h * w).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 12, 36, 3, 16), (1, 13, 37, 32, 32),
+                                            (2, 9, 32, 24, 40)],
+                         ids=["stem-cin3", "ragged-13x37", "cout40"])
+def test_kernel_c_model_against_pallas_and_plain(b, h, w, cin, cout):
+    """bf16, relative to max|out|: within one bf16 ulp of the largest output
+    (2^-7) of the plain version and of the Pallas kernel in interpret mode,
+    as chip_smoke.py's CONV_TOL holds the CUDA kernel; float32 sums in
+    another order are all that differs before the one rounding."""
+    rng = np.random.default_rng(cin * cout + h)
+    x = rng.standard_normal((b, cin, h, w)).astype(np.float32)
+    bound = 1.0 / math.sqrt(9 * cin)
+    wt = rng.uniform(-bound, bound, (cout, cin, 3, 3)).astype(np.float32)
+    bias = rng.uniform(-bound, bound, cout).astype(np.float32)
+    x_tl = cuda_conv.to_tl(torch.from_numpy(x).bfloat16())
+    weight, bias_t = torch.from_numpy(wt), torch.from_numpy(bias)
+    got = model_conv_c(weight, bias_t, x_tl, (h, w)).float()
+    plain = cuda_conv.conv3x3_tl_plain(weight, bias_t, x_tl, (h, w)).float()
+    ref = pallas_conv3x3_tl(jnp.asarray(wt.transpose(2, 3, 1, 0)), jnp.asarray(bias),
+                            jnp.asarray(x_tl.float().numpy(), jnp.bfloat16), (h, w),
+                            interpret=True)
+    ref = torch.from_numpy(np.asarray(ref, np.float32))
+    scale = plain.abs().max()
+    assert (got - plain).abs().max() <= CONV_TOL_BF16 * scale
+    assert (got - ref).abs().max() <= CONV_TOL_BF16 * scale
