@@ -22,8 +22,10 @@ Phases (each one that fails makes the script exit non-zero):
    version and ``torch.nn.functional.scaled_dot_product_attention`` (a
    yardstick the port never calls; the backend that ran is printed), beside
    the least time the card could take.
-4. The main path: the sampling tool's ``sample`` over the 1000-step
-   ancestral loop at batch 64, f32 and bf16 compute.  Launch counters are
+4. The main path: the sampling tool's ``sample`` over the ancestral loop at
+   batch 64, f32 and bf16 compute, cut to a 250-step schedule (its ms/step
+   is what is read; the 1000 steps of earlier runs cost the time phases
+   17-20 need).  Launch counters are
    set to 0 just before and read just after each run.  A 10-step sample is
    also checked against the same sample with the plain attention.
 5. One full-width training step at batch 64 (the ControlNet trainer tool's
@@ -95,17 +97,42 @@ Phases (each one that fails makes the script exit non-zero):
    batching; the two 400s; the same 16-row request, in turns, to servers with
    the switch off and with ``ddim_controlnet``; a profiler window over one
    generation; shutdown.
-17. A ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+17. The distillation students (``config/mnist.yaml`` width, batch 64, seeded
+   weights): the consistency and DMD students through kernel a against the
+   plain attention on float32 and bf16 inputs, 16 launches per forward, and
+   each output's type (the consistency student runs in float32 whatever its
+   input, as in the JAX package).
+18. Three steps of each consistency mode (ddpm_distillation,
+   consistency_only, manual) and of DMD through kernels a and b against the
+   same steps with the plain attention, f32 and bf16, from one generator:
+   losses, first-step gradients, the weights and the EMA after; launches per
+   step held to 42/16 (32/16 in consistency_only); a DMD step on a NaN batch
+   leaves parameters, moments and count bit-identical and reports skipped 1.
+19. The distillation main path: 20 timed steps each of ddpm_distillation and
+   DMD at batch 64, f32 and bf16 (in a process of its own), counters set to 0
+   just before and read just after, ms/step and a profiler window; both
+   distillation trainer tools for 1 epoch, resumed to 2 (DMD with a seeded
+   test split, its best checkpoint and sidecar); each sample tool on the
+   written .pth, 1-step at batch 64 timed (samples/s), 4-step for
+   consistency.
+20. The serve tool's ``consistency`` and ``dmd`` models on those .pth files,
+   buckets up to 16: ``/generate_batch`` of 16 rows at 1 step (and 4 for
+   consistency) with 16 kernel-a launches per model call, a pinned-x_T batch
+   kernels against plain, 32 concurrent one-row clients; the 16-row 1-step
+   latency beside phase 16's 4-step teacher.
+21. A ``{"distill": {...}}`` JSON line, a ``{"kernels": [...]}`` JSON line,
+   the ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Kernel, plain-version and library times are device time: the profiler's sum
 of the GPU work a call launches (``device_time_ms``), the wrappers' own casts
-included, taken by the timing phases (3, 6, 10, 12, 15) each in a process of
-its own (``in_fresh_process``).  Beside each, the CUDA-event time of a loop of
-calls (``cuda_time_ms``, the yardstick of earlier runs) is printed once more
-for comparison.  TF32 is off for matmuls and convolutions throughout, so float32
-means float32.  Exits non-zero, printing no result, without a CUDA device or
-without the package beside it.
+included, taken by the timing phases (3, 6, 10, 12, 15; and 19's timed
+steps) each in a process of its own (``in_fresh_process``).  Beside each,
+the CUDA-event time of a loop of calls (``cuda_time_ms``, the yardstick of
+earlier runs) is printed once more for comparison.  TF32 is off for
+matmuls and convolutions throughout, so float32 means float32.  Exits
+non-zero, printing no result, without a CUDA device or without the package
+beside it.
 """
 
 from __future__ import annotations
@@ -766,15 +793,23 @@ def phase_kernels(shapes: list, device, batch: int = BATCH, cross: bool = True) 
     return totals
 
 
+MNIST_ANCESTRAL_STEPS = 250  # the ancestral loop's schedule length in phase 4
+
+
 def phase_main_path(config: dict, ckpt: str, device) -> dict:
-    """The tool's sampling function, 1000 steps, batch 64, f32 and bf16."""
+    """The tool's sampling function, batch 64, f32 and bf16, over the
+    ancestral loop cut to a MNIST_ANCESTRAL_STEPS-step schedule (the run's
+    ms/step is what is read; the full 1000 steps cost the time that phases
+    17-20 need)."""
     from controlnet_tpu_torch.ops import cuda_attention
     from controlnet_tpu_torch.schedules.linear import make_linear_schedule
     from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
 
-    cn, sched = tool.load_model(config, ckpt)
+    cn, _ = tool.load_model(config, ckpt)
     hints = tool.gather_hints(seeded_hints(4 * BATCH, 28), BATCH, seed=SEED)
     dp = config["diffusion_params"]
+    sched = make_linear_schedule(MNIST_ANCESTRAL_STEPS, dp["beta_start"], dp["beta_end"],
+                                 device=device)
 
     # a 10-step sample, kernel vs plain attention, same generator seed
     short = make_linear_schedule(10, dp["beta_start"], dp["beta_end"], device=device)
@@ -1671,6 +1706,24 @@ def _npz(**arrays) -> bytes:
     return buf.getvalue()
 
 
+def concurrent_clients(url: str, row) -> dict:
+    """SERVE_CLIENTS one-row clients posting ``row`` to ``url``, released
+    together, in a process of their own (threads of this process would share
+    the interpreter lock with the server's dispatcher, which real clients do
+    not)."""
+    out = subprocess.run([sys.executable, "-c", CLIENT_SCRIPT, url, str(SERVE_CLIENTS)],
+                         input=_npz(hints=row), capture_output=True, timeout=600)
+    if out.returncode != 0:
+        raise SystemExit(f"the concurrent clients failed: {out.stderr.decode()[-2000:]}")
+    r = json.loads(out.stdout)
+    lat = sorted(r["client_ms"])
+    good = (r["statuses"] == [200] * SERVE_CLIENTS
+            and r["shapes"] == [[1, 28, 28, 1]] * SERVE_CLIENTS and all(r["finite"]))
+    return dict(requests_per_s=SERVE_CLIENTS / r["wall_s"], p50_ms=lat[len(lat) // 2],
+                p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                mean_rows=sum(r["rows"]) / len(r["rows"]), max_rows=max(r["rows"]), good=good)
+
+
 def phase_serve(config: dict, ckpt: str, device) -> dict:
     """The serving main path through the serve tool, on the card."""
     import io
@@ -1727,23 +1780,7 @@ def phase_serve(config: dict, ckpt: str, device) -> dict:
                 seconds * 1e3)
 
     def clients(base: str) -> dict:
-        """SERVE_CLIENTS one-row clients, released together, in a process of
-        their own (threads of this process would share the interpreter lock
-        with the server's dispatcher, which real clients do not)."""
-        body = _npz(hints=hints[:1])
-        out = subprocess.run(
-            [sys.executable, "-c", CLIENT_SCRIPT, f"{base}/generate_batch?steps={mid}",
-             str(SERVE_CLIENTS)], input=body, capture_output=True, timeout=600)
-        if out.returncode != 0:
-            raise SystemExit(f"the concurrent clients failed: {out.stderr.decode()[-2000:]}")
-        r = json.loads(out.stdout)
-        lat = sorted(r["client_ms"])
-        good = (r["statuses"] == [200] * SERVE_CLIENTS
-                and r["shapes"] == [[1, 28, 28, 1]] * SERVE_CLIENTS and all(r["finite"]))
-        return dict(requests_per_s=SERVE_CLIENTS / r["wall_s"], p50_ms=lat[len(lat) // 2],
-                    p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
-                    mean_rows=sum(r["rows"]) / len(r["rows"]), max_rows=max(r["rows"]),
-                    good=good)
+        return concurrent_clients(f"{base}/generate_batch?steps={mid}", hints[:1])
 
     res: dict = {}
     with serving() as (base, warm_s), serving(attn_fused_proj=False) as (base_off, _), \
@@ -1886,12 +1923,602 @@ def phase_serve(config: dict, ckpt: str, device) -> dict:
     return res
 
 
-# The kernel-timing phases (3, 6, 10, 12 and 15).  Each runs in a process of
-# its own (``in_fresh_process``): on the H100 a process that has launched
-# millions of kernels since its first profiler window loses device records in
-# later windows, often all of a window's own, while a fresh one does not.
+# ---------------------------------------------------------------------------
+# Phases 17-20: consistency and DMD distillation of the MNIST ControlNet
+# ---------------------------------------------------------------------------
+
+DISTILL_KINDS = ("ddpm_distillation", "consistency_only", "manual", "dmd")
+# (kernel a, kernel b) launches per distillation step: the student's 16
+# attention layers forward and backward, plus the frozen ControlNet teacher's
+# 26 forward (or, in consistency_only, the EMA target's 16)
+DISTILL_CALLS = {"ddpm_distillation": (42, 16), "consistency_only": (32, 16), "manual": (42, 16),
+                 "dmd": (42, 16)}
+STUDENT_CALLS = 16  # kernel a launches per student forward (its 16 attention layers)
+MODE_FLAGS = {"ddpm_distillation": {}, "consistency_only": {"use_consistency_only": True},
+              "manual": {"use_ddpm_distillation": False}}
+DISTILL_MAIN = ("ddpm_distillation", "dmd")  # the timed main path of phase 19
+SAMPLE_REPS = 20      # timed 1-step generations of batch 64 per sample tool
+DMD_TEST_IMAGES = 5 * BATCH  # the DMD trainer validates on 5 test batches
+
+
+def seeded_teacher(ckpt: str) -> dict:
+    return torch.load(ckpt, map_location="cpu", weights_only=True)
+
+
+def distill_setup(config: dict, teacher_sd: dict, device, kind: str, dtype_name: str):
+    """The trainer tool's (model, train state, step) for ``kind`` (a
+    consistency mode or "dmd") at ``dtype_name`` compute, student from SEED,
+    teacher from ``teacher_sd``.  The DMD student's zero-initialised last hint
+    conv is made nonzero so the hint path takes gradient from the first
+    step."""
+    from controlnet_tpu_torch.tools import train_consistency_controlnet_distilled as cd_tool
+    from controlnet_tpu_torch.tools import (
+        train_distribution_matching_controlnet_distilled as dmd_tool)
+
+    cfg = copy.deepcopy(config)
+    cfg["train_params"]["compute_dtype"] = dtype_name
+    if kind == "dmd":
+        model, state, step = dmd_tool.make_trainer(cfg, teacher_sd, 100, device, seed=SEED)
+        with torch.no_grad():
+            model.student.hint_block[-1].weight.normal_(0.0, 0.05)
+            model.student.hint_block[-1].bias.normal_(0.0, 0.05)
+        return model, state, step
+    cfg["train_params"].update(MODE_FLAGS[kind])
+    model, state, step, _ = cd_tool.make_trainer(cfg, teacher_sd, device, seed=SEED)
+    return model, state, step
+
+
+def frozen_modules(model) -> dict:
+    """The frozen parts of a distillation model (teacher, EMA, features)."""
+    return {name: m for name, m in model.named_children() if name != "student"}
+
+
+def run_distill_phases(config: dict, ckpt: str, device, dpm_4step_ms: float | None):
+    """Phases 17-20 in order; returns their results."""
+    torch.cuda.empty_cache()
+    students = phase_student_forwards(config, device)
+    parity = phase_distill_parity(config, seeded_teacher(ckpt), device)
+    torch.cuda.empty_cache()
+    distill_main = in_fresh_process("phase_distill_main_path", ckpt)
+    distill_tools = phase_distill_tools(config, ckpt, device)
+    served = phase_serve_students(config, distill_tools["paths"], device, dpm_4step_ms)
+    return students, parity, distill_main, distill_tools, served
+
+
+def phase_student_forwards(config: dict, device) -> dict:
+    """Phase 17: the full-width consistency and DMD students at batch 64 with
+    seeded weights, through kernel a against the plain attention, on float32
+    and on bf16 inputs; 16 kernel-a launches per forward; the output type of
+    each (the consistency student runs in float32 whatever its input)."""
+    from controlnet_tpu_torch.models.consistency import ConsistencyDistilled
+    from controlnet_tpu_torch.models.dmd import DistributionMatchingControlNet
+    from controlnet_tpu_torch.ops import cuda_attention
+
+    mp = config["model_params"]
+    torch.manual_seed(SEED)
+    cd = ConsistencyDistilled(mp["im_channels"], mp, use_ddpm_teacher=False, device=device)
+    dmd = DistributionMatchingControlNet(mp["im_channels"], mp)
+    with torch.no_grad():
+        dmd.hint_block[-1].weight.normal_(0.0, 0.05)
+    dmd = dmd.to(device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn((BATCH, 1, 28, 28), generator=g, device=device)
+    sigma = cd.sample_sigmas(BATCH, g)
+    t = torch.randint(0, 1000, (BATCH,), generator=g, device=device)
+    hint = (torch.rand((BATCH, 3, 28, 28), generator=g, device=device) < 0.15).float()
+    want = {("consistency", torch.float32): torch.float32,
+            ("consistency", torch.bfloat16): torch.float32,
+            ("dmd", torch.float32): torch.float32, ("dmd", torch.bfloat16): torch.bfloat16}
+    res = {}
+    with torch.inference_mode():
+        for name, fn in (("consistency", lambda xx, hh: cd.student(xx, sigma, hh)),
+                         ("dmd", lambda xx, hh: dmd(xx, t, hh))):
+            for dtype in (torch.float32, torch.bfloat16):
+                xin, hin = x.to(dtype), hint.to(dtype)
+                torch.cuda.synchronize()
+                before = cuda_attention.launches
+                out = fn(xin, hin)
+                torch.cuda.synchronize()
+                launched = cuda_attention.launches - before
+                with plain_attention():
+                    ref = fn(xin, hin)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                tol = MODEL_TOL[out.dtype]
+                ok = (launched == STUDENT_CALLS and out.dtype == want[(name, dtype)]
+                      and bool(torch.isfinite(out).all()) and err <= tol * max(scale, 1.0))
+                log(f"{name} student forward on {str(dtype)[6:]} inputs: batch {BATCH}, output "
+                    f"{str(out.dtype)[6:]} (expect {str(want[(name, dtype)])[6:]}), kernel a "
+                    f"launches {launched} (expect {STUDENT_CALLS}), max|out| {scale:.4g}, max abs "
+                    f"err vs plain {err:.3g} (tol {tol:g} x max(1, max|out|)) -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"the {name} student's forward failed")
+                res[f"{name}_{str(dtype)[6:]}"] = dict(out_dtype=str(out.dtype)[6:],
+                                                       launches=launched, max_abs_err=err)
+    return res
+
+
+def _distill_steps(config, teacher_sd, images, device, kind: str, dtype_name: str,
+                   plain: bool) -> dict:
+    """CHECK_STEPS steps of ``kind`` from one start and one generator, through
+    the kernels or (``plain``) the plain attention forward and backward."""
+    from controlnet_tpu_torch.ops import cuda_attention
+
+    model, state, step = distill_setup(config, teacher_sd, device, kind, dtype_name)
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    g = torch.Generator(device=device).manual_seed(SEED)
+    losses, grads, noisy, counts = [], None, {}, []
+    with plain_attention() if plain else contextlib.nullcontext():
+        for batch, hints in train_batches(images, CHECK_STEPS):
+            torch.cuda.synchronize()
+            a0, b0 = cuda_attention.launches, cuda_attention.bwd_launches
+            metrics = step(batch, hints, g)
+            torch.cuda.synchronize()
+            counts.append((cuda_attention.launches - a0, cuda_attention.bwd_launches - b0))
+            losses.append(metrics.get("total_loss", metrics.get("consistency_loss")))
+            for k, p in state.params.items():
+                gr = p.grad if p.grad is not None else torch.zeros_like(p)
+                low = gr.abs() < NOISE_FLOOR
+                noisy[k] = low if k not in noisy else noisy[k] | low
+            if grads is None:
+                grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone()
+                         for k, p in state.params.items()}
+    after = {k: p.detach().clone() for k, p in state.params.items()}
+    ema = ({k: v.detach().clone() for k, v in model.ema_teacher.state_dict().items()}
+           if kind != "dmd" else None)
+    return dict(losses=torch.stack(losses).float().cpu(), grads=grads, before=before,
+                after=after, noisy=noisy, ema=ema, counts=counts)
+
+
+def _weights_diff(a: dict, b: dict, before: dict, noisy: dict) -> dict:
+    """Max |a - b| over the weights whose gradients stayed above the noise
+    floor in both runs, mean |a - b| over all, and the cosine of the two
+    updates; in units of the weights, not yet of lr."""
+    clean, allw, upd_a, upd_b = [], [], [], []
+    for k in before:
+        d = (a[k] - b[k]).abs()
+        clean.append(d[~noisy[k]].flatten())
+        allw.append(d.flatten())
+        upd_a.append((a[k] - before[k]).flatten())
+        upd_b.append((b[k] - before[k]).flatten())
+    clean, allw, upd_a, upd_b = (torch.cat(x).double() for x in (clean, allw, upd_a, upd_b))
+    cos = (upd_a @ upd_b / (upd_a.norm() * upd_b.norm()).clamp(min=1e-30)).item()
+    return dict(clean_max=clean.max().item() if clean.numel() else 0.0, mean=allw.mean().item(),
+                cos=cos, clean_share=clean.numel() / allw.numel())
+
+
+def phase_distill_parity(config: dict, teacher_sd: dict, device) -> dict:
+    """Phase 18: CHECK_STEPS steps of each consistency mode and of DMD through
+    kernels a and b against the same steps with the plain attention, from one
+    generator, f32 and bf16: the losses and the first step's gradients
+    within MODEL_TOL (relative), the weights and the EMA after on the
+    noise-floor rule of phase 7 (f32: within 1e-2 lr where the gradients
+    stayed above the floor; bf16: mean |difference| under 0.15 lr and an
+    update cosine over 0.97).  DMD's gradient jumps with rounding-level
+    changes of x0 (the pixels are sorted, the feature moments cubed): in
+    float32 its weights are held by mean |difference| under 0.05 lr and an
+    update cosine over 0.999; in bf16 the gradient is dominated by rounding,
+    and the kernel route is held to be no farther from a float32 plain run
+    than the bf16 plain route is (1.5x, gradients and weights).  The launches of
+    every step are held to DISTILL_CALLS.  Then a DMD step on a batch with a
+    NaN: parameters, moments and count bit-identical, ``skipped`` 1."""
+    from controlnet_tpu_torch.data.datasets import to_unit
+
+    images = torch.from_numpy(to_unit(seeded_digits(4 * BATCH)))[:, None].to(device)
+    lr = {k: config["train_params"]["consistency_lr"] for k in DISTILL_KINDS}
+    lr["dmd"] = config["train_params"]["distribution_matching_lr"]
+    res: dict = {}
+    for kind in DISTILL_KINDS:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            k = _distill_steps(config, teacher_sd, images, device, kind, name, plain=False)
+            p = _distill_steps(config, teacher_sd, images, device, kind, name, plain=True)
+            noisy = {w: k["noisy"][w] | p["noisy"][w] for w in k["noisy"]}
+            loss_err = ((k["losses"] - p["losses"]).abs().max()
+                        / p["losses"].abs().max().clamp(min=1.0)).item()
+            gmax = max(v.abs().max().item() for v in p["grads"].values())
+            grad_err = max((k["grads"][w] - p["grads"][w]).abs().max().item()
+                           for w in p["grads"]) / gmax
+            wd = _weights_diff(k["after"], p["after"], k["before"], noisy)
+            ema = (_weights_diff(k["ema"], p["ema"], k["before"], noisy)
+                   if k["ema"] is not None else None)
+            counts_ok = (k["counts"] == [DISTILL_CALLS[kind]] * CHECK_STEPS
+                         and p["counts"] == [(0, 0)] * CHECK_STEPS)
+            ok = (counts_ok and bool(torch.isfinite(k["losses"]).all())
+                  and loss_err <= MODEL_TOL[dtype])
+            extra = ""
+            if kind == "dmd" and dtype == torch.bfloat16:
+                f = _distill_steps(config, teacher_sd, images, device, kind, "float32", plain=True)
+
+                def gdist(a):
+                    return sum(((a[w] - f["grads"][w]) ** 2).sum().item() for w in a) ** 0.5
+
+                gk, gp = gdist(k["grads"]), gdist(p["grads"])
+                wk = _weights_diff(k["after"], f["after"], k["before"], noisy)["mean"]
+                wp = _weights_diff(p["after"], f["after"], k["before"], noisy)["mean"]
+                ok = ok and gk <= 1.5 * gp and wk <= 1.5 * wp
+                extra = (f"; from a float32 plain run: gradient distance kernel {gk:.4g} vs plain "
+                         f"{gp:.4g}, weights mean |diff| kernel {wk / lr[kind]:.3g} lr vs plain "
+                         f"{wp / lr[kind]:.3g} lr (kernel <= 1.5x plain)")
+                res[f"{kind}_{name}_vs_f32"] = dict(grad_kernel=gk, grad_plain=gp,
+                                                    weights_kernel_lr=wk / lr[kind],
+                                                    weights_plain_lr=wp / lr[kind])
+            elif kind == "dmd":
+                # the sort of the Wasserstein term and the cubed moments make
+                # DMD's gradient jump with rounding-level changes of x0
+                # (first-step gradients 3.4e-5 apart, where the consistency
+                # modes' are 2e-7), and Adam turns each jump into O(lr)
+                ok = (ok and grad_err <= MODEL_TOL[dtype] and wd["mean"] < 0.05 * lr[kind]
+                      and wd["cos"] > 0.999)
+            else:
+                ok = ok and grad_err <= MODEL_TOL[dtype]
+                for d in (wd, ema) if ema is not None else (wd,):
+                    if dtype == torch.bfloat16:
+                        ok = ok and d["mean"] < 0.15 * lr[kind] and d["cos"] > 0.97
+                    else:
+                        ok = ok and d["clean_max"] < 1e-2 * lr[kind]
+            ema_txt = ("" if ema is None else
+                       f", EMA after max |diff| {ema['clean_max'] / lr[kind]:.3g} lr, mean "
+                       f"{ema['mean'] / lr[kind]:.3g} lr")
+            log(f"distillation {kind} {name}, {CHECK_STEPS} steps kernels vs plain attention: "
+                f"launches a/b per step {k['counts']} (expect {DISTILL_CALLS[kind]}), losses "
+                f"{[round(x, 5) for x in k['losses'].tolist()]} (rel err {loss_err:.3g}), "
+                f"first-step grads rel err {grad_err:.3g} (tol {MODEL_TOL[dtype]:g}); weights "
+                f"after: max |diff| {wd['clean_max'] / lr[kind]:.3g} lr over the "
+                f"{wd['clean_share']:.3f} above {NOISE_FLOOR:g}, mean {wd['mean'] / lr[kind]:.3g} "
+                f"lr, update cosine {wd['cos']:.6f}{ema_txt}{extra} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"distillation {kind} ({name}) through the kernels disagrees "
+                                 "with plain attention")
+            res[f"{kind}_{name}"] = dict(loss_err=loss_err, grad_err=grad_err,
+                                         weights_clean_max_lr=wd["clean_max"] / lr[kind],
+                                         weights_mean_lr=wd["mean"] / lr[kind], cos=wd["cos"],
+                                         counts=k["counts"][0])
+    res["nan_guard"] = phase_dmd_nan_guard(config, teacher_sd, images, device)
+    return res
+
+
+def phase_dmd_nan_guard(config: dict, teacher_sd: dict, images, device) -> dict:
+    """One good DMD step, then one on a batch with a NaN: nothing of the state
+    moves (parameters, moments, count), ``skipped`` is 1 and ``grad_norm`` 0,
+    and the step read nothing back to the host (its metrics stay on the
+    card)."""
+    _, state, step = distill_setup(config, teacher_sd, device, "dmd", "float32")
+    g = torch.Generator(device=device).manual_seed(SEED)
+    (batch, hints), = list(train_batches(images, 1))
+    step(batch, hints, g)
+    params = {k: p.detach().clone() for k, p in state.params.items()}
+    opt = state.optimizer.state_dict()
+    bad = batch.clone()
+    bad[3, 0, 10, 10] = float("nan")
+    metrics = step(bad, hints, g)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(p.detach(), params[k]) for k, p in state.params.items())
+            and all(torch.equal(v, state.optimizer.state_dict()[k]) for k, v in opt.items()))
+    on_card = all(v.device == batch.device for v in metrics.values())
+    ok = (same and on_card and metrics["skipped"].item() == 1.0
+          and metrics["grad_norm"].item() == 0.0 and state.optimizer.count.item() == 1)
+    log(f"DMD step on a batch with a NaN: loss {metrics['total_loss'].item()}, skipped "
+        f"{metrics['skipped'].item():g}, grad_norm {metrics['grad_norm'].item():g}; parameters, "
+        f"moments and count bit-identical {same}, metrics on the card {on_card} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the DMD step moved its state on a non-finite loss")
+    return dict(skipped=metrics["skipped"].item(), state_unchanged=same)
+
+
+def phase_distill_main_path(ckpt: str, device) -> dict:
+    """Phase 19, timed part (in a process of its own): TRAIN_STEPS steps of
+    ``ddpm_distillation`` and of DMD at batch 64, full width, hints from the
+    port's canny on the card, f32 and bf16.  Counters set to 0 just before
+    the timed run and read just after; ms/step on the host clock; then a
+    short torch.profiler window for device time and busy share.  The
+    trainable weights must move, the teacher (and feature extractor) stay
+    bit-identical."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from controlnet_tpu_torch.data.datasets import to_unit
+    from controlnet_tpu_torch.ops import cuda_attention
+
+    config = mnist_config()
+    teacher_sd = seeded_teacher(ckpt)
+    images = torch.from_numpy(to_unit(seeded_digits(8 * BATCH)))[:, None].to(device)
+    results: dict = {torch.float32: {}, torch.bfloat16: {}}
+    for kind in DISTILL_MAIN:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            model, state, step = distill_setup(config, teacher_sd, device, kind, name)
+            s_before = {k: p.detach().clone() for k, p in state.params.items()}
+            f_before = {n: {k: v.clone() for k, v in m.state_dict().items()}
+                        for n, m in frozen_modules(model).items() if n != "ema_teacher"}
+            g = torch.Generator(device=device).manual_seed(SEED)
+            for batch, hints in train_batches(images, TRAIN_WARMUP, epoch=100):
+                step(batch, hints, g)
+            data = list(train_batches(images, TRAIN_STEPS + PROFILE_STEPS))
+            torch.cuda.synchronize()
+            cuda_attention.launches = 0
+            cuda_attention.bwd_launches = 0
+            start = time.perf_counter()
+            losses = [step(batch, hints, g) for batch, hints in data[:TRAIN_STEPS]]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            fwd, bwd = cuda_attention.launches, cuda_attention.bwd_launches
+            key = "total_loss"
+            losses = torch.stack([m[key] for m in losses]).float()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for batch, hints in data[TRAIN_STEPS:]:
+                    step(batch, hints, g)
+                torch.cuda.synchronize()
+            kernels = device_events(prof)
+            dev_ms = sum(_device_ms(e) for e in kernels) / PROFILE_STEPS
+            a_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name)) / PROFILE_STEPS
+            b_ms = sum(_device_ms(e) for e in kernels if "attention_bwd_" in e.name) / PROFILE_STEPS
+            trained = [k for k, p in state.params.items() if p.grad is not None]
+            moved = all(not torch.equal(state.params[k].detach(), s_before[k]) for k in trained)
+            still = all(torch.equal(v, f_before[n][k]) for n, m in frozen_modules(model).items()
+                        if n in f_before for k, v in m.state_dict().items())
+            ms_step = seconds * 1e3 / TRAIN_STEPS
+            want_a, want_b = DISTILL_CALLS[kind]
+            ok = (fwd == want_a * TRAIN_STEPS and bwd == want_b * TRAIN_STEPS
+                  and bool(torch.isfinite(losses).all()) and moved and still)
+            results[dtype][kind] = dict(
+                ms_per_step=ms_step, steps_per_s=TRAIN_STEPS / seconds, launches=fwd,
+                bwd_launches=bwd, device_ms_per_step=dev_ms, busy=dev_ms / ms_step,
+                kernels_per_step=len(kernels) / PROFILE_STEPS, attn_fwd_device_ms=a_ms,
+                attn_bwd_device_ms=b_ms, loss_first=losses[0].item(), loss_last=losses[-1].item())
+            log(f"distillation main path {kind} {name}: {TRAIN_STEPS} steps, batch {BATCH}: "
+                f"{seconds:.3f} s, {ms_step:.3f} ms/step, {TRAIN_STEPS / seconds:.3f} steps/s, "
+                f"launches a {fwd} (expect {want_a * TRAIN_STEPS}), b {bwd} (expect "
+                f"{want_b * TRAIN_STEPS}), loss {losses[0].item():.4f} -> {losses[-1].item():.4f}, "
+                f"student moved {moved} ({len(trained)} of {len(s_before)} tensors take "
+                f"gradient), teacher unchanged {still} | profile ({PROFILE_STEPS} steps): device "
+                f"{dev_ms:.3f} ms/step, busy {dev_ms / ms_step:.3f}, "
+                f"{len(kernels) / PROFILE_STEPS:.1f} kernels/step, kernel a {a_ms:.3f} ms/step, "
+                f"kernel b {b_ms:.3f} ms/step -> {'ok' if ok else 'FAIL'}")
+            by_name: dict = {}
+            for e in kernels:
+                by_name[e.name] = by_name.get(e.name, 0.0) + _device_ms(e) / PROFILE_STEPS
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            log(f"distillation {kind} {name} top device kernels (ms/step): "
+                + "; ".join(f"{k.replace('void ', '')[:56]} {v:.3f}" for k, v in top))
+            if not ok:
+                raise SystemExit(f"distillation main path ({kind}, {name}) failed")
+            del model, state, step
+    return results
+
+
+def phase_distill_tools(config: dict, ckpt: str, device) -> dict:
+    """Phase 19, tools: both distillation trainer tools for one epoch over
+    TOOL_IMAGES seeded images, then resumed to a second epoch (DMD with a
+    seeded test split of 5 batches, its best checkpoint and sidecar
+    written); then each sample tool on the written .pth: ``main`` once, and
+    1-step generation at batch 64 timed (samples/s), 4-step for consistency,
+    with kernel a's launches counted around the timed calls."""
+    import numpy as np
+    import yaml
+
+    from controlnet_tpu_torch.ops import cuda_attention
+    from controlnet_tpu_torch.tools import sample_consistency_controlnet_distilled as cd_sample
+    from controlnet_tpu_torch.tools import (
+        sample_distribution_matching_controlnet_distilled as dmd_sample)
+    from controlnet_tpu_torch.tools import train_consistency_controlnet_distilled as cd_train
+    from controlnet_tpu_torch.tools import (
+        train_distribution_matching_controlnet_distilled as dmd_train)
+
+    work = os.path.join(REPO, "build", "smoke", "distill")
+    shutil.rmtree(work, ignore_errors=True)
+    task = os.path.join(work, "mnist")
+    os.makedirs(task)
+    shutil.copy(ckpt, os.path.join(task, config["train_params"]["controlnet_ckpt_name"]))
+    digits = seeded_digits(TOOL_IMAGES + DMD_TEST_IMAGES)
+    paths = {name: os.path.join(work, f"{name}.npy") for name in ("train", "test")}
+    np.save(paths["train"], digits[:TOOL_IMAGES])
+    np.save(paths["test"], digits[TOOL_IMAGES:])
+
+    def config_path(epochs: int) -> str:
+        cfg = copy.deepcopy(config)
+        cfg["train_params"].update(task_name=task, consistency_epochs=epochs,
+                                   distribution_matching_epochs=epochs, ckpt_save_every_epochs=1)
+        path = os.path.join(work, f"mnist_{epochs}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    start = time.perf_counter()
+    cd_runs = [cd_train.train(config_path(e), paths["train"]) for e in (1, 2)]
+    cd_s = time.perf_counter() - start
+    start = time.perf_counter()
+    dmd_runs = [dmd_train.train(config_path(e), paths["train"], paths["test"]) for e in (1, 2)]
+    dmd_s = time.perf_counter() - start
+    with open(os.path.join(task, dmd_train.BEST_VAL)) as f:
+        best = json.load(f)
+    files = [os.path.join(task, "consistency_controlnet_distilled", "2.pt"),
+             os.path.join(task, cd_train.CKPT_NAME),
+             os.path.join(task, "distribution_matching_controlnet_distilled", "2.pt"),
+             os.path.join(task, "distribution_matching_controlnet_best", f"{best['epoch']}.pt"),
+             os.path.join(task, dmd_train.REF_CKPT), os.path.join(task, dmd_train.BEST_REF_CKPT)]
+    ok = (all(os.path.exists(p) for p in files)
+          and [r["epochs"] for r in cd_runs] == [[1], [2]]
+          and [r["epochs"] for r in dmd_runs] == [[1], [2]]
+          and all(np.isfinite(r["losses"]).all() for r in cd_runs)
+          and all(np.isfinite(r["val_loss"]).all() for r in dmd_runs)
+          and best["best_val"] == min(dmd_runs[0]["val_loss"] + dmd_runs[1]["val_loss"]))
+    log(f"distillation trainer tools: consistency (ddpm_distillation) 1 epoch then resumed to 2 "
+        f"over {TOOL_IMAGES} images ({cd_s:.1f} s; epoch losses "
+        f"{[round(r['losses'][0], 4) for r in cd_runs]}); DMD likewise with {DMD_TEST_IMAGES} "
+        f"test images ({dmd_s:.1f} s; val {[round(r['val_loss'][0], 4) for r in dmd_runs]}, "
+        f"best {best}); checkpoints, reference .pth files and sidecar written -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the distillation trainer tools failed")
+
+    cfg2 = config_path(2)
+    for tool, extra in ((cd_sample, ["--num_steps", "4"]), (dmd_sample, ["--use_best"])):
+        out = tool.main(["--config", cfg2, "--mode", "custom", "--num_samples", str(BATCH),
+                         *extra])
+        if out["x0"].shape != (BATCH, 1, 28, 28) or not bool(torch.isfinite(out["x0"]).all()):
+            raise SystemExit(f"{tool.__name__} main failed")
+    hints = torch.from_numpy(seeded_hints(BATCH, 28)).permute(0, 3, 1, 2).contiguous().to(device)
+    cd_model = cd_sample.load_student(config, os.path.join(task, cd_train.CKPT_NAME))
+    dmd_student = dmd_sample.load_student(config, dmd_sample.default_ckpt(task, True))
+    T = config["diffusion_params"]["num_timesteps"]
+    runs = {"consistency_1step": (lambda gen: cd_sample.generate(cd_model, hints, 1, gen), 1),
+            "consistency_4step": (lambda gen: cd_sample.generate(cd_model, hints, 4, gen), 4),
+            "dmd_1step": (lambda gen: dmd_sample.generate(dmd_student, hints, T, gen), 1)}
+    res: dict = {"tools_s": {"consistency": cd_s, "dmd": dmd_s}, "best": best}
+    for name, (fn, calls) in runs.items():
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        for _ in range(2):
+            fn(gen)
+        torch.cuda.synchronize()
+        cuda_attention.launches = 0
+        start = time.perf_counter()
+        outs = [fn(gen) for _ in range(SAMPLE_REPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launched = cuda_attention.launches
+        ok = (launched == STUDENT_CALLS * calls * SAMPLE_REPS
+              and all(bool(torch.isfinite(o).all()) for o in outs)
+              and outs[0].shape == (BATCH, 1, 28, 28))
+        res[name] = dict(ms=seconds * 1e3 / SAMPLE_REPS,
+                         samples_per_s=BATCH * SAMPLE_REPS / seconds, launches=launched)
+        log(f"sample tool {name}, batch {BATCH}, {SAMPLE_REPS} generations: "
+            f"{seconds * 1e3 / SAMPLE_REPS:.3f} ms each, {BATCH * SAMPLE_REPS / seconds:.1f} "
+            f"samples/s, kernel a launches {launched} (expect "
+            f"{STUDENT_CALLS * calls * SAMPLE_REPS}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the sample tool's {name} generation failed")
+    res["paths"] = {"consistency": os.path.join(task, cd_train.CKPT_NAME),
+                    "dmd": dmd_sample.default_ckpt(task, True)}
+    return res
+
+
+def somaxconn() -> str:
+    """The kernel's cap on a listen backlog: a burst of connections past it
+    waits out TCP's 1 s SYN retry."""
+    try:
+        with open("/proc/sys/net/core/somaxconn") as f:
+            return f.read().strip()
+    except OSError:
+        return "unknown"
+
+
+def phase_serve_students(config: dict, ckpts: dict, device, dpm_4step_ms: float) -> dict:
+    """Phase 20: the serve tool's ``consistency`` and ``dmd`` models on the
+    .pth files of phase 19, buckets up to 16, fused switch off: /healthz;
+    /generate_batch of 16 rows at steps=1 (and 4 for consistency) with the
+    counters set to 0 just before and read just after (16 kernel-a launches
+    per model call, none of b); a pinned-x_T batch through
+    ``build_generator``, kernels against plain; 32 concurrent one-row
+    clients at steps=1."""
+    import io
+    import threading
+    import types
+    import urllib.request
+
+    import numpy as np
+
+    from controlnet_tpu_torch.ops import cuda_attention
+    from controlnet_tpu_torch.tools import serve
+
+    hints = seeded_hints(SERVE_BATCH, 28)
+    res: dict = {}
+    for model in ("consistency", "dmd"):
+        args = types.SimpleNamespace(
+            config_path=os.path.join(REPO, "config", "mnist.yaml"), model=model,
+            host="127.0.0.1", port=0, seed=SEED, max_batch=SERVE_BATCH, max_steps=8,
+            dynamic_batching=True, batch_window_ms=2.0, ckpt=ckpts[model], device=None,
+            attn_fused_proj=False)
+        start = time.perf_counter()
+        server = serve.make_server(args, config)
+        warm_s = time.perf_counter() - start
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            health = json.loads(urllib.request.urlopen(f"{base}/healthz", timeout=30).read())
+            if health.get("model") != model or not health.get("warm"):
+                raise SystemExit(f"/healthz of the {model} server is wrong: {health}")
+            steps_list = (1, 4) if model == "consistency" else (1,)
+            torch.cuda.synchronize()
+            cuda_attention.launches = 0
+            cuda_attention.bwd_launches = 0
+            calls, out = 0, {}
+            for steps in steps_list:
+                lat = []
+                for _ in range(3):
+                    status, headers, body, _ = _post(f"{base}/generate_batch?steps={steps}",
+                                                     _npz(hints=hints))
+                    with np.load(io.BytesIO(body)) as z:
+                        samples = z["samples"]
+                    if (status != 200 or samples.shape != (SERVE_BATCH, 28, 28, 1)
+                            or not np.isfinite(samples).all()
+                            or headers["X-Batch-Rows"] != str(SERVE_BATCH)):
+                        raise SystemExit(f"{model} /generate_batch?steps={steps} failed")
+                    lat.append(float(headers["X-Latency-Ms"]))
+                calls += 3 * (steps if model == "consistency" else 1)
+                out[f"steps{steps}_ms"] = sorted(lat)[1]
+                log(f"{model} /generate_batch?steps={steps}, {SERVE_BATCH} rows, median of 3: "
+                    f"X-Latency-Ms {sorted(lat)[1]:.2f}, samples in [{samples.min():.3g}, "
+                    f"{samples.max():.3g}]")
+            launched_a, launched_b = cuda_attention.launches, cuda_attention.bwd_launches
+            ok = launched_a == STUDENT_CALLS * calls and launched_b == 0
+            log(f"{model} serving: {calls} model calls, kernel a launches {launched_a} (expect "
+                f"{STUDENT_CALLS * calls}), kernel b {launched_b} (expect 0) -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the {model} requests did not go through kernel a as expected")
+            out["clients"] = concurrent_clients(f"{base}/generate_batch?steps=1", hints[:1])
+            c = out["clients"]
+            log(f"{model}: {SERVE_CLIENTS} concurrent one-row clients in another process, steps "
+                f"1: {c['requests_per_s']:.3f} requests/s, client p50 {c['p50_ms']:.1f} ms, p99 "
+                f"{c['p99_ms']:.1f} ms, X-Batch-Rows mean {c['mean_rows']:.2f}, max "
+                f"{c['max_rows']} (the host's listen backlog cap, net.core.somaxconn: "
+                f"{somaxconn()})")
+            if not c["good"]:
+                raise SystemExit(f"{model}: the concurrent clients got bad samples")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(10)
+        if thread.is_alive():
+            raise SystemExit(f"the {model} server did not shut down")
+        gen = serve.build_generator(args, config)[0]
+        x_start = torch.randn((SERVE_BATCH, 1, 28, 28),
+                              generator=torch.Generator(device=device).manual_seed(SEED),
+                              device=device)
+        for steps in steps_list:
+            out_k = gen(hints, torch.Generator(device=device).manual_seed(1), steps, x_start)
+            with plain_attention():
+                out_p = gen(hints, torch.Generator(device=device).manual_seed(1), steps, x_start)
+            scale = out_p.abs().max().item()
+            err = (out_k - out_p).abs().max().item()
+            ok = (bool(torch.isfinite(out_k).all())
+                  and err <= MODEL_TOL[torch.float32] * max(scale, 1))
+            log(f"{model} generate, {steps} step(s), x_T pinned, batch {SERVE_BATCH}: max abs err "
+                f"kernels vs plain {err:.3g} (tol {MODEL_TOL[torch.float32]:g} x max(1, "
+                f"max|out| {scale:.3g}); not clamped) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the served {model} sample disagrees with the plain version")
+        out.update(warm_s=warm_s, launches=launched_a, calls=calls)
+        res[model] = out
+    log(f"served {SERVE_BATCH}-row latency (X-Latency-Ms): consistency 1 step "
+        f"{res['consistency']['steps1_ms']:.2f}, dmd 1 step {res['dmd']['steps1_ms']:.2f}, "
+        f"consistency 4 steps {res['consistency']['steps4_ms']:.2f}; the teacher "
+        f"(dpm_controlnet, fused layer on) at 4 steps in phase 16: "
+        f"{'not run' if dpm_4step_ms is None else f'{dpm_4step_ms:.2f}'}")
+    return res
+
+
+# The kernel-timing phases (3, 6, 10, 12 and 15) and the timed distillation
+# main path (19).  Each runs in a process of its own (``in_fresh_process``):
+# on the H100 a process that has launched millions of kernels since its first
+# profiler window loses device records in later windows, often all of a
+# window's own, while a fresh one does not.
 TIMING_PHASES = ("phase_kernels", "phase_kernels_bwd", "phase_conv_kernels",
-                 "phase_proj_kernels")
+                 "phase_proj_kernels", "phase_distill_main_path")
 
 
 def in_fresh_process(phase: str, *args, **kwargs) -> dict:
@@ -1933,6 +2560,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--verbose-build", action="store_true",
                         help="print nvcc's register and shared-memory report")
+    parser.add_argument("--distill-only", action="store_true",
+                        help="build the kernels and run the distillation phases 17-20 alone "
+                             "(a quick check after a change to that path; no result line)")
     parser.add_argument("--timing-phase", help=argparse.SUPPRESS)  # set by in_fresh_process
     args = parser.parse_args()
 
@@ -1961,6 +2591,10 @@ def main() -> int:
     config = mnist_config()
     ckpt = os.path.join(REPO, "build", "smoke", f"mnist_controlnet_seed{SEED}.pth")
     write_seeded_checkpoint(config, ckpt)
+    if args.distill_only:
+        run_distill_phases(config, ckpt, device, None)
+        log(f"{smi}; distill-only run: phases 17-20 passed (a partial run: no result line)")
+        return 0
     from controlnet_tpu_torch.data.datasets import to_unit
     from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
 
@@ -1987,6 +2621,9 @@ def main() -> int:
     proj64 = in_fresh_process("phase_proj_kernels", MNIST_PROJ_SHAPES, BATCH,
                               what="MNIST forward")
     served = phase_serve(config, ckpt, device)
+
+    students, parity, distill_main, distill_tools, served_students = run_distill_phases(
+        config, ckpt, device, served["steps4"]["latency_ms"])
 
     def kernel_entry(name, source, replaces, tots, launches, bf16_launches, per):
         f32, bf16 = tots[torch.float32], tots[torch.bfloat16]
@@ -2074,6 +2711,24 @@ def main() -> int:
                           (proj_entry, "d")):
         entry["sass"] = {k: v for k, v in sass.items() if k.startswith(kernel + " ")}
     fwd_entry["sdpa_backends"] = {str(d)[6:]: kern[d]["sdpa_backends"] for d in kern}
+    # the distillation main path (phase 19): launches of each timed run of
+    # TRAIN_STEPS steps, then of the served students (phase 20)
+    for entry, key in ((fwd_entry, "launches"), (bwd_entry, "bwd_launches")):
+        entry["distill_launches"] = {f"{kind}_{str(dtype)[6:]}": runs[kind][key]
+                                     for dtype, runs in distill_main.items() for kind in runs}
+    fwd_entry["distill_launches"].update(
+        {f"serve_{m}": served_students[m]["launches"] for m in served_students})
+    distill = {
+        "student_forwards": students,
+        "parity": parity,
+        "main_path": {f"{kind}_{str(dtype)[6:]}": r for dtype, runs in distill_main.items()
+                      for kind, r in runs.items()},
+        "sample": {k: distill_tools[k] for k in ("consistency_1step", "consistency_4step",
+                                                 "dmd_1step", "tools_s")},
+        "serve": served_students,
+        "serve_dpm_controlnet_4step_ms": served["steps4"]["latency_ms"],
+    }
+    log(json.dumps({"distill": distill}))
     log(f"device_time_ms: {PROFILER_WINDOWS['windows']} profiler windows for "
         f"{PROFILER_WINDOWS['measurements']} measurements (2 each when no window lost records), "
         f"{PROFILER_WINDOWS['foreign']} device records left out as launched outside a window")

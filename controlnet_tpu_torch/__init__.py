@@ -18,13 +18,20 @@ is held against.  The layout mirrors ``controlnet_tpu/`` module for module:
   io/checkpoint.py       <- controlnet_tpu/io/checkpoint.py's contract (torch.save)
   sample/ddpm.py         <- controlnet_tpu/sample/ddpm.py
   train/state.py         <- controlnet_tpu/train/state.py
-  train/loops.py         <- controlnet_tpu/train/loops.py (DDPM and ControlNet steps)
+  schedules/karras.py    <- controlnet_tpu/schedules/karras.py
+  schedules/consistency.py <- controlnet_tpu/schedules/consistency.py
+  models/consistency.py  <- controlnet_tpu/models/consistency.py
+  models/dmd.py          <- controlnet_tpu/models/dmd.py
+  train/loops.py         <- controlnet_tpu/train/loops.py (DDPM, ControlNet, consistency, DMD)
   utils/diffusion_utils.py <- controlnet_tpu/utils/diffusion_utils.py (image drop)
   data/datasets.py       <- controlnet_tpu/data/datasets.py (.npy arrays, iterate_batches)
   cli.py                 <- controlnet_tpu/cli.py (the trainers' helpers)
   tools/sample_ddpm_controlnet.py <- tools/sample_ddpm_controlnet.py
   tools/train_ddpm.py    <- tools/train_ddpm.py
   tools/train_ddpm_controlnet.py <- tools/train_ddpm_controlnet.py
+  tools/{train,sample}_consistency_controlnet_distilled.py,
+  tools/{train,sample}_distribution_matching_controlnet_distilled.py,
+  tools/serve.py         <- the same files under tools/
 
 Modules are NCHW with the reference PyTorch state-dict names, so a
 reference-format ``.pth`` loads with ``load_state_dict(strict=True)``.

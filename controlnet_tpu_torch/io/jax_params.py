@@ -1,7 +1,8 @@
 """Weights carried across from the JAX package, and reference ``.pth`` files.
 
 ``unet_state_dict_from_jax`` / ``controlnet_state_dict_from_jax`` /
-``vae_state_dict_from_jax`` take the JAX package's parameter trees (nested
+``vae_state_dict_from_jax`` / ``student_state_dict_from_jax`` /
+``features_state_dict_from_jax`` take the JAX package's parameter trees (nested
 dicts and lists of numpy arrays) and return this package's ``state_dict``,
 which is the reference PyTorch one.
 This is the port's own numpy-only copy of the layout rules of
@@ -13,7 +14,7 @@ This is the port's own numpy-only copy of the layout rules of
   * Linear:           (in, out) -> (out, in)
   * MultiheadAttention: wq/wk/wv packed into in_proj_weight (3D, D),
                       out_proj transposed
-  * GroupNorm:        scale -> weight, bias -> bias
+  * GroupNorm, BatchNorm: scale -> weight, bias -> bias
 """
 
 from __future__ import annotations
@@ -157,6 +158,40 @@ def vae_state_dict_from_jax(params: Params) -> dict:
     _norm(params["encoder_norm_out"], "encoder_norm_out", sd)
     _norm(params["decoder_norm_out"], "decoder_norm_out", sd)
     return _to_torch(sd)
+
+
+def student_state_dict_from_jax(params: Params) -> dict:
+    """JAX consistency or DMD student tree -> this package's student state
+    dict: ``unet.*``, the flat ``hint_block.{i}`` and ``t_proj.1`` (the
+    reference's ``t_proj`` is ``Sequential(SiLU, Linear)``)."""
+    sd: dict = {}
+    _unet(params["unet"], "unet.", sd)
+    _hint_block(params["hint_block"]["layers"], "hint_block", False, sd)
+    _linear(params["t_proj"], "t_proj.1", sd)
+    return _to_torch(sd)
+
+
+def features_state_dict_from_jax(params: Params) -> dict:
+    """JAX DMD ``FeatureExtractor`` tree -> ``FeatureExtractor`` state dict
+    (``stages.{i}.conv1|bn1|conv2|bn2``)."""
+    sd: dict = {}
+    for i, sp in enumerate(params["stages"]):
+        for name in ("conv1", "conv2"):
+            _conv(sp[name], f"stages.{i}.{name}", sd)
+        for name in ("bn1", "bn2"):
+            _norm(sp[name], f"stages.{i}.{name}", sd)
+    return _to_torch(sd)
+
+
+def load_student_checkpoint(path: str) -> dict:
+    """A reference-format distilled-student ``.pth`` -> its dict, tensors on
+    the CPU.  The consistency wrapper holds ``epoch``, ``model_state_dict``,
+    ``ema_teacher_state_dict`` and ``model_config``; the DMD one ``epoch``,
+    ``model_state_dict`` and ``config``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(ckpt, dict) or "model_state_dict" not in ckpt:
+        raise ValueError(f"{path}: not a distilled-student checkpoint (no model_state_dict)")
+    return ckpt
 
 
 def load_reference_checkpoint(path: str) -> dict:

@@ -43,14 +43,15 @@ from controlnet_tpu_torch.ops import tl_conv
 _DECODER_PREFIXES = ("ups.", "norm_out.", "conv_out.")
 
 
-def _fixed_hint_block(hint_channels: int, c0: int) -> Sequential:
+def fixed_hint_block(hint_channels: int, c0: int, zero_init: bool = True) -> Sequential:
     """DDPM hint encoder; the SiLUs hold their slots in the state-dict
-    indices (0, 2, 4, 6 are convs)."""
+    indices (0, 2, 4, 6 are convs).  The consistency student's copy keeps
+    its last conv's random init (``zero_init=False``)."""
     return Sequential(
         Conv2d(hint_channels, 64, 3), nn.SiLU(),
         Conv2d(64, 128, 3), nn.SiLU(),
         Conv2d(128, c0, 3), nn.SiLU(),
-        Conv2d(c0, c0, 1, zero_init=True),
+        Conv2d(c0, c0, 1, zero_init=zero_init),
     )
 
 
@@ -88,7 +89,7 @@ class ControlNet(nn.Module):
         mc = self.trained_unet.mid_channels
         self.add_module(self._infix, UNet(im_channels, model_config, use_up=False))
         if down_sample_factor is None:
-            hint_block = _fixed_hint_block(model_config["hint_channels"], dc[0])
+            hint_block = fixed_hint_block(model_config["hint_channels"], dc[0])
         else:
             hint_block = _dynamic_hint_block(model_config["hint_channels"], dc[0],
                                              down_sample_factor)

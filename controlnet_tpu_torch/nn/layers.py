@@ -146,6 +146,26 @@ class GroupNorm(nn.Module):
         return out.to(x.dtype)
 
 
+class BatchNorm(nn.Module):
+    """Batch norm on the batch statistics only (training mode), over the
+    channel axis (dim 1): biased variance, eps 1e-5, computed in float32 and
+    cast back to the input type.  No running statistics are kept: the JAX
+    package's users (the DMD feature extractor, the PatchGAN discriminator)
+    never run in eval mode.  Parameters are ``weight``/``bias``."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.channels = channels
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.batch_norm(x.float(), None, None, self.weight, self.bias, training=True,
+                           eps=self.eps)
+        return out.to(x.dtype)
+
+
 class MultiheadAttention(nn.Module):
     """Multi-head self or cross attention over (B, L, C) tokens, with the
     parameters of ``nn.MultiheadAttention(embed_dim, heads)``: packed

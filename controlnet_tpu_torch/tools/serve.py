@@ -1,12 +1,22 @@
-"""HTTP serving of the few-step ControlNet teacher.
+"""HTTP serving of the distilled 1-step students and the few-step ControlNet
+teacher.
 
-Counterpart of the JAX package's ``tools/serve.py`` for its
-``ddim_controlnet`` / ``dpm_controlnet`` models: the (non-distilled) DDPM
-ControlNet checkpoint sampled with a few-step solver, ``?steps=`` model
-evaluations per image.  The distilled students are not served yet.
+Counterpart of the JAX package's ``tools/serve.py``, with its four models:
+
+* ``consistency`` (the default): the consistency student's ``generate``,
+  ``?steps=N`` model calls over the Karras ladder (1 by default);
+* ``dmd``: the DMD student, one call at t = T - 1 whatever ``steps`` says;
+* ``ddim_controlnet`` / ``dpm_controlnet``: the (non-distilled) DDPM
+  ControlNet checkpoint sampled with a few-step solver, ``?steps=`` model
+  evaluations per image, clamped to [-1, 1].
+
+The students' outputs are not clamped, as in the JAX server.  ``--ckpt`` is
+the student's reference-format ``.pth`` (default: where the port's trainer
+writes it) or the ControlNet's.
 
     python -m controlnet_tpu_torch.tools.serve --config config/mnist.yaml \\
-        --model dpm_controlnet [--ckpt path.pth] [--attn_fused_proj] --port 8000
+        [--model consistency|dmd|dpm_controlnet|ddim_controlnet] [--ckpt path.pth] \\
+        [--attn_fused_proj] --port 8000
 
 Endpoints (the JAX server's contract):
   GET  /healthz             -> {"status": "ok", "model": ..., "warm": true,
@@ -56,23 +66,61 @@ from controlnet_tpu_torch import config as cfg
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io import images
 from controlnet_tpu_torch.nn.layers import set_attn_fused_proj
+from controlnet_tpu_torch.tools import sample_consistency_controlnet_distilled as cd_tool
 from controlnet_tpu_torch.tools import sample_ddpm_controlnet as sample_tool
+from controlnet_tpu_torch.tools import (
+    sample_distribution_matching_controlnet_distilled as dmd_tool)
 
-MODELS = ("ddim_controlnet", "dpm_controlnet")
+MODELS = ("consistency", "dmd", "ddim_controlnet", "dpm_controlnet")
+
+
+def _student_generator(args, config):
+    """``generate`` of a distilled student (``args.model`` consistency or
+    dmd), unclamped."""
+    task_name = cfg.train_params(config)["task_name"]
+    ckpt = getattr(args, "ckpt", None)
+    device = getattr(args, "device", None)
+    if args.model == "consistency":
+        model = cd_tool.load_student(config, ckpt or os.path.join(task_name, cd_tool.CKPT_NAME),
+                                     device)
+        set_attn_fused_proj(model, getattr(args, "attn_fused_proj", False))
+
+        def generate(hints, generator, steps=1, x_start=None):
+            h = torch.as_tensor(hints, device=model.device).permute(0, 3, 1, 2)
+            return cd_tool.generate(model, h, steps, generator, x_start)
+
+        return generate
+    student = dmd_tool.load_student(config, ckpt or dmd_tool.default_ckpt(task_name, True),
+                                    device)
+    set_attn_fused_proj(student, getattr(args, "attn_fused_proj", False))
+    num_timesteps = cfg.diffusion_params(config)["num_timesteps"]
+    student_device = student.unet.conv_in.weight.device
+
+    def generate(hints, generator, steps=1, x_start=None):
+        del steps  # one call at t = T - 1
+        h = torch.as_tensor(hints, device=student_device).permute(0, 3, 1, 2)
+        return dmd_tool.generate(student, h, num_timesteps, generator, x_start)
+
+    return generate
 
 
 def build_generator(args, config):
-    """Load the ControlNet and return ``(generate, im_size, im_channels,
+    """Load the model and return ``(generate, im_size, im_channels,
     hint_channels, steps_cap)``.
 
-    ``generate(hints_nhwc, generator, steps, x_start=None)`` encodes the
-    hints once, runs the ``steps``-step solver of ``args.model`` and clamps to
-    [-1, 1]; it returns a (B, C, H, W) tensor on the model's device.
-    ``x_start`` replaces the x_T drawn from ``generator``.  ``steps_cap`` is
-    the schedule length: a solver walks a subsequence of it."""
+    ``generate(hints_nhwc, generator, steps, x_start=None)`` returns a (B, C,
+    H, W) tensor on the model's device; ``x_start`` replaces the x_T drawn
+    from ``generator``.  A student runs its ``steps``-call generation (DMD:
+    one call) unclamped; a teacher encodes the hints once, runs the
+    ``steps``-step solver of ``args.model`` and clamps to [-1, 1].
+    ``steps_cap`` is a teacher's schedule length (a solver walks a
+    subsequence of it), None for a student."""
     if args.model not in MODELS:
         raise ValueError(f"unknown model {args.model!r} (one of {', '.join(MODELS)})")
     model_config = cfg.model_params(config)
+    shape = (model_config["im_size"], model_config["im_channels"], model_config["hint_channels"])
+    if args.model in ("consistency", "dmd"):
+        return (_student_generator(args, config), *shape, None)
     train_config = cfg.train_params(config)
     ckpt = getattr(args, "ckpt", None) or os.path.join(
         train_config["task_name"], train_config["controlnet_ckpt_name"])
@@ -89,8 +137,7 @@ def build_generator(args, config):
             # few-step x0 estimates can slightly overshoot the image range
             return torch.clamp(x0, -1.0, 1.0)
 
-    return (generate, model_config["im_size"], model_config["im_channels"],
-            model_config["hint_channels"], sched.num_timesteps)
+    return (generate, *shape, sched.num_timesteps)
 
 
 def _bucket(b: int, max_batch: int) -> int:
@@ -273,7 +320,9 @@ def make_server(args, config, warm: bool = True) -> ThreadingHTTPServer:
     max_batch = getattr(args, "max_batch", 8)
     # A solver cannot take more steps than the schedule has: the schedule
     # length caps the operator's --max-steps, and a request above it is a 400.
-    max_steps = min(getattr(args, "max_steps", 8), steps_cap)
+    max_steps = getattr(args, "max_steps", 8)
+    if steps_cap is not None:
+        max_steps = min(max_steps, steps_cap)
     window_ms = getattr(args, "batch_window_ms", 2.0)
 
     if warm:
@@ -404,15 +453,19 @@ def make_server(args, config, warm: bool = True) -> ThreadingHTTPServer:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
-        description="Serve the few-step ControlNet teacher over HTTP (PyTorch port)")
+        description="Serve a distilled student or the few-step ControlNet teacher over HTTP "
+                    "(PyTorch port)")
     parser.add_argument("--config", dest="config_path", default="config/mnist.yaml")
-    parser.add_argument("--model", choices=MODELS, default="dpm_controlnet",
-                        help="few-step sampling from the ControlNet checkpoint; ?steps= is the "
+    parser.add_argument("--model", choices=MODELS, default="consistency",
+                        help="consistency / dmd: the distilled 1-step student (consistency "
+                             "takes ?steps= calls); ddim_controlnet / dpm_controlnet: few-step "
+                             "sampling from the ControlNet checkpoint, ?steps= being the "
                              "solver's step count (dpm is second-order: matched quality at "
-                             "roughly half the DDIM steps; raise --max-steps for "
-                             "quality-critical serving)")
+                             "roughly half the DDIM steps)")
     parser.add_argument("--ckpt", default=None,
-                        help="reference-format .pth (default: <task_name>/<controlnet_ckpt_name>)")
+                        help="reference-format .pth: the student's (default: where the port's "
+                             "trainer writes it) or the ControlNet's (default: "
+                             "<task_name>/<controlnet_ckpt_name>)")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--seed", type=int, default=0)

@@ -24,18 +24,17 @@ from __future__ import annotations
 import argparse
 import os
 
-import numpy as np
 import torch
 
 from controlnet_tpu_torch import cli, config as cfg
-from controlnet_tpu_torch.data.datasets import batch_indices
+from controlnet_tpu_torch.data.datasets import batch_indices, load_split
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
 from controlnet_tpu_torch.models.controlnet import ControlNet
 from controlnet_tpu_torch.ops.canny import canny_hints
 from controlnet_tpu_torch.schedules.linear import make_linear_schedule
-from controlnet_tpu_torch.tools.train_ddpm import device_images, epoch_seeds
+from controlnet_tpu_torch.tools.train_ddpm import epoch_seeds
 from controlnet_tpu_torch.train.loops import make_controlnet_train_step
 from controlnet_tpu_torch.train.state import TrainState, create_train_state
 
@@ -92,13 +91,7 @@ def train(config_path: str, images_path: str, hints_path: str | None = None,
                 p.copy_(tree["frozen"][k])
         print(f"Resumed ControlNet from epoch {start_epoch}")
 
-    images = device_images(images_path, device)
-    hints = None
-    if hints_path is not None:
-        hints = torch.from_numpy(np.asarray(np.load(hints_path), np.float32))
-        hints = hints.permute(0, 3, 1, 2).contiguous().to(device)
-        if hints.shape[0] != images.shape[0] or hints.shape[2:] != images.shape[2:]:
-            raise ValueError(f"hints {tuple(hints.shape)} do not match images {tuple(images.shape)}")
+    images, hints = load_split(images_path, hints_path, device)
 
     num_epochs = tp["controlnet_epochs"]
     history = {"epochs": [], "losses": []}

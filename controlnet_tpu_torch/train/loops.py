@@ -1,7 +1,8 @@
-"""Train steps of the DDPM UNet and the ControlNet.
+"""Train steps of the DDPM UNet, the ControlNet and the two distillers.
 
-Port of ``controlnet_tpu/train/loops.py``'s ``make_ddpm_train_step`` and
-``make_controlnet_train_step``.  Semantics are the JAX step's: a uniform
+Port of ``controlnet_tpu/train/loops.py``'s ``make_ddpm_train_step``,
+``make_controlnet_train_step``, ``make_consistency_train_step`` and
+``make_dmd_train_step``.  Semantics are the JAX step's: a uniform
 timestep in [0, T), noise drawn like the images, ``add_noise`` in float32
 and then a cast to ``compute_dtype``, the loss mean((f32(pred) - noise)^2),
 then one Adam update.  The step updates the train state in place and
@@ -20,7 +21,9 @@ from typing import Callable
 
 import torch
 
+from controlnet_tpu_torch.models.consistency import ConsistencyDistilled
 from controlnet_tpu_torch.models.controlnet import ControlNet
+from controlnet_tpu_torch.models.dmd import DistributionMatchingDistilled
 from controlnet_tpu_torch.schedules.linear import LinearSchedule, add_noise
 from controlnet_tpu_torch.train.state import TrainState
 from controlnet_tpu_torch.utils.diffusion_utils import drop_image_condition
@@ -86,5 +89,140 @@ def make_controlnet_train_step(cn: ControlNet, sched: LinearSchedule,
         if cfg_drop_prob > 0:
             hints = drop_image_condition(hints, cfg_drop_prob, generator, keep)
         return _update(state, cn(noisy, t, _cast(hints, compute_dtype)), noise)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Consistency distillation
+# ---------------------------------------------------------------------------
+
+CONSISTENCY_MODES = ("ddpm_distillation", "consistency_only", "manual")
+
+
+def _check_student_state(student: torch.nn.Module, state: TrainState) -> None:
+    ids = {id(p) for p in student.parameters()}
+    if {id(p) for p in state.params.values()} != ids:
+        raise ValueError("the train state must hold exactly the student's parameters")
+
+
+def make_consistency_train_step(model: ConsistencyDistilled, state: TrainState,
+                                mode: str = "ddpm_distillation", total_epochs: int | None = None,
+                                compute_dtype: torch.dtype | None = None):
+    """The consistency step of ``mode``, on ``state`` (Adam over
+    ``model.student``'s parameters):
+
+    * ``ddpm_distillation``: log-uniform sigma; alpha * recon + (1 - alpha) *
+      DDPM-teacher MSE, alpha 0.5;
+    * ``consistency_only``: two log-uniform sigmas, the EMA target;
+    * ``manual``: one coin per batch: with p = 0.5 every t of the batch comes
+      from the top quarter [0.75 T, T), else from [0, T); sigma = sigma_min *
+      (sigma_max / sigma_min)^(t / (T - 1)); the combined loss.
+
+    With ``total_epochs`` alpha follows the ramp max(0.5 (1 - p) + 0.1 p,
+    0.1), p = epoch / total_epochs.  Noising is float32, then a cast to
+    ``compute_dtype``; the EMA is updated after the optimizer step.
+
+    Returns ``step(x0, hint, generator=None, epoch=0, *, sigma=None,
+    sigma_2=None, t=None, noise=None) -> metrics`` (device scalars).  The
+    keyword arguments replace the draws: ``sigma`` (and ``sigma_2`` in
+    ``consistency_only``), the chosen ``t`` in ``manual``, and the noise."""
+    if mode not in CONSISTENCY_MODES:
+        raise ValueError(f"unknown consistency training mode {mode!r}; expected "
+                         "'ddpm_distillation', 'consistency_only', or 'manual'")
+    if mode != "consistency_only" and not model.use_ddpm_teacher:
+        raise ValueError(f"mode {mode!r} needs the DDPM teacher (use_ddpm_teacher=True)")
+    _check_student_state(model.student, state)
+    T = model.num_timesteps
+
+    def step(x0: torch.Tensor, hint: torch.Tensor, generator: torch.Generator | None = None,
+             epoch: int = 0, *, sigma: torch.Tensor | None = None,
+             sigma_2: torch.Tensor | None = None, t: torch.Tensor | None = None,
+             noise: torch.Tensor | None = None) -> dict:
+        b, device = x0.shape[0], x0.device
+        if mode == "consistency_only":
+            s1 = model.sample_sigmas(b, generator) if sigma is None else sigma.to(device)
+            s2 = model.sample_sigmas(b, generator) if sigma_2 is None else sigma_2.to(device)
+        elif sigma is not None:
+            s1 = sigma.to(device)
+        elif mode == "manual":
+            if t is None:
+                coin = torch.rand((), generator=generator, device=device)
+                t_hi = torch.randint(int(0.75 * T), T, (b,), generator=generator, device=device)
+                t_lo = torch.randint(0, T, (b,), generator=generator, device=device)
+                t = torch.where(coin < 0.5, t_hi, t_lo)
+            t = t.to(device=device, dtype=torch.float32)
+            s1 = model.sigma_min * torch.pow(model.sigma_max / model.sigma_min, t / (T - 1))
+        else:
+            s1 = model.sample_sigmas(b, generator)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator, device=device, dtype=x0.dtype)
+        noise = noise.to(device=device, dtype=x0.dtype)
+
+        if mode == "consistency_only":
+            loss = model.consistency_training_loss(x0, hint, s1, s2, noise,
+                                                   compute_dtype=compute_dtype)
+            metrics = {"consistency_loss": loss}
+        else:
+            alpha = 0.5
+            if total_epochs is not None:
+                progress = epoch / total_epochs
+                alpha = max(0.5 * (1.0 - progress) + 0.1 * progress, 0.1)
+            loss, recon, distill = model.distillation_loss(x0, hint, s1, noise, alpha=alpha,
+                                                           compute_dtype=compute_dtype)
+            metrics = {"total_loss": loss, "recon_loss": recon, "distill_loss": distill}
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        model.update_ema()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Distribution-matching distillation
+# ---------------------------------------------------------------------------
+
+def make_dmd_train_step(model: DistributionMatchingDistilled, state: TrainState,
+                        compute_dtype: torch.dtype | None = None):
+    """The DMD step on ``state`` (``create_dmd_train_state`` over
+    ``model.student``'s parameters: clip, AdamW, cosine schedule).  One coin
+    per batch decides with p = 0.5 whether every t of the batch comes from
+    the top quarter [0.75 T, T) or from [0, T).  A batch whose loss is not
+    finite moves nothing of the state (the optimizer's commit is a
+    ``torch.where`` on the device; nothing is read back to the host).
+
+    Returns ``step(x0, hint, generator=None, *, t=None, noise=None) ->
+    metrics``: the loss terms, ``grad_norm`` (before the clip) and
+    ``skipped`` (1.0 for a skipped batch), as device scalars."""
+    _check_student_state(model.student, state)
+    sched = model.teacher_schedule
+    T = sched.num_timesteps
+
+    def step(x0: torch.Tensor, hint: torch.Tensor, generator: torch.Generator | None = None,
+             *, t: torch.Tensor | None = None, noise: torch.Tensor | None = None) -> dict:
+        b, device = x0.shape[0], x0.device
+        if t is None:
+            t_hi = torch.randint(int(0.75 * T), T, (b,), generator=generator, device=device)
+            t_lo = torch.randint(0, T, (b,), generator=generator, device=device)
+            coin = torch.rand((), generator=generator, device=device)
+            t = torch.where(coin < 0.5, t_hi, t_lo)
+        t, noise = _draw(sched, x0, generator, t, noise)
+        x_t = add_noise(sched, x0, noise, t)
+        total, dmd, teacher_l, comps = model.distillation_loss(x_t, t, hint, x0,
+                                                               compute_dtype=compute_dtype)
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        good = torch.isfinite(total)
+        grad_norm = state.optimizer.step(good)
+        state.step += 1
+        metrics = {"total_loss": total, "dist_matching_loss": dmd, "teacher_loss": teacher_l,
+                   **comps}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = grad_norm
+        metrics["skipped"] = (~good).float()
+        return metrics
 
     return step

@@ -6,6 +6,9 @@ Port of ``controlnet_tpu/train/state.py``.  ``optax.adam(lr)`` becomes
 in place; ``state_dict`` / ``load_state_dict`` carry the whole state (the
 parameters, Adam's moments and step counts, and the step) through a
 checkpoint, so a restore resumes exactly.
+
+``ClippedAdamW`` / ``create_dmd_train_state`` are the DMD trainer's optimizer
+(clip, AdamW, cosine schedule) with the skipped-batch guard on the device.
 """
 
 from __future__ import annotations
@@ -39,4 +42,91 @@ class TrainState:
 def create_train_state(params: dict, lr: float) -> TrainState:
     """A fresh state (step 0, Adam moments zero) over ``params`` by name."""
     opt = torch.optim.Adam(list(params.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return TrainState(step=0, params=dict(params), optimizer=opt)
+
+
+class ClippedAdamW:
+    """DMD's optimizer as optax builds it: ``optax.chain(clip_by_global_norm(
+    max_norm), adamw(cosine_decay_schedule(lr, decay_steps), weight_decay))``.
+
+    * clip: g / ||g|| * max_norm when ||g|| >= max_norm (optax's rule, with
+      no +1e-6 as in ``torch.nn.utils.clip_grad_norm_``);
+    * Adam (b1 0.9, b2 0.999, eps 1e-8) with bias correction, then the
+      decoupled weight decay added to the update, then the learning rate of
+      update k (0-based): lr * (1 + cos(pi * min(k, N) / N)) / 2, in closed
+      form as optax evaluates it (not ``CosineAnnealingLR``'s recursion).
+
+    The moments live in two flat float32 buffers and ``count`` (int32) on the
+    parameters' device.  ``step(good)`` commits the update only where the
+    0-dim bool ``good`` is true, as ``jnp.where(good, new, old)`` does over the
+    JAX state: with ``good`` false nothing moves (parameters, moments, count,
+    schedule position), and no value is read back to the host."""
+
+    def __init__(self, params, lr: float, decay_steps: int, weight_decay: float = 1e-6,
+                 max_norm: float = 1.0, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        if decay_steps <= 0:
+            raise ValueError(f"decay_steps must be positive, got {decay_steps}")
+        self.params = list(params)
+        self.lr, self.decay_steps, self.weight_decay = lr, decay_steps, weight_decay
+        self.max_norm, self.b1, self.b2, self.eps = max_norm, b1, b2, eps
+        self._sizes = [p.numel() for p in self.params]
+        n, device = sum(self._sizes), self.params[0].device
+        self.exp_avg = torch.zeros(n, dtype=torch.float32, device=device)
+        self.exp_avg_sq = torch.zeros(n, dtype=torch.float32, device=device)
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def learning_rate(self, count: torch.Tensor) -> torch.Tensor:
+        """The cosine schedule at update ``count`` (a device tensor)."""
+        k = torch.clamp(count, max=self.decay_steps).float()
+        return self.lr * (0.5 * (1.0 + torch.cos(torch.pi * k / self.decay_steps)))
+
+    @torch.no_grad()
+    def step(self, good: torch.Tensor | None = None) -> torch.Tensor:
+        """One update from the parameters' ``.grad``, committed where
+        ``good``.  Returns the global norm of the gradients before the clip
+        (0 where not ``good``: the JAX step zeroes a skipped batch's
+        gradients first)."""
+        device = self.exp_avg.device
+        good = torch.ones((), dtype=torch.bool, device=device) if good is None else good
+        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                       for p in self.params]).float()
+        p_flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+        g = torch.where(good, g, torch.zeros_like(g))
+        g_norm = torch.sqrt(torch.sum(g * g))  # optax's global_norm; a cascaded sum
+        g = torch.where(g_norm < self.max_norm, g, g / g_norm * self.max_norm)
+        mu = (1.0 - self.b1) * g + self.b1 * self.exp_avg
+        nu = (1.0 - self.b2) * (g * g) + self.b2 * self.exp_avg_sq
+        count_inc = self.count + 1
+        mu_hat = mu / (1.0 - torch.pow(self.b1, count_inc.float()))
+        nu_hat = nu / (1.0 - torch.pow(self.b2, count_inc.float()))
+        update = mu_hat / (torch.sqrt(nu_hat) + self.eps) + self.weight_decay * p_flat
+        new_p = p_flat + (-self.learning_rate(self.count)) * update
+        self.exp_avg.copy_(torch.where(good, mu, self.exp_avg))
+        self.exp_avg_sq.copy_(torch.where(good, nu, self.exp_avg_sq))
+        self.count.copy_(torch.where(good, count_inc, self.count))
+        new_p = torch.where(good, new_p, p_flat)
+        torch._foreach_copy_(self.params, [v.view_as(p) for v, p in
+                                           zip(new_p.split(self._sizes), self.params)])
+        return g_norm
+
+    def state_dict(self) -> dict:
+        return {"exp_avg": self.exp_avg.clone(), "exp_avg_sq": self.exp_avg_sq.clone(),
+                "count": self.count.clone()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        if sd["exp_avg"].shape != self.exp_avg.shape:
+            raise ValueError("checkpoint moments do not match the parameters")
+        self.exp_avg.copy_(sd["exp_avg"])
+        self.exp_avg_sq.copy_(sd["exp_avg_sq"])
+        self.count.copy_(sd["count"])
+
+
+def create_dmd_train_state(params: dict, lr: float, decay_steps: int,
+                           weight_decay: float = 1e-6, max_norm: float = 1.0) -> TrainState:
+    """A fresh DMD state: ``ClippedAdamW`` over ``params`` by name."""
+    opt = ClippedAdamW(list(params.values()), lr, decay_steps, weight_decay, max_norm)
     return TrainState(step=0, params=dict(params), optimizer=opt)

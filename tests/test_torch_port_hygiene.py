@@ -28,7 +28,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "tools.train_ddpm_controlnet", "tools.sample_ddpm_controlnet",
                  "ops.cuda_conv", "ops.tl_conv", "models.vae", "sample.ddim", "sample.dpm",
                  "sample.cfg", "tools.sample_ldm_controlnet", "ops.cuda_attention_proj",
-                 "tools.serve"):
+                 "tools.serve", "schedules.karras", "schedules.consistency",
+                 "models.consistency", "models.dmd",
+                 "tools.train_consistency_controlnet_distilled",
+                 "tools.sample_consistency_controlnet_distilled",
+                 "tools.train_distribution_matching_controlnet_distilled",
+                 "tools.sample_distribution_matching_controlnet_distilled"):
         assert f"controlnet_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -176,3 +181,37 @@ def test_kernel_library_is_not_built_on_import():
         "attention_bwd.cu", "attention_bwd_bf16.cu", "attention_fwd.cu", "attention_fwd_bf16.cu",
         "attention_proj.cu", "attention_proj_bf16.cu", "conv3x3_tl.cu", "conv3x3_tl_bf16.cu"]
     assert [p.name for p in _build.headers()] == ["attention_proj.cuh", "mma_attention.cuh"]
+
+
+def test_distillation_entry_points_raise_on_cuda_less_host(monkeypatch):
+    """The distillation models, trainers and sample tools run on the card
+    unless device="cpu" is passed."""
+    from controlnet_tpu_torch.config import load_config
+    from controlnet_tpu_torch.models.consistency import ConsistencyDistilled
+    from controlnet_tpu_torch.models.dmd import DistributionMatchingDistilled
+    from controlnet_tpu_torch.tools import (sample_consistency_controlnet_distilled,
+                                            sample_distribution_matching_controlnet_distilled,
+                                            train_consistency_controlnet_distilled,
+                                            train_distribution_matching_controlnet_distilled)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = os.path.join(REPO, "config", "mnist.yaml")
+    mnist = load_config(config)
+    mp = mnist["model_params"]
+    cd_train = train_consistency_controlnet_distilled
+    dmd_train = train_distribution_matching_controlnet_distilled
+    for call in (lambda: ConsistencyDistilled(1, mp),
+                 lambda: DistributionMatchingDistilled(1, mp),
+                 lambda: cd_train.train(config, "unused.npy"),
+                 lambda: cd_train.main(["--config", config, "--images", "unused.npy"]),
+                 lambda: dmd_train.train(config, "unused.npy", "unused.npy"),
+                 lambda: dmd_train.main(["--config", config, "--images", "unused.npy",
+                                         "--test_images", "unused.npy"]),
+                 lambda: sample_consistency_controlnet_distilled.main(["--config", config]),
+                 lambda: sample_consistency_controlnet_distilled.load_student(mnist, "x.pth"),
+                 lambda: sample_distribution_matching_controlnet_distilled.main(
+                     ["--config", config]),
+                 lambda: sample_distribution_matching_controlnet_distilled.load_student(
+                     mnist, "x.pth")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

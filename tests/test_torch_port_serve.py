@@ -233,7 +233,7 @@ def test_generate_matches_the_jax_server(served, model, fused):
 def test_build_generator_sets_the_switch_and_checks_the_model(served):
     s = served
     with pytest.raises(ValueError, match="unknown model"):
-        serve.build_generator(_args("consistency"), s.config)
+        serve.build_generator(_args("lcm"), s.config)
     seen = {}
     orig = serve.set_attn_fused_proj
     try:
@@ -261,7 +261,7 @@ def test_png_codec_round_trip():
 
 def test_cli_flags_match_the_jax_tool(served, monkeypatch):
     """``main`` parses the JAX tool's flags plus --ckpt / --device /
-    --attn_fused_proj; the students are not among the models yet."""
+    --attn_fused_proj; the default model is the JAX server's, consistency."""
     s = served
     got = {}
 
@@ -280,5 +280,8 @@ def test_cli_flags_match_the_jax_tool(served, monkeypatch):
     assert got == dict(config_path="x.yaml", model="ddim_controlnet", ckpt=None,
                        host="127.0.0.1", port=8000, seed=0, device="cpu", attn_fused_proj=True,
                        max_batch=16, max_steps=20, dynamic_batching=False, batch_window_ms=2.0)
+    with pytest.raises(Stop):
+        serve.main(["--config", "x.yaml"])
+    assert got["model"] == "consistency"
     with pytest.raises(SystemExit):
-        serve.main(["--model", "consistency"])
+        serve.main(["--model", "lcm"])
