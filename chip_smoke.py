@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                  # the whole check, one card
     python3 chip_smoke.py --verbose-build  # also print ptxas's register report
+    python3 chip_smoke.py --distill-only   # phases 17-20 alone (no result line)
+    python3 chip_smoke.py --latent-train-only  # phases 21-26 alone (no result line)
 
 Phases (each one that fails makes the script exit non-zero):
 
@@ -23,9 +25,9 @@ Phases (each one that fails makes the script exit non-zero):
    yardstick the port never calls; the backend that ran is printed), beside
    the least time the card could take.
 4. The main path: the sampling tool's ``sample`` over the ancestral loop at
-   batch 64, f32 and bf16 compute, cut to a 250-step schedule (its ms/step
-   is what is read; the 1000 steps of earlier runs cost the time phases
-   17-20 need).  Launch counters are
+   batch 64, f32 and bf16 compute, cut to a 100-step schedule (its ms/step
+   is what is read; the 1000 steps of PRs 1-6 and the 250 of PR 7 cost the
+   time phases 17-26 need).  Launch counters are
    set to 0 just before and read just after each run.  A 10-step sample is
    also checked against the same sample with the plain attention.
 5. One full-width training step at batch 64 (the ControlNet trainer tool's
@@ -67,7 +69,7 @@ Phases (each one that fails makes the script exit non-zero):
    phase 3.
 13. The latent main path through the sample tool (seeded ``.pth`` weights,
    ``.npy`` hints, batch 16): a 5-step sample with guidance through the kernels
-   against the plain versions; then the ancestral loop (cut to a 250-step
+   against the plain versions; then the ancestral loop (cut to a 100-step
    schedule, which leaves time for the later phases: its ms/step is what is
    read), DPM-Solver++ 20 steps with ``cfg_scale`` 2.0 and DDIM 50 steps on
    the 1000-step schedule, f32 and bf16, each ending
@@ -120,16 +122,40 @@ Phases (each one that fails makes the script exit non-zero):
    consistency) with 16 kernel-a launches per model call, a pinned-x_T batch
    kernels against plain, 32 concurrent one-row clients; the 16-row 1-step
    latency beside phase 16's 4-step teacher.
-21. A ``{"distill": {...}}`` JSON line, a ``{"kernels": [...]}`` JSON line,
-   the ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
-   {...}}``.
+21. CelebA-HQ latent training at the full width of ``config/celebhq.yaml``
+   (random weights from SEED): one step of the LDM trainer and one of the
+   LDM ControlNet trainer at batch 16, launches a / b / c exactly 14 / 14 / 0
+   and 22 / 14 / 7, the backward attention shapes recorded (the same 14 in
+   both) for phase 22.
+22. Kernel b against its plain version at those latent shapes (L 1024..16,
+   head dims 24..48, batch 16), f32 and bf16, timed as in phase 6 (in a
+   process of its own), beside the SDPA backward and the bound.
+23. Kernel c under autograd: a batch-16 hint encode at 1024^2, forward and
+   backward, through the kernel (7 launches) against the plain conv route,
+   f32 and bf16 hints: the features and every hint-encoder weight gradient.
+24. Three steps of each latent trainer (VAE-GAN straddling disc_start,
+   LDM, LDM ControlNet with a condition-drop mask) through the kernels
+   against the plain attention and conv routes, with the same injected
+   draws, f32 and bf16: losses, first-step gradients, weights after, and
+   the launches of every step.
+25. The latent-training main path (in a process of its own): 20 timed
+   steps of each trainer, f32 and bf16 (VAE-GAN batch 4 at 128^2, LDM batch
+   16 on 32x32x4 latents, LDM ControlNet batch 16 with 1024^2 hints),
+   counters set to 0 just before and read just after, ms/step, peak memory
+   and a profiler window.
+26. The latent tools on a tiny celeb config: train_vae (1 epoch, resumed to
+   2), infer_vae, train_ldm_vae, sample_ldm_vae, train_ldm_controlnet, and
+   the existing sample_ldm_controlnet on the written .pth files.
+27. A ``{"distill": {...}}`` and a ``{"latent_train": {...}}`` JSON line, a
+   ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Kernel, plain-version and library times are device time: the profiler's sum
 of the GPU work a call launches (``device_time_ms``), the wrappers' own casts
-included, taken by the timing phases (3, 6, 10, 12, 15; and 19's timed
-steps) each in a process of its own (``in_fresh_process``).  Beside each,
-the CUDA-event time of a loop of calls (``cuda_time_ms``, the yardstick of
-earlier runs) is printed once more for comparison.  TF32 is off for
+included, taken by the timing phases (3, 6, 10, 12, 15, 22; and 19's and
+25's timed steps) each in a process of its own (``in_fresh_process``).  (PRs
+1-5 timed with CUDA events, PRs 6-7 printed those beside; PR 8 dropped them
+to keep the run inside its time limit.)  TF32 is off for
 matmuls and convolutions throughout, so float32 means float32.  Exits
 non-zero, printing no result, without a CUDA device or without the package
 beside it.
@@ -141,6 +167,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import functools
 import json
 import os
 import shutil
@@ -353,28 +380,6 @@ def phase_sass(lib_path: str, nvcc: str) -> dict:
     return counts
 
 
-def cuda_time_ms(fn, min_ms: float = 30.0) -> float:
-    """Mean milliseconds per call, CUDA events around a run of calls: the
-    yardstick of earlier runs, kept beside ``device_time_ms`` for comparison.
-    Where issuing a call on the host takes longer than its device work, it
-    reads host time."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    iters = int(max(5, min(500, min_ms / max(start.elapsed_time(end), 1e-3))))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def device_events(prof) -> list:
     """The device activity of a profiler window (kernels, copies, fills),
     without the ranges that annotate it (the optimizer's "Optimizer.step#
@@ -406,8 +411,9 @@ def device_time_ms(fn, calls: int = 5, tries: int = 8) -> tuple[float, dict]:
     window's records in every later one (why the timing phases run in fresh
     processes).  Even a fresh process now and then loses some of a window's
     records, so a window counts only when another window of the same calls
-    kept as many, a nonzero multiple of ``calls``.  No agreement in ``tries`` windows fails the run: there is no
-    fallback to events."""
+    kept as many, a nonzero multiple of ``calls``.  No agreement in
+    ``tries`` windows fails the run: there is no fallback to another
+    clock."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -439,13 +445,11 @@ def device_time_ms(fn, calls: int = 5, tries: int = 8) -> tuple[float, dict]:
 
 
 def time_calls(**fns) -> dict:
-    """For each named call: ``device_time_ms`` under its name, the kernel
-    names of its window under ``<name>_names`` and the CUDA-event time under
-    ``<name>_events``."""
+    """For each named call: ``device_time_ms`` under its name and the kernel
+    names of its window under ``<name>_names``."""
     out = {}
     for key, fn in fns.items():
         out[key], out[f"{key}_names"] = device_time_ms(fn)
-        out[f"{key}_events"] = cuda_time_ms(fn)
     return out
 
 
@@ -548,7 +552,6 @@ def phase_conv_kernels(shapes: list, device) -> dict:
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, own_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
-                   ms_events=0.0, plain_ms_events=0.0, library_ms_events=0.0,
                    ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0)
         for cin, cout, h, w, b in list(shapes) + [RAGGED_CONV_SHAPE]:
             on_path = (cin, cout, h, w, b) != RAGGED_CONV_SHAPE
@@ -581,8 +584,7 @@ def phase_conv_kernels(shapes: list, device) -> dict:
                 f"{'ok' if ok else 'FAIL'} | device: kernel {t['ms']:.4f} ms, its own launch "
                 f"{own:.4f} ms ({flops / own / 1e9:.2f} TFLOP/s, {bound_ms / own:.3f} of the "
                 f"bound), plain {t['plain_ms']:.4f} ms, F.conv2d {t['library_ms']:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}) | events: kernel {t['ms_events']:.4f}, plain "
-                f"{t['plain_ms_events']:.4f}, F.conv2d {t['library_ms_events']:.4f} ms"
+                f"{bound_ms:.4f} ms ({bound_by})"
                 f"{'' if on_path else ' | ragged, off the main path'}")
             if not ok:
                 raise SystemExit("conv kernel disagrees with its plain version")
@@ -591,8 +593,7 @@ def phase_conv_kernels(shapes: list, device) -> dict:
             del img, x
             if not on_path:
                 continue
-            for key in ("ms", "plain_ms", "library_ms", "ms_events", "plain_ms_events",
-                        "library_ms_events"):
+            for key in ("ms", "plain_ms", "library_ms"):
                 tot[key] += t[key]
             tot["own_ms"] += own
             tot["bound_ms"] += bound_ms
@@ -604,9 +605,7 @@ def phase_conv_kernels(shapes: list, device) -> dict:
         log(f"conv3x3_tl {str(dtype)[6:]} per hint encode ({len(shapes)} calls), device: "
             f"kernel {tot['ms']:.4f} ms (own launches {tot['own_ms']:.4f}), plain "
             f"{tot['plain_ms']:.4f} ms, F.conv2d {tot['library_ms']:.4f} ms, bound "
-            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP | "
-            f"events: kernel {tot['ms_events']:.4f}, plain {tot['plain_ms_events']:.4f}, "
-            f"F.conv2d {tot['library_ms_events']:.4f} ms")
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP")
     return totals
 
 
@@ -742,7 +741,6 @@ def phase_kernels(shapes: list, device, batch: int = BATCH, cross: bool = True) 
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
-                   ms_events=0.0, plain_ms_events=0.0, library_ms_events=0.0,
                    ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, sdpa_backends=set())
         for lq, lk, dh, bh in cases:
             g = torch.Generator(device=device).manual_seed(SEED)
@@ -767,15 +765,12 @@ def phase_kernels(shapes: list, device, batch: int = BATCH, cross: bool = True) 
             log(f"attention {str(dtype)[6:]:8s} Lq {lq:4d} Lk {lk:4d} dh {dh:2d} BH {bh}: "
                 f"err {err:.3g} (tol {KERNEL_TOL[dtype]:g}) {'ok' if ok else 'FAIL'} | device: "
                 f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa ({backend}) "
-                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | events: kernel "
-                f"{t['ms_events']:.4f}, plain {t['plain_ms_events']:.4f}, sdpa "
-                f"{t['library_ms_events']:.4f} ms | {where}")
+                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | {where}")
             if not ok:
                 raise SystemExit("attention kernel disagrees with its plain version")
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["sdpa_backends"].add(backend)
-            for key in ("ms", "plain_ms", "library_ms", "ms_events", "plain_ms_events",
-                        "library_ms_events"):
+            for key in ("ms", "plain_ms", "library_ms"):
                 tot[key] += n * t[key]
             tot["bound_ms"] += n * bound_ms
             tot["ops_ms"] += n * (bound_ms if bound_by == "operations" else 0.0)
@@ -787,20 +782,18 @@ def phase_kernels(shapes: list, device, batch: int = BATCH, cross: bool = True) 
         log(f"attention {str(dtype)[6:]} per forward ({sum(mix.values())} calls), device: "
             f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa "
             f"({'/'.join(tot['sdpa_backends'])}) {tot['library_ms']:.4f} ms, bound "
-            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP | "
-            f"events: kernel {tot['ms_events']:.4f}, plain {tot['plain_ms_events']:.4f}, sdpa "
-            f"{tot['library_ms_events']:.4f} ms")
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP")
     return totals
 
 
-MNIST_ANCESTRAL_STEPS = 250  # the ancestral loop's schedule length in phase 4
+MNIST_ANCESTRAL_STEPS = 100  # the ancestral loop's schedule length in phase 4
 
 
 def phase_main_path(config: dict, ckpt: str, device) -> dict:
     """The tool's sampling function, batch 64, f32 and bf16, over the
     ancestral loop cut to a MNIST_ANCESTRAL_STEPS-step schedule (the run's
     ms/step is what is read; the full 1000 steps cost the time that phases
-    17-20 need)."""
+    17-26 need)."""
     from controlnet_tpu_torch.ops import cuda_attention
     from controlnet_tpu_torch.schedules.linear import make_linear_schedule
     from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
@@ -919,39 +912,42 @@ def phase_train_shapes(config: dict, base: dict, images: torch.Tensor, device) -
     return shapes
 
 
-def phase_kernels_bwd(shapes: list, device) -> dict:
+def phase_kernels_bwd(shapes: list, device, batch: int = BATCH, cross: bool = True,
+                      per: str = "training step") -> dict:
     """Kernel b (and kernel a's lse) against the plain versions at every
     training shape (q, k, v as slices of one packed projection, as the model
-    passes them) and the cross shape, f32 and bf16; b's row term D against
-    rowsum(dP o P) from float32 P, beside rowsum(dO o O) over the output (how
-    it was formed before); device times, and the SDPA backend."""
+    passes them) and, with ``cross``, the cross shape, f32 and bf16; b's row
+    term D against rowsum(dP o P) from float32 P, beside rowsum(dO o O) over
+    the output (how it was formed before); device times, and the SDPA
+    backend.  Totals are per ``per`` (the calls of ``shapes``)."""
     import torch.nn.functional as F
 
     from controlnet_tpu_torch.ops import cuda_attention
 
     mix = collections.Counter(shapes)
-    cases = sorted(mix, key=lambda s: (-s[0], -s[2])) + [(*CROSS_SHAPE, BATCH * 4)]
+    cases = sorted(mix, key=lambda s: (-s[0], -s[2]))
+    if cross:
+        cases.append((*CROSS_SHAPE, batch * 4))
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
-                   ms_events=0.0, plain_ms_events=0.0, library_ms_events=0.0,
                    ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0, lse_err=0.0,
                    d_err=0.0, d_err_from_o=0.0, sdpa_backends=set())
         for lq, lk, dh, bh in cases:
-            heads = bh // BATCH
+            heads = bh // batch
             g = torch.Generator(device=device).manual_seed(SEED)
             if lq == lk:
-                packed = torch.randn((BATCH, 3 * heads * dh, lq), generator=g,
+                packed = torch.randn((batch, 3 * heads * dh, lq), generator=g,
                                      device=device).to(dtype)
                 q, k, v = (packed[:, i * heads * dh:(i + 1) * heads * dh]
-                           .reshape(BATCH, heads, dh, lq) for i in range(3))
+                           .reshape(batch, heads, dh, lq) for i in range(3))
             else:
-                q = torch.randn((BATCH, heads, dh, lq), generator=g, device=device).to(dtype)
-                k = torch.randn((BATCH, heads, dh, lk), generator=g, device=device).to(dtype)
-                v = torch.randn((BATCH, heads, dh, lk), generator=g, device=device).to(dtype)
-            dout = torch.randn((BATCH, heads, dh, lq), generator=g, device=device).to(dtype)
-            lse = torch.empty((BATCH, heads, lq), dtype=torch.float32, device=device)
-            delta = torch.empty((BATCH, heads, lq), dtype=torch.float32, device=device)
+                q = torch.randn((batch, heads, dh, lq), generator=g, device=device).to(dtype)
+                k = torch.randn((batch, heads, dh, lk), generator=g, device=device).to(dtype)
+                v = torch.randn((batch, heads, dh, lk), generator=g, device=device).to(dtype)
+            dout = torch.randn((batch, heads, dh, lq), generator=g, device=device).to(dtype)
+            lse = torch.empty((batch, heads, lq), dtype=torch.float32, device=device)
+            delta = torch.empty((batch, heads, lq), dtype=torch.float32, device=device)
             out = cuda_attention._launch(q, k, v, lse)
             scores = torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float()) / dh ** 0.5
             lse_err = (lse - torch.logsumexp(scores, dim=-1)).abs().max().item()
@@ -984,15 +980,13 @@ def phase_kernels_bwd(shapes: list, device) -> dict:
             backend = sdpa_backend(t["library_ms_names"])
             bound_ms, bound_by = attention_bwd_bound_ms(bh, lq, lk, dh, dtype)
             n = mix.get((lq, lk, dh, bh), 0)
-            where = f"x{n} per step" if n else "cross-attention, off the main path"
+            where = f"x{n} per {per}" if n else "cross-attention, off the main path"
             log(f"attention bwd {str(dtype)[6:]:8s} Lq {lq:4d} Lk {lk:4d} dh {dh:2d} BH {bh}: "
                 f"rel err {rel_err:.3g} (tol {BWD_KERNEL_TOL[dtype]:g}), abs {abs_err:.3g}, "
                 f"lse err {lse_err:.3g} (tol {LSE_TOL:g}), D err {d_err:.3g} of max|D| "
                 f"(rowsum(dO o O) {d_err_o:.3g}) {'ok' if ok else 'FAIL'} | device: kernel "
                 f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa bwd ({backend}) "
-                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | events: "
-                f"kernel {t['ms_events']:.4f}, plain {t['plain_ms_events']:.4f}, sdpa bwd "
-                f"{t['library_ms_events']:.4f} ms | {where}")
+                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | {where}")
             if not ok:
                 raise SystemExit("attention backward kernel disagrees with its plain version")
             tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
@@ -1001,8 +995,7 @@ def phase_kernels_bwd(shapes: list, device) -> dict:
             tot["d_err"] = max(tot["d_err"], d_err)
             tot["d_err_from_o"] = max(tot["d_err_from_o"], d_err_o)
             tot["sdpa_backends"].add(backend)
-            for key in ("ms", "plain_ms", "library_ms", "ms_events", "plain_ms_events",
-                        "library_ms_events"):
+            for key in ("ms", "plain_ms", "library_ms"):
                 tot[key] += n * t[key]
             tot["bound_ms"] += n * bound_ms
             tot["ops_ms"] += n * (bound_ms if bound_by == "operations" else 0.0)
@@ -1011,13 +1004,12 @@ def phase_kernels_bwd(shapes: list, device) -> dict:
         tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
         tot["sdpa_backends"] = sorted(tot["sdpa_backends"])
         totals[dtype] = tot
-        log(f"attention bwd {str(dtype)[6:]} per training step ({sum(mix.values())} calls), "
+        log(f"attention bwd {str(dtype)[6:]} per {per} ({sum(mix.values())} calls), "
             f"device: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa bwd "
             f"({'/'.join(tot['sdpa_backends'])}) {tot['library_ms']:.4f} ms, bound "
             f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP; "
             f"D err {tot['d_err']:.3g} of max|D| (rowsum(dO o O) {tot['d_err_from_o']:.3g}), "
-            f"grad rel err {tot['max_rel_err']:.3g} | events: kernel {tot['ms_events']:.4f}, "
-            f"plain {tot['plain_ms_events']:.4f}, sdpa bwd {tot['library_ms_events']:.4f} ms")
+            f"grad rel err {tot['max_rel_err']:.3g}")
     return totals
 
 
@@ -1354,7 +1346,7 @@ def phase_ldm_fused_forward(cn, hints, device) -> None:
     phase_fused_forward(cn, x, t, feats, LDM_PROJ_SHAPES, 0, "latent")
 
 
-LDM_ANCESTRAL_STEPS = 250  # the ancestral loop's schedule length in phase 13
+LDM_ANCESTRAL_STEPS = 100  # the ancestral loop's schedule length in phase 13
 LDM_MODES = (
     ("ancestral", dict()),
     ("dpm20_cfg2", dict(sampler="dpm", sampler_steps=20, cfg_scale=2.0)),
@@ -1499,9 +1491,7 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, split_ms=0.0, flops=0.0,
-                   ms_events=0.0, plain_ms_events=0.0, library_ms_events=0.0,
-                   split_ms_events=0.0, ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0,
-                   max_rel_err=0.0)
+                   ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0)
         for l, c, heads, n in cases:
             xt, in_w, in_b, out_w, out_b = proj_inputs(batch, l, c, dtype, device)
             x = xt.transpose(1, 2)
@@ -1559,9 +1549,7 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
                 f"{batch}, {smem} B shared, projection "
                 f"work x{recompute:.1f}, padded rows x{rows * q_tiles / l:.2f}), plain "
                 f"{t['plain_ms']:.4f} ms, split path {t['split_ms']:.4f} ms, F.mha "
-                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | events: "
-                f"kernel {t['ms_events']:.4f}, plain {t['plain_ms_events']:.4f}, split path "
-                f"{t['split_ms_events']:.4f}, F.mha {t['library_ms_events']:.4f} ms | x{n} per "
+                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | x{n} per "
                 f"{what} | cycles a block by phase: "
                 + ", ".join(f"{p} {phases[p]:.0f}" for p in proj.PHASES))
             if not ok:
@@ -1569,8 +1557,7 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
                                  "plain version")
             tot["max_abs_err"] = max(tot["max_abs_err"], err, err_tok)
             tot["max_rel_err"] = max(tot["max_rel_err"], max(err, err_tok) / scale)
-            for key in ("ms", "plain_ms", "library_ms", "split_ms", "ms_events",
-                        "plain_ms_events", "library_ms_events", "split_ms_events"):
+            for key in ("ms", "plain_ms", "library_ms", "split_ms"):
                 tot[key] += n * t[key]
             tot["bound_ms"] += n * bound_ms
             tot["flops"] += n * flops
@@ -1582,9 +1569,7 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
             f"({sum(n for *_, n in cases)} calls), device: kernel {tot['ms']:.4f} ms, plain "
             f"{tot['plain_ms']:.4f} ms, split path {tot['split_ms']:.4f} ms, F.mha "
             f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}), "
-            f"{tot['flops'] / 1e9:.2f} GFLOP | events: kernel {tot['ms_events']:.4f}, plain "
-            f"{tot['plain_ms_events']:.4f}, split path {tot['split_ms_events']:.4f}, F.mha "
-            f"{tot['library_ms_events']:.4f} ms")
+            f"{tot['flops'] / 1e9:.2f} GFLOP")
     return totals
 
 
@@ -2512,13 +2497,542 @@ def phase_serve_students(config: dict, ckpts: dict, device, dpm_4step_ms: float)
     return res
 
 
-# The kernel-timing phases (3, 6, 10, 12 and 15) and the timed distillation
-# main path (19).  Each runs in a process of its own (``in_fresh_process``):
-# on the H100 a process that has launched millions of kernels since its first
-# profiler window loses device records in later windows, often all of a
-# window's own, while a fresh one does not.
+# ---------------------------------------------------------------------------
+# Phases 21-26: CelebA-HQ latent training (config/celebhq.yaml, full width)
+# ---------------------------------------------------------------------------
+
+LATENT_KINDS = ("vae", "ldm", "controlnet")
+# launches of kernels a, b and c per train step of each latent trainer
+LATENT_CALLS = {"vae": (0, 0, 0), "ldm": (14, 14, 0), "controlnet": (22, 14, 7)}
+LATENT_BATCH = {"vae": 4, "ldm": LDM_BATCH, "controlnet": LDM_BATCH}  # train_params' batches
+LATENT_STEPS_PER_EPOCH = 10**6  # no LR milestone falls inside a run here
+LATENT_PROFILE_STEPS = 2  # the f32 VAE-GAN step launches ~35,000 kernels
+
+
+@functools.lru_cache(maxsize=1)
+def seeded_ldm_state_dict() -> dict:
+    """The LDM UNet's state dict at config/celebhq.yaml's width, random
+    weights from SEED (what a reference-format LDM .pth holds); the LDM
+    ControlNet's trunks start from it."""
+    from controlnet_tpu_torch.models.unet import UNet
+
+    config = celebhq_config()
+    torch.manual_seed(SEED)
+    return UNet(config["autoencoder_params"]["z_channels"], config["ldm_params"]).state_dict()
+
+
+def latent_trainer(kind: str, dtype_name: str, device, **train_params):
+    """One latent trainer of config/celebhq.yaml at full width, from the
+    trainer tools' ``make_trainer`` at ``dtype_name`` compute, with
+    ``train_params`` overriding the config's: returns (modules by name,
+    train states by name, ``run(batch, step_count, g, **draws) -> loss``).
+    The ControlNet's zero convs are made nonzero from SEED, so the control
+    branch takes gradient from the first step."""
+    from controlnet_tpu_torch.tools import train_ldm_controlnet, train_ldm_vae, train_vae
+
+    cfg = celebhq_config()
+    cfg["train_params"].update(compute_dtype=dtype_name, **train_params)
+    if kind == "vae":
+        vae, disc, g_state, d_state, step = train_vae.make_trainer(cfg, device, SEED)
+        return ({"vae": vae, "disc": disc}, {"g": g_state, "d": d_state},
+                lambda b, i, g, **kw: step(g_state, d_state, b, i, g, **kw)["g_loss"])
+    if kind == "ldm":
+        unet, state, step = train_ldm_vae.make_trainer(cfg, LATENT_STEPS_PER_EPOCH, device, SEED)
+        return {"unet": unet}, {"": state}, lambda b, i, g, **kw: step(state, b, g, **kw)
+    cn, state, step = train_ldm_controlnet.make_trainer(cfg, seeded_ldm_state_dict(),
+                                                        LATENT_STEPS_PER_EPOCH, device, SEED)
+    randomize_zero_convs(cn)
+    return {"cn": cn}, {"": state}, lambda b, i, g, **kw: step(state, b[0], b[1], g, **kw)
+
+
+def latent_batch(kind: str, g: torch.Generator, device):
+    """One seeded batch of ``kind``'s trainer: images in [-1, 1] at 128^2
+    (VAE); latents drawn from seeded moments mean || logvar as the LDM tools
+    draw them (LDM); those latents and binary edge-like hints at 1024^2
+    (ControlNet)."""
+    from controlnet_tpu_torch.data.datasets import latents_from_batch
+
+    cfg = celebhq_config()
+    b = LATENT_BATCH[kind]
+    if kind == "vae":
+        size = cfg["dataset_params"]["im_size"]
+        return torch.rand((b, 3, size, size), generator=g, device=device) * 2 - 1
+    ae = cfg["autoencoder_params"]
+    z, lsize = ae["z_channels"], cfg["dataset_params"]["im_size"] // 2 ** sum(ae["down_sample"])
+    moments = torch.randn((b, 2 * z, lsize, lsize), generator=g, device=device)
+    moments[:, z:] = moments[:, z:] * 0.5 - 3.0  # logvar around -3
+    latents = latents_from_batch(moments, g)
+    if kind == "ldm":
+        return latents
+    size = cfg["dataset_params"]["canny_im_size"]
+    edges = (torch.rand((b, 1, size, size), generator=g, device=device) < 0.15).float()
+    return latents, edges.expand(b, 3, size, size).contiguous()
+
+
+def latent_draws(kind: str, batch, g: torch.Generator, device) -> dict:
+    """The step's own draws made beforehand, so two runs inject the same
+    ones: the VAE's reparameterisation noise; t and noise (and the
+    ControlNet's condition-drop mask)."""
+    if kind == "vae":
+        ae = celebhq_config()["autoencoder_params"]
+        down = 2 ** sum(bool(d) for d in ae["down_sample"])
+        b, _, h, w = batch.shape
+        return {"noise": torch.randn((b, ae["z_channels"], h // down, w // down), generator=g,
+                                     device=device)}
+    lat = batch if kind == "ldm" else batch[0]
+    draws = {"t": torch.randint(0, 1000, (lat.shape[0],), generator=g, device=device),
+             "noise": torch.randn(lat.shape, generator=g, device=device)}
+    if kind == "controlnet":
+        draws["keep"] = (torch.rand((lat.shape[0],), generator=g, device=device) >= 0.25).float()
+    return draws
+
+
+def launch_counts() -> tuple[int, int, int]:
+    from controlnet_tpu_torch.ops import cuda_attention, cuda_conv
+
+    return cuda_attention.launches, cuda_attention.bwd_launches, cuda_conv.launches
+
+
+def reset_launch_counts() -> None:
+    from controlnet_tpu_torch.ops import cuda_attention, cuda_conv
+
+    cuda_attention.launches = cuda_attention.bwd_launches = cuda_conv.launches = 0
+
+
+def phase_latent_shapes(device) -> list:
+    """Phase 21: one full-width step of the LDM trainer and one of the LDM
+    ControlNet trainer at batch 16, f32: launches a / b / c (14 / 14 / 0 and
+    22 / 14 / 7) and the backward attention shapes, which must be the same
+    14 in both (the ControlNet's control copy has the LDM's down and mid
+    shapes, its trunk the LDM's up shapes).  Returns those shapes."""
+    found = {}
+    for kind in ("ldm", "controlnet"):
+        _, _, run = latent_trainer(kind, "float32", device)
+        g = torch.Generator(device=device).manual_seed(SEED)
+        batch = latent_batch(kind, g, device)
+        shapes: list = []
+        before = launch_counts()
+        with record_bwd_shapes(shapes):
+            loss = run(batch, 1, g)
+        torch.cuda.synchronize()
+        got = tuple(n - m for n, m in zip(launch_counts(), before))
+        ok = got == LATENT_CALLS[kind] and bool(torch.isfinite(loss))
+        found[kind] = shapes
+        log(f"latent training step {kind}, batch {LDM_BATCH}: launches a / b / c {got} (expect "
+            f"{LATENT_CALLS[kind]}), loss {loss.item():.4f}; backward shapes (Lq, Lk, dh, B*H) "
+            f"{sorted(collections.Counter(shapes).items(), reverse=True)} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"full-width latent training step ({kind}) failed")
+        del run, batch, loss
+        torch.cuda.empty_cache()
+    if collections.Counter(found["ldm"]) != collections.Counter(found["controlnet"]):
+        raise SystemExit("the LDM and LDM ControlNet steps reach kernel b at different shapes")
+    return found["ldm"]
+
+
+HINT_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}  # of max|grad| per tensor
+
+
+def phase_conv_autograd(device) -> dict:
+    """Phase 23: kernel c under autograd.  One batch-16 hint encode of the
+    full-width LDM ControlNet at 1024^2, forward and backward of a seeded
+    projection of its features, through kernel c (7 launches) against the
+    same encode with the plain conv route, f32 and bf16 hints: the features
+    within MODEL_TOL of max|f| and every hint-encoder parameter's gradient
+    within HINT_GRAD_TOL of that tensor's max|grad|."""
+    from controlnet_tpu_torch.ops import cuda_conv
+
+    modules, _, _ = latent_trainer("controlnet", "float32", device)
+    cn = modules["cn"]
+    params = dict(cn.hint_block.named_parameters())
+    g = torch.Generator(device=device).manual_seed(SEED)
+    _, hints = latent_batch("controlnet", g, device)
+    out: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = []
+        for plain in (False, True):
+            for p in params.values():
+                p.grad = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = cuda_conv.launches
+            start = time.perf_counter()
+            with plain_conv() if plain else contextlib.nullcontext():
+                feats = cn.hint_features(hints.to(dtype))
+                w = torch.randn(feats.shape, generator=torch.Generator(device=device)
+                                .manual_seed(SEED + 1), device=device)
+                (feats.float() * w).sum().backward()
+            torch.cuda.synchronize()
+            runs.append(dict(feats=feats.detach().float(),
+                             grads={k: p.grad.detach().clone() for k, p in params.items()},
+                             launches=cuda_conv.launches - before,
+                             ms=(time.perf_counter() - start) * 1e3,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+            del feats, w
+        kern, ref = runs
+        scale = ref["feats"].abs().max().item()
+        f_err = (kern["feats"] - ref["feats"]).abs().max().item() / max(scale, 1e-30)
+        g_err = {k: ((kern["grads"][k] - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+                 for k, r in ref["grads"].items()}
+        worst = max(g_err, key=g_err.get)
+        ok = (kern["launches"] == 7 and ref["launches"] == 0 and f_err <= MODEL_TOL[dtype]
+              and max(g_err.values()) <= HINT_GRAD_TOL[dtype]
+              and all(bool(torch.isfinite(t).all()) for t in kern["grads"].values()))
+        name = str(dtype)[6:]
+        out[name] = dict(feat_err=f_err, grad_err=max(g_err.values()), worst=worst,
+                         launches=kern["launches"], ms=kern["ms"], plain_ms=ref["ms"],
+                         peak_gb=kern["peak_gb"])
+        log(f"hint encode under autograd {name}, batch {LDM_BATCH}, hints "
+            f"{tuple(hints.shape[2:])}: conv kernel launches {kern['launches']} (expect 7), "
+            f"plain route {ref['launches']}; features rel err {f_err:.3g} (tol "
+            f"{MODEL_TOL[dtype]:g}), weight gradients rel err {max(g_err.values()):.3g} at "
+            f"{worst} (tol {HINT_GRAD_TOL[dtype]:g}, {len(g_err)} tensors); forward + backward "
+            f"{kern['ms']:.1f} ms (plain route {ref['ms']:.1f} ms) on the host clock, peak "
+            f"memory {kern['peak_gb']:.2f} GB -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"hint encode under autograd ({name}) disagrees with the plain route")
+        del runs, kern, ref
+    del cn, modules
+    torch.cuda.empty_cache()
+    return out
+
+
+# f32 weights after CHECK_STEPS latent steps, kernels vs plain, in lr: phase
+# 7's 1e-2 does not hold here.  On an H100 80GB HBM3 at 700 W the routes'
+# losses agree to 5 digits and their first-step gradients within ~2e-6 of
+# max|grad|, but Adam turns a gradient difference d on a weight with
+# gradient g into ~lr * d / |g|, and a GroupNorm scale of the control copy
+# (downs.1; its gradient a sum over 16 x 256 pixels) moved 0.0119 lr apart,
+# the same in every run.  A wrong gradient moves weights ~lr apart.
+LATENT_WEIGHT_TOL = 2e-2
+
+
+def _latent_check_steps(kind: str, dtype_name: str, device, plain: bool):
+    """CHECK_STEPS steps of ``kind`` from one start with injected draws,
+    disc_start 1 for the VAE (steps 1, 2, 3 straddle it), condition drop
+    0.25 for the ControlNet; returns (losses, first-step grads, params
+    before, after, noise-floor mask, launches a / b / c of each step)."""
+    _, states, run = latent_trainer(kind, dtype_name, device, disc_start=1, cfg_drop_prob=0.25)
+    params = {f"{n}.{k}": p for n, st in states.items() for k, p in st.params.items()}
+    before = {k: p.detach().clone() for k, p in params.items()}
+    g = torch.Generator(device=device).manual_seed(SEED)
+    losses, grads, noisy, launches = [], None, {}, []
+    # cuDNN's deterministic algorithms in both runs: with its default ones,
+    # two runs of the VAE-GAN step, which reaches no kernel, differed by
+    # 5.2e-05 of max|grad| (H100 80GB HBM3, 700 W)
+    routes = (plain_attention(), plain_conv()) if plain else ()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                       deterministic=True, allow_tf32=False))
+        for ctx in routes:
+            stack.enter_context(ctx)
+        for i in range(CHECK_STEPS):
+            batch = latent_batch(kind, g, device)
+            draws = latent_draws(kind, batch, g, device)
+            start = launch_counts()
+            losses.append(run(batch, i + 1, None, **draws))
+            torch.cuda.synchronize()
+            launches.append(tuple(n - m for n, m in zip(launch_counts(), start)))
+            for k, p in params.items():
+                low = p.grad.abs() < NOISE_FLOOR
+                noisy[k] = low if k not in noisy else noisy[k] | low
+            if grads is None:
+                grads = {k: p.grad.detach().clone() for k, p in params.items()}
+    after = {k: p.detach().clone() for k, p in params.items()}
+    return torch.stack(losses).float().cpu(), grads, before, after, noisy, launches
+
+
+def phase_latent_parity(device) -> dict:
+    """Phase 24: CHECK_STEPS steps of each latent trainer through the
+    kernels against the same steps with the plain attention and conv routes,
+    with the same injected draws, f32 and bf16.  Launches per step exactly
+    LATENT_CALLS (the plain runs launch none).  Tolerances as phase 7's:
+    losses and first-step gradients MODEL_TOL (relative); the weights after
+    within LATENT_WEIGHT_TOL lr where the gradients stayed above the noise
+    floor (f32),
+    or a mean |difference| under 0.15 lr and an update cosine over 0.97
+    (bf16).  The VAE-GAN step reaches no kernel: its two runs differ only
+    where cuDNN or an atomic reduction does (bit-identical or not is
+    printed)."""
+    lrs = {"vae": "autoencoder_lr", "ldm": "ldm_lr", "controlnet": "controlnet_lr"}
+    results: dict = {}
+    for kind in LATENT_KINDS:
+        lr = celebhq_config()["train_params"][lrs[kind]]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            lk, gk, before, ak, nk, launches = _latent_check_steps(kind, name, device, False)
+            lp, gp, _, ap, npl, plain_launches = _latent_check_steps(kind, name, device, True)
+            loss_err = ((lk - lp).abs().max() / lp.abs().max().clamp(min=1.0)).item()
+            gmax = max(g.abs().max().item() for g in gp.values())
+            grad_err = max((gk[k] - gp[k]).abs().max().item() for k in gp) / gmax
+            clean, allw, upd_k, upd_p, worst = [], [], [], [], ("", 0.0)
+            for k in before:
+                d = (ak[k] - ap[k]).abs()
+                clean.append(d[~(nk[k] | npl[k])].flatten())
+                if clean[-1].numel() and clean[-1].max().item() > worst[1]:
+                    worst = (k, clean[-1].max().item())
+                allw.append(d.flatten())
+                upd_k.append((ak[k] - before[k]).flatten())
+                upd_p.append((ap[k] - before[k]).flatten())
+            clean, allw, upd_k, upd_p = (torch.cat(x).double() for x in (clean, allw, upd_k, upd_p))
+            cos = (upd_k @ upd_p / (upd_k.norm() * upd_p.norm())).item()
+            clean_max = clean.max().item() / lr
+            mean_diff = allw.mean().item() / lr
+            identical = loss_err == 0 and allw.max().item() == 0
+            ok = (bool(torch.isfinite(lk).all())
+                  and all(n == LATENT_CALLS[kind] for n in launches)
+                  and all(n == (0, 0, 0) for n in plain_launches)
+                  and loss_err <= MODEL_TOL[dtype] and grad_err <= MODEL_TOL[dtype]
+                  and (mean_diff < 0.15 and cos > 0.97 if dtype == torch.bfloat16
+                       else clean_max < LATENT_WEIGHT_TOL))
+            results[f"{kind}_{name}"] = dict(loss_err=loss_err, grad_err=grad_err,
+                                             clean_max_lr=clean_max, mean_diff_lr=mean_diff,
+                                             cos=cos, launches_per_step=launches[0],
+                                             bit_identical=identical)
+            log(f"latent training {kind} {name}, {CHECK_STEPS} steps kernels vs plain routes "
+                f"(injected draws{', disc_start 1' if kind == 'vae' else ''}): losses "
+                f"{[round(x, 5) for x in lk.tolist()]} vs {[round(x, 5) for x in lp.tolist()]} "
+                f"(rel err {loss_err:.3g}), first-step grads rel err {grad_err:.3g} (tol "
+                f"{MODEL_TOL[dtype]:g}); weights after: max |diff| {clean_max:.3g} lr (at "
+                f"{worst[0]}) over the {clean.numel() / allw.numel():.3f} above the noise floor, "
+                f"mean {mean_diff:.3g} lr, update cosine {cos:.6f}, bit-identical {identical}; "
+                f"launches a / b / c "
+                f"per step {launches} (expect "
+                f"{LATENT_CALLS[kind]}), plain runs {plain_launches[0]} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"latent training ({kind}, {name}) through the kernels disagrees "
+                                 "with the plain routes")
+            torch.cuda.empty_cache()
+    return results
+
+
+def phase_latent_main_path(device) -> dict:
+    """Phase 25, in a process of its own: TRAIN_STEPS timed steps of each
+    latent trainer at full width (VAE-GAN batch 4 at 128^2; LDM batch 16 on
+    32x32x4 latents; LDM ControlNet batch 16 with 1024^2 hints), f32 and
+    bf16.  Launch counters set to 0 just before the timed run and read just
+    after (exactly LATENT_CALLS a step); ms/step on the host clock, peak
+    memory; then a short torch.profiler window for device time, busy share
+    and kernels per step.  Every trainable tensor that took gradient moves
+    (the VAE's discriminator counts from step 2 on); the ControlNet's frozen
+    trunk stays bit-identical."""
+    from torch.profiler import ProfilerActivity, profile
+
+    results: dict = {torch.float32: {}, torch.bfloat16: {}}
+    for kind in LATENT_KINDS:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            # the discriminator counts from step 2 on, so every trainable tensor moves
+            t0 = time.perf_counter()
+            modules, states, run = latent_trainer(kind, name, device, disc_start=1)
+            params = {f"{n}.{k}": p for n, st in states.items() for k, p in st.params.items()}
+            t_before = {k: p.detach().clone() for k, p in params.items()}
+            frozen = modules["cn"].split_params()[1] if kind == "controlnet" else {}
+            f_before = {k: p.detach().clone() for k, p in frozen.items()}
+            g = torch.Generator(device=device).manual_seed(SEED)
+            pool = [latent_batch(kind, g, device) for _ in range(4)]
+            for i in range(TRAIN_WARMUP):
+                run(pool[i % len(pool)], i + 1, g)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            start = time.perf_counter()
+            losses = [run(pool[i % len(pool)], TRAIN_WARMUP + i + 1, g)
+                      for i in range(TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches = launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            losses = torch.stack(losses).float()
+            t1 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for i in range(LATENT_PROFILE_STEPS):
+                    run(pool[i % len(pool)], TRAIN_WARMUP + TRAIN_STEPS + i + 1, g)
+                torch.cuda.synchronize()
+            kernels = device_events(prof)
+            t2 = time.perf_counter()
+            n_prof = LATENT_PROFILE_STEPS
+            dev_ms = sum(_device_ms(e) for e in kernels) / n_prof
+            a_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name)) / n_prof
+            b_ms = sum(_device_ms(e) for e in kernels if "attention_bwd_" in e.name) / n_prof
+            c_ms = sum(_device_ms(e) for e in kernels if "conv3x3_tl" in e.name) / n_prof
+            trained = [k for k, p in params.items() if p.grad is not None]
+            moved = all(not torch.equal(params[k].detach(), t_before[k]) for k in trained)
+            still = all(torch.equal(p.detach(), f_before[k]) for k, p in frozen.items())
+            ms_step = seconds * 1e3 / TRAIN_STEPS
+            want = tuple(n * TRAIN_STEPS for n in LATENT_CALLS[kind])
+            ok = (launches == want and bool(torch.isfinite(losses).all()) and moved and still
+                  and len(trained) > 0)
+            results[dtype][kind] = dict(
+                batch=LATENT_BATCH[kind], ms_per_step=ms_step, steps_per_s=TRAIN_STEPS / seconds,
+                launches=launches, device_ms_per_step=dev_ms, busy=dev_ms / ms_step,
+                kernels_per_step=len(kernels) / n_prof, attn_fwd_device_ms=a_ms,
+                attn_bwd_device_ms=b_ms, conv_device_ms=c_ms, peak_gb=peak_gb,
+                loss_first=losses[0].item(), loss_last=losses[-1].item())
+            log(f"latent training main path {kind} {name}: {TRAIN_STEPS} steps, batch "
+                f"{LATENT_BATCH[kind]}: {seconds:.3f} s, {ms_step:.3f} ms/step, "
+                f"{TRAIN_STEPS / seconds:.3f} steps/s, launches a / b / c {launches} (expect "
+                f"{want}), loss {losses[0].item():.4f} -> {losses[-1].item():.4f}, trainable "
+                f"moved {moved} ({len(trained)} tensors), frozen unchanged {still}, peak memory "
+                f"{peak_gb:.2f} GB | profile ({n_prof} steps): device {dev_ms:.3f} "
+                f"ms/step, busy {dev_ms / ms_step:.3f}, {len(kernels) / n_prof:.1f} "
+                f"kernels/step, kernel a {a_ms:.3f}, b {b_ms:.3f}, c {c_ms:.3f} ms/step -> "
+                f"{'ok' if ok else 'FAIL'} (set-up and warm-up {start - t0:.1f} s, profile "
+                f"window and its events {t2 - t1:.1f} s)")
+            by_name: dict = {}
+            for e in kernels:
+                by_name[e.name] = by_name.get(e.name, 0.0) + _device_ms(e) / n_prof
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            log(f"latent training {kind} {name} top device kernels (ms/step): "
+                + "; ".join(f"{k.replace('void ', '')[:56]} {v:.3f}" for k, v in top))
+            if not ok:
+                raise SystemExit(f"latent training main path ({kind}, {name}) failed")
+            del modules, states, run, pool, params, t_before, frozen, f_before
+            torch.cuda.empty_cache()
+    return results
+
+
+LATENT_TOOL_IMAGES = 16
+
+
+def tiny_celeb_config(task: str) -> dict:
+    """config/celebhq.yaml's schema at a tiny width for the tool chain:
+    16x16 images, 8x8 latents, 32x32 hints (factor 4), 8 timesteps."""
+    return {
+        "dataset_params": {"name": "celebhq", "im_path": "unused", "im_channels": 3,
+                           "im_size": 16, "canny_im_size": 32},
+        "diffusion_params": {"num_timesteps": 8, "beta_start": 0.0015, "beta_end": 0.0195},
+        "ldm_params": {"hint_channels": 3, "down_channels": [16, 32, 32],
+                       "mid_channels": [32, 32], "down_sample": [True, False],
+                       "attn_down": [False, True], "time_emb_dim": 16, "norm_channels": 8,
+                       "num_heads": 2, "conv_out_channels": 16, "num_down_layers": 1,
+                       "num_mid_layers": 1, "num_up_layers": 1},
+        "autoencoder_params": {"z_channels": 4, "down_channels": [16, 32], "mid_channels": [32],
+                               "down_sample": [True], "attn_down": [False], "norm_channels": 8,
+                               "num_heads": 2, "num_down_layers": 1, "num_mid_layers": 1,
+                               "num_up_layers": 1},
+        "train_params": {"seed": SEED, "task_name": task, "ldm_batch_size": 4,
+                         "autoencoder_batch_size": 4, "disc_start": 2, "disc_weight": 0.5,
+                         "perceptual_weight": 1, "kl_weight": 0.000005, "ldm_epochs": 1,
+                         "autoencoder_epochs": 1, "controlnet_epochs": 1, "num_samples": 4,
+                         "num_grid_rows": 2, "ldm_lr": 0.001, "ldm_lr_steps": [1],
+                         "autoencoder_lr": 0.001, "controlnet_lr": 0.001,
+                         "controlnet_lr_steps": [1], "autoencoder_acc_steps": 2,
+                         "autoencoder_img_save_steps": 2, "save_latents": True,
+                         "vae_latent_dir_name": "vae_latents", "ldm_ckpt_name": "ddpm_ckpt.pth",
+                         "controlnet_ckpt_name": "ddpm_controlnet_ckpt.pth",
+                         "vae_autoencoder_ckpt_name": "vae_autoencoder_ckpt.pth",
+                         "vae_discriminator_ckpt_name": "vae_discriminator_ckpt.pth"},
+    }
+
+
+def phase_latent_tools(device) -> dict:
+    """Phase 26: the latent tool chain on the card, on a tiny celeb config
+    with seeded images and hints: train_vae for 1 epoch, then resumed to 2;
+    infer_vae (reconstruction grid, latent shards, and a second call that
+    leaves the cache as it is); train_ldm_vae; sample_ldm_vae; then
+    train_ldm_controlnet, and the existing sample_ldm_controlnet on the
+    written ControlNet and VAE .pth files (loaded strictly)."""
+    import numpy as np
+    import yaml
+
+    from controlnet_tpu_torch.tools import (infer_vae, sample_ldm_controlnet, sample_ldm_vae,
+                                            train_ldm_controlnet, train_ldm_vae, train_vae)
+
+    work = os.path.join(REPO, "build", "smoke", "latent_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(SEED)
+    images = os.path.join(work, "images.npy")
+    hints = os.path.join(work, "hints.npy")
+    np.save(images, (rng.random((LATENT_TOOL_IMAGES, 16, 16, 3)) * 255).astype(np.uint8))
+    np.save(hints, (rng.random((LATENT_TOOL_IMAGES, 32, 32, 3)) < 0.2).astype(np.float32))
+    task = os.path.join(work, "celeb")
+
+    def config_path(**train) -> str:
+        cfg = tiny_celeb_config(task)
+        cfg["train_params"].update(train)
+        path = os.path.join(work, f"celeb_{len(os.listdir(work))}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    start = time.perf_counter()
+    vae_runs = [train_vae.train(config_path(autoencoder_epochs=e), images) for e in (1, 2)]
+    cfg = config_path()
+    infer_vae.infer(cfg, images)
+    shards = sorted(os.listdir(os.path.join(task, "vae_latents")))
+    infer_vae.infer(cfg, images)  # leaves the cache as it is
+    ldm = train_ldm_vae.train(cfg)
+    sample_ldm_vae.main(["--config", cfg, "--save_every", "4"])
+    cn = train_ldm_controlnet.train(cfg, hints)
+    sample_ldm_controlnet.main(["--config", cfg, "--hints", hints, "--sampler", "ddim",
+                                "--sampler_steps", "4"])
+    seconds = time.perf_counter() - start
+    files = ["vae_autoencoder_ckpt.pth", "vae_discriminator_ckpt.pth", "ddpm_ckpt.pth",
+             "ddpm_controlnet_ckpt.pth", "vae_infer_samples.png", "samples/final_decoded.png",
+             "samples/x0_0.png", "hint_samples/final_decoded.png",
+             "vae_autoencoder_ckpt/2.pt", "vae_discriminator_ckpt/2.pt", "ddpm_ckpt/1.pt",
+             "ddpm_controlnet_ckpt/1.pt"]
+    missing = [f for f in files if not os.path.exists(os.path.join(task, f))]
+    finite = all(np.isfinite(list(r["metrics"][0].values())).all() for r in vae_runs)
+    finite = finite and all(np.isfinite(h["losses"]).all() for h in (ldm, cn))
+    ok = (not missing and finite and shards == ["latents_0.npz"]
+          and [r["epochs"] for r in vae_runs] == [[1], [2]]
+          and os.path.exists(os.path.join(task, "vae_autoencoder_samples",
+                                          "current_autoencoder_sample_1.png")))
+    log(f"latent tools on the card: train_vae 1 epoch then resumed to 2, infer_vae ({shards}, "
+        f"second call left the cache), train_ldm_vae (loss {ldm['losses'][0]:.4f}), "
+        f"sample_ldm_vae, train_ldm_controlnet (loss {cn['losses'][0]:.4f}), "
+        f"sample_ldm_controlnet on the written .pth files: {seconds:.1f} s; missing {missing} "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("latent tools failed")
+    return dict(seconds=seconds)
+
+
+def latent_train_summary(res: dict) -> dict:
+    """The ``{"latent_train": ...}`` line: per-step results of the timed
+    runs, the parity and autograd checks, kernel b's per-step device times."""
+    bwd = {str(d)[6:]: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "max_rel_err", "sdpa_backends")}
+           for d, t in res["bwd"].items()}
+    return {"main_path": {f"{kind}_{str(d)[6:]}": r for d, runs in res["main_path"].items()
+                          for kind, r in runs.items()},
+            "parity": res["parity"], "conv_autograd": res["conv_grad"],
+            "kernel_b_per_step": bwd, "tools_s": res["tools"]["seconds"],
+            "phases_s": res["seconds"]}
+
+
+def run_latent_train_phases(device) -> dict:
+    """Phases 21-26 in order; returns their results."""
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    shapes = phase_latent_shapes(device)
+    torch.cuda.empty_cache()
+    kern_bwd = in_fresh_process("phase_kernels_bwd", shapes, batch=LDM_BATCH, cross=False,
+                                per="latent training step")
+    conv_grad = phase_conv_autograd(device)
+    parity = phase_latent_parity(device)
+    torch.cuda.empty_cache()
+    main_path = in_fresh_process("phase_latent_main_path")
+    tools = phase_latent_tools(device)
+    res = dict(bwd=kern_bwd, conv_grad=conv_grad, parity=parity, main_path=main_path,
+               tools=tools, seconds=time.perf_counter() - start)
+    log(f"latent training phases 21-26: {res['seconds']:.1f} s")
+    return res
+
+
+# The kernel-timing phases (3, 6, 10, 12, 15 and 22) and the timed
+# distillation and latent-training main paths (19, 25).  Each runs in a
+# process of its own (``in_fresh_process``): on the H100 a process that has
+# launched millions of kernels since its first profiler window loses device
+# records in later windows, often all of a window's own, while a fresh one
+# does not.
 TIMING_PHASES = ("phase_kernels", "phase_kernels_bwd", "phase_conv_kernels",
-                 "phase_proj_kernels", "phase_distill_main_path")
+                 "phase_proj_kernels", "phase_distill_main_path", "phase_latent_main_path")
 
 
 def in_fresh_process(phase: str, *args, **kwargs) -> dict:
@@ -2563,6 +3077,9 @@ def main() -> int:
     parser.add_argument("--distill-only", action="store_true",
                         help="build the kernels and run the distillation phases 17-20 alone "
                              "(a quick check after a change to that path; no result line)")
+    parser.add_argument("--latent-train-only", action="store_true",
+                        help="build the kernels and run the latent-training phases 21-26 alone "
+                             "(a quick check after a change to that path; no result line)")
     parser.add_argument("--timing-phase", help=argparse.SUPPRESS)  # set by in_fresh_process
     args = parser.parse_args()
 
@@ -2595,8 +3112,21 @@ def main() -> int:
         run_distill_phases(config, ckpt, device, None)
         log(f"{smi}; distill-only run: phases 17-20 passed (a partial run: no result line)")
         return 0
+    if args.latent_train_only:
+        log(json.dumps({"latent_train": latent_train_summary(run_latent_train_phases(device))}))
+        log(f"{smi}; latent-train-only run: phases 21-26 passed (a partial run: no result line)")
+        return 0
     from controlnet_tpu_torch.data.datasets import to_unit
     from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
+
+    seconds: dict = {"build": time.perf_counter() - start}  # wall time by group of phases
+    mark = time.perf_counter()
+
+    def done(group: str) -> None:
+        nonlocal mark
+        now = time.perf_counter()
+        seconds[group] = round(now - mark, 1)
+        mark = now
 
     cn, _ = tool.load_model(config, ckpt)
     shapes = phase_forward(cn, device)
@@ -2604,6 +3134,7 @@ def main() -> int:
     del cn
     kern = in_fresh_process("phase_kernels", shapes)
     main_path = phase_main_path(config, ckpt, device)
+    done("1-4")
 
     base = seeded_unet_state_dict(config)
     images = torch.from_numpy(to_unit(seeded_digits(8 * BATCH)))[:, None].to(device)
@@ -2615,20 +3146,24 @@ def main() -> int:
     phase_tools(config, device)
     del images
     torch.cuda.empty_cache()
+    done("5-9")
     ldm = phase_ldm(device)
+    done("10-14")
     proj16 = in_fresh_process("phase_proj_kernels", MNIST_PROJ_SHAPES, SERVE_BATCH,
                               what="MNIST forward")
     proj64 = in_fresh_process("phase_proj_kernels", MNIST_PROJ_SHAPES, BATCH,
                               what="MNIST forward")
     served = phase_serve(config, ckpt, device)
+    done("15-16")
 
     students, parity, distill_main, distill_tools, served_students = run_distill_phases(
         config, ckpt, device, served["steps4"]["latency_ms"])
+    done("17-20")
+    latent = run_latent_train_phases(device)
+    done("21-26")
 
     def kernel_entry(name, source, replaces, tots, launches, bf16_launches, per):
         f32, bf16 = tots[torch.float32], tots[torch.bfloat16]
-        # the CUDA-event times of the same calls (the yardstick of earlier runs)
-        events = ("ms_events", "plain_ms_events", "library_ms_events")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": f32["max_abs_err"],
@@ -2637,11 +3172,10 @@ def main() -> int:
             "per": per,
             "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
-            **{k: f32[k] for k in events},
             "bf16": {"ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
                      "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
                      "library_ms": bf16["library_ms"], "max_abs_err": bf16["max_abs_err"],
-                     "launches": bf16_launches, **{k: bf16[k] for k in events}},
+                     "launches": bf16_launches},
         }
 
     fwd_entry = kernel_entry("attention_fwd_t", "controlnet_tpu_torch/csrc/attention_fwd.cu",
@@ -2693,8 +3227,7 @@ def main() -> int:
                               served["launches_d"], None,
                               f"MNIST forward at batch {SERVE_BATCH} (24 calls)")
     keys = ("ms", "plain_ms", "split_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
-            "max_rel_err", "ms_events", "plain_ms_events", "split_ms_events",
-            "library_ms_events")
+            "max_rel_err")
     proj_entry["split_ms"] = proj16[torch.float32]["split_ms"]
     proj_entry["max_rel_err"] = proj16[torch.float32]["max_rel_err"]
     proj_entry["bf16"] = {k: proj16[torch.bfloat16][k] for k in keys}
@@ -2729,9 +3262,26 @@ def main() -> int:
         "serve_dpm_controlnet_4step_ms": served["steps4"]["latency_ms"],
     }
     log(json.dumps({"distill": distill}))
+    # the latent-training main path (phase 25): launches of each timed run of
+    # TRAIN_STEPS steps; kernel b's times per latent training step (phase 22)
+    # and kernel c's gradients under autograd (phase 23)
+    for entry, i in ((fwd_entry, 0), (bwd_entry, 1), (conv_entry, 2)):
+        entry["latent_train_launches"] = {
+            f"{kind}_{str(dtype)[6:]}": runs[kind]["launches"][i]
+            for dtype, runs in latent["main_path"].items() for kind in runs}
+    lat_b = kernel_entry("attention_bwd_t", "", "", latent["bwd"], None, None,
+                         "latent training step (14 calls)")
+    bwd_entry["latent_train"] = {k: lat_b[k] for k in ("per", "ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "library_ms", "max_abs_err",
+                                                       "bf16")}
+    bwd_entry["latent_train"]["max_rel_err"] = latent["bwd"][torch.float32]["max_rel_err"]
+    bwd_entry["latent_train"]["bf16"]["max_rel_err"] = latent["bwd"][torch.bfloat16]["max_rel_err"]
+    conv_entry["latent_train_autograd"] = latent["conv_grad"]
+    log(json.dumps({"latent_train": latent_train_summary(latent)}))
     log(f"device_time_ms: {PROFILER_WINDOWS['windows']} profiler windows for "
         f"{PROFILER_WINDOWS['measurements']} measurements (2 each when no window lost records), "
         f"{PROFILER_WINDOWS['foreign']} device records left out as launched outside a window")
+    log(f"wall seconds by group of phases: {seconds}")
     log(json.dumps({"kernels": [fwd_entry, bwd_entry, conv_entry, proj_entry]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,18 @@ or float in [0, 1]; (N, H, W) is taken as one channel) and maps it to
 trailing partial batch dropped, and a dataset smaller than one batch yields
 one short batch.  ``load_split`` reads a split with its optional hints (the
 distillation tools' train and test splits are two such pairs).
+
+The latent cache: ``load_latents`` merges the ``*.pkl`` shards of the
+reference (pickled dicts of torch tensors) and the ``*.npz`` shards that
+``tools/infer_vae.py`` writes, each a {key: encoder moments} dict, and
+``latents_from_batch`` draws latents from cached moments mean || logvar.
 """
 
 from __future__ import annotations
+
+import glob
+import os
+import pickle
 
 import numpy as np
 import torch
@@ -78,3 +87,58 @@ def load_split(images_path: str, hints_path: str | None, device) -> tuple:
                              f"{tuple(images.shape)}")
         hints = hints.to(device)
     return images.to(device), hints
+
+
+def load_latents(latent_path: str) -> dict[str, np.ndarray]:
+    """Every ``*.pkl`` and then every ``*.npz`` shard in ``latent_path``
+    merged into one {key: moments} dict, shards in sorted order (a later
+    shard's key wins).  Torch tensors become numpy arrays and batched 4-D
+    entries are ``[0]``-unwrapped, as the reference's ``v[0]``.  A ``.pkl``
+    shard is unpickled: read only caches that you or the reference wrote."""
+
+    def unwrap(v) -> np.ndarray:
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        arr = np.asarray(v)
+        return arr[0] if arr.ndim == 4 else arr
+
+    latents: dict[str, np.ndarray] = {}
+    for f in sorted(glob.glob(os.path.join(latent_path, "*.pkl"))):
+        with open(f, "rb") as fh:
+            shard = pickle.load(fh)
+        for k, v in shard.items():
+            latents[k] = unwrap(v)
+    for f in sorted(glob.glob(os.path.join(latent_path, "*.npz"))):
+        with np.load(f) as shard:
+            for k in shard.files:
+                latents[k] = unwrap(shard[k])
+    return latents
+
+
+def stack_latents(latents: dict[str, np.ndarray], z_channels: int) -> np.ndarray:
+    """The cache's moments in sorted key order as one float32 (N, 2z, h, w)
+    array.  Entries are (2z, h, w), as the reference and this package's
+    ``infer_vae`` write them; the JAX package's (h, w, 2z) shards are
+    transposed."""
+    if not latents:
+        raise ValueError("the latent cache is empty")
+    out = []
+    for k in sorted(latents):
+        m = np.asarray(latents[k], np.float32)
+        if m.ndim != 3 or 2 * z_channels not in (m.shape[0], m.shape[-1]):
+            raise ValueError(f"latent {k!r} of shape {m.shape} holds no {2 * z_channels} "
+                             "moment channels")
+        out.append(m if m.shape[0] == 2 * z_channels else m.transpose(2, 0, 1))
+    return np.stack(out)
+
+
+def latents_from_batch(moments: torch.Tensor, generator: torch.Generator | None = None,
+                       noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Latents drawn from (B, 2z, h, w) moments mean || logvar: mean +
+    exp(logvar / 2) * noise, with standard-normal ``noise`` (the mean's
+    shape) from ``generator`` unless injected."""
+    mean, logvar = torch.chunk(moments, 2, dim=1)
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                            dtype=mean.dtype)
+    return mean + torch.exp(0.5 * logvar) * noise.to(device=mean.device, dtype=mean.dtype)

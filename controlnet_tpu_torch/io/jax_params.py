@@ -2,7 +2,8 @@
 
 ``unet_state_dict_from_jax`` / ``controlnet_state_dict_from_jax`` /
 ``vae_state_dict_from_jax`` / ``student_state_dict_from_jax`` /
-``features_state_dict_from_jax`` take the JAX package's parameter trees (nested
+``features_state_dict_from_jax`` / ``discriminator_state_dict_from_jax`` /
+``lpips_state_dict_from_jax`` take the JAX package's parameter trees (nested
 dicts and lists of numpy arrays) and return this package's ``state_dict``,
 which is the reference PyTorch one.
 This is the port's own numpy-only copy of the layout rules of
@@ -157,6 +158,33 @@ def vae_state_dict_from_jax(params: Params) -> dict:
             _block(bp, f"{name}.{i}", sd)
     _norm(params["encoder_norm_out"], "encoder_norm_out", sd)
     _norm(params["decoder_norm_out"], "decoder_norm_out", sd)
+    return _to_torch(sd)
+
+
+def discriminator_state_dict_from_jax(params: Params) -> dict:
+    """JAX PatchGAN ``Discriminator`` tree -> this package's state dict
+    (``layers.{i}.0`` conv, ``layers.{i}.1`` batch norm)."""
+    sd: dict = {}
+    for i, cp in enumerate(params["convs"]):
+        _conv(cp, f"layers.{i}.0", sd)
+    for i, npar in enumerate(params["norms"]):
+        if npar:
+            _norm(npar, f"layers.{i}.1", sd)
+    return _to_torch(sd)
+
+
+def lpips_state_dict_from_jax(params: Params) -> dict:
+    """JAX ``LPIPS`` tree -> this package's LPIPS state dict: the VGG convs
+    at their torchvision indices (``net.slice{s}.{i}``), the heads as
+    ``lin{k}.model.1``."""
+    from controlnet_tpu_torch.models.lpips import SLICE_CONVS
+
+    sd: dict = {}
+    for s, idxs in SLICE_CONVS.items():
+        for cp, i in zip(params["vgg"][s - 1], idxs):
+            _conv(cp, f"net.slice{s}.{i}", sd)
+    for k, lp in enumerate(params["lins"]):
+        _conv(lp, f"lin{k}.model.1", sd)
     return _to_torch(sd)
 
 

@@ -43,12 +43,7 @@ from controlnet_tpu_torch.sample.cfg import null_hint_features
 from controlnet_tpu_torch.sample.ddpm import make_ldm_sampler
 from controlnet_tpu_torch.schedules.linear import LinearSchedule, make_linear_schedule
 from controlnet_tpu_torch.tools.sample_ddpm_controlnet import COMPUTE_DTYPES, gather_hints
-
-
-def latent_size(dataset_config: dict, autoencoder_config: dict) -> int:
-    """Side of the latent grid: ``im_size`` halved once per VAE downsample."""
-    n_down = sum(bool(d) for d in autoencoder_config["down_sample"])
-    return dataset_config["im_size"] // (2 ** n_down)
+from controlnet_tpu_torch.tools.sample_ldm_vae import latent_size, load_vae
 
 
 def load_models(config: dict, ckpt_path: str | None, vae_ckpt_path: str | None,
@@ -65,12 +60,9 @@ def load_models(config: dict, ckpt_path: str | None, vae_ckpt_path: str | None,
     factor = ds["canny_im_size"] // latent_size(ds, ae)
     cn = ControlNet(ae["z_channels"], cfg.ldm_params(config), model_locked=True,
                     down_sample_factor=factor)
-    vae = VAE(ds["im_channels"], ae)
     if ckpt_path is not None:
         cn.load_state_dict(load_reference_checkpoint(ckpt_path), strict=True)
-    if vae_ckpt_path is not None:
-        vae.load_state_dict(load_reference_checkpoint(vae_ckpt_path), strict=True)
-    return cn.to(device).eval(), vae.to(device).eval(), sched
+    return cn.to(device).eval(), load_vae(config, vae_ckpt_path, device), sched
 
 
 def prepare(cn: ControlNet, sched: LinearSchedule, hints: np.ndarray,

@@ -1,8 +1,10 @@
-"""Train steps of the DDPM UNet, the ControlNet and the two distillers.
+"""Train steps of the DDPM UNet, the ControlNet, the VAE-GAN and the two
+distillers.
 
 Port of ``controlnet_tpu/train/loops.py``'s ``make_ddpm_train_step``,
-``make_controlnet_train_step``, ``make_consistency_train_step`` and
-``make_dmd_train_step``.  Semantics are the JAX step's: a uniform
+``make_controlnet_train_step``, ``make_vae_gan_train_step``,
+``make_consistency_train_step`` and ``make_dmd_train_step``.  Semantics of the
+diffusion steps are the JAX step's: a uniform
 timestep in [0, T), noise drawn like the images, ``add_noise`` in float32
 and then a cast to ``compute_dtype``, the loss mean((f32(pred) - noise)^2),
 then one Adam update.  The step updates the train state in place and
@@ -48,8 +50,7 @@ def _update(state: TrainState, pred: torch.Tensor, noise: torch.Tensor) -> torch
     loss = torch.mean((pred.float() - noise) ** 2)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    state.optimizer.step()
-    state.step += 1
+    state.apply_gradients()
     return loss.detach()
 
 
@@ -89,6 +90,66 @@ def make_controlnet_train_step(cn: ControlNet, sched: LinearSchedule,
         if cfg_drop_prob > 0:
             hints = drop_image_condition(hints, cfg_drop_prob, generator, keep)
         return _update(state, cn(noisy, t, _cast(hints, compute_dtype)), noise)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# VAE adversarial (GAN) training
+# ---------------------------------------------------------------------------
+
+def make_vae_gan_train_step(vae: torch.nn.Module, discriminator: torch.nn.Module,
+                            lpips: torch.nn.Module, disc_start: int, disc_weight: float,
+                            kl_weight: float, perceptual_weight: float,
+                            compute_dtype: torch.dtype | None = None):
+    """Returns ``step(g_state, d_state, images, step_count, generator=None,
+    *, noise=None) -> metrics`` (device scalars).  ``g_state`` holds the
+    VAE's parameters, ``d_state`` the discriminator's; ``lpips`` is frozen
+    and runs in float32.
+
+    As the JAX step: the discriminator counts only after ``disc_start``
+    steps, as a 0 / 1 weight on its losses, so before then its optimizer
+    still takes an update, of zero gradients (Adam's count advances, as
+    optax's does); generator loss = MSE + kl_weight * KL + disc_on *
+    disc_weight * fool + perceptual_weight * LPIPS, its gradients reaching
+    the VAE only; then the discriminator's loss on the detached
+    reconstruction and on the input, with the discriminator's parameters
+    from before this step's generator update.  The VAE's reparameterisation
+    noise (the mean's shape) comes from ``generator`` unless injected."""
+
+    def step(g_state: TrainState, d_state: TrainState, images: torch.Tensor, step_count: int,
+             generator: torch.Generator | None = None, *,
+             noise: torch.Tensor | None = None) -> dict:
+        disc_on = float(step_count > disc_start)
+        x_in = _cast(images, compute_dtype)
+        recon, enc = vae(x_in, generator, noise)
+        mean, logvar = torch.chunk(enc.float(), 2, dim=1)
+        kl = torch.mean(0.5 * torch.sum(torch.exp(logvar) + mean ** 2 - 1.0 - logvar,
+                                        dim=(1, 2, 3)))
+        recon_f = recon.float()
+        recon_loss = torch.mean((recon_f - images) ** 2)
+        fool = torch.mean((discriminator(recon).float() - 1.0) ** 2)
+        lp = torch.mean(lpips(recon_f, images))
+        g_loss = (recon_loss + kl_weight * kl + disc_on * disc_weight * fool
+                  + perceptual_weight * lp)
+        g_params = list(g_state.params.values())
+        grads = torch.autograd.grad(g_loss, g_params)
+        for p, g in zip(g_params, grads):
+            p.grad = g
+        g_state.apply_gradients()
+
+        fake_pred = discriminator(recon.detach()).float()
+        real_pred = discriminator(x_in).float()
+        d_loss = disc_weight * (torch.mean(fake_pred ** 2)
+                                + torch.mean((real_pred - 1.0) ** 2)) / 2.0
+        d_state.optimizer.zero_grad(set_to_none=True)
+        (disc_on * d_loss).backward()
+        d_state.apply_gradients()
+        metrics = {"recon_loss": recon_loss, "kl_loss": kl,
+                   "perceptual_loss": perceptual_weight * lp,
+                   "gen_adv_loss": disc_weight * fool * disc_on,
+                   "disc_loss": d_loss * disc_on, "g_loss": g_loss}
+        return {k: v.detach() for k, v in metrics.items()}
 
     return step
 

@@ -7,27 +7,75 @@ in place; ``state_dict`` / ``load_state_dict`` carry the whole state (the
 parameters, Adam's moments and step counts, and the step) through a
 checkpoint, so a restore resumes exactly.
 
+The latent trainers' optimizers: ``multistep_schedule`` is
+``optax.piecewise_constant_schedule`` over epoch milestones (the LR of update
+k is lr * gamma^(number of milestones m with k >= m * steps_per_epoch)), and
+``acc_steps`` > 1 is ``optax.MultiSteps``: every call folds its gradients
+into a running mean (Welford's update, as optax computes it) and every
+``acc_steps``-th call applies that mean in one Adam update.  The schedule and
+Adam's bias correction count updates, not calls.
+
 ``ClippedAdamW`` / ``create_dmd_train_state`` are the DMD trainer's optimizer
 (clip, AdamW, cosine schedule) with the skipped-batch guard on the device.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import bisect
+from dataclasses import dataclass, field
+from typing import Callable
 
 import torch
 
 
+def multistep_schedule(lr: float, milestones: list[int], steps_per_epoch: int,
+                       gamma: float = 0.5) -> Callable[[int], float]:
+    """The LR of update k (0-based): ``lr`` times ``gamma`` for every epoch
+    milestone m with k >= m * steps_per_epoch (torch's MultiStepLR counted in
+    updates, and ``tools/train_ldm_vae.py``'s ``multistep_adam`` schedule)."""
+    bounds = sorted(m * steps_per_epoch for m in milestones)
+    return lambda k: lr * gamma ** bisect.bisect_right(bounds, k)
+
+
 @dataclass
 class TrainState:
-    step: int
+    step: int  # calls to the train step
     params: dict  # name -> nn.Parameter, the trainable ones
     optimizer: torch.optim.Optimizer
+    lr_schedule: Callable[[int], float] | None = None  # update index -> LR
+    acc_steps: int = 1  # calls whose mean gradient makes one update
+    updates: int = 0  # optimizer updates applied
+    acc: dict = field(default_factory=dict)  # running mean of this window's gradients
+
+    def apply_gradients(self) -> None:
+        """Take the parameters' ``.grad`` of one call: an Adam update now
+        (``acc_steps`` 1), or a fold into the window's mean, applied on the
+        window's last call.  ``.grad`` holds the update's gradient after it."""
+        self.step += 1
+        if self.acc_steps > 1:
+            n = (self.step - 1) % self.acc_steps  # calls already in the window
+            with torch.no_grad():
+                for k, p in self.params.items():
+                    g = torch.zeros_like(p) if p.grad is None else p.grad
+                    if n == 0:
+                        self.acc[k] = g.clone()
+                    else:
+                        self.acc[k].add_((g - self.acc[k]) / (n + 1))
+            if n + 1 < self.acc_steps:
+                return
+            for k, p in self.params.items():
+                p.grad = self.acc.pop(k)
+        if self.lr_schedule is not None:
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr_schedule(self.updates)
+        self.optimizer.step()
+        self.updates += 1
 
     def state_dict(self) -> dict:
-        return {"step": self.step,
+        return {"step": self.step, "updates": self.updates,
                 "params": {k: p.detach() for k, p in self.params.items()},
-                "opt_state": self.optimizer.state_dict()}
+                "opt_state": self.optimizer.state_dict(),
+                "acc": {k: v.detach() for k, v in self.acc.items()}}
 
     def load_state_dict(self, sd: dict) -> None:
         if set(sd["params"]) != set(self.params):
@@ -37,12 +85,22 @@ class TrainState:
                 p.copy_(sd["params"][k])
         self.optimizer.load_state_dict(sd["opt_state"])
         self.step = int(sd["step"])
+        self.updates = int(sd.get("updates", self.step))
+        self.acc = {k: v.to(self.params[k].device).clone() for k, v in sd.get("acc", {}).items()}
 
 
-def create_train_state(params: dict, lr: float) -> TrainState:
-    """A fresh state (step 0, Adam moments zero) over ``params`` by name."""
-    opt = torch.optim.Adam(list(params.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(step=0, params=dict(params), optimizer=opt)
+def create_train_state(params: dict, lr: float, betas: tuple[float, float] = (0.9, 0.999),
+                       lr_schedule: Callable[[int], float] | None = None,
+                       acc_steps: int = 1) -> TrainState:
+    """A fresh state (step 0, Adam moments zero) over ``params`` by name:
+    ``optax.adam(lr, b1, b2)``, with the LR of ``lr_schedule`` (update index
+    -> LR) when given, and gradients averaged over ``acc_steps`` calls per
+    update (``optax.MultiSteps``)."""
+    if acc_steps < 1:
+        raise ValueError(f"acc_steps must be at least 1, got {acc_steps}")
+    opt = torch.optim.Adam(list(params.values()), lr=lr, betas=betas, eps=1e-8)
+    return TrainState(step=0, params=dict(params), optimizer=opt, lr_schedule=lr_schedule,
+                      acc_steps=acc_steps)
 
 
 class ClippedAdamW:

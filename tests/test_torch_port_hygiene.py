@@ -33,7 +33,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "tools.train_consistency_controlnet_distilled",
                  "tools.sample_consistency_controlnet_distilled",
                  "tools.train_distribution_matching_controlnet_distilled",
-                 "tools.sample_distribution_matching_controlnet_distilled"):
+                 "tools.sample_distribution_matching_controlnet_distilled",
+                 "models.discriminator", "models.lpips", "tools.train_vae", "tools.infer_vae",
+                 "tools.train_ldm_vae", "tools.sample_ldm_vae", "tools.train_ldm_controlnet"):
         assert f"controlnet_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -213,5 +215,33 @@ def test_distillation_entry_points_raise_on_cuda_less_host(monkeypatch):
                      ["--config", config]),
                  lambda: sample_distribution_matching_controlnet_distilled.load_student(
                      mnist, "x.pth")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_latent_training_entry_points_raise_on_cuda_less_host(monkeypatch):
+    """The five latent-training tools (and their trainer and loader
+    factories) run on the card unless device="cpu" is passed."""
+    from controlnet_tpu_torch.config import load_config
+    from controlnet_tpu_torch.tools import (infer_vae, sample_ldm_vae, train_ldm_controlnet,
+                                            train_ldm_vae, train_vae)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = os.path.join(REPO, "config", "celebhq.yaml")
+    celebhq = load_config(config)
+    for call in (lambda: train_vae.train(config, "unused.npy"),
+                 lambda: train_vae.main(["--config", config, "--images", "unused.npy"]),
+                 lambda: train_vae.make_trainer(celebhq),
+                 lambda: infer_vae.infer(config, "unused.npy"),
+                 lambda: infer_vae.main(["--config", config, "--images", "unused.npy"]),
+                 lambda: train_ldm_vae.train(config),
+                 lambda: train_ldm_vae.main(["--config", config]),
+                 lambda: train_ldm_vae.make_trainer(celebhq, 1),
+                 lambda: sample_ldm_vae.main(["--config", config]),
+                 lambda: sample_ldm_vae.load_ldm(celebhq, None),
+                 lambda: sample_ldm_vae.load_vae(celebhq, None),
+                 lambda: train_ldm_controlnet.train(config, "unused.npy"),
+                 lambda: train_ldm_controlnet.main(["--config", config, "--hints", "unused.npy"]),
+                 lambda: train_ldm_controlnet.make_trainer(celebhq, {}, 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
