@@ -5,6 +5,7 @@
     python3 chip_smoke.py --verbose-build  # also print ptxas's register report
     python3 chip_smoke.py --distill-only   # phases 17-20 alone (no result line)
     python3 chip_smoke.py --latent-train-only  # phases 21-26 alone (no result line)
+    python3 chip_smoke.py --cifar-only     # phases 27-31 alone (no result line)
 
 Phases (each one that fails makes the script exit non-zero):
 
@@ -25,7 +26,7 @@ Phases (each one that fails makes the script exit non-zero):
    yardstick the port never calls; the backend that ran is printed), beside
    the least time the card could take.
 4. The main path: the sampling tool's ``sample`` over the ancestral loop at
-   batch 64, f32 and bf16 compute, cut to a 100-step schedule (its ms/step
+   batch 64, f32 and bf16 compute, cut to a 50-step schedule (its ms/step
    is what is read; the 1000 steps of PRs 1-6 and the 250 of PR 7 cost the
    time phases 17-26 need).  Launch counters are
    set to 0 just before and read just after each run.  A 10-step sample is
@@ -45,7 +46,7 @@ Phases (each one that fails makes the script exit non-zero):
 7. Three training steps through the kernels against the same steps with
    the plain attention forward and backward, from one generator, f32 and
    bf16: losses, first-step gradients and the weights after.
-8. The training main path: 20 timed steps of the trainer's step at batch
+8. The training main path: 10 timed steps of the trainer's step at batch
    64, f32 and bf16 compute, counters set to 0 just before and read just
    after (exactly 26 forward and 18 backward launches a step), trainable
    weights moved and frozen ones bit-identical; ms/step on the host clock
@@ -69,7 +70,7 @@ Phases (each one that fails makes the script exit non-zero):
    phase 3.
 13. The latent main path through the sample tool (seeded ``.pth`` weights,
    ``.npy`` hints, batch 16): a 5-step sample with guidance through the kernels
-   against the plain versions; then the ancestral loop (cut to a 100-step
+   against the plain versions; then the ancestral loop (cut to a 50-step
    schedule, which leaves time for the later phases: its ms/step is what is
    read), DPM-Solver++ 20 steps with ``cfg_scale`` 2.0 and DDIM 50 steps on
    the 1000-step schedule, f32 and bf16, each ending
@@ -81,7 +82,7 @@ Phases (each one that fails makes the script exit non-zero):
    batch 16 launches it 22 times; each against the same forward with the
    switch off and with the plain versions, f32 and bf16.
 15. Kernel d against its plain version at the six MNIST shapes (batch 16,
-   the server's largest bucket, and batch 64) and the seven latent shapes
+   the server's largest bucket) and the seven latent shapes
    (batch 16), on the channel-major activations the model passes, f32 and
    bf16; device times of the kernel, the plain version, the split path the
    port runs with the switch off (projection, attention kernel, projection)
@@ -110,7 +111,7 @@ Phases (each one that fails makes the script exit non-zero):
    losses, first-step gradients, the weights and the EMA after; launches per
    step held to 42/16 (32/16 in consistency_only); a DMD step on a NaN batch
    leaves parameters, moments and count bit-identical and reports skipped 1.
-19. The distillation main path: 20 timed steps each of ddpm_distillation and
+19. The distillation main path: 10 timed steps each of ddpm_distillation and
    DMD at batch 64, f32 and bf16 (in a process of its own), counters set to 0
    just before and read just after, ms/step and a profiler window; both
    distillation trainer tools for 1 epoch, resumed to 2 (DMD with a seeded
@@ -138,7 +139,7 @@ Phases (each one that fails makes the script exit non-zero):
    against the plain attention and conv routes, with the same injected
    draws, f32 and bf16: losses, first-step gradients, weights after, and
    the launches of every step.
-25. The latent-training main path (in a process of its own): 20 timed
+25. The latent-training main path (in a process of its own): 10 timed
    steps of each trainer, f32 and bf16 (VAE-GAN batch 4 at 128^2, LDM batch
    16 on 32x32x4 latents, LDM ControlNet batch 16 with 1024^2 hints),
    counters set to 0 just before and read just after, ms/step, peak memory
@@ -146,13 +147,36 @@ Phases (each one that fails makes the script exit non-zero):
 26. The latent tools on a tiny celeb config: train_vae (1 epoch, resumed to
    2), infer_vae, train_ldm_vae, sample_ldm_vae, train_ldm_controlnet, and
    the existing sample_ldm_controlnet on the written .pth files.
-27. A ``{"distill": {...}}`` and a ``{"latent_train": {...}}`` JSON line, a
-   ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+27. CIFAR-10 at the full width of ``config/cifar.yaml`` (batch 64, random
+   weights from SEED, 32x32x3; attention at head dims 4-128, L 1024/256/64):
+   the ControlNet forward through kernel a against the plain attention, f32
+   and bf16, 26 launches; then kernel a against its plain version at those
+   shapes, timed as in phase 3 (in a process of its own).
+28. One CIFAR training step (26 forward and 18 backward launches, the
+   backward shapes recorded), then kernel b against its plain version at
+   those shapes, timed as in phase 6 (in a process of its own).
+29. Three CIFAR training steps through the kernels against the plain
+   attention, f32 and bf16, under cuDNN's deterministic algorithms, at phase
+   7's limits with phase 24's weight limit (2e-2 lr).
+30. The CIFAR main path: 20 timed training steps at batch 64, f32 and bf16
+   (counters set to 0 just before and read just after: 26 / 18 a step; peak
+   memory; a profiler window), then the ControlNet sample tool's ancestral
+   loop at batch 64 cut to a 50-step schedule (26 launches a step),
+   samples/s.
+31. The tools on file trees written by the port's ``data/synthetic.py``: a
+   CIFAR-10 style class tree (128 train, 32 test RGB PNGs) at full width,
+   ``--config`` alone: train_ddpm -> sample_ddpm, train_ddpm_controlnet with
+   ``--hint_backend tpu`` (and cv2 where it imports) -> sample_ddpm_controlnet
+   with test-split hints; a CelebA-HQ style flat directory at a tiny config:
+   train_vae -> infer_vae (basename keys) -> train_ldm_vae in latent mode.
+32. A ``{"distill": {...}}``, a ``{"latent_train": {...}}`` and a
+   ``{"cifar": {...}}`` JSON line, a ``{"kernels": [...]}`` JSON line, the
+   ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Kernel, plain-version and library times are device time: the profiler's sum
 of the GPU work a call launches (``device_time_ms``), the wrappers' own casts
-included, taken by the timing phases (3, 6, 10, 12, 15, 22; and 19's and
+included, taken by the timing phases (3, 6, 10, 12, 15, 22, 27, 28; and 19's and
 25's timed steps) each in a process of its own (``in_fresh_process``).  (PRs
 1-5 timed with CUDA events, PRs 6-7 printed those beside; PR 8 dropped them
 to keep the run inside its time limit.)  TF32 is off for
@@ -190,6 +214,11 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # kernel moves the output by O(1); float32 reassociation by ~1e-6.
 MODEL_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 CROSS_SHAPE = (49, 7, 16)  # (Lq, Lk, head_dim): not on the main path
+# Off CIFAR's main path: split rows (head dims past 64) with a ragged query
+# tail (49 rows against 16-row blocks), in cross-attention at dh 128 and in
+# self-attention at dh 80 and 100 (padded to 96 and 128 in bf16, to 128 in
+# float32)
+CIFAR_OFF_PATH_SHAPES = ((49, 7, 128), (49, 49, 80), (49, 49, 100))
 # Kernel b against its plain version, relative to max|grad|: float32 sums in
 # another order (measured ~2e-6); in bf16 both compute in float32 from the
 # same bf16 operands (P and dS enter their products as hi + lo, ~2^-17), so a
@@ -222,9 +251,10 @@ MNIST_PROJ_SHAPES = [(784, 64, 4, 4), (196, 128, 4, 4), (196, 32, 4, 2), (49, 25
 LDM_PROJ_SHAPES = [(1024, 384, 16, 4), (1024, 128, 16, 2), (256, 512, 16, 4),
                    (256, 256, 16, 2), (64, 768, 16, 4), (64, 384, 16, 2), (16, 512, 16, 4)]
 LDM_BATCH = 16      # train_params.ldm_batch_size of config/celebhq.yaml
-TRAIN_STEPS = 20    # timed steps of the training main path, per compute type
+TRAIN_STEPS = 10    # timed steps of the training main paths (8, 19, 25), per compute type
+CIFAR_TRAIN_STEPS = 20  # timed steps of the CIFAR training main path (30)
 TRAIN_WARMUP = 2
-PROFILE_STEPS = 5
+PROFILE_STEPS = 3
 CHECK_STEPS = 3     # kernel-vs-plain training steps
 NOISE_FLOOR = 1e-6  # |gradient| below which Adam (eps 1e-8) amplifies float noise
 TOOL_IMAGES = 256   # the trainer tools' seeded dataset: 4 steps per epoch
@@ -692,14 +722,14 @@ def seeded_hints(n: int, size: int):
     return np.repeat(edges, 3, axis=-1)
 
 
-def phase_forward(cn, device) -> list:
+def phase_forward(cn, device, channels: int = 1, size: int = 28, what: str = "forward") -> list:
     """Full-width forward, kernel vs plain; returns the recorded shapes."""
     from controlnet_tpu_torch.ops import cuda_attention
 
     g = torch.Generator(device=device).manual_seed(SEED)
-    x = torch.randn((BATCH, 1, 28, 28), generator=g, device=device)
+    x = torch.randn((BATCH, channels, size, size), generator=g, device=device)
     t = torch.randint(0, 1000, (BATCH,), generator=g, device=device)
-    hint = (torch.rand((BATCH, 3, 28, 28), generator=g, device=device) < 0.15).float()
+    hint = (torch.rand((BATCH, 3, size, size), generator=g, device=device) < 0.15).float()
     shapes: list = []
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
@@ -718,7 +748,7 @@ def phase_forward(cn, device) -> list:
             scale = ref.float().abs().max().item()
             ok = (launched == 26 and len(rec) == 26 and bool(torch.isfinite(out).all())
                   and err <= MODEL_TOL[dtype] * max(scale, 1.0))
-            log(f"forward {str(dtype)[6:]}: batch {BATCH}, kernel launches {launched} "
+            log(f"{what} {str(dtype)[6:]}: batch {BATCH}, kernel launches {launched} "
                 f"(expect 26), max|out| {scale:.4g}, max abs err vs plain {err:.3g} "
                 f"(tol {MODEL_TOL[dtype]:g} x max(1, max|out|)) -> {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -727,17 +757,18 @@ def phase_forward(cn, device) -> list:
     return shapes
 
 
-def phase_kernels(shapes: list, device, batch: int = BATCH, cross: bool = True) -> dict:
-    """Kernel vs plain at every main-path shape (and, with ``cross``, one
-    cross-attention shape), f32 and bf16; device times, and the SDPA backend."""
+def phase_kernels(shapes: list, device, batch: int = BATCH,
+                  cross: list = (CROSS_SHAPE,)) -> dict:
+    """Kernel vs plain at every main-path shape and at the (Lq, Lk, head_dim)
+    shapes of ``cross``, off the main path, f32 and bf16; device times, and
+    the SDPA backend."""
     import torch.nn.functional as F
 
     from controlnet_tpu_torch.ops import cuda_attention
 
     mix = collections.Counter(shapes)
     cases = sorted(mix, key=lambda s: (-s[0], -s[2]))
-    if cross:
-        cases.append((*CROSS_SHAPE, batch * 4))
+    cases += [(*shape, batch * 4) for shape in cross]
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
@@ -761,7 +792,7 @@ def phase_kernels(shapes: list, device, batch: int = BATCH, cross: bool = True) 
             backend = sdpa_backend(t["library_ms_names"])
             bound_ms, bound_by = attention_bound_ms(bh, lq, lk, dh, dtype)
             n = mix.get((lq, lk, dh, bh), 0)
-            where = f"x{n} per forward" if n else "cross-attention, off the main path"
+            where = f"x{n} per forward" if n else "off the main path"
             log(f"attention {str(dtype)[6:]:8s} Lq {lq:4d} Lk {lk:4d} dh {dh:2d} BH {bh}: "
                 f"err {err:.3g} (tol {KERNEL_TOL[dtype]:g}) {'ok' if ok else 'FAIL'} | device: "
                 f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa ({backend}) "
@@ -786,7 +817,7 @@ def phase_kernels(shapes: list, device, batch: int = BATCH, cross: bool = True) 
     return totals
 
 
-MNIST_ANCESTRAL_STEPS = 100  # the ancestral loop's schedule length in phase 4
+MNIST_ANCESTRAL_STEPS = 50  # the ancestral loop's schedule length in phase 4
 
 
 def phase_main_path(config: dict, ckpt: str, device) -> dict:
@@ -912,22 +943,22 @@ def phase_train_shapes(config: dict, base: dict, images: torch.Tensor, device) -
     return shapes
 
 
-def phase_kernels_bwd(shapes: list, device, batch: int = BATCH, cross: bool = True,
-                      per: str = "training step") -> dict:
+def phase_kernels_bwd(shapes: list, device, batch: int = BATCH,
+                      cross: list = (CROSS_SHAPE,), per: str = "training step") -> dict:
     """Kernel b (and kernel a's lse) against the plain versions at every
     training shape (q, k, v as slices of one packed projection, as the model
-    passes them) and, with ``cross``, the cross shape, f32 and bf16; b's row
-    term D against rowsum(dP o P) from float32 P, beside rowsum(dO o O) over
-    the output (how it was formed before); device times, and the SDPA
-    backend.  Totals are per ``per`` (the calls of ``shapes``)."""
+    passes them) and at the (Lq, Lk, head_dim) shapes of ``cross``, off the
+    main path, f32 and bf16; b's row term D against rowsum(dP o P) from
+    float32 P, beside rowsum(dO o O) over the output (how it was formed
+    before); device times, and the SDPA backend.  Totals are per ``per``
+    (the calls of ``shapes``)."""
     import torch.nn.functional as F
 
     from controlnet_tpu_torch.ops import cuda_attention
 
     mix = collections.Counter(shapes)
     cases = sorted(mix, key=lambda s: (-s[0], -s[2]))
-    if cross:
-        cases.append((*CROSS_SHAPE, batch * 4))
+    cases += [(*shape, batch * 4) for shape in cross]
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
@@ -980,7 +1011,7 @@ def phase_kernels_bwd(shapes: list, device, batch: int = BATCH, cross: bool = Tr
             backend = sdpa_backend(t["library_ms_names"])
             bound_ms, bound_by = attention_bwd_bound_ms(bh, lq, lk, dh, dtype)
             n = mix.get((lq, lk, dh, bh), 0)
-            where = f"x{n} per {per}" if n else "cross-attention, off the main path"
+            where = f"x{n} per {per}" if n else "off the main path"
             log(f"attention bwd {str(dtype)[6:]:8s} Lq {lq:4d} Lk {lk:4d} dh {dh:2d} BH {bh}: "
                 f"rel err {rel_err:.3g} (tol {BWD_KERNEL_TOL[dtype]:g}), abs {abs_err:.3g}, "
                 f"lse err {lse_err:.3g} (tol {LSE_TOL:g}), D err {d_err:.3g} of max|D| "
@@ -1013,14 +1044,21 @@ def phase_kernels_bwd(shapes: list, device, batch: int = BATCH, cross: bool = Tr
     return totals
 
 
-def _check_steps(config, base, images, device, dtype_name: str, plain: bool):
-    """CHECK_STEPS training steps from one start and one generator; returns
-    (losses, first-step grads, params before, params after, noise-floor mask)."""
+def _check_steps(config, base, images, device, dtype_name: str, plain: bool,
+                 deterministic: bool = False):
+    """CHECK_STEPS training steps from one start and one generator (cuDNN's
+    deterministic algorithms with ``deterministic``); returns (losses,
+    first-step grads, params before, params after, noise-floor mask)."""
     cn, state, step = train_setup(config, base, device, dtype_name)
     before = {k: p.detach().clone() for k, p in state.params.items()}
     g = torch.Generator(device=device).manual_seed(SEED)
     losses, grads, noisy = [], None, {}
-    with plain_attention() if plain else contextlib.nullcontext():
+    with contextlib.ExitStack() as stack:
+        if deterministic:
+            stack.enter_context(torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True, allow_tf32=False))
+        if plain:
+            stack.enter_context(plain_attention())
         for batch, hints in train_batches(images, CHECK_STEPS):
             losses.append(step(state, batch, hints, g))
             for k, p in state.params.items():
@@ -1033,16 +1071,20 @@ def _check_steps(config, base, images, device, dtype_name: str, plain: bool):
 
 
 def phase_train_parity(config: dict, base: dict, images: torch.Tensor, device,
-                       dtype: torch.dtype) -> dict:
+                       dtype: torch.dtype, weight_tol: float = 1e-2,
+                       deterministic: bool = False, what: str = "training") -> dict:
     """CHECK_STEPS steps through kernels a and b against the same steps with
     the plain attention forward and backward.  Tolerances: losses and the
     first step's gradients MODEL_TOL (relative); after three Adam steps the
-    weights whose gradients stayed above the noise floor within 1e-2 * lr
-    (f32), or, in bf16, whose rounding flips small gradients' signs, a mean
-    |difference| under 0.15 lr and a cosine of the two updates over 0.97."""
+    weights whose gradients stayed above the noise floor within weight_tol
+    * lr (f32), or, in bf16, whose rounding flips small gradients' signs, a
+    mean |difference| under 0.15 lr and a cosine of the two updates over
+    0.97."""
     name = str(dtype)[6:]
-    lk, gk, before, ak, nk = _check_steps(config, base, images, device, name, plain=False)
-    lp, gp, _, ap, npl = _check_steps(config, base, images, device, name, plain=True)
+    lk, gk, before, ak, nk = _check_steps(config, base, images, device, name, plain=False,
+                                          deterministic=deterministic)
+    lp, gp, _, ap, npl = _check_steps(config, base, images, device, name, plain=True,
+                                      deterministic=deterministic)
     lr = config["train_params"]["controlnet_lr"]
     loss_err = ((lk - lp).abs().max() / lp.abs().max().clamp(min=1.0)).item()
     gmax = max(g.abs().max().item() for g in gp.values())
@@ -1061,13 +1103,15 @@ def phase_train_parity(config: dict, base: dict, images: torch.Tensor, device,
     mean_diff = allw.mean().item() / lr
     ok = (bool(torch.isfinite(lk).all()) and loss_err <= MODEL_TOL[dtype]
           and grad_err <= MODEL_TOL[dtype]
-          and (mean_diff < 0.15 and cos > 0.97 if dtype == torch.bfloat16 else clean_max < 1e-2))
-    log(f"training {name}, {CHECK_STEPS} steps kernels vs plain attention: losses "
+          and (mean_diff < 0.15 and cos > 0.97 if dtype == torch.bfloat16
+               else clean_max < weight_tol))
+    log(f"{what} {name}, {CHECK_STEPS} steps kernels vs plain attention: losses "
         f"{[round(x, 5) for x in lk.tolist()]} vs {[round(x, 5) for x in lp.tolist()]} "
         f"(rel err {loss_err:.3g}), first-step grads rel err {grad_err:.3g} "
         f"(tol {MODEL_TOL[dtype]:g}); weights after: max |diff| {clean_max:.3g} lr over the "
         f"{clean.numel() / allw.numel():.3f} whose gradients stayed above {NOISE_FLOOR:g}, "
-        f"mean {mean_diff:.3g} lr over all, update cosine {cos:.6f} -> {'ok' if ok else 'FAIL'}")
+        f"(tol {weight_tol:g}), mean {mean_diff:.3g} lr over all, update cosine {cos:.6f} -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"training ({name}) through the kernels disagrees with plain attention")
     return dict(loss_err=loss_err, grad_err=grad_err, clean_max_lr=clean_max,
@@ -1079,15 +1123,18 @@ def is_kernel_a(name: str) -> bool:
     return "attention_fwd_t_kernel" in name or "attention_fwd_bf16_kernel" in name
 
 
-def phase_train_main_path(config: dict, base: dict, images: torch.Tensor, device) -> dict:
-    """The training main path: the trainer tool's step at batch 64, full
-    width, hints from the port's canny on the card, f32 and bf16.  Counters
-    set to 0 just before the timed run and read just after; then a short
-    torch.profiler window for device time and busy share."""
+def phase_train_main_path(config: dict, base: dict, images: torch.Tensor, device,
+                          what: str = "training main path", steps: int | None = None) -> dict:
+    """The training main path: ``steps`` timed steps of the trainer tool's
+    step at batch 64, full width, hints from the port's canny on the card,
+    f32 and bf16.  Counters set to 0 just before the timed run and read just
+    after, peak memory over it; then a short torch.profiler window for
+    device time and busy share (``steps`` None: TRAIN_STEPS)."""
     from torch.profiler import ProfilerActivity, profile
 
     from controlnet_tpu_torch.ops import cuda_attention
 
+    steps = steps or TRAIN_STEPS
     results = {}
     for name in ("float32", "bfloat16"):
         cn, state, step = train_setup(config, base, device, name)
@@ -1097,19 +1144,21 @@ def phase_train_main_path(config: dict, base: dict, images: torch.Tensor, device
         g = torch.Generator(device=device).manual_seed(SEED)
         for batch, hints in train_batches(images, TRAIN_WARMUP, epoch=100):
             step(state, batch, hints, g)
-        data = list(train_batches(images, TRAIN_STEPS + PROFILE_STEPS))
+        data = list(train_batches(images, steps + PROFILE_STEPS))
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         cuda_attention.launches = 0
         cuda_attention.bwd_launches = 0
         start = time.perf_counter()
-        losses = [step(state, batch, hints, g) for batch, hints in data[:TRAIN_STEPS]]
+        losses = [step(state, batch, hints, g) for batch, hints in data[:steps]]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         fwd, bwd = cuda_attention.launches, cuda_attention.bwd_launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         losses = torch.stack(losses).float()
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for batch, hints in data[TRAIN_STEPS:]:
+            for batch, hints in data[steps:]:
                 step(state, batch, hints, g)
             torch.cuda.synchronize()
         kernels = device_events(prof)
@@ -1119,20 +1168,21 @@ def phase_train_main_path(config: dict, base: dict, images: torch.Tensor, device
 
         moved = all(not torch.equal(p.detach(), t_before[k]) for k, p in trainable.items())
         still = all(torch.equal(p.detach(), f_before[k]) for k, p in frozen.items())
-        ms_step = seconds * 1e3 / TRAIN_STEPS
-        ok = (fwd == 26 * TRAIN_STEPS and bwd == 18 * TRAIN_STEPS
+        ms_step = seconds * 1e3 / steps
+        ok = (fwd == 26 * steps and bwd == 18 * steps
               and bool(torch.isfinite(losses).all()) and moved and still)
         results[name] = dict(seconds=seconds, launches=fwd, bwd_launches=bwd,
-                             ms_per_step=ms_step, steps_per_s=TRAIN_STEPS / seconds,
+                             ms_per_step=ms_step, steps_per_s=steps / seconds,
                              device_ms_per_step=dev_ms, busy=dev_ms / ms_step,
                              kernels_per_step=len(kernels) / PROFILE_STEPS,
                              attn_fwd_device_ms=fwd_ms / PROFILE_STEPS,
-                             attn_bwd_device_ms=bwd_ms / PROFILE_STEPS)
-        log(f"training main path {name}: {TRAIN_STEPS} steps, batch {BATCH}: {seconds:.3f} s, "
-            f"{ms_step:.3f} ms/step, {TRAIN_STEPS / seconds:.3f} steps/s, attention launches "
-            f"forward {fwd} (expect {26 * TRAIN_STEPS}), backward {bwd} "
-            f"(expect {18 * TRAIN_STEPS}), loss {losses[0].item():.4f} -> "
-            f"{losses[-1].item():.4f}, trainable moved {moved}, frozen unchanged {still} | "
+                             attn_bwd_device_ms=bwd_ms / PROFILE_STEPS, peak_gb=peak_gb)
+        log(f"{what} {name}: {steps} steps, batch {BATCH}: {seconds:.3f} s, "
+            f"{ms_step:.3f} ms/step, {steps / seconds:.3f} steps/s, attention launches "
+            f"forward {fwd} (expect {26 * steps}), backward {bwd} "
+            f"(expect {18 * steps}), loss {losses[0].item():.4f} -> "
+            f"{losses[-1].item():.4f}, peak {peak_gb:.2f} GB, trainable moved {moved}, "
+            f"frozen unchanged {still} | "
             f"profile ({PROFILE_STEPS} steps): device {dev_ms:.3f} ms/step, busy "
             f"{dev_ms / ms_step:.3f}, {len(kernels) / PROFILE_STEPS:.1f} kernels/step, "
             f"kernel a {fwd_ms / PROFILE_STEPS:.3f} ms/step, kernel b "
@@ -1141,7 +1191,7 @@ def phase_train_main_path(config: dict, base: dict, images: torch.Tensor, device
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) + _device_ms(e) / PROFILE_STEPS
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        log(f"training {name} top device kernels (ms/step): "
+        log(f"{what} {name} top device kernels (ms/step): "
             + "; ".join(f"{k.replace('void ', '')[:56]} {v:.3f}" for k, v in top))
         if not ok:
             raise SystemExit(f"training main path ({name}) failed")
@@ -1346,7 +1396,7 @@ def phase_ldm_fused_forward(cn, hints, device) -> None:
     phase_fused_forward(cn, x, t, feats, LDM_PROJ_SHAPES, 0, "latent")
 
 
-LDM_ANCESTRAL_STEPS = 100  # the ancestral loop's schedule length in phase 13
+LDM_ANCESTRAL_STEPS = 50  # the ancestral loop's schedule length in phase 13
 LDM_MODES = (
     ("ancestral", dict()),
     ("dpm20_cfg2", dict(sampler="dpm", sampler_steps=20, cfg_scale=2.0)),
@@ -1454,7 +1504,7 @@ def phase_ldm(device) -> dict:
         raise SystemExit(f"unexpected conv shapes in the hint encode: {conv_shapes}")
     kern_conv = in_fresh_process("phase_conv_kernels", conv_shapes)
     attn_shapes = phase_ldm_forward(cn, hints, device)
-    kern_attn = in_fresh_process("phase_kernels", attn_shapes, batch=LDM_BATCH, cross=False)
+    kern_attn = in_fresh_process("phase_kernels", attn_shapes, batch=LDM_BATCH, cross=())
     phase_ldm_fused_forward(cn, hints, device)
     kern_proj = in_fresh_process("phase_proj_kernels", LDM_PROJ_SHAPES, LDM_BATCH,
                                  what="latent forward")
@@ -1725,7 +1775,7 @@ def phase_serve(config: dict, ckpt: str, device) -> dict:
 
     T = config["diffusion_params"]["num_timesteps"]
     hints = seeded_hints(SERVE_BATCH, 28)
-    mid = SERVE_STEPS[1]  # the step count of the comparisons
+    mid = SERVE_STEPS[0]  # the step count of the comparisons and the client runs
 
     def make_args(**kw):
         base = dict(config_path=os.path.join(REPO, "config", "mnist.yaml"),
@@ -3012,7 +3062,7 @@ def run_latent_train_phases(device) -> dict:
     start = time.perf_counter()
     shapes = phase_latent_shapes(device)
     torch.cuda.empty_cache()
-    kern_bwd = in_fresh_process("phase_kernels_bwd", shapes, batch=LDM_BATCH, cross=False,
+    kern_bwd = in_fresh_process("phase_kernels_bwd", shapes, batch=LDM_BATCH, cross=(),
                                 per="latent training step")
     conv_grad = phase_conv_autograd(device)
     parity = phase_latent_parity(device)
@@ -3023,6 +3073,228 @@ def run_latent_train_phases(device) -> dict:
                tools=tools, seconds=time.perf_counter() - start)
     log(f"latent training phases 21-26: {res['seconds']:.1f} s")
     return res
+
+
+# --- phases 27-31: CIFAR-10 at the full width of config/cifar.yaml -----------------------
+
+CIFAR_TRAIN_IMAGES = 128  # the synthetic train tree: 2 steps an epoch at batch 64
+CIFAR_TEST_IMAGES = 32
+CIFAR_ANCESTRAL_STEPS = 50  # the ancestral loop's schedule length in phase 30
+CIFAR_TOOL_STEPS = 10  # DDIM steps of the sample tools in phase 31
+CELEB_TREE_IMAGES = 16
+
+
+def cifar_config() -> dict:
+    from controlnet_tpu_torch import config as cfg
+
+    return cfg.load_config(os.path.join(REPO, "config", "cifar.yaml"))
+
+
+def write_cifar_trees(root: str) -> dict:
+    """RGB class trees in CIFAR-10's layout (32x32, two classes) written by
+    the port's data/synthetic.py: the train and test splits."""
+    from controlnet_tpu_torch.data.synthetic import make_synthetic_image_tree
+
+    shutil.rmtree(root, ignore_errors=True)
+    paths = {}
+    for split, n, seed in (("train", CIFAR_TRAIN_IMAGES, SEED), ("test", CIFAR_TEST_IMAGES,
+                                                                 SEED + 1)):
+        paths[split] = make_synthetic_image_tree(os.path.join(root, split), num_classes=2,
+                                                 per_class=n // 2, size=32, channels=3,
+                                                 seed=seed)
+    return paths
+
+
+def phase_cifar_sampling(config: dict, ckpt: str, device) -> dict:
+    """Phase 30 (second half): the ControlNet sample tool's ``sample`` at
+    batch 64 over the ancestral loop cut to a CIFAR_ANCESTRAL_STEPS-step
+    schedule, f32 and bf16; counters set to 0 just before and read just
+    after each run (26 launches a step)."""
+    from controlnet_tpu_torch.ops import cuda_attention
+    from controlnet_tpu_torch.schedules.linear import make_linear_schedule
+    from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
+
+    cn, _ = tool.load_model(config, ckpt)
+    hints = tool.gather_hints(seeded_hints(4 * BATCH, 32), BATCH, seed=SEED)
+    dp = config["diffusion_params"]
+    sched = make_linear_schedule(CIFAR_ANCESTRAL_STEPS, dp["beta_start"], dp["beta_end"],
+                                 device=device)
+    T = sched.num_timesteps
+    results = {}
+    for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        torch.cuda.synchronize()
+        cuda_attention.launches = 0
+        start = time.perf_counter()
+        x0, traj = tool.sample(cn, sched, hints, seed=SEED, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = cuda_attention.launches
+        ok = (launches == 26 * T and x0.shape == (BATCH, 3, 32, 32)
+              and bool(torch.isfinite(x0).all()) and traj[-1].abs().max().item() <= 1.0)
+        results[name] = dict(seconds=seconds, launches=launches,
+                             samples_per_s=BATCH / seconds, ms_per_step=seconds * 1e3 / T)
+        log(f"CIFAR sampling {name}: {T} ancestral steps, batch {BATCH}: {seconds:.3f} s, "
+            f"{BATCH / seconds:.3f} samples/s, {seconds * 1e3 / T:.3f} ms/step, attention "
+            f"launches {launches} (expect {26 * T}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"CIFAR sampling ({name}) failed")
+    return results
+
+
+def phase_cifar_tools(config: dict, trees: dict, device) -> dict:
+    """Phase 31, first half: the tools at config/cifar.yaml's full width on
+    the synthetic CIFAR trees, from ``--config`` alone: train_ddpm (1 epoch,
+    2 steps) -> sample_ddpm; train_ddpm_controlnet with --hint_backend tpu
+    (and cv2 where cv2 imports) -> sample_ddpm_controlnet with test-split
+    hints (the port's canny of the test images, and cv2's where it imports);
+    the sample tools on 16 samples, DDIM CIFAR_TOOL_STEPS steps."""
+    import importlib.util
+
+    import numpy as np
+    import yaml
+
+    from controlnet_tpu_torch.tools import (sample_ddpm, sample_ddpm_controlnet, train_ddpm,
+                                            train_ddpm_controlnet)
+
+    work = os.path.join(REPO, "build", "smoke", "cifar_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tp = config["train_params"]
+    backends = ["tpu"] + (["cv2"] if importlib.util.find_spec("cv2") is not None else [])
+
+    def config_path(task: str) -> str:
+        cfg = copy.deepcopy(config)
+        cfg["dataset_params"].update(im_path=trees["train"], im_test_path=trees["test"])
+        cfg["train_params"].update(task_name=os.path.join(work, task), num_epochs=1,
+                                   controlnet_epochs=1, ckpt_save_every_epochs=1,
+                                   num_samples=16)
+        path = os.path.join(work, f"{task}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    few = ["--sampler", "ddim", "--sampler_steps", str(CIFAR_TOOL_STEPS)]
+    start = time.perf_counter()
+    ddpm = train_ddpm.train(config_path("ddpm"))
+    sample_ddpm.main(["--config", config_path("ddpm"), *few])
+    runs, written = {}, {}
+    for backend in backends:
+        task = f"cn_{backend}"
+        path = config_path(task)
+        os.makedirs(os.path.join(work, task))
+        shutil.copy(os.path.join(work, "ddpm", tp["ddpm_ckpt_name"]),
+                    os.path.join(work, task, tp["ddpm_ckpt_name"]))
+        runs[backend] = train_ddpm_controlnet.train(path, hint_backend=backend)
+        sample_ddpm_controlnet.main(["--config", path, "--hint_backend", backend, *few])
+        written[backend] = sorted(os.listdir(os.path.join(work, task, "hint_samples")))
+    seconds = time.perf_counter() - start
+    grids = sorted(os.listdir(os.path.join(work, "ddpm", "samples")))
+    losses = [ddpm["losses"][0]] + [r["losses"][0] for r in runs.values()]
+    ok = (np.isfinite(losses).all() and len(grids) == CIFAR_TOOL_STEPS
+          and all(len(w) == CIFAR_TOOL_STEPS + 1 and "hints.png" in w for w in written.values())
+          and all(os.path.exists(os.path.join(work, f"cn_{b}", tp["controlnet_ckpt_name"]))
+                  for b in backends))
+    log(f"CIFAR tools on trees ({CIFAR_TRAIN_IMAGES} train / {CIFAR_TEST_IMAGES} test PNGs, "
+        f"full width, batch {BATCH}): train_ddpm (loss {ddpm['losses'][0]:.4f}) -> "
+        f"sample_ddpm ({len(grids)} grids); hint backends run: {backends} (cv2 "
+        f"{'imports' if 'cv2' in backends else 'does not import: not run'}): "
+        f"train_ddpm_controlnet losses {[round(r['losses'][0], 4) for r in runs.values()]} -> "
+        f"sample_ddpm_controlnet with test-split hints; {seconds:.1f} s -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("CIFAR tools on trees failed")
+    return dict(seconds=seconds, backends=backends)
+
+
+def phase_celeb_tree_tools(device) -> dict:
+    """Phase 31, second half: a CelebA-HQ style flat directory of RGB PNGs
+    (the port's synthetic.py), the tiny celeb config reading it from
+    ``--config`` alone: train_vae -> infer_vae (shards keyed by the images'
+    basenames, as the JAX tool keys them) -> train_ldm_vae in latent mode
+    (the reader finds the cache complete)."""
+    import numpy as np
+    import yaml
+
+    from controlnet_tpu_torch.data.datasets import load_latents
+    from controlnet_tpu_torch.data.synthetic import make_synthetic_image_tree
+    from controlnet_tpu_torch.tools import infer_vae, train_ldm_vae, train_vae
+
+    work = os.path.join(REPO, "build", "smoke", "celeb_tree")
+    shutil.rmtree(work, ignore_errors=True)
+    images = os.path.join(make_synthetic_image_tree(os.path.join(work, "tree"), num_classes=1,
+                                                    per_class=CELEB_TREE_IMAGES, size=24,
+                                                    channels=3, seed=SEED), "0")
+    cfg = tiny_celeb_config(os.path.join(work, "celeb"))
+    cfg["dataset_params"]["im_path"] = images
+    path = os.path.join(work, "celeb.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    start = time.perf_counter()
+    vae = train_vae.train(path)
+    infer_vae.infer(path)
+    keys = sorted(load_latents(os.path.join(work, "celeb", "vae_latents")))
+    ldm = train_ldm_vae.train(path)
+    seconds = time.perf_counter() - start
+    names = sorted(f for f in os.listdir(images) if f.endswith(".png"))
+    ok = (keys == names and np.isfinite(list(vae["metrics"][0].values())).all()
+          and np.isfinite(ldm["losses"]).all())
+    log(f"celeb tools on a tree of {len(names)} PNGs: train_vae -> infer_vae (keys "
+        f"{keys[:2]}... = the basenames: {keys == names}) -> train_ldm_vae in latent mode "
+        f"(loss {ldm['losses'][0]:.4f}); {seconds:.1f} s -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("celeb tools on a tree failed")
+    return dict(seconds=seconds)
+
+
+def run_cifar_phases(device) -> dict:
+    """Phases 27-31 in order: the CIFAR-10 ControlNet at config/cifar.yaml's
+    full width (batch 64) and the tools on file trees; returns their
+    results."""
+    import numpy as np
+
+    from controlnet_tpu_torch.data.datasets import CifarDataset
+    from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
+
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    config = cifar_config()
+    trees = write_cifar_trees(os.path.join(REPO, "build", "smoke", "cifar_trees"))
+    ckpt = os.path.join(REPO, "build", "smoke", f"cifar_controlnet_seed{SEED}.pth")
+    write_seeded_checkpoint(config, ckpt)
+    cn, _ = tool.load_model(config, ckpt)
+    shapes = phase_forward(cn, device, channels=3, size=32, what="CIFAR forward")
+    del cn
+    torch.cuda.empty_cache()
+    kern = in_fresh_process("phase_kernels", shapes, cross=CIFAR_OFF_PATH_SHAPES)
+    base = seeded_unet_state_dict(config)
+    reader = CifarDataset("train", trees["train"])
+    images = torch.from_numpy(np.stack([reader[i] for i in range(len(reader))])).permute(
+        0, 3, 1, 2).contiguous().to(device)
+    bwd_shapes = phase_train_shapes(config, base, images, device)
+    kern_bwd = in_fresh_process("phase_kernels_bwd", bwd_shapes, cross=CIFAR_OFF_PATH_SHAPES,
+                                per="CIFAR training step")
+    parity = {str(dtype)[6:]: phase_train_parity(config, base, images, device, dtype,
+                                                 deterministic=True, what="CIFAR training")
+              for dtype in (torch.float32, torch.bfloat16)}
+    train = phase_train_main_path(config, base, images, device, what="CIFAR training main path",
+                                  steps=CIFAR_TRAIN_STEPS)
+    del images
+    torch.cuda.empty_cache()
+    sampling = phase_cifar_sampling(config, ckpt, device)
+    tools = phase_cifar_tools(config, trees, device)
+    celeb = phase_celeb_tree_tools(device)
+    res = dict(fwd=kern, bwd=kern_bwd, parity=parity, train=train, sampling=sampling,
+               tools=tools, celeb=celeb, seconds=time.perf_counter() - start)
+    log(f"CIFAR phases 27-31: {res['seconds']:.1f} s")
+    return res
+
+
+def cifar_summary(res: dict) -> dict:
+    """The ``{"cifar": ...}`` line: the timed training and sampling runs,
+    the parity checks, the tool runs' seconds."""
+    return {"train": res["train"], "sampling": res["sampling"], "parity": res["parity"],
+            "tools_s": res["tools"]["seconds"], "hint_backends": res["tools"]["backends"],
+            "celeb_tree_tools_s": res["celeb"]["seconds"], "phases_s": res["seconds"]}
 
 
 # The kernel-timing phases (3, 6, 10, 12, 15 and 22) and the timed
@@ -3080,6 +3352,9 @@ def main() -> int:
     parser.add_argument("--latent-train-only", action="store_true",
                         help="build the kernels and run the latent-training phases 21-26 alone "
                              "(a quick check after a change to that path; no result line)")
+    parser.add_argument("--cifar-only", action="store_true",
+                        help="build the kernels and run the CIFAR-10 phases 27-31 alone "
+                             "(a quick check after a change to that path; no result line)")
     parser.add_argument("--timing-phase", help=argparse.SUPPRESS)  # set by in_fresh_process
     args = parser.parse_args()
 
@@ -3115,6 +3390,10 @@ def main() -> int:
     if args.latent_train_only:
         log(json.dumps({"latent_train": latent_train_summary(run_latent_train_phases(device))}))
         log(f"{smi}; latent-train-only run: phases 21-26 passed (a partial run: no result line)")
+        return 0
+    if args.cifar_only:
+        log(json.dumps({"cifar": cifar_summary(run_cifar_phases(device))}))
+        log(f"{smi}; cifar-only run: phases 27-31 passed (a partial run: no result line)")
         return 0
     from controlnet_tpu_torch.data.datasets import to_unit
     from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
@@ -3161,6 +3440,8 @@ def main() -> int:
     done("17-20")
     latent = run_latent_train_phases(device)
     done("21-26")
+    cifar = run_cifar_phases(device)
+    done("27-31")
 
     def kernel_entry(name, source, replaces, tots, launches, bf16_launches, per):
         f32, bf16 = tots[torch.float32], tots[torch.bfloat16]
@@ -3278,6 +3559,24 @@ def main() -> int:
     bwd_entry["latent_train"]["bf16"]["max_rel_err"] = latent["bwd"][torch.bfloat16]["max_rel_err"]
     conv_entry["latent_train_autograd"] = latent["conv_grad"]
     log(json.dumps({"latent_train": latent_train_summary(latent)}))
+    # CIFAR-10 (phases 27-31): launches of each timed run (20 training steps,
+    # the 50-step sample), and a's times per CIFAR forward (26 calls), b's per
+    # CIFAR training step (18 calls)
+    for entry, key in ((fwd_entry, "launches"), (bwd_entry, "bwd_launches")):
+        entry["cifar_launches"] = {f"train_{n}": r[key] for n, r in cifar["train"].items()}
+    fwd_entry["cifar_launches"].update(
+        {f"sample_{n}": r["launches"] for n, r in cifar["sampling"].items()})
+    keys = ("per", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+            "bf16")
+    cifar_a = kernel_entry("attention_fwd_t", "", "", cifar["fwd"], None, None,
+                           "CIFAR forward (26 calls)")
+    cifar_b = kernel_entry("attention_bwd_t", "", "", cifar["bwd"], None, None,
+                           "CIFAR training step (18 calls)")
+    fwd_entry["cifar"] = {k: cifar_a[k] for k in keys}
+    bwd_entry["cifar"] = {k: cifar_b[k] for k in keys}
+    bwd_entry["cifar"]["max_rel_err"] = cifar["bwd"][torch.float32]["max_rel_err"]
+    bwd_entry["cifar"]["bf16"]["max_rel_err"] = cifar["bwd"][torch.bfloat16]["max_rel_err"]
+    log(json.dumps({"cifar": cifar_summary(cifar)}))
     log(f"device_time_ms: {PROFILER_WINDOWS['windows']} profiler windows for "
         f"{PROFILER_WINDOWS['measurements']} measurements (2 each when no window lost records), "
         f"{PROFILER_WINDOWS['foreign']} device records left out as launched outside a window")

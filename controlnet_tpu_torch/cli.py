@@ -1,9 +1,10 @@
 """Helpers the tools share.
 
 The port's own copy of the parts of ``controlnet_tpu/cli.py`` that the
-ported tools need: the compute type from YAML, checkpoint cadence and
-retention, the per-epoch loss timer, and the sample tools' sampler and
-guidance flags.
+ported tools need: the dataset reader a config names (``build_dataset``) and
+the tools' choice between it and ``.npy`` arrays (``open_split``), the
+compute type from YAML, checkpoint cadence and retention, the per-epoch loss
+timer, and the sample tools' sampler and guidance flags.
 """
 
 from __future__ import annotations
@@ -11,6 +12,65 @@ from __future__ import annotations
 import time
 
 import torch
+
+
+def build_dataset(task_name: str, dataset_config: dict, split: str = "train",
+                  return_hints: bool = False):
+    """The reader of ``dataset_params`` (``controlnet_tpu/cli.py``'s rule):
+    the dataset kind is ``dataset_params.task_name`` (or ``name``, the
+    celebhq schema's key) when present, else ``task_name``, which is also
+    the tools' output directory; the train split reads ``im_path``, the test
+    split ``im_test_path`` (CIFAR-10 falls back to ``im_path``)."""
+    from controlnet_tpu_torch.data.datasets import CelebDataset, CifarDataset, MnistDataset
+
+    task_name = dataset_config.get("task_name", dataset_config.get("name", task_name))
+    if task_name == "mnist":
+        path = dataset_config["im_path"] if split == "train" else dataset_config["im_test_path"]
+        return MnistDataset(split, im_path=path, return_hints=return_hints)
+    if task_name == "cifar10":
+        path = dataset_config["im_path"] if split == "train" else dataset_config.get(
+            "im_test_path", dataset_config["im_path"])
+        return CifarDataset(split, im_path=path, download=dataset_config.get("download", False),
+                            return_hints=return_hints)
+    if task_name == "celebhq":
+        return CelebDataset(split, im_path=dataset_config["im_path"],
+                            im_size=dataset_config["im_size"],
+                            im_channels=dataset_config.get("im_channels", 3),
+                            return_hint=return_hints,
+                            canny_im_size=dataset_config.get("canny_im_size", 1024))
+    raise ValueError(f"Invalid dataset/task name: {task_name}")
+
+
+def open_split(config: dict, split: str, device, images_path: str | None = None,
+               hints_path: str | None = None, return_hints: bool = False,
+               kind: str | None = None):
+    """A tool's images of one split: the ``.npy`` arrays when ``images_path``
+    is given (hints from ``hints_path`` or none), else the reader that
+    ``dataset_params`` names (hints from cv2 with ``return_hints``; ``kind``
+    is ``build_dataset``'s fallback name, ``train_params.task_name`` when
+    None)."""
+    from controlnet_tpu_torch.data.datasets import ImageSource
+
+    if images_path is not None:
+        return ImageSource.from_npy(images_path, hints_path, device)
+    if hints_path is not None:
+        raise ValueError("hints from an .npy need the images from an .npy too")
+    dataset = build_dataset(kind or config["train_params"]["task_name"],
+                            config["dataset_params"], split, return_hints)
+    return ImageSource.from_reader(dataset, device)
+
+
+HINT_BACKENDS = ("cv2", "tpu")
+
+
+def add_hint_backend_arg(parser) -> None:
+    """``--hint_backend cv2|tpu``, as the JAX trainer tool has it: cv2 takes
+    canny on the host in the reader (the reference's hints); ``tpu`` the
+    port's canny on the card, batch by batch (``ops/canny.py``).  The default is cv2 for a tree and the card for
+    ``.npy`` images without ``--hints``."""
+    parser.add_argument("--hint_backend", choices=HINT_BACKENDS, default=None,
+                        help="cv2: host canny in the reader (reference hints); tpu: the "
+                             "port's canny on the card")
 
 
 def compute_dtype_from(train_config: dict) -> torch.dtype | None:

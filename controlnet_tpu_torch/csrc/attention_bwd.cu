@@ -7,7 +7,7 @@
 //     dV = dO P            dP = dO^T V           D = rowsum(dP o P)
 //     dS = P o (dP - D)    dQ = scale K dS^T     dK = scale Q dS
 // all in the (B*H, dh, L) layout, math and gradients in float32.  Any dh from 1
-// to 64 and any Lq, Lk; ragged tails are handled by loop bounds.  This file is
+// to 128 and any Lq, Lk; ragged tails are handled by loop bounds.  This file is
 // the float32 path and the C entry point; bfloat16 goes to the tensor-core
 // kernels in attention_bwd_bf16.cu, which form D from float32 P.
 //
@@ -39,7 +39,8 @@
 //      dk += ds q.
 // SPLIT keeps a thread at most 96 (dq, W <= 32) or 64 (dkv, W <= 16) floats of
 // row state, so dh 64 does not spill as a one-row-per-thread design would (kernel
-// a already needs 213 registers for 2*64).
+// a already needs 213 registers for 2*64); dh 128 doubles SPLIT (4 and 8) and
+// keeps the same W.
 //
 // Launch from the host through `controlnet_attention_bwd_t` below (plain C, no
 // PyTorch headers): it launches the three kernels on the caller's stream,
@@ -332,7 +333,8 @@ cudaError_t dispatch(const BwdArgs& a) {
   if (a.dh <= 8) return launch<T, 8, 1, 1>(a);
   if (a.dh <= 16) return launch<T, 16, 1, 1>(a);
   if (a.dh <= 32) return launch<T, 32, 1, 2>(a);
-  return launch<T, 64, 2, 4>(a);
+  if (a.dh <= 64) return launch<T, 64, 2, 4>(a);
+  return launch<T, 128, 4, 8>(a);
 }
 
 }  // namespace
@@ -359,7 +361,7 @@ extern "C" int controlnet_attention_bwd_t(
     int lq, int lk, long long q_bstride, long long k_bstride, long long v_bstride, int dtype,
     int kv_tile, int q_tile, int threads_q, int threads_k, void* stream) {
   auto bad_threads = [](int t) { return t < 32 || t > 128 || t % 32 != 0; };
-  if (batch < 1 || heads < 1 || dh < 1 || dh > 64 || lq < 1 || lk < 1 || kv_tile < 1 ||
+  if (batch < 1 || heads < 1 || dh < 1 || dh > 128 || lq < 1 || lk < 1 || kv_tile < 1 ||
       q_tile < 1 || bad_threads(threads_q) || bad_threads(threads_k)) {
     return (int)cudaErrorInvalidValue;
   }

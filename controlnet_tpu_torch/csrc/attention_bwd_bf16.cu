@@ -9,7 +9,7 @@
 // P = softmax(S / sqrt(dh)) and dO the output's gradient,
 //     dP = dO^T V     D = rowsum(dP o P)     dS = P o (dP - D)
 //     dV = dO P       dQ = K dS^T / sqrt(dh) dK = Q dS / sqrt(dh)
-// per (batch, head) slice on (dh, L) panels; dh 1..64, any Lq and Lk, the
+// per (batch, head) slice on (dh, L) panels; dh 1..128, any Lq and Lk, the
 // gradients rounded to bf16 once.  P is rebuilt from the row log-sum-exp that
 // kernel a saved (natural log, float32): p = exp2(s * log2(e) / sqrt(dh) -
 // lse * log2(e)).
@@ -40,7 +40,13 @@
 //      then dV^T += P^T dO^T and dK^T += dS^T Q^T.
 // The mma work is 6 products a pass (S and dP twice and dQ hi + lo; S, dP,
 // dV and dK hi + lo), 12 in all against the 5 the algorithm needs.  dh is
-// padded with zeros to DP, a multiple of 16.  The gradients are staged
+// padded with zeros to DP, a multiple of 16 up to 64, then 96 or 128.
+//
+// Past DP = 64 (kRegA false) a warp does not keep its A operands (Q and dO in
+// the dq pass, K and V in the dkv pass) in registers for the whole sweep: at
+// DP 128 the dkv pass's dK and dV accumulators alone take 128 registers a
+// thread, and the two A operands 64 more.  It reloads each 16-deep slice of
+// them from the staged tiles (ldmatrix) as each product needs it.  The gradients are staged
 // through shared memory in the (dh, L) layout and stored coalesced.
 
 #include "mma_attention.cuh"
@@ -67,7 +73,7 @@ struct BwdPanels {
   int vec;  // values a load_tile copy moves (8, 2 or 1)
 };
 
-// acc[NT] += A (16 rows x DP, NKS k-steps in registers) B, with B the
+// acc[NT] = A (16 rows x DP, NKS k-steps in registers) B, with B the
 // (DP, 8 NT) tile at p (k-major: dh index d at p + d * pitch).
 template <int NKS, int NT>
 __device__ __forceinline__ void rows_by_tile(float (&acc)[NT][4], const uint32_t (&a)[NKS][4],
@@ -81,6 +87,27 @@ __device__ __forceinline__ void rows_by_tile(float (&acc)[NT][4], const uint32_t
       uint32_t b0, b1;
       load_b_kmajor(b0, b1, p + (kk * 16) * pitch + nt * 8, pitch, lane);
       mma_bf16(acc[nt], a[kk], b0, b1);
+    }
+  }
+}
+
+// The same with A read from shared memory one k-step at a time: the warp's
+// 16 rows of a k-major (DP, rows) tile at a (dh index d at a + d * a_pitch).
+template <int NKS, int NT>
+__device__ __forceinline__ void rows_by_tile_smem(float (&acc)[NT][4], const bf16* a,
+                                                  int a_pitch, const bf16* p, int pitch,
+                                                  int lane) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NKS; ++kk) {
+    uint32_t af[4];
+    load_a_kmajor(af, a + (kk * 16) * a_pitch, a_pitch, lane);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t b0, b1;
+      load_b_kmajor(b0, b1, p + (kk * 16) * pitch + nt * 8, pitch, lane);
+      mma_bf16(acc[nt], af, b0, b1);
     }
   }
 }
@@ -141,7 +168,8 @@ __global__ void __launch_bounds__(128) attention_bwd_dq_bf16_kernel(BwdPanels a)
     const int qi = q0 + warp * 16 + g + 8 * r;
     lse2[r] = qi < a.lq ? a.lse[(int64_t)bh * a.lq + qi] * kLog2e : 0.f;
   }
-  uint32_t qa[NKS][4], da[NKS][4];
+  constexpr bool kRegA = DP <= 64;
+  uint32_t qa[kRegA ? NKS : 1][4], da[kRegA ? NKS : 1][4];
   float dq[NDT][4];
 #pragma unroll
   for (int dt = 0; dt < NDT; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
@@ -163,16 +191,21 @@ __global__ void __launch_bounds__(128) attention_bwd_dq_bf16_kernel(BwdPanels a)
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < NKS; ++kk) {
-        load_a_kmajor(qa[kk], qs + (kk * 16) * q_pitch + warp * 16, q_pitch, lane);
-        load_a_kmajor(da[kk], dos + (kk * 16) * q_pitch + warp * 16, q_pitch, lane);
-      }
-    }
     float s[NS][4], dp[NS][4];
-    rows_by_tile<NKS, NS>(s, qa, ks, kPitch, lane);
-    rows_by_tile<NKS, NS>(dp, da, vs, kPitch, lane);
+    if constexpr (kRegA) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < NKS; ++kk) {
+          load_a_kmajor(qa[kk], qs + (kk * 16) * q_pitch + warp * 16, q_pitch, lane);
+          load_a_kmajor(da[kk], dos + (kk * 16) * q_pitch + warp * 16, q_pitch, lane);
+        }
+      }
+      rows_by_tile<NKS, NS>(s, qa, ks, kPitch, lane);
+      rows_by_tile<NKS, NS>(dp, da, vs, kPitch, lane);
+    } else {
+      rows_by_tile_smem<NKS, NS>(s, qs + warp * 16, q_pitch, ks, kPitch, lane);
+      rows_by_tile_smem<NKS, NS>(dp, dos + warp * 16, q_pitch, vs, kPitch, lane);
+    }
     const bool edge = (kt + 1) * kTile > a.lk;
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt) {
@@ -206,8 +239,8 @@ __global__ void __launch_bounds__(128) attention_bwd_dq_bf16_kernel(BwdPanels a)
     }
     __syncthreads();  // this buffer is refilled two tiles on
   }
-  // qs is free: every warp read its fragments at it == 0 and has passed a
-  // barrier since.
+  // qs is free: every warp read its fragments in the last tile at the latest
+  // and has passed a barrier since.
   store_rows<NDT>(dq, a.scale, qs, q_pitch, a.dq + (int64_t)bh * a.dh * a.lq, a.dh, a.lq, q0,
                   rows, lane, warp);
 }
@@ -253,7 +286,8 @@ __global__ void __launch_bounds__(128) attention_bwd_dkv_bf16_kernel(BwdPanels a
   load_stage(qd, 0);
   cp_async_commit();
 
-  uint32_t ka[NKS][4], va[NKS][4];
+  constexpr bool kRegA = DP <= 64;
+  uint32_t ka[kRegA ? NKS : 1][4], va[kRegA ? NKS : 1][4];
   float dk[NDT][4], dv[NDT][4];
 #pragma unroll
   for (int dt = 0; dt < NDT; ++dt) {
@@ -275,16 +309,21 @@ __global__ void __launch_bounds__(128) attention_bwd_dkv_bf16_kernel(BwdPanels a
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (qt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < NKS; ++kk) {
-        load_a_kmajor(ka[kk], ks + (kk * 16) * k_pitch + warp * 16, k_pitch, lane);
-        load_a_kmajor(va[kk], vs + (kk * 16) * k_pitch + warp * 16, k_pitch, lane);
-      }
-    }
     float s[NS][4], dp[NS][4];
-    rows_by_tile<NKS, NS>(s, ka, qs, kPitch, lane);    // S^T = K^T Q
-    rows_by_tile<NKS, NS>(dp, va, dos, kPitch, lane);  // dP^T = V^T dO
+    if constexpr (kRegA) {
+      if (qt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < NKS; ++kk) {
+          load_a_kmajor(ka[kk], ks + (kk * 16) * k_pitch + warp * 16, k_pitch, lane);
+          load_a_kmajor(va[kk], vs + (kk * 16) * k_pitch + warp * 16, k_pitch, lane);
+        }
+      }
+      rows_by_tile<NKS, NS>(s, ka, qs, kPitch, lane);    // S^T = K^T Q
+      rows_by_tile<NKS, NS>(dp, va, dos, kPitch, lane);  // dP^T = V^T dO
+    } else {
+      rows_by_tile_smem<NKS, NS>(s, ks + warp * 16, k_pitch, qs, kPitch, lane);
+      rows_by_tile_smem<NKS, NS>(dp, vs + warp * 16, k_pitch, dos, kPitch, lane);
+    }
     const bool edge = (qt + 1) * kTile > a.lq;
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt) {
@@ -301,8 +340,8 @@ __global__ void __launch_bounds__(128) attention_bwd_dkv_bf16_kernel(BwdPanels a
     pv_mma<NS, NDT, false>(dp, qs, kPitch, dk, lane);  // dK^T += dS^T Q^T
     __syncthreads();  // this stage is refilled two tiles on
   }
-  // ks and vs are free: every warp read its fragments at qt == 0 and has
-  // passed a barrier since.
+  // ks and vs are free: every warp read its fragments in the last tile at the
+  // latest and has passed a barrier since.
   store_rows<NDT>(dk, a.scale, ks, k_pitch, a.dk + (int64_t)bh * a.dh * a.lk, a.dh, a.lk, k0,
                   rows, lane, warp);
   store_rows<NDT>(dv, 1.f, vs, k_pitch, a.dv + (int64_t)bh * a.dh * a.lk, a.dh, a.lk, k0, rows,
@@ -373,5 +412,7 @@ cudaError_t controlnet_attention_bwd_t_bf16(const void* q, const void* k, const 
   if (dh <= 16) return launch<16>(p, bh, warps_q, warps_k, stream);
   if (dh <= 32) return launch<32>(p, bh, warps_q, warps_k, stream);
   if (dh <= 48) return launch<48>(p, bh, warps_q, warps_k, stream);
-  return launch<64>(p, bh, warps_q, warps_k, stream);
+  if (dh <= 64) return launch<64>(p, bh, warps_q, warps_k, stream);
+  if (dh <= 96) return launch<96>(p, bh, warps_q, warps_k, stream);
+  return launch<128>(p, bh, warps_q, warps_k, stream);
 }

@@ -5,7 +5,7 @@
 // reached through `_fused_attention_fwd_impl` and `fused_attention_t`): for every
 // (batch, head) slice, out_t = V_t softmax(Q_t^T K_t / sqrt(dh))^T, with q, k, v
 // and out laid out (B*H, dh, L).  Math in float32, output in the input type.
-// Any dh from 1 to 64 and any Lq, Lk (Lq != Lk for cross-attention); the ragged
+// Any dh from 1 to 128 and any Lq, Lk (Lq != Lk for cross-attention); the ragged
 // tails of both axes are masked here.  bfloat16 inputs go to the tensor-core
 // kernel in attention_fwd_bf16.cu; this file keeps float32 on the CUDA cores,
 // where it beats one scaled_dot_product_attention call at every model shape
@@ -18,8 +18,15 @@
 // (67 TFLOP/s) and the exponential unit.
 //
 // Design.  One block per (batch*head, tile of queries), one thread per query
-// row.  The thread keeps its query row (pre-scaled by log2(e)/sqrt(dh)) and its
-// output accumulator in registers.  The block walks the keys in tiles staged in
+// row up to DP = 64 (SPLIT = 1).  The thread keeps its query row (pre-scaled by
+// log2(e)/sqrt(dh)) and its output accumulator in registers.  At DP = 128 that
+// would be 256 floats a thread, past the 255 registers it may have, so a row
+// belongs to SPLIT = 8 adjacent threads, each holding W = DP / SPLIT = 16 of its
+// dims (float4 number w4 * SPLIT + lane-in-row: the threads of a row read
+// neighbouring 16 bytes of a key row, no bank conflict); a score is their
+// partial dot products summed with warp shuffles, so all eight keep the same
+// running max and sum.  ptxas: 96 registers, no spills (SPLIT 4 spilled 24
+// bytes at 128 registers, SPLIT 2 took 211, in an sm_90a build).  The block walks the keys in tiles staged in
 // shared memory as float32 rows K[j][0..DP) and V[j][0..DP): every thread reads
 // the same row at the same time, so the reads are broadcasts, four values at a
 // time.  The softmax is online (running max and sum, rescaled once per chunk of
@@ -53,7 +60,15 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfl
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-template <typename T, int DP>
+// Sum over the SPLIT adjacent lanes that share one query row.
+template <int SPLIT>
+__device__ __forceinline__ float split_sum(float x) {
+#pragma unroll
+  for (int off = SPLIT / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <typename T, int DP, int SPLIT>
 __global__ void __launch_bounds__(128)
 attention_fwd_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
@@ -64,11 +79,15 @@ attention_fwd_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ks = reinterpret_cast<float*>(smem4);  // [kv_tile][DP]
   float* vs = ks + kv_tile * DP;                // [kv_tile][DP]
 
+  constexpr int W = DP / SPLIT;  // dims of the row this thread holds
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int qi = blockIdx.y * blockDim.x + threadIdx.x;
+  const int qi = blockIdx.y * (blockDim.x / SPLIT) + threadIdx.x / SPLIT;
+  const int sl = threadIdx.x % SPLIT;  // this thread's place in its row
   const bool active = qi < lq;
+  // dim of the c-th value (c = 0..3) of this thread's float4 number w4
+  auto dim = [sl](int w4, int c) { return 4 * (w4 * SPLIT + sl) + c; };
 
   // Each (batch, head) slice is a contiguous (dh, L) panel; batches may sit
   // at any stride (q, k, v are slices of one packed projection).
@@ -77,14 +96,15 @@ attention_fwd_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vp = v + b * v_bstride + (int64_t)h * dh * lk;
   T* op = o + (int64_t)bh * dh * lq;
 
-  float qr[DP];
+  float qr[W];
 #pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    qr[d] = (active && d < dh) ? load_f32(qp + (int64_t)d * lq + qi) * q_scale : 0.f;
+  for (int w = 0; w < W; ++w) {
+    const int d = dim(w / 4, w % 4);
+    qr[w] = (active && d < dh) ? load_f32(qp + (int64_t)d * lq + qi) * q_scale : 0.f;
   }
-  float acc[DP];
+  float acc[W];
 #pragma unroll
-  for (int d = 0; d < DP; ++d) acc[d] = 0.f;
+  for (int w = 0; w < W; ++w) acc[w] = 0.f;
   float m = -CUDART_INF_F;  // running max of the log2-scaled scores
   float l = 0.f;            // running sum of exp2(score - m)
 
@@ -114,13 +134,14 @@ attention_fwd_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float4* kr = reinterpret_cast<const float4*>(ks + (j0 + c) * DP);
           dot = 0.f;
 #pragma unroll
-          for (int d4 = 0; d4 < DP / 4; ++d4) {
-            const float4 kk = kr[d4];
+          for (int d4 = 0; d4 < W / 4; ++d4) {
+            const float4 kk = kr[d4 * SPLIT + sl];
             dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
             dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
             dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
             dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
           }
+          dot = split_sum<SPLIT>(dot);  // j0 + c < n is the same in every lane
         }
         s[c] = dot;
         cmax = fmaxf(cmax, dot);
@@ -130,7 +151,7 @@ attention_fwd_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = exp2f(m - m_new);  // 0 on the first chunk
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < DP; ++d) acc[d] *= corr;
+      for (int w = 0; w < W; ++w) acc[w] *= corr;
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
         if (j0 + c < n) {
@@ -138,8 +159,8 @@ attention_fwd_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
           l += p;
           const float4* vr = reinterpret_cast<const float4*>(vs + (j0 + c) * DP);
 #pragma unroll
-          for (int d4 = 0; d4 < DP / 4; ++d4) {
-            const float4 vv = vr[d4];
+          for (int d4 = 0; d4 < W / 4; ++d4) {
+            const float4 vv = vr[d4 * SPLIT + sl];
             acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
             acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
             acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
@@ -154,26 +175,29 @@ attention_fwd_t_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (active) {
     const float inv = 1.f / l;
 #pragma unroll
-    for (int d = 0; d < DP; ++d) {
-      if (d < dh) store_f32(op + (int64_t)d * lq + qi, acc[d] * inv);
+    for (int w = 0; w < W; ++w) {
+      const int d = dim(w / 4, w % 4);
+      if (d < dh) store_f32(op + (int64_t)d * lq + qi, acc[w] * inv);
     }
-    if (lse != nullptr) lse[(int64_t)bh * lq + qi] = m * 0.6931471805599453f + logf(l);
+    if (lse != nullptr && sl == 0) lse[(int64_t)bh * lq + qi] = m * 0.6931471805599453f + logf(l);
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int SPLIT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                    int heads, int dh, int lq, int lk, int64_t q_bstride,
                    int64_t k_bstride, int64_t v_bstride, int kv_tile, int threads,
                    cudaStream_t stream) {
   const size_t smem = 2u * (size_t)kv_tile * DP * sizeof(float);
-  auto kernel = attention_fwd_t_kernel<T, DP>;
+  static_assert(DP / SPLIT >= 4, "a thread holds whole float4s");
+  auto kernel = attention_fwd_t_kernel<T, DP, SPLIT>;
   if (smem > 48u * 1024u) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(bh, (lq + threads - 1) / threads);
+  const int rows = threads / SPLIT;  // query rows per block
+  const dim3 grid(bh, (lq + rows - 1) / rows);
   // log2(e) / sqrt(dh): the softmax runs on exp2.
   const float q_scale = 1.4426950408889634f / sqrtf((float)dh);
   kernel<<<grid, threads, smem, stream>>>(
@@ -187,11 +211,12 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                      int heads, int dh, int lq, int lk, int64_t qs, int64_t ks,
                      int64_t vs, int kv_tile, int threads, cudaStream_t stream) {
-  if (dh <= 4) return launch<T, 4>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
-  if (dh <= 8) return launch<T, 8>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
-  if (dh <= 16) return launch<T, 16>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
-  if (dh <= 32) return launch<T, 32>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
-  return launch<T, 64>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
+  if (dh <= 4) return launch<T, 4, 1>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
+  if (dh <= 8) return launch<T, 8, 1>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
+  if (dh <= 16) return launch<T, 16, 1>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
+  if (dh <= 32) return launch<T, 32, 1>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
+  if (dh <= 64) return launch<T, 64, 1>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
+  return launch<T, 128, 8>(q, k, v, o, lse, bh, heads, dh, lq, lk, qs, ks, vs, kv_tile, threads, stream);
 }
 
 }  // namespace
@@ -205,7 +230,8 @@ cudaError_t controlnet_attention_fwd_t_bf16(const void* q, const void* k, const 
 // q: (B, H, dh, Lq), k and v: (B, H, dh, Lk), each (dh, L) panel contiguous and
 // batches `*_bstride` elements apart; o: contiguous (B, H, dh, Lq); lse: null or
 // contiguous float32 (B, H, Lq), natural log.  dtype 0 float32: `kv_tile` keys
-// per shared-memory tile and `threads` (= query rows) per block; dtype 1
+// per shared-memory tile and `threads` per block (= query rows up to dh 64, 8
+// threads a row above); dtype 1
 // bfloat16: `kv_tile` must be 64 (the tensor-core kernel's key tile) and
 // `threads` is 32 per warp of 16 query rows (32..128).  Returns a cudaError_t
 // (0 on success).
@@ -213,7 +239,7 @@ extern "C" int controlnet_attention_fwd_t(
     const void* q, const void* k, const void* v, void* o, void* lse_out, int batch,
     int heads, int dh, int lq, int lk, long long q_bstride, long long k_bstride,
     long long v_bstride, int dtype, int kv_tile, int threads, void* stream) {
-  if (batch < 1 || heads < 1 || dh < 1 || dh > 64 || lq < 1 || lk < 1 ||
+  if (batch < 1 || heads < 1 || dh < 1 || dh > 128 || lq < 1 || lk < 1 ||
       kv_tile < 1 || threads < 32 || threads > 128 || threads % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }

@@ -6,8 +6,8 @@
 // bfloat16 inputs; attention_fwd.cu keeps the float32 path and the C entry
 // point, which dispatches here by type.  Same contract: out_t = V_t
 // softmax(Q_t^T K_t / sqrt(dh))^T per (batch, head) slice on (dh, L) panels,
-// any dh from 1 to 64, any Lq and Lk (ragged tails masked), the row
-// log-sum-exp in natural log, float32, when asked for.
+// any dh from 1 to 128, any Lq and Lk (ragged tails masked), the row
+// log-sum-exp in natural log, float32, when asked for.  dh up to 128.
 //
 // What bounds it.  4*dh*Lq*Lk flops per slice against 4*dh*L values moved: at
 // the model shapes the work is operations, so the products belong on the
@@ -23,7 +23,12 @@
 // for an odd L; `load_tile`).  The panels keep their (dh, L) layout in shared memory; ldmatrix
 // .trans turns the Q and K tiles into A and B operands and the plain ldmatrix
 // the V tile into the B operand of P V.  dh is padded with zeros to DP, a
-// multiple of 16 (4 and 8 -> 16, 24 -> 32, 40 -> 48, 56 -> 64).
+// multiple of 16 (4 and 8 -> 16, 24 -> 32, 40 -> 48, 56 -> 64), and past 64
+// to 96 or 128.  Up to DP = 64 a warp keeps its Q operand in registers for
+// the whole sweep; at DP 96 and 128 the O accumulator alone takes 48 and 64
+// registers a thread, so the warp reloads its Q fragments from the staged
+// tile (ldmatrix) at each key tile instead, which keeps a thread within its
+// registers without spills.
 //
 // Roundings.  The TPU kernel contracts float32 P with V upcast to float32,
 // so P is not rounded to bf16 before P V: each exponentiated score enters the
@@ -61,6 +66,7 @@ __global__ void __launch_bounds__(128) attention_fwd_bf16_kernel(Panels a) {
   constexpr int NKS = DP / 16;  // k-steps of Q K^T
   constexpr int NS = kKeys / 8;
   constexpr int kPitch = row_pitch(kKeys, 2);
+  constexpr bool kQRegs = DP <= 64;  // Q fragments kept in registers (else reloaded)
   extern __shared__ uint4 smem4[];
   const int warps = blockDim.x / 32;
   const int rows = 16 * warps;
@@ -82,7 +88,7 @@ __global__ void __launch_bounds__(128) attention_fwd_bf16_kernel(Panels a) {
   load_tile<DP>(kv + DP * kPitch, kPitch, vp, a.lk, a.dh, 0, kKeys, vec);
   cp_async_commit();
 
-  uint32_t qa[NKS][4];
+  uint32_t qa[kQRegs ? NKS : 1][4];
   float o[NDT][4];
 #pragma unroll
   for (int dt = 0; dt < NDT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
@@ -103,10 +109,10 @@ __global__ void __launch_bounds__(128) attention_fwd_bf16_kernel(Panels a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == 0) {
+    if (kQRegs && kt == 0) {
 #pragma unroll
       for (int kk = 0; kk < NKS; ++kk) {
-        load_a_kmajor(qa[kk], qs + (kk * 16) * q_pitch + warp * 16, q_pitch, lane);
+        load_a_kmajor(qa[kQRegs ? kk : 0], qs + (kk * 16) * q_pitch + warp * 16, q_pitch, lane);
       }
     }
 
@@ -115,11 +121,12 @@ __global__ void __launch_bounds__(128) attention_fwd_bf16_kernel(Panels a) {
     for (int nt = 0; nt < NS; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < NKS; ++kk) {
+      if (!kQRegs) load_a_kmajor(qa[0], qs + (kk * 16) * q_pitch + warp * 16, q_pitch, lane);
 #pragma unroll
       for (int nt = 0; nt < NS; ++nt) {
         uint32_t b0, b1;
         load_b_kmajor(b0, b1, ks + (kk * 16) * kPitch + nt * 8, kPitch, lane);
-        mma_bf16(s[nt], qa[kk], b0, b1);
+        mma_bf16(s[nt], qa[kQRegs ? kk : 0], b0, b1);
       }
     }
     online_softmax<NS, NDT>(s, kt * kKeys, a.lk, a.scale_log2, m, l, o, lane);
@@ -128,8 +135,9 @@ __global__ void __launch_bounds__(128) attention_fwd_bf16_kernel(Panels a) {
   }
 
   // Finish: divide by the row sums, stage the (dh, rows) output tile in the
-  // query tile's place (free: every warp read its fragments at kt == 0 and has
-  // passed a barrier since), then store it coalesced.
+  // query tile's place (free: every warp read its fragments in the last key
+  // tile at the latest and has passed a barrier since), then store it
+  // coalesced.
   const int g = lane >> 2, t = lane & 3;
   float inv[2];
 #pragma unroll
@@ -204,5 +212,7 @@ cudaError_t controlnet_attention_fwd_t_bf16(const void* q, const void* k, const 
   if (dh <= 16) return launch<16>(p, bh, warps, stream);
   if (dh <= 32) return launch<32>(p, bh, warps, stream);
   if (dh <= 48) return launch<48>(p, bh, warps, stream);
-  return launch<64>(p, bh, warps, stream);
+  if (dh <= 64) return launch<64>(p, bh, warps, stream);
+  if (dh <= 96) return launch<96>(p, bh, warps, stream);
+  return launch<128>(p, bh, warps, stream);
 }

@@ -30,7 +30,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # L = 784 shapes (scripts/port_attention_tile_sweep.py; PERF.md).  Tiles
 # above 48 KB are allowed (the launcher raises the limit).
 KV_TILE_BYTES = 16 * 1024
-MAX_HEAD_DIM = 64
+# Head dims the kernels take: up to 128 (CIFAR-10's 512-channel levels at 4
+# heads); past 64 the float32 kernels split a query row across more threads
+# and the bf16 kernels reload their A operands from shared memory.
+MAX_HEAD_DIM = 128
 # The bf16 kernels (tensor cores): keys per shared-memory tile of the
 # forward (csrc/attention_fwd_bf16.cu), double-buffered.
 MMA_KV_TILE = 64
@@ -59,29 +62,40 @@ def fused_attention_t_plain(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor
 
 
 def _pow2_dim(dh: int) -> int:
+    """dh rounded up to a power of two >= 4: the float32 kernels' DP."""
     dp = 4
     while dp < dh:
         dp *= 2
     return dp
 
 
+def fwd_split(dh: int) -> int:
+    """Threads that share one query row in the float32 forward kernel
+    (csrc/attention_fwd.cu, SPLIT): 1 up to a padded head dim of 64, 8 at
+    128."""
+    return 1 if _pow2_dim(dh) <= 64 else 8
+
+
 def launch_config(dh: int, lq: int, lk: int) -> tuple[int, int]:
     """(kv_tile, threads) of the float32 kernel: keys staged per
-    shared-memory tile (at most ``KV_TILE_BYTES``), and threads (= query
-    rows) per block."""
+    shared-memory tile (at most ``KV_TILE_BYTES``), and threads per block
+    (``fwd_split(dh)`` threads per query row)."""
     dp = _pow2_dim(dh)
     kv_tile = max(1, min(lk, KV_TILE_BYTES // (2 * dp * 4)))
-    threads = 64 if lq <= 64 else 128
+    # a short query axis takes 64-thread blocks, unless a row is split:
+    # then 128, so that fewer blocks stage the same K and V tiles
+    threads = 64 if lq <= 64 and fwd_split(dh) == 1 else 128
     return kv_tile, threads
 
 
 def mma_launch_config(dh: int, lq: int) -> tuple[int, int, int]:
     """(padded head dim, warps, shared bytes) of the bf16 kernel: dh padded
-    with zeros to a multiple of 16 (the mma's depth); one warp per 16 query
+    with zeros to a multiple of 16 (the mma's depth) up to 64, past it to 96
+    or 128 (csrc/attention_fwd_bf16.cu's instantiations); one warp per 16 query
     rows, up to 4 a block (fewer where Lq is short); the (dh, rows) query tile
     and two (dh, 64) K and V tiles in bf16, rows padded as ``row_pitch`` in
     csrc/mma_attention.cuh pads them."""
-    dp = (dh + 15) // 16 * 16
+    dp = (dh + 15) // 16 * 16 if dh <= 64 else (96 if dh <= 96 else 128)
     warps = min(4, -(-lq // 16))
 
     def pitch(k: int) -> int:  # k bf16 values plus padding to an odd count of 16 bytes
@@ -93,7 +107,9 @@ def mma_launch_config(dh: int, lq: int) -> tuple[int, int, int]:
 def mma_bwd_tile(dh: int) -> int:
     """Keys (dq pass) and queries (dkv pass) per shared-memory tile of the
     bf16 backward (csrc/attention_bwd_bf16.cu, ``tile_for``): 64 where dh
-    padded to a multiple of 16 is at most 32, else 32."""
+    padded to a multiple of 16 is at most 32, else 32 (dh 96 and 128
+    included: there the A operands are reloaded from shared memory, which
+    leaves the registers to S, dP and the accumulators)."""
     return 64 if (dh + 15) // 16 * 16 <= 32 else 32
 
 

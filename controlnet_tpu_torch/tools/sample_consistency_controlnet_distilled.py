@@ -4,12 +4,14 @@ Counterpart of ``tools/sample_consistency_controlnet_distilled.py`` (the same
 ``--mode`` choices and artifacts):
 
   * random: N(0, 1) hints, a sample and a hint PNG per sample;
-  * test:   hints of the test split (``--test_images``, with ``--test_hints``
-            or the port's canny on the device), hint / original / sample rows;
+  * test:   hints of the test split (the reader ``dataset_params`` names,
+            cv2 hints, as in the JAX tool; or ``--test_images``, with
+            ``--test_hints`` or the port's canny on the device), hint /
+            original / sample rows;
   * custom: geometric hints (lines, cross, ring, random).
 
     python -m controlnet_tpu_torch.tools.sample_consistency_controlnet_distilled \\
-        --config config/mnist.yaml [--ckpt student.pth] [--mode test --test_images t.npy] \\
+        --config config/mnist.yaml [--ckpt student.pth] [--mode test [--test_images t.npy]] \\
         [--num_steps 4] [--device cpu]
 
 The student comes from a reference-format ``.pth`` (what the port's trainer or
@@ -26,8 +28,7 @@ import os
 import numpy as np
 import torch
 
-from controlnet_tpu_torch import config as cfg
-from controlnet_tpu_torch.data.datasets import batch_indices, load_split
+from controlnet_tpu_torch import cli, config as cfg
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.jax_params import load_student_checkpoint
 from controlnet_tpu_torch.models.consistency import ConsistencyDistilled
@@ -97,7 +98,9 @@ def generate(model: ConsistencyDistilled, hints: torch.Tensor, num_steps: int = 
 
 def pick_hints(mode: str, config: dict, num_samples: int, generator: torch.Generator, device,
                test_images: str | None = None, test_hints: str | None = None, seed: int = 0):
-    """(hints NCHW on ``device``, originals NCHW or None) of ``mode``."""
+    """(hints NCHW on ``device``, originals NCHW or None) of ``mode``; the
+    test mode draws the first shuffled batch of the test split (``.npy``
+    arrays when ``test_images`` is given, else the config's reader)."""
     mp = cfg.model_params(config)
     size = mp["im_size"]
     if mode == "random":
@@ -106,13 +109,9 @@ def pick_hints(mode: str, config: dict, num_samples: int, generator: torch.Gener
     if mode == "custom":
         hints = torch.from_numpy(create_custom_hints(mp, num_samples))
         return hints.permute(0, 3, 1, 2).contiguous().to(device), None
-    if test_images is None:
-        raise ValueError("--mode test needs --test_images")
-    images, hints = load_split(test_images, test_hints, device)
-    idx = next(batch_indices(len(images), min(num_samples, len(images)), shuffle=True, seed=seed))
-    idx = torch.from_numpy(idx).to(device)
-    ims = images[idx]
-    return (device_hints(ims) if hints is None else hints[idx]), ims
+    source = cli.open_split(config, "test", device, test_images, test_hints, return_hints=True)
+    ims, hints = source.first(num_samples, seed=seed)
+    return (device_hints(ims) if hints is None else hints), ims
 
 
 def write_pngs(out_dir: str, mode: str, x0: torch.Tensor, hints: torch.Tensor,
@@ -153,7 +152,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--num_samples", type=int, default=10)
     parser.add_argument("--num_steps", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--test_images", default=None, help=".npy of the test split's images")
+    parser.add_argument("--test_images", default=None,
+                        help=".npy of the test split's images (default: the dataset_params "
+                             "test split, cv2 hints)")
     parser.add_argument("--test_hints", default=None,
                         help=".npy of the test split's hints (default: canny on the device)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")

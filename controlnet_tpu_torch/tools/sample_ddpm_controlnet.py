@@ -2,16 +2,19 @@
 
 Counterpart of ``tools/sample_ddpm_controlnet.py``.  Weights come from a
 reference-format ``.pth`` (what ``tools/export_torch_checkpoint.py`` writes
-from a JAX checkpoint).  Hints come from an ``.npy`` array of (N, H, W, 3)
-hint images in [0, 1]; ``num_samples`` of them are picked at random from
-``--seed``.  The hint features are computed once, the sampling loop (the
-1000-step ancestral one, or ``--sampler ddim|dpm --sampler_steps N``, each
-with or without ``--cfg_scale``) runs on the device, and the hint grid plus
-one x_t grid per ``--save_every`` steps (per step of a few-step loop) are
-written as PNGs.
+from a JAX checkpoint).  Hints come, as in the JAX tool, from the test split
+of the reader ``dataset_params`` names (cv2 canny of ``im_test_path``'s
+images; with ``--hint_backend tpu`` the port's canny of the same images on
+the card), or with ``--hints`` from an ``.npy`` array of (N, H, W, 3) hint
+images in [0, 1]; ``num_samples`` of them are picked at random from
+``--seed``, with replacement, in the JAX tool's order.  The hint features
+are computed once, the sampling loop (the 1000-step ancestral one, or
+``--sampler ddim|dpm --sampler_steps N``, each with or without
+``--cfg_scale``) runs on the device, and the hint grid plus one x_t grid per
+``--save_every`` steps (per step of a few-step loop) are written as PNGs.
 
     python -m controlnet_tpu_torch.tools.sample_ddpm_controlnet \\
-        --config config/mnist.yaml --hints hints.npy [--ckpt path.pth] \\
+        --config config/mnist.yaml [--hints hints.npy | --hint_backend tpu] [--ckpt path.pth] \\
         [--sampler dpm --sampler_steps 20] [--cfg_scale 2.0] [--attn_fused_proj]
 
 Runs on the card; ``--device cpu`` runs it on the CPU.
@@ -26,8 +29,7 @@ import random
 import numpy as np
 import torch
 
-from controlnet_tpu_torch import cli
-from controlnet_tpu_torch import config as cfg
+from controlnet_tpu_torch import cli, config as cfg
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
 from controlnet_tpu_torch.models.controlnet import ControlNet
@@ -38,11 +40,35 @@ from controlnet_tpu_torch.schedules.linear import LinearSchedule, make_linear_sc
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
-def gather_hints(hints: np.ndarray, num_samples: int, seed: int = 0) -> np.ndarray:
-    """``num_samples`` hints drawn at random (with replacement) from ``hints``."""
+def gather_hints(hints, num_samples: int, seed: int = 0) -> np.ndarray:
+    """``num_samples`` items drawn at random (with replacement) from
+    ``hints``, in the draw order of the JAX tool's ``gather_test_hints``: an
+    array's rows, or a reader's hints (made with ``return_hints``) or, from a
+    reader without hints, its images."""
     rng = random.Random(seed)
     idxs = [rng.randint(0, len(hints) - 1) for _ in range(num_samples)]
-    return np.stack([hints[i] for i in idxs])
+    if isinstance(hints, np.ndarray):
+        return np.stack([hints[i] for i in idxs])
+    items = [hints[i] for i in idxs]
+    return np.stack([it[1] if isinstance(it, tuple) else it for it in items])
+
+
+def split_hints(config: dict, num_samples: int, seed: int, hint_backend: str | None,
+                     device) -> np.ndarray:
+    """Hints of ``num_samples`` test-split images drawn as the JAX tool
+    draws them: cv2 canny in the reader (the default), or with
+    ``hint_backend`` tpu the port's canny of the same images on the card.
+    (N, H, W, 3) float32 in {0, 1}."""
+    from controlnet_tpu_torch.tools.train_ddpm_controlnet import device_hints
+
+    on_device = hint_backend == "tpu"
+    reader = cli.build_dataset(cfg.train_params(config)["task_name"],
+                               cfg.dataset_params(config), "test", return_hints=not on_device)
+    drawn = gather_hints(reader, num_samples, seed)
+    if not on_device:
+        return drawn
+    images = torch.from_numpy(drawn).permute(0, 3, 1, 2).to(resolve_device(device))
+    return device_hints(images).permute(0, 2, 3, 1).float().cpu().numpy()
 
 
 def load_model(config: dict, ckpt_path: str | None, device=None) -> tuple[ControlNet, LinearSchedule]:
@@ -97,7 +123,10 @@ def sample(cn: ControlNet, sched: LinearSchedule, hints: np.ndarray, seed: int =
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="DDPM ControlNet sampling (PyTorch port)")
     parser.add_argument("--config", dest="config_path", default="config/mnist.yaml")
-    parser.add_argument("--hints", required=True, help=".npy of (N, H, W, 3) hints in [0, 1]")
+    parser.add_argument("--hints", default=None,
+                        help=".npy of (N, H, W, 3) hints in [0, 1] (default: canny of the "
+                             "dataset_params test split, by --hint_backend)")
+    cli.add_hint_backend_arg(parser)
     parser.add_argument("--ckpt", default=None,
                         help="reference-format .pth (default: <task_name>/<controlnet_ckpt_name>)")
     parser.add_argument("--num_samples", type=int, default=None)
@@ -123,7 +152,10 @@ def main(argv=None) -> None:
 
     num_samples = args.num_samples or train_config["num_samples"]
     nrow = train_config["num_grid_rows"]
-    hints = gather_hints(np.load(args.hints), num_samples, args.seed)
+    if args.hints is not None:
+        hints = gather_hints(np.load(args.hints), num_samples, args.seed)
+    else:
+        hints = split_hints(config, num_samples, args.seed, args.hint_backend, args.device)
     out_dir = os.path.join(task_name, "hint_samples")
     save_image_grid(hints, os.path.join(out_dir, "hints.png"), nrow=nrow)
 

@@ -3,8 +3,10 @@ student forward.
 
 Counterpart of ``tools/sample_distribution_matching_controlnet_distilled.py``:
 
-  * test:   hints of the test split (``--test_images``, with ``--test_hints``
-            or the port's canny on the device), hint / sample / original rows;
+  * test:   hints of the test split (the reader ``dataset_params`` names,
+            cv2 hints, as in the JAX tool; or ``--test_images``, with
+            ``--test_hints`` or the port's canny on the device), hint /
+            sample / original rows;
   * random: N(0, 1) hints, hint / sample pairs;
   * custom: geometric hints (stripes, vertical stripes, diagonal, disk).
 
@@ -98,7 +100,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--mode", choices=["test", "random", "custom"], default="test")
     parser.add_argument("--num_samples", type=int, default=10)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--test_images", default=None, help=".npy of the test split's images")
+    parser.add_argument("--test_images", default=None,
+                        help=".npy of the test split's images (default: the dataset_params "
+                             "test split, cv2 hints)")
     parser.add_argument("--test_hints", default=None,
                         help=".npy of the test split's hints (default: canny on the device)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")

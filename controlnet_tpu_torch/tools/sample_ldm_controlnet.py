@@ -12,13 +12,15 @@ the latents' first channel per snapshot and the decoded grid are written as
 PNGs.
 
 Weights come from reference-format ``.pth`` files (what
-``tools/export_torch_checkpoint.py`` writes from JAX checkpoints).  Hints come
-from an ``.npy`` array of (N, H, W, 3) hint images in [0, 1] with H = W =
-``canny_im_size``; ``num_samples`` of them are picked at random from
-``--seed``.
+``tools/export_torch_checkpoint.py`` writes from JAX checkpoints).  Hints
+come, as in the JAX tool, from the CelebA-HQ reader on
+``dataset_params.im_path`` (cv2 canny of the RGB image at ``canny_im_size``),
+or with ``--hints`` from an ``.npy`` array of (N, H, W, 3) hint images in [0,
+1] with H = W = ``canny_im_size``; ``num_samples`` of them are picked at
+random from ``--seed``, with replacement.
 
     python -m controlnet_tpu_torch.tools.sample_ldm_controlnet \\
-        --config config/celebhq.yaml --hints hints.npy \\
+        --config config/celebhq.yaml [--hints hints.npy] \\
         [--ckpt controlnet.pth] [--vae_ckpt vae.pth] \\
         [--sampler dpm --sampler_steps 20] [--cfg_scale 2.0]
 
@@ -35,6 +37,7 @@ import torch
 
 from controlnet_tpu_torch import cli
 from controlnet_tpu_torch import config as cfg
+from controlnet_tpu_torch.data.datasets import CelebDataset
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
 from controlnet_tpu_torch.models.controlnet import ControlNet
@@ -117,8 +120,9 @@ def sample(cn: ControlNet, vae: VAE, sched: LinearSchedule, hints: np.ndarray, s
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="LDM ControlNet sampling (PyTorch port)")
     parser.add_argument("--config", dest="config_path", default="config/celebhq.yaml")
-    parser.add_argument("--hints", required=True,
-                        help=".npy of (N, canny_im_size, canny_im_size, 3) hints in [0, 1]")
+    parser.add_argument("--hints", default=None,
+                        help=".npy of (N, canny_im_size, canny_im_size, 3) hints in [0, 1] "
+                             "(default: cv2 canny of the dataset_params tree)")
     parser.add_argument("--ckpt", default=None,
                         help="reference-format ControlNet .pth "
                              "(default: <task_name>/<controlnet_ckpt_name>)")
@@ -148,7 +152,14 @@ def main(argv=None) -> None:
 
     num_samples = args.num_samples or train_config["num_samples"]
     nrow = train_config["num_grid_rows"]
-    hints = gather_hints(np.load(args.hints), num_samples, args.seed)
+    if args.hints is not None:
+        pool = np.load(args.hints)
+    else:
+        ds = cfg.dataset_params(config)
+        pool = CelebDataset("test", im_path=ds["im_path"], im_size=ds["im_size"],
+                            im_channels=ds["im_channels"], return_hint=True,
+                            canny_im_size=ds["canny_im_size"])
+    hints = gather_hints(pool, num_samples, args.seed)
     out_dir = os.path.join(task_name, "hint_samples")
     save_image_grid(hints, os.path.join(out_dir, "hints.png"), nrow=nrow)
 

@@ -3,7 +3,7 @@
 Counterpart of ``tools/train_consistency_controlnet_distilled.py``:
 
     python -m controlnet_tpu_torch.tools.train_consistency_controlnet_distilled \\
-        --config config/mnist.yaml --images images.npy [--hints hints.npy] [--device cpu]
+        --config config/mnist.yaml [--images images.npy [--hints hints.npy]] [--device cpu]
 
 The mode comes from ``train_params``: ``use_consistency_only`` (the EMA
 target alone), else ``use_ddpm_distillation`` (default true: log-uniform
@@ -11,9 +11,11 @@ sigma, alpha * recon + (1 - alpha) * teacher MSE), else ``manual``
 (high-noise-biased timesteps).  The teacher is the port ControlNet's
 reference-format ``.pth`` at ``<task_name>/<controlnet_ckpt_name>`` (what
 ``train_ddpm_controlnet`` writes); ``consistency_only`` needs none.  Adam at
-``consistency_lr``; alpha stays 0.5 as in the reference trainer.  Images come
-from an ``.npy`` held on the device; hints from ``--hints`` or the port's
-canny on the device.  Step-numbered checkpoints of {state, ema} every
+``consistency_lr``; alpha stays 0.5 as in the reference trainer.  Images and
+their cv2 canny hints come from the train split of the reader
+``dataset_params`` names, as in the JAX tool; with ``--images``, from an
+``.npy`` held on the device, hints from ``--hints`` or the port's canny on
+the device.  Step-numbered checkpoints of {state, ema} every
 ``ckpt_save_every_epochs`` epochs, resumed from the newest; at the end the
 student in the reference format (``epoch``, ``model_state_dict``,
 ``ema_teacher_state_dict``, ``model_config``) at
@@ -30,7 +32,6 @@ import os
 import torch
 
 from controlnet_tpu_torch import cli, config as cfg
-from controlnet_tpu_torch.data.datasets import batch_indices, load_split
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
@@ -95,7 +96,7 @@ def restore(task_name: str, state: TrainState, model: ConsistencyDistilled, devi
     return epoch
 
 
-def train(config_path: str, images_path: str, hints_path: str | None = None,
+def train(config_path: str, images_path: str | None = None, hints_path: str | None = None,
           device=None) -> dict:
     """Train to ``consistency_epochs``; returns {"epochs", "losses", "mode"}
     for the epochs this call ran (mean loss of each)."""
@@ -111,18 +112,16 @@ def train(config_path: str, images_path: str, hints_path: str | None = None,
     print(f"Consistency training mode: {mode}")
     start_epoch = restore(task_name, state, model, device)
 
-    images, hints = load_split(images_path, hints_path, device)
+    source = cli.open_split(config, "train", device, images_path, hints_path, return_hints=True)
     num_epochs = tp.get("consistency_epochs", 10)
     history = {"epochs": [], "losses": [], "mode": mode}
     for epoch_idx in range(start_epoch, num_epochs):
         timer = cli.EpochTimer()
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
-        for idx in batch_indices(len(images), tp["batch_size"], shuffle=True, seed=shuffle_seed):
-            idx = torch.from_numpy(idx).to(device)
-            batch = images[idx]
-            batch_hints = device_hints(batch) if hints is None else hints[idx]
-            metrics = step(batch, batch_hints, generator, epoch_idx)
+        for batch, hints in source.batches(tp["batch_size"], shuffle=True, seed=shuffle_seed):
+            metrics = step(batch, device_hints(batch) if hints is None else hints, generator,
+                           epoch_idx)
             timer.add(metrics.get("total_loss", metrics.get("consistency_loss")))
         print(f"Epoch {epoch_idx + 1} | {timer.summary()}")
         history["epochs"].append(epoch_idx + 1)
@@ -142,10 +141,12 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Consistency distillation of the ControlNet (PyTorch port)")
     parser.add_argument("--config", dest="config_path", default="config/mnist.yaml")
-    parser.add_argument("--images", required=True,
-                        help=".npy of (N, H, W[, C]) images, uint8 or float in [0, 1]")
+    parser.add_argument("--images", default=None,
+                        help=".npy of (N, H, W[, C]) images, uint8 or float in [0, 1] "
+                             "(default: the dataset_params tree, cv2 hints)")
     parser.add_argument("--hints", default=None,
-                        help=".npy of (N, H, W, 3) hints in [0, 1] (default: canny on the device)")
+                        help=".npy of (N, H, W, 3) hints in [0, 1], with --images "
+                             "(default: canny on the device)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     train(args.config_path, args.images, args.hints, args.device)

@@ -3,10 +3,12 @@
 Counterpart of ``tools/train_ddpm.py``:
 
     python -m controlnet_tpu_torch.tools.train_ddpm --config config/mnist.yaml \\
-        --images images.npy [--device cpu]
+        [--images images.npy] [--device cpu]
 
-Images come from an ``.npy`` array of (N, H, W[, C]) images (uint8, or float
-in [0, 1]), held on the device.  Adam at ``ddpm_lr``; step-numbered
+Images come from the reader ``dataset_params`` names (the MNIST or CIFAR-10
+PNG class tree at ``im_path``, decoded on a host thread batch by batch), as
+in the JAX tool, or with ``--images`` from an ``.npy`` array of (N, H, W[,
+C]) images (uint8, or float in [0, 1]) held on the device.  Adam at ``ddpm_lr``; step-numbered
 checkpoints of the whole train state under ``<task_name>/<ddpm_ckpt_name
 minus .pth>/`` every ``ckpt_save_every_epochs`` epochs, resumed from the
 newest one; at the end the UNet's reference-format ``.pth`` at
@@ -25,7 +27,6 @@ import numpy as np
 import torch
 
 from controlnet_tpu_torch import cli, config as cfg
-from controlnet_tpu_torch.data.datasets import iterate_batches, load_images
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
 from controlnet_tpu_torch.models.unet import UNet
@@ -40,12 +41,7 @@ def epoch_seeds(seed: int, epoch: int) -> tuple[int, int]:
     return int(a), int(b)
 
 
-def device_images(path: str, device: torch.device) -> torch.Tensor:
-    """The ``.npy`` dataset as float32 NCHW in [-1, 1] on ``device``."""
-    return torch.from_numpy(load_images(path)).permute(0, 3, 1, 2).contiguous().to(device)
-
-
-def train(config_path: str, images_path: str, device=None) -> dict:
+def train(config_path: str, images_path: str | None = None, device=None) -> dict:
     """Train to ``num_epochs``; returns {"epochs": [...], "losses": [...]}
     for the epochs this call ran (mean loss of each)."""
     device = resolve_device(device)
@@ -71,14 +67,14 @@ def train(config_path: str, images_path: str, device=None) -> dict:
         print(f"Resumed from checkpoint at epoch {start_epoch}")
 
     step = make_ddpm_train_step(unet, sched, compute_dtype=cli.compute_dtype_from(tp))
-    images = device_images(images_path, device)
+    source = cli.open_split(config, "train", device, images_path)
     num_epochs = tp["num_epochs"]
     history = {"epochs": [], "losses": []}
     for epoch_idx in range(start_epoch, num_epochs):
         timer = cli.EpochTimer()
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
-        for batch in iterate_batches(images, tp["batch_size"], shuffle=True, seed=shuffle_seed):
+        for batch, _ in source.batches(tp["batch_size"], shuffle=True, seed=shuffle_seed):
             timer.add(step(state, batch, generator))
         print(f"Finished epoch:{epoch_idx + 1} | {timer.summary()}")
         history["epochs"].append(epoch_idx + 1)
@@ -95,8 +91,9 @@ def train(config_path: str, images_path: str, device=None) -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="DDPM training (PyTorch port)")
     parser.add_argument("--config", dest="config_path", default="config/mnist.yaml")
-    parser.add_argument("--images", required=True,
-                        help=".npy of (N, H, W[, C]) images, uint8 or float in [0, 1]")
+    parser.add_argument("--images", default=None,
+                        help=".npy of (N, H, W[, C]) images, uint8 or float in [0, 1] "
+                             "(default: the dataset_params tree)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     train(args.config_path, args.images, args.device)

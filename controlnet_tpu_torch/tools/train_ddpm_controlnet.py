@@ -2,16 +2,19 @@
 
 Counterpart of ``tools/train_ddpm_controlnet.py``:
 
-    python -m controlnet_tpu_torch.tools.train_ddpm_controlnet \\
-        --config config/mnist.yaml --images images.npy [--hints hints.npy] [--device cpu]
+    python -m controlnet_tpu_torch.tools.train_ddpm_controlnet --config config/mnist.yaml \\
+        [--hint_backend cv2|tpu] [--images images.npy [--hints hints.npy]] [--device cpu]
 
 Both trunks start from the base UNet's reference-format ``.pth`` at
 ``<task_name>/<ddpm_ckpt_name>`` (what ``train_ddpm`` writes) through
 ``ControlNet.init_from_unet``; only the control branch, the hint block and
-the zero convs train.  Images come from an ``.npy`` of (N, H, W[, C]) images
-held on the device; hints from ``--hints`` ((N, H, W, 3) in [0, 1], the
-images' order) or, without it, from the port's canny on the device, batch by
-batch, as the JAX tool's ``--hint_backend tpu`` does.  Adam at
+the zero convs train.  Images come from the reader ``dataset_params`` names,
+as in the JAX tool, with hints by ``--hint_backend``: ``cv2`` (the default
+there) takes canny on the host in the reader, ``tpu`` (or ``device``) the
+port's canny on the card, batch by batch.  With ``--images``, an ``.npy`` of
+(N, H, W[, C]) images held on the device, hints come from ``--hints`` ((N,
+H, W, 3) in [0, 1], the images' order) or from the port's canny on the
+card.  Adam at
 ``controlnet_lr``; step-numbered checkpoints of the train state plus the
 frozen split every ``ckpt_save_every_epochs`` epochs, resumed from the
 newest one; at the end the merged ControlNet as a reference-format ``.pth``
@@ -27,7 +30,6 @@ import os
 import torch
 
 from controlnet_tpu_torch import cli, config as cfg
-from controlnet_tpu_torch.data.datasets import batch_indices, load_split
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
@@ -66,15 +68,21 @@ def make_trainer(config: dict, unet_state_dict: dict, device=None,
     return cn, state, step
 
 
-def train(config_path: str, images_path: str, hints_path: str | None = None,
-          device=None) -> dict:
+def train(config_path: str, images_path: str | None = None, hints_path: str | None = None,
+          device=None, hint_backend: str | None = None) -> dict:
     """Train to ``controlnet_epochs``; returns {"epochs": [...], "losses":
-    [...]} for the epochs this call ran (mean loss of each)."""
+    [...]} for the epochs this call ran (mean loss of each).  ``hint_backend``
+    is ``--hint_backend``'s: cv2 or tpu (None: cv2 for a tree, the
+    card for ``.npy`` images)."""
     device = resolve_device(device)
     config = cfg.load_config(config_path)
     tp = cfg.train_params(config)
     task_name = tp["task_name"]
     seed = int(tp.get("seed", 0))
+    backend = hint_backend or ("cv2" if images_path is None else "tpu")
+    if images_path is not None and hints_path is None and backend == "cv2":
+        raise ValueError("--hint_backend cv2 takes its hints in the dataset reader: give "
+                         "--hints with --images, or read the tree")
 
     base = load_reference_checkpoint(os.path.join(task_name, tp["ddpm_ckpt_name"]))
     cn, state, step = make_trainer(config, base, device, seed)
@@ -91,7 +99,8 @@ def train(config_path: str, images_path: str, hints_path: str | None = None,
                 p.copy_(tree["frozen"][k])
         print(f"Resumed ControlNet from epoch {start_epoch}")
 
-    images, hints = load_split(images_path, hints_path, device)
+    source = cli.open_split(config, "train", device, images_path, hints_path,
+                            return_hints=backend == "cv2")
 
     num_epochs = tp["controlnet_epochs"]
     history = {"epochs": [], "losses": []}
@@ -99,11 +108,9 @@ def train(config_path: str, images_path: str, hints_path: str | None = None,
         timer = cli.EpochTimer()
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
-        for idx in batch_indices(len(images), tp["batch_size"], shuffle=True, seed=shuffle_seed):
-            idx = torch.from_numpy(idx).to(device)
-            batch = images[idx]
-            batch_hints = device_hints(batch) if hints is None else hints[idx]
-            timer.add(step(state, batch, batch_hints, generator))
+        for batch, hints in source.batches(tp["batch_size"], shuffle=True, seed=shuffle_seed):
+            timer.add(step(state, batch, device_hints(batch) if hints is None else hints,
+                           generator))
         print(f"Finished epoch:{epoch_idx + 1} | {timer.summary()}")
         history["epochs"].append(epoch_idx + 1)
         history["losses"].append(timer.mean_loss())
@@ -121,13 +128,16 @@ def train(config_path: str, images_path: str, hints_path: str | None = None,
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="DDPM ControlNet training (PyTorch port)")
     parser.add_argument("--config", dest="config_path", default="config/mnist.yaml")
-    parser.add_argument("--images", required=True,
-                        help=".npy of (N, H, W[, C]) images, uint8 or float in [0, 1]")
+    parser.add_argument("--images", default=None,
+                        help=".npy of (N, H, W[, C]) images, uint8 or float in [0, 1] "
+                             "(default: the dataset_params tree)")
     parser.add_argument("--hints", default=None,
-                        help=".npy of (N, H, W, 3) hints in [0, 1] (default: canny on the device)")
+                        help=".npy of (N, H, W, 3) hints in [0, 1], with --images "
+                             "(default: canny on the device)")
+    cli.add_hint_backend_arg(parser)
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    train(args.config_path, args.images, args.hints, args.device)
+    train(args.config_path, args.images, args.hints, args.device, args.hint_backend)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,13 @@
 Counterpart of ``tools/train_distribution_matching_controlnet_distilled.py``:
 
     python -m controlnet_tpu_torch.tools.train_distribution_matching_controlnet_distilled \\
-        --config config/mnist.yaml --images train.npy --test_images test.npy \\
-        [--hints h.npy] [--test_hints th.npy] [--no_plots] [--device cpu]
+        --config config/mnist.yaml [--images train.npy --test_images test.npy \\
+        [--hints h.npy] [--test_hints th.npy]] [--no_plots] [--device cpu]
+
+Images and their cv2 canny hints come from the train and test splits of the
+reader ``dataset_params`` names, as in the JAX tool; with ``--images`` and
+``--test_images``, from ``.npy`` arrays held on the device, hints from
+``--hints`` / ``--test_hints`` or the port's canny on the device.
 
 The optimizer is optax's chain of ``clip_by_global_norm(1.0)`` and AdamW
 (weight decay 1e-6) on a cosine schedule from ``distribution_matching_lr``
@@ -34,7 +39,6 @@ import numpy as np
 import torch
 
 from controlnet_tpu_torch import cli, config as cfg
-from controlnet_tpu_torch.data.datasets import batch_indices, load_split
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
@@ -122,7 +126,7 @@ def plot_training_curves(history: dict, out_path: str) -> bool:
     return True
 
 
-def save_grid(model, images, hints, batch_size: int, epoch_idx: int, generator,
+def save_grid(model, source, batch_size: int, epoch_idx: int, generator,
               out_dir: str) -> bool:
     """Rows of originals, then student and teacher x0 at each of
     GRID_TIMESTEPS, on up to 4 test images; False when PIL does not import."""
@@ -132,9 +136,8 @@ def save_grid(model, images, hints, batch_size: int, epoch_idx: int, generator,
         return False
     from controlnet_tpu_torch.io.images import save_image_grid
 
-    idx = next(batch_indices(len(images), min(4, batch_size), shuffle=True, seed=epoch_idx))
-    idx = torch.from_numpy(idx).to(images.device)
-    x0, hint = images[idx], hints(idx)
+    x0, hint = source.first(min(4, batch_size), seed=epoch_idx)
+    hint = device_hints(x0) if hint is None else hint
     nhwc = lambda t: t.float().permute(0, 2, 3, 1).cpu().numpy()  # noqa: E731
     rows = [(nhwc(x0) + 1) / 2]
     T = model.teacher_schedule.num_timesteps
@@ -147,9 +150,9 @@ def save_grid(model, images, hints, batch_size: int, epoch_idx: int, generator,
     return True
 
 
-def train(config_path: str, images_path: str, test_images_path: str,
-          hints_path: str | None = None, test_hints_path: str | None = None, device=None,
-          no_plots: bool = False) -> dict:
+def train(config_path: str, images_path: str | None = None,
+          test_images_path: str | None = None, hints_path: str | None = None,
+          test_hints_path: str | None = None, device=None, no_plots: bool = False) -> dict:
     """Train to ``distribution_matching_epochs``; returns the history of the
     epochs this call ran (per-epoch means of each metric, ``val_loss``,
     ``skipped`` batches, ``epochs``) and ``best_val``."""
@@ -158,14 +161,18 @@ def train(config_path: str, images_path: str, test_images_path: str,
     tp = cfg.train_params(config)
     task_name = tp["task_name"]
     seed = int(tp.get("seed", 0))
-    images, hints = load_split(images_path, hints_path, device)
-    val_images, val_hints = load_split(test_images_path, test_hints_path, device)
-    if len(val_images) == 0:
+    if (images_path is None) != (test_images_path is None):
+        raise ValueError("--images and --test_images go together (or neither: the tree)")
+    train_src = cli.open_split(config, "train", device, images_path, hints_path,
+                               return_hints=True)
+    val_src = cli.open_split(config, "test", device, test_images_path, test_hints_path,
+                             return_hints=True)
+    if len(val_src) == 0:
         raise cfg.ConfigError("DMD training validates (and keeps the best model) on the test "
-                              "split every epoch: --test_images is empty")
+                              "split every epoch: the test split is empty")
     batch_size = tp["batch_size"]
     teacher = load_reference_checkpoint(os.path.join(task_name, tp["controlnet_ckpt_name"]))
-    model, state, step = make_trainer(config, teacher, max(1, len(images) // batch_size),
+    model, state, step = make_trainer(config, teacher, max(1, len(train_src) // batch_size),
                                       device, seed)
 
     start_epoch = 0
@@ -181,11 +188,6 @@ def train(config_path: str, images_path: str, test_images_path: str,
             best_val = float(json.load(f)["best_val"])
         print(f"Resumed best val {best_val:.4f}")
 
-    def batch_hints(source_images, source_hints):
-        return lambda idx: (device_hints(source_images[idx]) if source_hints is None
-                            else source_hints[idx])
-
-    train_hints, test_hints = batch_hints(images, hints), batch_hints(val_images, val_hints)
     num_epochs = tp.get("distribution_matching_epochs", 20)
     keep = cli.ckpt_max_to_keep(tp)
     history: dict = defaultdict(list)
@@ -193,21 +195,19 @@ def train(config_path: str, images_path: str, test_images_path: str,
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
         epoch_metrics: list = []
-        for idx in batch_indices(len(images), batch_size, shuffle=True, seed=shuffle_seed):
-            idx = torch.from_numpy(idx).to(device)
-            epoch_metrics.append(step(images[idx], train_hints(idx), generator))
+        for x0, hint in train_src.batches(batch_size, shuffle=True, seed=shuffle_seed):
+            epoch_metrics.append(step(x0, device_hints(x0) if hint is None else hint, generator))
         # one read of the epoch's device scalars
         means = {k: torch.stack([m[k] for m in epoch_metrics]).float() for k in epoch_metrics[0]}
         skipped = int(means["skipped"].sum().item())
         means = {k: v.mean().item() for k, v in means.items()}
 
         val = []
-        for i, idx in enumerate(batch_indices(len(val_images), batch_size, shuffle=True,
-                                              seed=epoch_idx)):
-            if i >= VAL_BATCHES:
-                break
-            idx = torch.from_numpy(idx).to(device)
-            val.append(val_loss(model, val_images[idx], test_hints(idx), generator))
+        val_batches = val_src.batches(batch_size, shuffle=True, seed=epoch_idx)
+        for _, (x0, hint) in zip(range(VAL_BATCHES), val_batches):
+            val.append(val_loss(model, x0, device_hints(x0) if hint is None else hint,
+                                generator))
+        val_batches.close()
         val_mean = torch.stack(val).mean().item()
         for k, v in means.items():
             history[f"train_{k}"].append(v)
@@ -219,7 +219,7 @@ def train(config_path: str, images_path: str, test_images_path: str,
               f"| grad {means['grad_norm']:.3f} | val {val_mean:.4f} | skipped {skipped}")
 
         if not no_plots:
-            save_grid(model, val_images, test_hints, batch_size, epoch_idx, generator,
+            save_grid(model, val_src, batch_size, epoch_idx, generator,
                       os.path.join(task_name, "dmd_training_samples"))
         save_checkpoint(task_name, CKPT_NAME, epoch_idx + 1, {"state": state.state_dict()},
                         max_to_keep=keep)
@@ -252,17 +252,21 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Distribution-matching distillation of the ControlNet (PyTorch port)")
     parser.add_argument("--config", dest="config_path", default="config/mnist.yaml")
-    parser.add_argument("--images", required=True,
-                        help=".npy of (N, H, W[, C]) train images, uint8 or float in [0, 1]")
+    parser.add_argument("--images", default=None,
+                        help=".npy of (N, H, W[, C]) train images, uint8 or float in [0, 1] "
+                             "(default: the dataset_params tree, cv2 hints)")
     parser.add_argument("--hints", default=None,
                         help=".npy of the train hints (default: canny on the device)")
-    parser.add_argument("--test_images", required=True,
-                        help=".npy of the test split's images (validation, best model)")
+    parser.add_argument("--test_images", default=None,
+                        help=".npy of the test split's images (validation, best model), "
+                             "with --images")
     parser.add_argument("--test_hints", default=None,
                         help=".npy of the test split's hints (default: canny on the device)")
     parser.add_argument("--no_plots", action="store_true")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    if (args.images is None) != (args.test_images is None):
+        parser.error("--images and --test_images go together (or neither: the tree)")
     train(args.config_path, args.images, args.test_images, args.hints, args.test_hints,
           args.device, args.no_plots)
 

@@ -5,11 +5,16 @@ Counterpart of ``tools/train_ldm_vae.py``:
     python -m controlnet_tpu_torch.tools.train_ldm_vae --config config/celebhq.yaml \\
         [--images images.npy --vae_ckpt vae.pth] [--device cpu]
 
-The latents come from the cache that ``infer_vae`` writes
-(``<task_name>/<vae_latent_dir_name>/``, read by ``load_latents`` in sorted
-key order and held on the device), each batch drawn from its cached moments;
-without a cache, each batch of ``--images`` is encoded on the fly by the
-frozen VAE (``--vae_ckpt``, default ``<task_name>/<vae_autoencoder_ckpt_name>``).
+The latents come, as in the JAX tool, from the CelebA-HQ reader on
+``dataset_params.im_path`` in latent mode: the cache that ``infer_vae``
+writes (``<task_name>/<vae_latent_dir_name>/``) when it holds every image of
+the tree, in the tree's order and held on the device, each batch drawn from
+its cached moments; else the tree's images, each batch encoded on the fly by
+the frozen VAE (``--vae_ckpt``, default
+``<task_name>/<vae_autoencoder_ckpt_name>``).  With ``--images`` (an ``.npy``),
+or when ``im_path`` is no directory, a cache is read alone in sorted key order
+(what ``infer_vae`` writes from an ``.npy``), and without one the ``.npy``'s
+images are encoded.
 The CompVis schedule (``ldm_scheduler``), Adam at ``ldm_lr`` halved at each
 epoch of ``ldm_lr_steps`` (counted in updates), the epsilon-MSE step.
 Step-numbered checkpoints of the train state every ``ckpt_save_every_epochs``
@@ -28,13 +33,13 @@ import os
 import torch
 
 from controlnet_tpu_torch import cli, config as cfg
-from controlnet_tpu_torch.data.datasets import (batch_indices, latents_from_batch, load_latents,
-                                                stack_latents)
+from controlnet_tpu_torch.data.datasets import (CelebDataset, ImageSource, batch_indices,
+                                                latents_from_batch, load_latents, stack_latents)
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
 from controlnet_tpu_torch.models.unet import UNet
 from controlnet_tpu_torch.tools.sample_ldm_vae import ldm_schedule, load_vae
-from controlnet_tpu_torch.tools.train_ddpm import device_images, epoch_seeds
+from controlnet_tpu_torch.tools.train_ddpm import epoch_seeds
 from controlnet_tpu_torch.train.loops import make_ddpm_train_step
 from controlnet_tpu_torch.train.state import create_train_state, multistep_schedule
 
@@ -52,33 +57,65 @@ def cached_moments(config: dict, device) -> torch.Tensor | None:
     return torch.from_numpy(stack_latents(latents, z)).to(device)
 
 
+def latent_reader(config: dict, return_hint: bool = False) -> CelebDataset:
+    """The CelebA-HQ reader of ``dataset_params`` in latent mode, on the
+    cache under ``<task_name>/<vae_latent_dir_name>``."""
+    ds, tp = cfg.dataset_params(config), cfg.train_params(config)
+    return CelebDataset("train", im_path=ds["im_path"], im_size=ds["im_size"],
+                        im_channels=ds["im_channels"], use_latents=True,
+                        latent_path=os.path.join(tp["task_name"], tp["vae_latent_dir_name"]),
+                        return_hint=return_hint,
+                        canny_im_size=ds.get("canny_im_size", 1024))
+
+
+def reader_moments(dataset: CelebDataset, z_channels: int, device) -> torch.Tensor:
+    """A complete latent cache's moments (N, 2z, h, w) on ``device``, in the
+    reader's order."""
+    ordered = {f"{i:08d}": dataset.latent_maps[name] for i, name in enumerate(dataset.images)}
+    return torch.from_numpy(stack_latents(ordered, z_channels)).to(device)
+
+
 class LatentSource:
-    """Batches of latents: drawn from cached moments, or encoded on the fly
-    by the frozen VAE from images when there is no cache."""
+    """Batches of latents: drawn from cached moments held on the device, or
+    encoded on the fly by the frozen VAE from images (an ``ImageSource``)."""
 
     def __init__(self, config: dict, device, images_path: str | None = None,
                  vae_ckpt: str | None = None):
-        self.moments = cached_moments(config, device)
+        z = cfg.autoencoder_params(config)["z_channels"]
         self.images = self.vae = None
+        if images_path is None and os.path.isdir(cfg.dataset_params(config)["im_path"]):
+            reader = latent_reader(config)
+            self.moments = reader_moments(reader, z, device) if reader.use_latents else None
+            if self.moments is None:
+                self.images = ImageSource.from_reader(reader, device)
+        else:
+            self.moments = cached_moments(config, device)
+            if self.moments is None:
+                if images_path is None:
+                    raise ValueError("no latent cache and no image tree; pass --images (and "
+                                     "the VAE) to encode latents on the fly")
+                self.images = ImageSource.from_npy(images_path, None, device)
         if self.moments is None:
-            if images_path is None:
-                raise ValueError("no latent cache; pass --images (and the VAE) to encode "
-                                 "latents on the fly")
             print("Loading vae model as latents not present")
             tp = cfg.train_params(config)
             self.vae = load_vae(config, vae_ckpt or os.path.join(
                 tp["task_name"], tp["vae_autoencoder_ckpt_name"]), device)
             self.vae.requires_grad_(False)
-            self.images = device_images(images_path, device)
 
     def __len__(self) -> int:
         return len(self.moments if self.moments is not None else self.images)
 
-    def batch(self, idx: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    def batches(self, batch_size: int, seed: int, generator: torch.Generator | None):
+        """One epoch of latent batches in the shuffled order of ``seed``."""
         if self.moments is not None:
-            return latents_from_batch(self.moments[idx], generator)
-        with torch.no_grad():
-            return self.vae.encode(self.images[idx], generator)[0]
+            for idx in batch_indices(len(self.moments), batch_size, shuffle=True, seed=seed):
+                yield latents_from_batch(self.moments[torch.from_numpy(idx).to(
+                    self.moments.device)], generator)
+            return
+        for images, _ in self.images.batches(batch_size, shuffle=True, seed=seed):
+            with torch.no_grad():  # left before the yield: the step takes gradients
+                latents = self.vae.encode(images, generator)[0]
+            yield latents
 
 
 def make_trainer(config: dict, steps_per_epoch: int, device=None, seed: int = 0):
@@ -124,8 +161,7 @@ def train(config_path: str, images_path: str | None = None, vae_ckpt: str | None
         timer = cli.EpochTimer()
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
-        for idx in batch_indices(len(source), batch_size, shuffle=True, seed=shuffle_seed):
-            latents = source.batch(torch.from_numpy(idx).to(device), generator)
+        for latents in source.batches(batch_size, shuffle_seed, generator):
             timer.add(step(state, latents, generator))
         print(f"Finished epoch:{epoch_idx + 1} | {timer.summary()}")
         history["epochs"].append(epoch_idx + 1)
@@ -144,7 +180,7 @@ def main(argv=None) -> None:
     parser.add_argument("--config", dest="config_path", default="config/celebhq.yaml")
     parser.add_argument("--images", default=None,
                         help=".npy of (N, im_size, im_size, C) images to encode when there is "
-                             "no latent cache")
+                             "no latent cache (default: the dataset_params tree)")
     parser.add_argument("--vae_ckpt", default=None,
                         help="reference-format VAE .pth for on-the-fly encoding "
                              "(default: <task_name>/<vae_autoencoder_ckpt_name>)")

@@ -3,10 +3,12 @@
 Counterpart of ``tools/train_vae.py``:
 
     python -m controlnet_tpu_torch.tools.train_vae --config config/celebhq.yaml \\
-        --images images.npy [--device cpu]
+        [--images images.npy] [--device cpu]
 
-Images come from an ``.npy`` array of (N, im_size, im_size, C) images (uint8,
-or float in [0, 1]), held on the device.  Two Adams with betas (0.5, 0.999)
+Images come from the CelebA-HQ reader on ``dataset_params.im_path`` (resized
+and center-cropped to ``im_size``, decoded on a host thread batch by batch),
+as in the JAX tool, or with ``--images`` from an ``.npy`` array of (N,
+im_size, im_size, C) images (uint8, or float in [0, 1]) held on the device.  Two Adams with betas (0.5, 0.999)
 at ``autoencoder_lr``, each averaging ``autoencoder_acc_steps`` calls per
 update; the discriminator counts after ``disc_start`` steps; LPIPS is frozen
 (random features unless ``models/weights/v0.1/vgg.pth`` is present).  An
@@ -31,13 +33,12 @@ import os
 import torch
 
 from controlnet_tpu_torch import cli, config as cfg
-from controlnet_tpu_torch.data.datasets import iterate_batches
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
 from controlnet_tpu_torch.models.discriminator import Discriminator
 from controlnet_tpu_torch.models.lpips import build_lpips
 from controlnet_tpu_torch.models.vae import VAE
-from controlnet_tpu_torch.tools.train_ddpm import device_images, epoch_seeds
+from controlnet_tpu_torch.tools.train_ddpm import epoch_seeds
 from controlnet_tpu_torch.train.loops import make_vae_gan_train_step
 from controlnet_tpu_torch.train.state import create_train_state
 
@@ -77,7 +78,7 @@ def save_grid(vae: VAE, batch: torch.Tensor, generator: torch.Generator, path: s
     save_image_grid(both.permute(0, 2, 3, 1).cpu().numpy(), path, nrow=n)
 
 
-def train(config_path: str, images_path: str, device=None) -> dict:
+def train(config_path: str, images_path: str | None = None, device=None) -> dict:
     """Train to ``autoencoder_epochs``; returns {"epochs": [...], "metrics":
     [...]} for the epochs this call ran (the mean of each metric)."""
     device = resolve_device(device)
@@ -96,15 +97,15 @@ def train(config_path: str, images_path: str, device=None) -> dict:
         d_state.load_state_dict(tree["d"])
         print(f"Resumed VAE training from epoch {start_epoch}")
 
-    images = device_images(images_path, device)
+    source = cli.open_split(config, "train", device, images_path, kind="celebhq")
     size = cfg.dataset_params(config)["im_size"]
-    if tuple(images.shape[2:]) != (size, size):
-        raise ValueError(f"{images_path}: images of {tuple(images.shape[2:])}, the config's "
-                         f"im_size is {size}")
+    if source.images is not None and tuple(source.images.shape[2:]) != (size, size):
+        raise ValueError(f"{images_path}: images of {tuple(source.images.shape[2:])}, the "
+                         f"config's im_size is {size}")
     batch_size = tp["autoencoder_batch_size"]
     # batches per epoch as iterate_batches yields them (a dataset smaller
     # than one batch yields one short batch)
-    steps_per_epoch = max(1, len(images) // batch_size)
+    steps_per_epoch = max(1, len(source) // batch_size)
     step_count = start_epoch * steps_per_epoch
     save_steps = tp["autoencoder_img_save_steps"]
     grid_dir = os.path.join(task_name, "vae_autoencoder_samples")
@@ -114,7 +115,7 @@ def train(config_path: str, images_path: str, device=None) -> dict:
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
         epoch_metrics = []
-        for batch in iterate_batches(images, batch_size, shuffle=True, seed=shuffle_seed):
+        for batch, _ in source.batches(batch_size, shuffle=True, seed=shuffle_seed):
             step_count += 1
             if step_count % save_steps == 0 or step_count == 1:
                 grid_gen = torch.Generator(device=device).manual_seed(step_count)
@@ -143,8 +144,9 @@ def train(config_path: str, images_path: str, device=None) -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="VAE training (PyTorch port)")
     parser.add_argument("--config", dest="config_path", default="config/celebhq.yaml")
-    parser.add_argument("--images", required=True,
-                        help=".npy of (N, im_size, im_size, C) images, uint8 or float in [0, 1]")
+    parser.add_argument("--images", default=None,
+                        help=".npy of (N, im_size, im_size, C) images, uint8 or float in [0, 1] "
+                             "(default: the dataset_params tree)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     train(args.config_path, args.images, args.device)

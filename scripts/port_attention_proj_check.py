@@ -16,9 +16,10 @@ block by phase (``cuda_attention_proj.phase_profile``) at every shape;
 ``--attention`` checks and times kernel a (both types) at the MNIST and latent
 shapes beside SDPA.  ``--check-only`` times nothing: it holds kernel d
 against its plain version once at every shape (batch 16 and 64), kernel a
-(both types, with its saved log-sum-exp) at the MNIST and latent attention
-shapes, and kernel b (both types, with its row term D against rowsum(dP o P)
-from float32 P) at the MNIST attention shapes and the cross shape, which is
+(both types, with its saved log-sum-exp) at the MNIST, latent and CIFAR-10
+attention shapes, and kernel b (both types, with its row term D against rowsum(dP o P)
+from float32 P) at the MNIST and CIFAR-10 attention shapes and the cross
+shape; both also at head dims 80, 100 and 128 off the model paths, which is
 the quick first call after a change to any of the three.  The shapes and the
 checks are chip_smoke.py's.
 """
@@ -42,8 +43,14 @@ A_MNIST = ((784, 16, 4), (784, 4, 2), (196, 32, 4), (196, 8, 2), (49, 64, 8), (4
            (49, 16, 2))
 A_LATENT = ((1024, 24, 4), (1024, 8, 2), (256, 32, 4), (256, 16, 2), (64, 48, 4), (64, 24, 2),
             (16, 32, 4))
-A_SHAPES = ([(l, l, dh, 256) for l, dh, _ in A_MNIST + A_LATENT]
-            + [(*chip_smoke.CROSS_SHAPE, 64)])
+# and on the CIFAR-10 forward (batch 64, config/cifar.yaml): head dims up to 128
+A_CIFAR = ((1024, 32, 4), (1024, 4, 2), (256, 64, 4), (256, 16, 2), (64, 128, 8), (64, 64, 4),
+           (64, 32, 2))
+# head dims past 64 off the model paths: ragged (80 and 100 pad to 96 and 128
+# in bf16, to 128 in float32) and a cross shape
+WIDE_SHAPES = [(49, 49, 80, 256), (49, 49, 100, 256), (64, 7, 128, 256)]
+A_SHAPES = ([(l, l, dh, 256) for l, dh, _ in A_MNIST + A_LATENT + A_CIFAR]
+            + [(*chip_smoke.CROSS_SHAPE, 64)] + WIDE_SHAPES)
 
 
 def check_only(device) -> None:
@@ -91,7 +98,8 @@ def check_only(device) -> None:
                   f"{chip_smoke.LSE_TOL:g}) {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failed.append(("a", lq, lk, dh, dtype))
-    b_shapes = [(l, l, dh, 256) for l, dh, _ in A_MNIST] + [(*chip_smoke.CROSS_SHAPE, 256)]
+    b_shapes = ([(l, l, dh, 256) for l, dh, _ in A_MNIST + A_CIFAR]
+                + [(*chip_smoke.CROSS_SHAPE, 256)] + WIDE_SHAPES)
     for lq, lk, dh, bh in b_shapes:
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
@@ -163,7 +171,7 @@ def main() -> None:
         for what, mix in (("MNIST", A_MNIST), ("latent", A_LATENT)):
             print(f"kernel a, {what} forward:", flush=True)
             chip_smoke.phase_kernels([(l, l, dh, 256) for l, dh, n in mix for _ in range(n)],
-                                     device, batch=64 if what == "MNIST" else 16, cross=False)
+                                     device, batch=64 if what == "MNIST" else 16, cross=())
     chip_smoke.phase_proj_kernels(chip_smoke.MNIST_PROJ_SHAPES, args.batch, device,
                                   "MNIST forward")
     chip_smoke.phase_proj_kernels(chip_smoke.LDM_PROJ_SHAPES, args.batch, device,

@@ -139,7 +139,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     q, k, v = (torch.from_numpy(x) for x in _qkv(6, 1, 2, 8, 16, 16))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         cuda_attention.fused_attention_t(q.half(), k.half(), v.half())
-    big = torch.zeros(1, 1, 65, 4)
+    big = torch.zeros(1, 1, cuda_attention.MAX_HEAD_DIM + 1, 4)
     with pytest.raises(ValueError, match="head_dim"):
         cuda_attention.fused_attention_t(big, big, big)
     with pytest.raises(ValueError, match="contiguous"):

@@ -54,6 +54,53 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert res.stdout.startswith("ok")
 
 
+def test_data_modules_import_no_jax_pil_or_cv2():
+    """The readers, the synthetic-tree writer, the tools' data plumbing and
+    the new sample tool import no JAX, nothing of the JAX package (not even
+    its JAX-free ``data`` modules), and neither PIL nor cv2 until an image
+    is read."""
+    mods = ["controlnet_tpu_torch.data.datasets", "controlnet_tpu_torch.data.synthetic",
+            "controlnet_tpu_torch.cli", "controlnet_tpu_torch.tools.sample_ddpm"]
+    assert set(mods) <= set(_all_modules())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'controlnet_tpu', 'tools', 'PIL', 'cv2'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sample_ddpm_raises_on_cuda_less_host_unless_cpu(monkeypatch, tmp_path):
+    from controlnet_tpu_torch.tools import sample_ddpm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = os.path.join(REPO, "config", "mnist.yaml")
+    for call in (lambda: sample_ddpm.main(["--config", config, "--ckpt", "unused.pth"]),
+                 lambda: sample_ddpm.load_model({"diffusion_params": {}}, None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # with --device cpu it runs here (a random UNet, a 2-step DDIM loop)
+    import yaml
+
+    cfg = yaml.safe_load(open(config))
+    cfg["train_params"].update(task_name=str(tmp_path), num_samples=2)
+    path = tmp_path / "c.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    from controlnet_tpu_torch.models.unet import UNet
+
+    torch.save(UNet(1, cfg["model_params"]).state_dict(), tmp_path / "u.pth")
+    sample_ddpm.main(["--config", str(path), "--ckpt", str(tmp_path / "u.pth"), "--device",
+                      "cpu", "--sampler", "ddim", "--sampler_steps", "2"])
+    assert len(os.listdir(tmp_path / "samples")) == 2
+
+
 def test_port_sources_name_no_jax():
     """No module of the port names jax or controlnet_tpu in an import."""
     for name in _all_modules():

@@ -112,6 +112,33 @@ def test_bf16_backward_tile(dh, tile):
     assert cuda_attention.mma_bwd_tile(dh) == tile
 
 
+@pytest.mark.parametrize("dh,lq,expect", [
+    # CIFAR-10 forward (config/cifar.yaml: 512 channels at 4 heads, L 64)
+    (128, 64, (128, 4)), (100, 64, (128, 4)), (96, 64, (96, 4)), (80, 49, (96, 4)),
+    (65, 1024, (96, 4)), (128, 16, (128, 1)),
+])
+def test_bf16_launch_config_past_dh64(dh, lq, expect):
+    """Kernel a in bf16 past head dim 64: dh padded to 96 or 128 (its two
+    wide instantiations); the double-buffered K and V tiles then take more
+    than 48 KB, which the launcher allows, and stay far inside a block's
+    232,448 bytes (two blocks an SM at 4 warps)."""
+    dp, warps, smem = cuda_attention.mma_launch_config(dh, lq)
+    assert (dp, warps) == expect
+    assert smem == 2 * dp * (cuda_attention.mma_launch_config(16, lq)[2] // 32)
+    assert smem <= 232_448 // 2
+    assert cuda_attention.mma_bwd_tile(dh) == 32
+
+
+def test_f32_split_past_dh64():
+    """The float32 forward splits a query row over 8 threads past a padded
+    head dim of 64 (16 dims a thread: no spills) in blocks of 128 threads
+    (16 rows); its tile keeps 16 KB."""
+    assert [cuda_attention.fwd_split(d) for d in (4, 16, 64, 65, 96, 128)] == [1, 1, 1, 8, 8, 8]
+    assert cuda_attention.launch_config(128, 64, 64) == (16, 128)
+    assert cuda_attention.launch_config(64, 49, 49) == (32, 64)
+    assert cuda_attention.bwd_launch_config(128, 64, 64) == (16, 15, 64, 64)
+
+
 # --- models of the kernels' arithmetic ---------------------------------------------------
 
 def _as_bf16(t):
@@ -219,8 +246,9 @@ def test_hi_lo_split_keeps_16_bits():
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("b,h,dh,lq", [(1, 2, 16, 784), (1, 2, 24, 1024), (2, 2, 48, 64),
-                                       (2, 2, 4, 196)],
-                         ids=["mnist-L784", "latent-L1024", "latent-L64", "mnist-L196-dh4"])
+                                       (2, 2, 4, 196), (2, 2, 128, 64), (2, 2, 96, 64)],
+                         ids=["mnist-L784", "latent-L1024", "latent-L64", "mnist-L196-dh4",
+                              "cifar-L64-dh128", "L64-dh96"])
 def test_kernel_a_model_against_jax_and_plain(b, h, dh, lq, dtype):
     """Kernel a follows the Pallas kernel, which contracts float32 P with V
     upcast: with P as hi + lo the bf16 model sits within one bf16 ulp of the
@@ -283,8 +311,10 @@ def model_attention_bwd_b(qt, kt, vt, dout, lse):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("b,h,dh,lq,lk", [(1, 2, 16, 196, 196), (2, 2, 24, 64, 64),
-                                          (2, 2, 16, 49, 7)],
-                         ids=["mnist-L196", "latent-L64-dh24", "cross-49x7"])
+                                          (2, 2, 16, 49, 7), (2, 2, 128, 64, 64),
+                                          (2, 2, 128, 64, 49)],
+                         ids=["mnist-L196", "latent-L64-dh24", "cross-49x7", "cifar-L64-dh128",
+                              "cross-64x49-dh128"])
 def test_kernel_b_model_against_jax_vjp_and_plain(b, h, dh, lq, lk, dtype):
     """Kernel b against jax.vjp of the Pallas forward (its backward is
     ``_attn_bwd_kernel_t``, interpret mode) and against the plain backward,
