@@ -6,6 +6,7 @@
     python3 chip_smoke.py --distill-only   # phases 17-20 alone (no result line)
     python3 chip_smoke.py --latent-train-only  # phases 21-26 alone (no result line)
     python3 chip_smoke.py --cifar-only     # phases 27-31 alone (no result line)
+    python3 chip_smoke.py --cond-only      # phases 32-35 alone (no result line)
 
 Phases (each one that fails makes the script exit non-zero):
 
@@ -169,15 +170,45 @@ Phases (each one that fails makes the script exit non-zero):
    ``--hint_backend tpu`` (and cv2 where it imports) -> sample_ddpm_controlnet
    with test-split hints; a CelebA-HQ style flat directory at a tiny config:
    train_vae -> infer_vae (basename keys) -> train_ldm_vae in latent mode.
-32. A ``{"distill": {...}}``, a ``{"latent_train": {...}}`` and a
-   ``{"cifar": {...}}`` JSON line, a ``{"kernels": [...]}`` JSON line, the
-   ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
-   {...}}``.
+32. The conditional LDM: ``config/celebhq.yaml``'s ``ldm_params`` with
+   text (512-wide embeddings of 77 tokens, CLIP's) and image (18 CelebAMask-HQ
+   mask classes at 512^2 through a 1x1 conv to 3 channels) conditioning, the
+   reference's ``celebhq_text_image_cond.yaml``, random weights from SEED,
+   batch 16, 32x32x4 latents, seeded embeddings and one-hot masks.  Its
+   forward through kernel a against the plain attention, f32 and bf16: 28
+   launches a forward (14 self, 14 cross-attention to the 77 text tokens),
+   the cross shapes recorded; then kernel a against its plain version at
+   those cross shapes, timed as in phase 3 (in a process of its own).
+33. One DDPM-loss gradient through the conditional LDM (autograd over the
+   model), under cuDNN's deterministic algorithms, through kernels a and b
+   against the plain attention, f32 and bf16: the loss and the gradients of
+   the context projections, the cross-attention weights and cond_conv_in
+   within phase 24's limits; 28 kernel-b launches; then kernel b against its
+   plain version at the cross shapes, timed as in phase 6 (in a process of
+   its own).
+34. Conditional LDM sampling (in a process of its own): DPM-Solver++ with
+   guidance (scale 7.5; the null is a seeded empty-prompt embedding and the
+   zero mask; both branches in one 32-row model call) and the VAE decode of
+   ``config/celebhq.yaml``'s autoencoder, batch 16: a 5-step sample through
+   the kernels against the plain attention from one x_T, then 20 steps f32
+   and bf16, counters set to 0 just before and read just after (28 a
+   launches a step): samples/s, ms/step, peak memory, and a profiler window
+   over guided model calls (device ms a call, busy share).
+35. The class-conditioned MNIST UNet (``config/mnist.yaml``'s width,
+   ``num_classes`` 10, batch 64): the ancestral loop cut to a 50-step schedule
+   with guidance (the zero one-hot is the null; one 128-row model call a
+   step, 16 kernel-a launches), a 10-step run through the kernels against the
+   plain attention on pinned x_T and noise, then the 50 steps f32 and bf16,
+   samples/s.
+36. A ``{"distill": {...}}``, a ``{"latent_train": {...}}``, a
+   ``{"cifar": {...}}`` and a ``{"cond": {...}}`` JSON line, a ``{"kernels":
+   [...]}`` JSON line, the ``nvidia-smi`` line, and as the last line ``{"ok":
+   true, "device": {...}}``.
 
 Kernel, plain-version and library times are device time: the profiler's sum
 of the GPU work a call launches (``device_time_ms``), the wrappers' own casts
-included, taken by the timing phases (3, 6, 10, 12, 15, 22, 27, 28; and 19's and
-25's timed steps) each in a process of its own (``in_fresh_process``).  (PRs
+included, taken by the timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32, 33; and 19's,
+25's and 34's timed runs) each in a process of its own (``in_fresh_process``).  (PRs
 1-5 timed with CUDA events, PRs 6-7 printed those beside; PR 8 dropped them
 to keep the run inside its time limit.)  TF32 is off for
 matmuls and convolutions throughout, so float32 means float32.  Exits
@@ -3297,14 +3328,437 @@ def cifar_summary(res: dict) -> dict:
             "celeb_tree_tools_s": res["celeb"]["seconds"], "phases_s": res["seconds"]}
 
 
-# The kernel-timing phases (3, 6, 10, 12, 15 and 22) and the timed
-# distillation and latent-training main paths (19, 25).  Each runs in a
+# --- phases 32-35: the conditional UNet (class, text and image conditioning) ---------------
+
+# The reference's celebhq_text_image_cond.yaml over config/celebhq.yaml's
+# ldm_params: CLIP text embeddings (512 wide, prompts padded to 77 tokens) and
+# CelebAMask-HQ's 18 mask classes at 512^2 through a 1x1 conv to 3 channels;
+# and its mnist_class_cond.yaml over config/mnist.yaml's model_params.
+COND_TEXT_IMAGE = {"condition_types": ["text", "image"],
+                   "text_condition_config": {"text_embed_dim": 512},
+                   "image_condition_config": {"image_condition_input_channels": 18,
+                                              "image_condition_output_channels": 3}}
+COND_CLASS = {"condition_types": ["class"], "class_condition_config": {"num_classes": 10}}
+COND_TEXT_LEN = 77
+COND_MASK_SIZE = 512
+COND_CALLS = 28      # kernel a (and b) launches per conditional LDM call: 14 self, 14 cross
+CLASS_CALLS = 16     # kernel a launches per class-conditioned MNIST UNet call
+COND_CFG_SCALE = 7.5
+COND_DPM_STEPS = 20
+COND_CHECK_STEPS = 5
+CLASS_ANCESTRAL_STEPS = 50
+CLASS_CHECK_STEPS = 10
+COND_PROFILE_CALLS = 3
+
+
+def cond_ldm_config() -> dict:
+    config = celebhq_config()
+    config["ldm_params"]["condition_config"] = copy.deepcopy(COND_TEXT_IMAGE)
+    return config
+
+
+def cond_ldm(device):
+    """The conditional LDM UNet at config/celebhq.yaml's full width, random
+    weights from SEED, through the LDM tools' loader (no .pth: the seeded
+    initialisation), and its config."""
+    from controlnet_tpu_torch.tools.sample_ldm_vae import load_ldm
+
+    config = cond_ldm_config()
+    torch.manual_seed(SEED)
+    return load_ldm(config, None, device), config
+
+
+def cond_inputs(b: int, g: torch.Generator, device) -> dict:
+    """Seeded conditioning of ``b`` samples: unit-normal text embeddings
+    (b, 77, 512) and one-hot 18-class masks (b, 18, 512, 512), float32."""
+    width = COND_TEXT_IMAGE["text_condition_config"]["text_embed_dim"]
+    n_mask = COND_TEXT_IMAGE["image_condition_config"]["image_condition_input_channels"]
+    text = torch.randn((b, COND_TEXT_LEN, width), generator=g, device=device)
+    labels = torch.randint(0, n_mask, (b, COND_MASK_SIZE, COND_MASK_SIZE), generator=g,
+                           device=device)
+    mask = torch.nn.functional.one_hot(labels, n_mask).permute(0, 3, 1, 2).float().contiguous()
+    return {"text": text, "image": mask}
+
+
+def cond_null(cond: dict, g: torch.Generator) -> dict:
+    """The null condition of guidance: one seeded empty-prompt embedding for
+    every sample (the reference's empty-text CLIP embedding is one
+    embedding) and the all-zero mask."""
+    empty = torch.randn((1, *cond["text"].shape[1:]), generator=g, device=cond["text"].device)
+    return {"text": empty.expand_as(cond["text"]).contiguous(),
+            "image": torch.zeros_like(cond["image"])}
+
+
+def cond_latent_shape(config: dict) -> tuple[int, int, int]:
+    ae = config["autoencoder_params"]
+    size = config["dataset_params"]["im_size"] // 2 ** sum(ae["down_sample"])
+    return ae["z_channels"], size, size
+
+
+def phase_cond_forward(device) -> list:
+    """Phase 32: the conditional LDM forward at batch LDM_BATCH through
+    kernel a against the plain attention, f32 and bf16 (every conditioning
+    leaf cast with x, as the samplers' cast_hint casts it): COND_CALLS
+    launches, half of them at the 77-key cross shapes.  Returns the recorded
+    shapes."""
+    from controlnet_tpu_torch.ops import cuda_attention
+    from controlnet_tpu_torch.sample.common import cast_hint
+
+    unet, config = cond_ldm(device)
+    n_params = sum(p.numel() for p in unet.parameters())
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn((LDM_BATCH, *cond_latent_shape(config)), generator=g, device=device)
+    t = torch.randint(0, 1000, (LDM_BATCH,), generator=g, device=device)
+    cond = cond_inputs(LDM_BATCH, g, device)
+    shapes: list = []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            xin, cin = x.to(dtype), cast_hint(cond, dtype)
+            before = cuda_attention.launches
+            rec: list = []
+            with record_shapes(rec):
+                out = unet(xin, t, cin)
+            torch.cuda.synchronize()
+            launched = cuda_attention.launches - before
+            with plain_attention():
+                ref = unet(xin, t, cin)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            cross = [s for s in rec if s[1] == COND_TEXT_LEN]
+            ok = (launched == COND_CALLS and len(rec) == COND_CALLS
+                  and len(cross) == COND_CALLS // 2 and out.shape == x.shape
+                  and out.dtype == dtype and bool(torch.isfinite(out).all())
+                  and err <= MODEL_TOL[dtype] * max(scale, 1.0))
+            log(f"conditional LDM forward {str(dtype)[6:]}: {n_params / 1e6:.1f} M parameters, "
+                f"batch {LDM_BATCH}, text {tuple(cond['text'].shape)}, masks "
+                f"{tuple(cond['image'].shape)}: attention launches {launched} (expect "
+                f"{COND_CALLS}: {len(rec) - len(cross)} self, {len(cross)} cross), max|out| "
+                f"{scale:.4g}, max abs err vs plain {err:.3g} (tol {MODEL_TOL[dtype]:g} x "
+                f"max(1, max|out|)) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("conditional LDM forward failed")
+            shapes = shapes or rec
+    cross = collections.Counter(s for s in shapes if s[1] == COND_TEXT_LEN)
+    log(f"conditional LDM cross-attention shapes (Lq, Lk, dh, B*H): "
+        f"{sorted(cross.items(), reverse=True)}")
+    return shapes
+
+
+COND_GRAD_GROUPS = ("context_proj", "cross_attentions", "cond_conv_in")
+
+
+def _cond_grad(unet, config, dtype, plain: bool, device):
+    """One DDPM loss mean((eps(x_t, t, cond) - noise)^2) at batch LDM_BATCH,
+    x_t and the conditioning in ``dtype`` (the loss in float32), backward
+    through the model under cuDNN's deterministic algorithms.  Returns (loss,
+    {name: grad}, launches of a and b)."""
+    from controlnet_tpu_torch.ops import cuda_attention
+    from controlnet_tpu_torch.sample.common import cast_hint
+    from controlnet_tpu_torch.schedules.linear import add_noise, make_linear_schedule
+
+    dp = config["diffusion_params"]
+    sched = make_linear_schedule(dp["num_timesteps"], dp["beta_start"], dp["beta_end"],
+                                 ldm_scheduler=True, device=device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x0 = torch.randn((LDM_BATCH, *cond_latent_shape(config)), generator=g, device=device)
+    t = torch.randint(0, dp["num_timesteps"], (LDM_BATCH,), generator=g, device=device)
+    noise = torch.randn(x0.shape, generator=g, device=device)
+    cond = cast_hint(cond_inputs(LDM_BATCH, g, device), dtype)
+    unet.zero_grad(set_to_none=True)
+    before = cuda_attention.launches, cuda_attention.bwd_launches
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                       deterministic=True, allow_tf32=False))
+        if plain:
+            stack.enter_context(plain_attention())
+        pred = unet(add_noise(sched, x0, noise, t).to(dtype), t, cond)
+        loss = torch.mean((pred.float() - noise) ** 2)
+        loss.backward()
+    torch.cuda.synchronize()
+    launches = (cuda_attention.launches - before[0], cuda_attention.bwd_launches - before[1])
+    grads = {k: p.grad.detach().clone() for k, p in unet.named_parameters()}
+    unet.zero_grad(set_to_none=True)
+    return loss.detach(), grads, launches
+
+
+def phase_cond_grad(device) -> tuple[dict, list]:
+    """Phase 33: one DDPM-loss gradient through the conditional LDM, kernels
+    a and b against the plain attention, f32 and bf16, under cuDNN's
+    deterministic algorithms, at phase 24's limits: the loss within
+    MODEL_TOL, and each group of COND_GRAD_GROUPS within MODEL_TOL of the
+    group's max|grad|; COND_CALLS launches each of a and b.  Returns the
+    results and the recorded backward shapes."""
+    unet, config = cond_ldm(device)
+    results, shapes = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        rec: list = []
+        with record_bwd_shapes(rec):
+            lk, gk, launches = _cond_grad(unet, config, dtype, False, device)
+        lp, gp, plain_launches = _cond_grad(unet, config, dtype, True, device)
+        loss_err = (lk - lp).abs().item() / max(lp.abs().item(), 1.0)
+        errs = {}
+        for group in COND_GRAD_GROUPS:
+            keys = [k for k in gp if group in k]
+            gmax = max(gp[k].abs().max().item() for k in keys)
+            errs[group] = max((gk[k] - gp[k]).abs().max().item() for k in keys) / gmax
+        gmax_all = max(v.abs().max().item() for v in gp.values())
+        err_all = max((gk[k] - gp[k]).abs().max().item() for k in gp) / gmax_all
+        ok = (launches == (COND_CALLS, COND_CALLS) and plain_launches == (0, 0)
+              and len(rec) == COND_CALLS and bool(torch.isfinite(lk))
+              and loss_err <= MODEL_TOL[dtype]
+              and all(e <= MODEL_TOL[dtype] for e in errs.values()))
+        results[name] = dict(loss=lk.item(), loss_err=loss_err, grad_errs=errs,
+                             grad_err_all=err_all, launches=launches)
+        log(f"conditional LDM gradient {name}, batch {LDM_BATCH}, deterministic cuDNN: loss "
+            f"{lk.item():.6f} vs plain {lp.item():.6f} (rel err {loss_err:.3g}); grad rel err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (tol {MODEL_TOL[dtype]:g} of each group's max|grad|), every weight "
+            f"{err_all:.3g}; launches a / b {launches} (expect ({COND_CALLS}, {COND_CALLS})), "
+            f"plain runs {plain_launches} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"conditional LDM gradient ({name}) through the kernels disagrees "
+                             "with the plain attention")
+        shapes = shapes or rec
+        del gk, gp
+        torch.cuda.empty_cache()
+    return results, shapes
+
+
+def _cond_sampler(config, steps: int, dtype, device):
+    """DPM-Solver++ over ``steps`` steps with guidance over the conditional
+    LDM's ``cond_input`` and the VAE decode; and the guided eps function."""
+    from controlnet_tpu_torch.sample.cfg import make_cfg_eps_fn
+    from controlnet_tpu_torch.sample.ddpm import make_ldm_sampler
+    from controlnet_tpu_torch.schedules.linear import make_linear_schedule
+
+    dp = config["diffusion_params"]
+    sched = make_linear_schedule(dp["num_timesteps"], dp["beta_start"], dp["beta_end"],
+                                 ldm_scheduler=True, device=device)
+    eps = make_cfg_eps_fn(lambda m, x, t, c: m(x, t, c), COND_CFG_SCALE)
+    loop = make_ldm_sampler(eps, lambda vae, z: vae.decode(z), sched,
+                            (LDM_BATCH, *cond_latent_shape(config)), ddim_steps=steps,
+                            solver="dpm", compute_dtype=dtype, device=device)
+    return loop, eps
+
+
+def phase_cond_sampling(device) -> dict:
+    """Phase 34, in a process of its own: DPM-Solver++ with guidance over the
+    conditional LDM and the VAE decode, batch LDM_BATCH (both branches in one
+    2 x LDM_BATCH model call).  A COND_CHECK_STEPS-step sample through the
+    kernels against the plain attention from one x_T; then COND_DPM_STEPS
+    steps f32 and bf16 (after a warm-up run), counters set to 0 just before
+    and read just after (COND_CALLS launches of a a step): samples/s,
+    ms/step, peak memory; then a profiler window over COND_PROFILE_CALLS
+    guided model calls at the first step's inputs (device ms a call; busy
+    share = that over ms/step).  Returns results by dtype."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from controlnet_tpu_torch.ops import cuda_attention
+    from controlnet_tpu_torch.sample.common import cast_hint
+    from controlnet_tpu_torch.tools.sample_ldm_vae import load_vae
+
+    unet, config = cond_ldm(device)
+    torch.manual_seed(SEED + 1)
+    vae = load_vae(config, None, device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    cond = cond_inputs(LDM_BATCH, g, device)
+    pair = (cond, cond_null(cond, g))
+    x_start = torch.randn((LDM_BATCH, *cond_latent_shape(config)), generator=g, device=device)
+    im_size = config["dataset_params"]["im_size"]
+
+    loop, _ = _cond_sampler(config, COND_CHECK_STEPS, None, device)
+    img_k, _ = loop(unet, vae, None, pair, x_start=x_start)
+    with plain_attention():
+        img_p, _ = loop(unet, vae, None, pair, x_start=x_start)
+    err = (img_k - img_p).abs().max().item()
+    scale = img_p.abs().max().item()
+    ok = bool(torch.isfinite(img_k).all()) and err <= MODEL_TOL[torch.float32] * max(scale, 1.0)
+    log(f"conditional LDM {COND_CHECK_STEPS}-step DPM sample with guidance {COND_CFG_SCALE} + "
+        f"decode, batch {LDM_BATCH}, one x_T: max abs err kernels vs plain {err:.3g} "
+        f"(max|image| {scale:.4g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("conditional LDM sample disagrees with the plain attention")
+    del img_k, img_p
+
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        loop, eps = _cond_sampler(config, COND_DPM_STEPS, dtype, device)
+        loop(unet, vae, None, pair, x_start=x_start)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_attention.launches = 0
+        start = time.perf_counter()
+        images, traj = loop(unet, vae, None, pair, x_start=x_start)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = cuda_attention.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ms_step = seconds * 1e3 / COND_DPM_STEPS
+        x_in = x_start.to(dtype)
+        t_in = torch.full((LDM_BATCH,), loop.timesteps[0], dtype=torch.int32, device=device)
+        pair_in = cast_hint(pair, dtype)
+        with torch.inference_mode():
+            eps(unet, x_in, t_in, pair_in)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(COND_PROFILE_CALLS):
+                    eps(unet, x_in, t_in, pair_in)
+                torch.cuda.synchronize()
+        kernels = device_events(prof)
+        call_ms = sum(_device_ms(e) for e in kernels) / COND_PROFILE_CALLS
+        a_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name)) / COND_PROFILE_CALLS
+        ok = (launches == COND_CALLS * COND_DPM_STEPS
+              and images.shape == (LDM_BATCH, 3, im_size, im_size)
+              and traj.shape[0] == COND_DPM_STEPS and bool(torch.isfinite(images).all()))
+        results[dtype] = dict(seconds=seconds, steps=COND_DPM_STEPS, ms_per_step=ms_step,
+                              samples_per_s=LDM_BATCH / seconds, launches=launches,
+                              peak_gb=peak_gb, device_ms_per_call=call_ms,
+                              busy=call_ms / ms_step, attn_fwd_device_ms_per_call=a_ms,
+                              kernels_per_call=len(kernels) / COND_PROFILE_CALLS,
+                              check_err=err)
+        log(f"conditional LDM sampling {name}: DPM-Solver++ {COND_DPM_STEPS} steps, guidance "
+            f"{COND_CFG_SCALE} ({2 * LDM_BATCH} rows a model call), batch {LDM_BATCH}, VAE "
+            f"decode: {seconds:.3f} s, {LDM_BATCH / seconds:.3f} samples/s, {ms_step:.3f} "
+            f"ms/step, attention launches {launches} (expect {COND_CALLS * COND_DPM_STEPS}), "
+            f"images {tuple(images.shape)} in [{images.min().item():.3g}, "
+            f"{images.max().item():.3g}], peak memory {peak_gb:.2f} GB | profile "
+            f"({COND_PROFILE_CALLS} model calls): device {call_ms:.3f} ms a call, busy "
+            f"{call_ms / ms_step:.3f}, {len(kernels) / COND_PROFILE_CALLS:.1f} kernels a call, "
+            f"kernel a {a_ms:.3f} ms a call -> {'ok' if ok else 'FAIL'}")
+        by_name: dict = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + _device_ms(e) / COND_PROFILE_CALLS
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        log(f"conditional LDM sampling {name} top device kernels (ms a call): "
+            + "; ".join(f"{k.replace('void ', '')[:56]} {v:.3f}" for k, v in top))
+        if not ok:
+            raise SystemExit(f"conditional LDM sampling ({name}) failed")
+        del images, traj
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_class_mnist(device) -> dict:
+    """Phase 35: the class-conditioned MNIST UNet at config/mnist.yaml's
+    width, batch BATCH: the ancestral loop on a CLASS_ANCESTRAL_STEPS-step
+    schedule with guidance (the zero one-hot is the null; one 2 x BATCH model
+    call a step, CLASS_CALLS kernel-a launches).  A CLASS_CHECK_STEPS-step run
+    through the kernels against the plain attention on pinned x_T and noise,
+    then the full schedule f32 and bf16, counters set to 0 just before and
+    read just after: samples/s."""
+    from controlnet_tpu_torch.models.unet import UNet
+    from controlnet_tpu_torch.ops import cuda_attention
+    from controlnet_tpu_torch.sample.cfg import make_cfg_eps_fn
+    from controlnet_tpu_torch.sample.ddpm import make_ddpm_sampler
+    from controlnet_tpu_torch.schedules.linear import make_linear_schedule
+
+    config = mnist_config()
+    mp = dict(config["model_params"], condition_config=copy.deepcopy(COND_CLASS))
+    torch.manual_seed(SEED)
+    unet = UNet(mp["im_channels"], mp).to(device).eval()
+    n_classes = COND_CLASS["class_condition_config"]["num_classes"]
+    g = torch.Generator(device=device).manual_seed(SEED)
+    onehot = torch.nn.functional.one_hot(
+        torch.randint(0, n_classes, (BATCH,), generator=g, device=device), n_classes).float()
+    pair = ({"class": onehot}, {"class": torch.zeros_like(onehot)})
+    eps = make_cfg_eps_fn(lambda m, x, t, c: m(x, t, c), COND_CFG_SCALE)
+    dp = config["diffusion_params"]
+    shape = (BATCH, mp["im_channels"], mp["im_size"], mp["im_size"])
+
+    short = make_linear_schedule(CLASS_CHECK_STEPS, dp["beta_start"], dp["beta_end"],
+                                 device=device)
+    noise = dict(x_start=torch.randn(shape, generator=g, device=device),
+                 step_noise=torch.randn((CLASS_CHECK_STEPS, *shape), generator=g, device=device))
+    sampler = make_ddpm_sampler(eps, short, shape, device=device)
+    x_k, _ = sampler(unet, None, pair, **noise)
+    with plain_attention():
+        x_p, _ = sampler(unet, None, pair, **noise)
+    err = (x_k - x_p).abs().max().item()
+    scale = x_p.abs().max().item()
+    ok = bool(torch.isfinite(x_k).all()) and err <= MODEL_TOL[torch.float32] * max(scale, 1.0)
+    log(f"class-conditioned MNIST {CLASS_CHECK_STEPS}-step ancestral sample with guidance "
+        f"{COND_CFG_SCALE}, batch {BATCH}, pinned noise: max abs err kernels vs plain "
+        f"{err:.3g} (max|x0| {scale:.4g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("class-conditioned MNIST sample disagrees with the plain attention")
+
+    sched = make_linear_schedule(CLASS_ANCESTRAL_STEPS, dp["beta_start"], dp["beta_end"],
+                                 device=device)
+    T = sched.num_timesteps
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        sampler = make_ddpm_sampler(eps, sched, shape, record_every=T, compute_dtype=dtype,
+                                    device=device)
+        torch.cuda.synchronize()
+        cuda_attention.launches = 0
+        start = time.perf_counter()
+        x0, traj = sampler(unet, torch.Generator(device=device).manual_seed(SEED), pair)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = cuda_attention.launches
+        ok = (launches == CLASS_CALLS * T and x0.shape == shape
+              and bool(torch.isfinite(x0).all()) and traj.shape == (1, *shape))
+        results[name] = dict(seconds=seconds, launches=launches, samples_per_s=BATCH / seconds,
+                             ms_per_step=seconds * 1e3 / T)
+        log(f"class-conditioned MNIST sampling {name}: {T} ancestral steps, guidance "
+            f"{COND_CFG_SCALE} ({2 * BATCH} rows a model call), batch {BATCH}: {seconds:.3f} s, "
+            f"{BATCH / seconds:.3f} samples/s, {seconds * 1e3 / T:.3f} ms/step, attention "
+            f"launches {launches} (expect {CLASS_CALLS * T}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"class-conditioned MNIST sampling ({name}) failed")
+    return dict(check_err=err, runs=results)
+
+
+def run_cond_phases(device) -> dict:
+    """Phases 32-35 in order: the conditional LDM at config/celebhq.yaml's
+    full width (forward, gradient, guided sampling) and the class-conditioned
+    MNIST UNet; returns their results."""
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    shapes = phase_cond_forward(device)
+    torch.cuda.empty_cache()
+    cross = [s for s in shapes if s[1] == COND_TEXT_LEN]
+    fwd = in_fresh_process("phase_kernels", cross, batch=LDM_BATCH, cross=())
+    grad, bwd_shapes = phase_cond_grad(device)
+    torch.cuda.empty_cache()
+    bwd_cross = [s for s in bwd_shapes if s[1] == COND_TEXT_LEN]
+    if collections.Counter(bwd_cross) != collections.Counter(cross):
+        raise SystemExit(f"the gradient reaches kernel b at other cross shapes: {bwd_cross}")
+    bwd = in_fresh_process("phase_kernels_bwd", bwd_cross, batch=LDM_BATCH, cross=(),
+                           per="conditional LDM gradient")
+    sampling = in_fresh_process("phase_cond_sampling")
+    mnist = phase_class_mnist(device)
+    res = dict(cross_shapes=sorted(collections.Counter(cross).items(), reverse=True), fwd=fwd,
+               bwd=bwd, grad=grad, sampling=sampling, mnist=mnist,
+               seconds=time.perf_counter() - start)
+    log(f"conditional phases 32-35: {res['seconds']:.1f} s")
+    return res
+
+
+def cond_summary(res: dict) -> dict:
+    """The ``{"cond": ...}`` line: the cross shapes, the gradient checks and
+    the timed sampling runs of both conditional models."""
+    return {"cross_shapes": [[list(s), n] for s, n in res["cross_shapes"]],
+            "grad": res["grad"],
+            "ldm_sampling": {str(d)[6:]: r for d, r in res["sampling"].items()},
+            "mnist_class_sampling": res["mnist"]["runs"],
+            "mnist_class_check_err": res["mnist"]["check_err"], "phases_s": res["seconds"]}
+
+
+# The kernel-timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32 and 33) and the
+# timed distillation, latent-training and conditional sampling main paths
+# (19, 25, 34).  Each runs in a
 # process of its own (``in_fresh_process``): on the H100 a process that has
 # launched millions of kernels since its first profiler window loses device
 # records in later windows, often all of a window's own, while a fresh one
 # does not.
 TIMING_PHASES = ("phase_kernels", "phase_kernels_bwd", "phase_conv_kernels",
-                 "phase_proj_kernels", "phase_distill_main_path", "phase_latent_main_path")
+                 "phase_proj_kernels", "phase_distill_main_path", "phase_latent_main_path",
+                 "phase_cond_sampling")
 
 
 def in_fresh_process(phase: str, *args, **kwargs) -> dict:
@@ -3355,6 +3809,9 @@ def main() -> int:
     parser.add_argument("--cifar-only", action="store_true",
                         help="build the kernels and run the CIFAR-10 phases 27-31 alone "
                              "(a quick check after a change to that path; no result line)")
+    parser.add_argument("--cond-only", action="store_true",
+                        help="build the kernels and run the conditional-UNet phases 32-35 alone "
+                             "(a quick check after a change to that path; no result line)")
     parser.add_argument("--timing-phase", help=argparse.SUPPRESS)  # set by in_fresh_process
     args = parser.parse_args()
 
@@ -3394,6 +3851,10 @@ def main() -> int:
     if args.cifar_only:
         log(json.dumps({"cifar": cifar_summary(run_cifar_phases(device))}))
         log(f"{smi}; cifar-only run: phases 27-31 passed (a partial run: no result line)")
+        return 0
+    if args.cond_only:
+        log(json.dumps({"cond": cond_summary(run_cond_phases(device))}))
+        log(f"{smi}; cond-only run: phases 32-35 passed (a partial run: no result line)")
         return 0
     from controlnet_tpu_torch.data.datasets import to_unit
     from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
@@ -3442,6 +3903,8 @@ def main() -> int:
     done("21-26")
     cifar = run_cifar_phases(device)
     done("27-31")
+    cond = run_cond_phases(device)
+    done("32-35")
 
     def kernel_entry(name, source, replaces, tots, launches, bf16_launches, per):
         f32, bf16 = tots[torch.float32], tots[torch.bfloat16]
@@ -3577,6 +4040,25 @@ def main() -> int:
     bwd_entry["cifar"]["max_rel_err"] = cifar["bwd"][torch.float32]["max_rel_err"]
     bwd_entry["cifar"]["bf16"]["max_rel_err"] = cifar["bwd"][torch.bfloat16]["max_rel_err"]
     log(json.dumps({"cifar": cifar_summary(cifar)}))
+    # the conditional UNet (phases 32-35): launches of each timed run (the
+    # 20-step guided DPM sample, the 50-step class-conditioned MNIST sample),
+    # and a's times per conditional LDM forward, b's per gradient, at the 14
+    # cross-attention calls (Lk 77)
+    cond_a = kernel_entry("attention_fwd_t", "", "", cond["fwd"], None, None,
+                          "conditional LDM forward, its 14 cross-attention calls")
+    cond_b = kernel_entry("attention_bwd_t", "", "", cond["bwd"], None, None,
+                          "conditional LDM gradient, its 14 cross-attention calls")
+    fwd_entry["cond"] = {k: cond_a[k] for k in keys}
+    bwd_entry["cond"] = {k: cond_b[k] for k in keys}
+    bwd_entry["cond"]["max_rel_err"] = cond["bwd"][torch.float32]["max_rel_err"]
+    bwd_entry["cond"]["bf16"]["max_rel_err"] = cond["bwd"][torch.bfloat16]["max_rel_err"]
+    fwd_entry["cond_launches"] = {
+        **{f"ldm_sample_{str(d)[6:]}": r["launches"] for d, r in cond["sampling"].items()},
+        **{f"mnist_class_sample_{n}": r["launches"] for n, r in cond["mnist"]["runs"].items()},
+        **{f"ldm_grad_{n}": r["launches"][0] for n, r in cond["grad"].items()}}
+    bwd_entry["cond_launches"] = {f"ldm_grad_{n}": r["launches"][1]
+                                  for n, r in cond["grad"].items()}
+    log(json.dumps({"cond": cond_summary(cond)}))
     log(f"device_time_ms: {PROFILER_WINDOWS['windows']} profiler windows for "
         f"{PROFILER_WINDOWS['measurements']} measurements (2 each when no window lost records), "
         f"{PROFILER_WINDOWS['foreign']} device records left out as launched outside a window")

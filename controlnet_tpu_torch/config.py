@@ -61,6 +61,49 @@ def train_params(config: Mapping[str, Any]) -> dict:
     return dict(config["train_params"])
 
 
+def validate_class_config(condition_config: Mapping[str, Any]) -> None:
+    if "class_condition_config" not in condition_config:
+        raise ConfigError("class conditioning desired but class_condition_config missing")
+    if "num_classes" not in condition_config["class_condition_config"]:
+        raise ConfigError("num_classes missing in class_condition_config")
+
+
+def validate_text_config(condition_config: Mapping[str, Any]) -> None:
+    if "text_condition_config" not in condition_config:
+        raise ConfigError("text conditioning desired but text_condition_config missing")
+    if "text_embed_dim" not in condition_config["text_condition_config"]:
+        raise ConfigError("text_embed_dim missing in text_condition_config")
+
+
+def validate_image_config(condition_config: Mapping[str, Any]) -> None:
+    if "image_condition_config" not in condition_config:
+        raise ConfigError("image conditioning desired but image_condition_config missing")
+    icc = condition_config["image_condition_config"]
+    if "image_condition_input_channels" not in icc:
+        raise ConfigError("image_condition_input_channels missing in image_condition_config")
+    if "image_condition_output_channels" not in icc:
+        raise ConfigError("image_condition_output_channels missing in image_condition_config")
+
+
+def validate_image_conditional_input(cond_input: Mapping[str, Any], x) -> None:
+    """The mask of an image-conditioned call: a 4-d NCHW tensor with x's
+    batch (dim 0)."""
+    if not isinstance(cond_input, Mapping) or "image" not in cond_input:
+        raise ConfigError("model initialized with image conditioning but cond_input has no image")
+    im = cond_input["image"]
+    if im.dim() != 4 or im.shape[0] != x.shape[0]:
+        raise ConfigError("image conditioning input must be a batch-matched NCHW tensor")
+
+
+def validate_class_conditional_input(cond_input: Mapping[str, Any], x, num_classes: int) -> None:
+    if not isinstance(cond_input, Mapping) or "class" not in cond_input:
+        raise ConfigError("model initialized with class conditioning but cond_input has no class")
+    cls = cond_input["class"]
+    if tuple(cls.shape) != (x.shape[0], num_classes):
+        raise ConfigError(
+            f"class conditioning input must be one-hot (B, num_classes); got {tuple(cls.shape)}")
+
+
 def validate_unet_model_params(mp: Mapping[str, Any]) -> None:
     """Channel-structure checks shared by every UNet variant."""
     down = mp["down_channels"]

@@ -16,6 +16,9 @@ This is the port's own numpy-only copy of the layout rules of
   * MultiheadAttention: wq/wk/wv packed into in_proj_weight (3D, D),
                       out_proj transposed
   * GroupNorm, BatchNorm: scale -> weight, bias -> bias
+  * a conditional UNet's ``class_emb`` (num_classes, D) -> ``class_emb.weight``
+    as is; each cross-attention layer (``xattns.j``) -> ``cross_attention_norms.j``,
+    ``cross_attentions.j`` and ``context_proj.j``
 """
 
 from __future__ import annotations
@@ -75,8 +78,10 @@ def _block(p: Params, base: str, out: dict) -> None:
     for j, ap in enumerate(p.get("attns", [])):
         _norm(ap["norm"], f"{base}.attention_norms.{j}", out)
         _attention(ap["attn"], f"{base}.attentions.{j}", out)
-    if p.get("xattns"):
-        raise NotImplementedError("cross-attention blocks are not ported yet")
+    for j, ap in enumerate(p.get("xattns", [])):
+        _norm(ap["norm"], f"{base}.cross_attention_norms.{j}", out)
+        _attention(ap["attn"], f"{base}.cross_attentions.{j}", out)
+        _linear(ap["ctx_proj"], f"{base}.context_proj.{j}", out)
     if p.get("down"):
         _conv(p["down"], f"{base}.down_sample_conv", out)
     if p.get("up"):
@@ -88,8 +93,6 @@ def _to_torch(sd: dict) -> dict:
 
 
 def _unet(p: Params, prefix: str, out: dict) -> None:
-    if "class_emb" in p or "cond_conv_in" in p:
-        raise NotImplementedError("UNet conditioning is not ported yet")
     _conv(p["conv_in"], f"{prefix}conv_in", out)
     _linear(p["t_proj1"], f"{prefix}t_proj.0", out)
     _linear(p["t_proj2"], f"{prefix}t_proj.2", out)
@@ -97,6 +100,10 @@ def _unet(p: Params, prefix: str, out: dict) -> None:
         _block(bp, f"{prefix}downs.{i}", out)
     for i, bp in enumerate(p["mids"]):
         _block(bp, f"{prefix}mids.{i}", out)
+    if "class_emb" in p:
+        out[f"{prefix}class_emb.weight"] = _np(p["class_emb"])
+    if "cond_conv_in" in p:
+        _conv(p["cond_conv_in"], f"{prefix}cond_conv_in", out)
     if "ups" in p:
         for i, bp in enumerate(p["ups"]):
             _block(bp, f"{prefix}ups.{i}", out)

@@ -17,12 +17,15 @@ from typing import Callable
 
 import torch
 
+from controlnet_tpu_torch.sample.common import tree_map
+
 
 def make_cfg_eps_fn(eps_fn: Callable, guidance_scale: float, batched: bool = True) -> Callable:
     """Wrap ``eps_fn`` for guidance.  The returned function has the
     signature the samplers expect, ``cfg_eps(model, x, t, hint_pair)``, with
-    the hint a ``(conditional, null)`` pair of tensors (raw hints or
-    precomputed hint features).
+    the hint a ``(conditional, null)`` pair of matching trees: tensors (raw
+    hints or precomputed hint features) or dicts of tensors (a conditional
+    UNet's ``cond_input``), concatenated leaf by leaf.
 
     ``batched=True`` runs both branches in one model call on a doubled batch;
     ``batched=False`` in two calls: the same math at a lower peak of
@@ -33,7 +36,7 @@ def make_cfg_eps_fn(eps_fn: Callable, guidance_scale: float, batched: bool = Tru
         hint_cond, hint_null = hint_pair
         if batched:
             eps2 = eps_fn(model, torch.cat([x, x]), torch.cat([t, t]),
-                          torch.cat([hint_cond, hint_null]))
+                          tree_map(lambda c, u: torch.cat([c, u]), hint_cond, hint_null))
             eps_c, eps_u = torch.chunk(eps2, 2, dim=0)
         else:
             eps_c = eps_fn(model, x, t, hint_cond)

@@ -12,15 +12,28 @@ def draw_x_start(generator: torch.Generator, shape: tuple[int, ...],
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (tensors in nested dicts, tuples
+    and lists) and the matching leaves of the trees in ``rest``, as
+    ``jax.tree.map`` maps them; a None leaf stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
 def cast_hint(hint, compute_dtype):
-    """Cast the hint (features) to the model compute type (no-op when either
-    is None).  Under guidance the hint is a (conditional, null) pair: each
-    member is cast."""
+    """Cast every leaf of the hint to the model compute type (no-op when
+    either is None).  A hint is a tensor (hint features), a dict of tensors
+    (a conditional UNet's ``cond_input``: the text context, the mask and the
+    one-hot class alike), or under guidance a (conditional, null) pair of
+    either."""
     if hint is None or compute_dtype is None:
         return hint
-    if isinstance(hint, tuple):
-        return tuple(h.to(compute_dtype) for h in hint)
-    return hint.to(compute_dtype)
+    return tree_map(lambda h: h.to(compute_dtype), hint)
 
 
 def predict_eps(eps_fn, model, xt: torch.Tensor, t_batch: torch.Tensor, hint, compute_dtype):

@@ -30,8 +30,10 @@ def _qkv(seed, b, h, dh, lq, lk):
     return q, k, v
 
 
-@pytest.mark.parametrize("lq,lk,dh", [(49, 49, 64), (49, 49, 4), (196, 196, 16), (49, 7, 16)],
-                         ids=["L49-dh64", "L49-dh4", "L196-dh16", "cross-Lq49-Lk7"])
+@pytest.mark.parametrize("lq,lk,dh", [(49, 49, 64), (49, 49, 4), (196, 196, 16), (49, 7, 16),
+                                      (64, 77, 24), (16, 77, 48)],
+                         ids=["L49-dh64", "L49-dh4", "L196-dh16", "cross-Lq49-Lk7",
+                              "cross-Lq64-Lk77-dh24", "cross-Lq16-Lk77-dh48"])
 def test_fused_attention_t_matches_pallas_interpret(lq, lk, dh):
     q, k, v = _qkv(0, 2, 2, dh, lq, lk)
     ref = np.asarray(jax_fused_attention_t(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),

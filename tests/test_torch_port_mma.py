@@ -245,18 +245,24 @@ def test_hi_lo_split_keeps_16_bits():
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("b,h,dh,lq", [(1, 2, 16, 784), (1, 2, 24, 1024), (2, 2, 48, 64),
-                                       (2, 2, 4, 196), (2, 2, 128, 64), (2, 2, 96, 64)],
+@pytest.mark.parametrize("b,h,dh,lq,lk", [(1, 2, 16, 784, 784), (1, 2, 24, 1024, 1024),
+                                          (2, 2, 48, 64, 64), (2, 2, 4, 196, 196),
+                                          (2, 2, 128, 64, 64), (2, 2, 96, 64, 64),
+                                          (2, 2, 24, 64, 77), (2, 2, 48, 16, 77)],
                          ids=["mnist-L784", "latent-L1024", "latent-L64", "mnist-L196-dh4",
-                              "cifar-L64-dh128", "L64-dh96"])
-def test_kernel_a_model_against_jax_and_plain(b, h, dh, lq, dtype):
+                              "cifar-L64-dh128", "L64-dh96", "cross-64x77-dh24",
+                              "cross-16x77-dh48"])
+def test_kernel_a_model_against_jax_and_plain(b, h, dh, lq, lk, dtype):
     """Kernel a follows the Pallas kernel, which contracts float32 P with V
     upcast: with P as hi + lo the bf16 model sits within one bf16 ulp of the
     largest output (2^-7 max|out|) of both the plain version and the Pallas
     kernel (measured: at most 1.8e-3 max|out| from each; the old bf16-P
-    rounding was up to 6.5e-3 max|out| from the Pallas kernel)."""
-    rng = np.random.default_rng(dh + lq)
-    q, k, v = (rng.standard_normal((b, h, dh, lq)).astype(np.float32) for _ in range(3))
+    rounding was up to 6.5e-3 max|out| from the Pallas kernel).  The cross
+    cases (the conditional LDM's 77 text tokens) walk one full key tile and
+    a ragged one."""
+    rng = np.random.default_rng(dh + lq + (lk if lk != lq else 0))
+    q = rng.standard_normal((b, h, dh, lq)).astype(np.float32)
+    k, v = (rng.standard_normal((b, h, dh, lk)).astype(np.float32) for _ in range(2))
     dt = DTYPES[dtype]
     qt, kt, vt = (torch.from_numpy(a).to(dt) for a in (q, k, v))
     out, lse = model_attention_a(qt, kt, vt)
@@ -312,9 +318,10 @@ def model_attention_bwd_b(qt, kt, vt, dout, lse):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("b,h,dh,lq,lk", [(1, 2, 16, 196, 196), (2, 2, 24, 64, 64),
                                           (2, 2, 16, 49, 7), (2, 2, 128, 64, 64),
-                                          (2, 2, 128, 64, 49)],
+                                          (2, 2, 128, 64, 49), (2, 2, 24, 64, 77),
+                                          (2, 2, 48, 16, 77)],
                          ids=["mnist-L196", "latent-L64-dh24", "cross-49x7", "cifar-L64-dh128",
-                              "cross-64x49-dh128"])
+                              "cross-64x49-dh128", "cross-64x77-dh24", "cross-16x77-dh48"])
 def test_kernel_b_model_against_jax_vjp_and_plain(b, h, dh, lq, lk, dtype):
     """Kernel b against jax.vjp of the Pallas forward (its backward is
     ``_attn_bwd_kernel_t``, interpret mode) and against the plain backward,
