@@ -7,6 +7,7 @@
     python3 chip_smoke.py --latent-train-only  # phases 21-26 alone (no result line)
     python3 chip_smoke.py --cifar-only     # phases 27-31 alone (no result line)
     python3 chip_smoke.py --cond-only      # phases 32-35 alone (no result line)
+    python3 chip_smoke.py --compare-only   # phases 36-37 alone (no result line)
 
 Phases (each one that fails makes the script exit non-zero):
 
@@ -200,10 +201,27 @@ Phases (each one that fails makes the script exit non-zero):
    step, 16 kernel-a launches), a 10-step run through the kernels against the
    plain attention on pinned x_T and noise, then the 50 steps f32 and bf16,
    samples/s.
-36. A ``{"distill": {...}}``, a ``{"latent_train": {...}}``, a
-   ``{"cifar": {...}}`` and a ``{"cond": {...}}`` JSON line, a ``{"kernels":
-   [...]}`` JSON line, the ``nvidia-smi`` line, and as the last line ``{"ok":
-   true, "device": {...}}``.
+36. The comparison tools at ``config/mnist.yaml``'s full width: seeded
+   reference-format .pth files of the ControlNet and both students, a digit
+   tree written by the port's ``data/synthetic.py`` as the test split;
+   ``compare_controlnet_models`` and ``compare_all_controlnet_models`` through
+   their ``main`` with ``--num_samples 5 --ddpm_steps 50 --hint_backend tpu``
+   (and cv2 where it imports; the JAX tools' default is 1000 steps), counters
+   set to 0 just before and read just after each: kernel a exactly 26 x 50 x 2
+   per DDPM run (warm-up and timed) and 16 x 2 per student; the grids, the
+   metrics file and ``timing_data.npy``; s/sample and speed-ups; then on the
+   tools' path a 10-step DDPM sample from pinned x_T and step noise and each
+   student's 1 step from a pinned x_T, through the kernel against the plain
+   attention.
+37. ``eval_metrics`` through its ``main`` on the card between two seeded
+   28x28 grayscale PNG trees of 512 images (full-rank covariances), against
+   the same function on the CPU, and a tree against itself (FFD ~ 0); then
+   both TF32 switches set on, ``sample_ddpm_controlnet``'s ``main`` and
+   ``serve.make_server`` on the card, and both switches read off after each.
+38. A ``{"distill": {...}}``, a ``{"latent_train": {...}}``, a
+   ``{"cifar": {...}}``, a ``{"cond": {...}}`` and a ``{"compare": {...}}``
+   JSON line, a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
+   as the last line ``{"ok": true, "device": {...}}``.
 
 Kernel, plain-version and library times are device time: the profiler's sum
 of the GPU work a call launches (``device_time_ms``), the wrappers' own casts
@@ -211,7 +229,9 @@ included, taken by the timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32, 33; and 
 25's and 34's timed runs) each in a process of its own (``in_fresh_process``).  (PRs
 1-5 timed with CUDA events, PRs 6-7 printed those beside; PR 8 dropped them
 to keep the run inside its time limit.)  TF32 is off for
-matmuls and convolutions throughout, so float32 means float32.  Exits
+matmuls and convolutions throughout, so float32 means float32: the script
+sets it off, and every entry point of the port pins it off
+(``device.resolve_device``), which phase 37 checks.  Exits
 non-zero, printing no result, without a CUDA device or without the package
 beside it.
 """
@@ -3749,6 +3769,256 @@ def cond_summary(res: dict) -> dict:
             "mnist_class_check_err": res["mnist"]["check_err"], "phases_s": res["seconds"]}
 
 
+# The comparison, evaluation and conversion tools (phases 36-37) at
+# config/mnist.yaml's full width.  The JAX tools default to 1000 DDPM steps;
+# 50 keep the phase short, as phases 4 and 30 are cut.
+COMPARE_SAMPLES = 5
+COMPARE_STEPS = 50
+COMPARE_CHECK_STEPS = 10
+COMPARE_TREE_IMAGES = 16   # the test split the tools draw their batch from
+EVAL_IMAGES = 512          # per tree: more than the 256 features, full-rank covariances
+EVAL_FFD_RTOL = 1e-3       # FFD on the card against the CPU, of FFD
+EVAL_LPIPS_TOL = 1e-4      # LPIPS on the card against the CPU, absolute
+EVAL_SELF_RTOL = 1e-3      # FFD(a, a) against FFD(a, b)
+
+
+def write_seeded_students(config: dict, task: str) -> None:
+    """Reference-format .pth files of both students, random weights from
+    SEED, at the names the port's trainers write (the consistency student
+    with its EMA, a copy; the DMD student's zero-initialised last hint conv
+    made nonzero so its hint path contributes)."""
+    from controlnet_tpu_torch.models.consistency import ConsistencyDistilled
+    from controlnet_tpu_torch.models.dmd import DistributionMatchingControlNet
+    from controlnet_tpu_torch.tools import train_consistency_controlnet_distilled as cd_train
+    from controlnet_tpu_torch.tools import (
+        train_distribution_matching_controlnet_distilled as dmd_train)
+
+    mp = config["model_params"]
+    torch.manual_seed(SEED)
+    cd = ConsistencyDistilled(mp["im_channels"], mp, use_ddpm_teacher=False, device="cpu")
+    torch.save(cd_train.reference_checkpoint(cd, 0, mp), os.path.join(task, cd_train.CKPT_NAME))
+    torch.manual_seed(SEED + 1)
+    dmd = DistributionMatchingControlNet(mp["im_channels"], mp)
+    with torch.no_grad():
+        dmd.hint_block[-1].weight.normal_(0.0, 0.05)
+    torch.save(dmd_train.reference_checkpoint(dmd.state_dict(), 0, config),
+               os.path.join(task, dmd_train.REF_CKPT))
+
+
+def phase_compare_tools(config: dict, ckpt: str, device) -> dict:
+    """Phase 36: both compare tools through their ``main`` at the full MNIST
+    width on a digit tree written by the port's data/synthetic.py, with
+    seeded .pth files of the ControlNet and both students; ``--num_samples
+    5 --ddpm_steps 50``, hints from the port's canny on the card (and cv2's
+    where it imports).  Counters set to 0 just before and read just after
+    each tool: kernel a 26 x 50 x 2 per DDPM run (warm-up and timed) and 16
+    x 2 per student.  The artifacts; then on the tools' path, a 10-step
+    DDPM sample from pinned x_T and step noise and each student's 1 step
+    from a pinned x_T, through the kernel against the plain attention."""
+    import importlib.util
+
+    import numpy as np
+    import yaml
+
+    from controlnet_tpu_torch.data.synthetic import make_synthetic_image_tree
+    from controlnet_tpu_torch.ops import cuda_attention
+    from controlnet_tpu_torch.tools import compare_all_controlnet_models as compare_all
+    from controlnet_tpu_torch.tools import compare_controlnet_models as compare
+
+    work = os.path.join(REPO, "build", "smoke", "compare")
+    shutil.rmtree(work, ignore_errors=True)
+    task = os.path.join(work, "mnist")
+    os.makedirs(task)
+    shutil.copy(ckpt, os.path.join(task, config["train_params"]["controlnet_ckpt_name"]))
+    write_seeded_students(config, task)
+    tree = make_synthetic_image_tree(os.path.join(work, "test"), num_classes=2,
+                                     per_class=COMPARE_TREE_IMAGES // 2, size=28, seed=SEED)
+    cfg = copy.deepcopy(config)
+    cfg["dataset_params"]["im_test_path"] = tree
+    cfg["train_params"]["task_name"] = task
+    cfg_path = os.path.join(work, "mnist.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+
+    n, T = COMPARE_SAMPLES, COMPARE_STEPS
+    want = {"compare": 26 * T * 2 + STUDENT_CALLS * 2,
+            "compare_all": 26 * T * 2 + STUDENT_CALLS * 2 * 2}
+    dirs = {"compare": "model_comparison", "compare_all": "all_model_comparison"}
+    backends = ["tpu"] + (["cv2"] if importlib.util.find_spec("cv2") is not None else [])
+    runs: dict = {}
+    start = time.perf_counter()
+    for backend in backends:
+        for name, tool in (("compare", compare), ("compare_all", compare_all)):
+            out_dir = os.path.join(task, dirs[name])
+            shutil.rmtree(out_dir, ignore_errors=True)
+            torch.cuda.synchronize()
+            cuda_attention.launches = 0
+            res = tool.main(["--config", cfg_path, "--num_samples", str(n), "--ddpm_steps",
+                             str(T), "--hint_backend", backend])
+            torch.cuda.synchronize()
+            launches = cuda_attention.launches
+            timings = res["timings"]
+            if name == "compare":
+                per = {"ddpm": timings["ddpm_total"] / n,
+                       "consistency": timings["consistency_total"] / n}
+            else:
+                per = {m: s / n for m, s in timings.items()}
+            files = sorted(os.listdir(out_dir))
+            saved = np.load(os.path.join(out_dir, "timing_data.npy"), allow_pickle=True).item()
+            ok = (launches == want[name]
+                  and files == [f"comparison_{i:03d}.png" for i in range(n)] + [
+                      "performance_metrics.txt", "timing_data.npy"]
+                  and saved.keys() == timings.keys()
+                  and all(x.shape == (n, 28, 28, 1) and np.isfinite(x).all()
+                          for x in res["samples"].values())
+                  and len(res["samples"]) == (2 if name == "compare" else 3))
+            speedup = {m: per["ddpm"] / s for m, s in per.items() if m != "ddpm"}
+            runs[f"{name}_{backend}"] = dict(launches=launches, s_per_sample=per,
+                                             speedup=speedup)
+            log(f"{name} tool, --hint_backend {backend}: {n} samples, DDPM {T} steps: "
+                f"s/sample {', '.join(f'{m} {s:.4f}' for m, s in per.items())}; speed-up "
+                f"{', '.join(f'{m} {v:.1f}x' for m, v in speedup.items())}; kernel a launches "
+                f"{launches} (expect {want[name]}); {len(files)} artifacts -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the {name} tool failed (--hint_backend {backend})")
+    tools_s = time.perf_counter() - start
+
+    # the tools' path, kernel vs plain: pinned x_T (and step noise)
+    _, hints = compare.draw_test_batch(cfg, n, SEED, "tpu", device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x_start = torch.randn((n, 1, 28, 28), generator=g, device=device)
+    step_noise = torch.randn((COMPARE_CHECK_STEPS, n, 1, 28, 28), generator=g, device=device)
+    checks = {"ddpm": (compare.make_generator("ddpm", cfg, hints, COMPARE_CHECK_STEPS, device),
+                       dict(x_start=x_start, step_noise=step_noise))}
+    for m in ("consistency", "dmd"):
+        checks[m] = (compare.make_generator(m, cfg, hints, T, device), dict(x_start=x_start))
+    errs = {}
+    for m, (generate, noise) in checks.items():
+        out = generate(SEED, **noise)
+        with plain_attention():
+            ref = generate(SEED, **noise)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and err <= MODEL_TOL[torch.float32] * max(scale, 1.0)
+        errs[m] = err
+        steps = f"{COMPARE_CHECK_STEPS} steps" if m == "ddpm" else "1 step"
+        log(f"compare path {m}, {steps}, x_T pinned, batch {n}: max abs err kernel vs plain "
+            f"{err:.3g} (max|x0| {scale:.4g}, tol {MODEL_TOL[torch.float32]:g} x max(1, "
+            f"max|x0|)) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the compare path's {m} disagrees with the plain attention")
+    return dict(runs=runs, check_err=errs, tools_s=tools_s, backends=backends, task=task,
+                config_path=cfg_path)
+
+
+def write_png_tree(path: str, images) -> str:
+    """uint8 (N, H, W) images as <path>/<i>.png."""
+    from PIL import Image
+
+    os.makedirs(path, exist_ok=True)
+    for i, im in enumerate(images):
+        Image.fromarray(im).save(os.path.join(path, f"{i:04d}.png"))
+    return path
+
+
+def phase_eval_and_tf32(config: dict, compared: dict, device) -> dict:
+    """Phase 37: ``eval_metrics`` through its ``main`` on the card between two
+    seeded 28x28 grayscale PNG trees of EVAL_IMAGES images (full-rank
+    covariances), held against the same function on the CPU, and a tree
+    against itself; then both TF32 switches set on, a sample tool's ``main``
+    and ``serve.make_server`` on the card, and both switches read off after
+    each."""
+    import types
+
+    import numpy as np
+
+    from controlnet_tpu_torch.tools import eval_metrics, sample_ddpm_controlnet, serve
+
+    work = os.path.join(REPO, "build", "smoke", "eval")
+    shutil.rmtree(work, ignore_errors=True)
+    digits = seeded_digits(2 * EVAL_IMAGES)
+    dirs = [write_png_tree(os.path.join(work, name), digits[i * EVAL_IMAGES:(i + 1) * EVAL_IMAGES])
+            for i, name in enumerate(("a", "b"))]
+    start = time.perf_counter()
+    on_card = eval_metrics.main(["--dir_a", dirs[0], "--dir_b", dirs[1]])
+    card_s = time.perf_counter() - start
+    self_ffd = eval_metrics.main(["--dir_a", dirs[0], "--dir_b", dirs[0]])
+    ims = [eval_metrics.load_images(d, 1) for d in dirs]
+    on_cpu = eval_metrics.evaluate(*ims, 1, device="cpu")
+    ffd_err = abs(on_card["ffd"] - on_cpu["ffd"])
+    lpips_err = abs(on_card["lpips_mean"] - on_cpu["lpips_mean"])
+    ok = (ffd_err <= EVAL_FFD_RTOL * abs(on_cpu["ffd"]) and lpips_err <= EVAL_LPIPS_TOL
+          and on_card["n_a"] == on_card["n_b"] == EVAL_IMAGES
+          and abs(self_ffd["ffd"]) <= EVAL_SELF_RTOL * on_card["ffd"]
+          and self_ffd["lpips_mean"] == 0.0)
+    log(f"eval_metrics, {EVAL_IMAGES} vs {EVAL_IMAGES} 28x28 PNGs on the card ({card_s:.2f} s): "
+        f"FFD {on_card['ffd']:.6g} (CPU {on_cpu['ffd']:.6g}, diff {ffd_err:.3g}, tol "
+        f"{EVAL_FFD_RTOL:g} x FFD), LPIPS {on_card['lpips_mean']:.6g} (CPU "
+        f"{on_cpu['lpips_mean']:.6g}, diff {lpips_err:.3g}, tol {EVAL_LPIPS_TOL:g}); a tree "
+        f"against itself: FFD {self_ffd['ffd']:.3g}, LPIPS {self_ffd['lpips_mean']:.3g} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("eval_metrics on the card disagrees with the CPU")
+
+    def tf32() -> tuple:
+        return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    def tf32_on() -> None:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+    hints = os.path.join(work, "hints.npy")
+    np.save(hints, seeded_hints(4, 28))
+    tf32_on()
+    sample_ddpm_controlnet.main(["--config", compared["config_path"], "--hints", hints,
+                                 "--num_samples", "4", "--sampler", "ddim", "--sampler_steps",
+                                 "2"])
+    after_tool = tf32()
+    tf32_on()
+    args = types.SimpleNamespace(model="consistency", host="127.0.0.1", port=0, seed=SEED,
+                                 max_batch=1, max_steps=1, dynamic_batching=True,
+                                 batch_window_ms=2.0, device=None,
+                                 ckpt=os.path.join(compared["task"],
+                                                   "consistency_controlnet_distilled.pth"))
+    server = serve.make_server(args, config)
+    server.server_close()
+    after_server = tf32()
+    ok = after_tool == after_server == (False, False)
+    log(f"TF32 switches (cudnn, cuda.matmul) set on, then read after sample_ddpm_controlnet "
+        f"main: {after_tool}, after serve.make_server: {after_server} (expect (False, False)) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("an entry point left TF32 on")
+    return dict(card=on_card, cpu=on_cpu, self=self_ffd, card_s=card_s,
+                tf32_after={"sample_tool": after_tool, "make_server": after_server})
+
+
+def run_compare_phases(config: dict, ckpt: str, device) -> dict:
+    """Phases 36-37 in order; returns their results."""
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    compared = phase_compare_tools(config, ckpt, device)
+    evaluated = phase_eval_and_tf32(config, compared, device)
+    res = dict(compare=compared, eval=evaluated, seconds=time.perf_counter() - start)
+    log(f"compare phases 36-37: {res['seconds']:.1f} s")
+    return res
+
+
+def compare_summary(res: dict) -> dict:
+    """The ``{"compare": ...}`` line: each tool run's s/sample, speed-ups and
+    launches, the kernel-vs-plain checks, eval_metrics on the card and the
+    CPU, and the TF32 switches after the entry points."""
+    ev = res["eval"]
+    return {"tools": res["compare"]["runs"], "check_err": res["compare"]["check_err"],
+            "samples": COMPARE_SAMPLES, "ddpm_steps": COMPARE_STEPS,
+            "hint_backends": res["compare"]["backends"],
+            "eval": {"card": ev["card"], "cpu": ev["cpu"], "self": ev["self"],
+                     "card_s": ev["card_s"]},
+            "tf32_after": ev["tf32_after"], "phases_s": res["seconds"]}
+
+
 # The kernel-timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32 and 33) and the
 # timed distillation, latent-training and conditional sampling main paths
 # (19, 25, 34).  Each runs in a
@@ -3812,6 +4082,10 @@ def main() -> int:
     parser.add_argument("--cond-only", action="store_true",
                         help="build the kernels and run the conditional-UNet phases 32-35 alone "
                              "(a quick check after a change to that path; no result line)")
+    parser.add_argument("--compare-only", action="store_true",
+                        help="build the kernels and run the comparison / evaluation phases "
+                             "36-37 alone (a quick check after a change to those tools; no "
+                             "result line)")
     parser.add_argument("--timing-phase", help=argparse.SUPPRESS)  # set by in_fresh_process
     args = parser.parse_args()
 
@@ -3855,6 +4129,10 @@ def main() -> int:
     if args.cond_only:
         log(json.dumps({"cond": cond_summary(run_cond_phases(device))}))
         log(f"{smi}; cond-only run: phases 32-35 passed (a partial run: no result line)")
+        return 0
+    if args.compare_only:
+        log(json.dumps({"compare": compare_summary(run_compare_phases(config, ckpt, device))}))
+        log(f"{smi}; compare-only run: phases 36-37 passed (a partial run: no result line)")
         return 0
     from controlnet_tpu_torch.data.datasets import to_unit
     from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
@@ -3905,6 +4183,8 @@ def main() -> int:
     done("27-31")
     cond = run_cond_phases(device)
     done("32-35")
+    compared = run_compare_phases(config, ckpt, device)
+    done("36-37")
 
     def kernel_entry(name, source, replaces, tots, launches, bf16_launches, per):
         f32, bf16 = tots[torch.float32], tots[torch.bfloat16]
@@ -4059,6 +4339,11 @@ def main() -> int:
     bwd_entry["cond_launches"] = {f"ldm_grad_{n}": r["launches"][1]
                                   for n, r in cond["grad"].items()}
     log(json.dumps({"cond": cond_summary(cond)}))
+    # the comparison tools (phase 36): kernel a's launches in each tool's run
+    # (26 x 50 x 2 per DDPM run, 16 x 2 per student)
+    fwd_entry["compare_launches"] = {k: r["launches"]
+                                     for k, r in compared["compare"]["runs"].items()}
+    log(json.dumps({"compare": compare_summary(compared)}))
     log(f"device_time_ms: {PROFILER_WINDOWS['windows']} profiler windows for "
         f"{PROFILER_WINDOWS['measurements']} measurements (2 each when no window lost records), "
         f"{PROFILER_WINDOWS['foreign']} device records left out as launched outside a window")

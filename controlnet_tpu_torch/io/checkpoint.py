@@ -65,6 +65,12 @@ def save_file(obj: Any, path: str) -> None:
     os.replace(tmp, path)
 
 
+def cpu_state_dict(module: torch.nn.Module) -> dict:
+    """``module``'s state dict on the CPU: what a reference-format ``.pth`` of
+    a model holds."""
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
 def latest_checkpoint(ckpt_dir: str, name: str) -> int | None:
     """The newest saved step of ``name``, or None."""
     steps = _steps(_ckpt_root(ckpt_dir, name))

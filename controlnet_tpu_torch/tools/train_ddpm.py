@@ -28,7 +28,8 @@ import torch
 
 from controlnet_tpu_torch import cli, config as cfg
 from controlnet_tpu_torch.device import resolve_device
-from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
+from controlnet_tpu_torch.io.checkpoint import (cpu_state_dict, restore_checkpoint,
+                                                save_checkpoint, save_file)
 from controlnet_tpu_torch.models.unet import UNet
 from controlnet_tpu_torch.schedules.linear import make_linear_schedule
 from controlnet_tpu_torch.train.loops import make_ddpm_train_step
@@ -82,8 +83,7 @@ def train(config_path: str, images_path: str | None = None, device=None) -> dict
         if cli.should_save_epoch(epoch_idx, num_epochs, tp.get("ckpt_save_every_epochs", 1)):
             save_checkpoint(task_name, ckpt_name, epoch_idx + 1, state.state_dict(),
                             max_to_keep=cli.ckpt_max_to_keep(tp))
-    save_file({k: v.detach().cpu() for k, v in unet.state_dict().items()},
-              os.path.join(task_name, ckpt_name))
+    save_file(cpu_state_dict(unet), os.path.join(task_name, ckpt_name))
     print("Done Training ...")
     return history
 

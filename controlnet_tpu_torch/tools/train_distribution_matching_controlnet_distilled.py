@@ -79,6 +79,14 @@ def make_trainer(config: dict, teacher_state_dict: dict, steps_per_epoch: int, d
     return model, state, step
 
 
+def reference_checkpoint(student_state_dict: dict, epoch: int, config: dict) -> dict:
+    """The reference trainer's ``.pth`` wrapper of the student."""
+    return {"epoch": epoch,
+            "model_state_dict": {k: v.detach().cpu().clone()
+                                 for k, v in student_state_dict.items()},
+            "config": config}
+
+
 @torch.no_grad()
 def val_loss(model: DistributionMatchingDistilled, x0: torch.Tensor, hint: torch.Tensor,
              generator: torch.Generator) -> torch.Tensor:
@@ -233,14 +241,12 @@ def train(config_path: str, images_path: str | None = None,
                 json.dump({"best_val": best_val, "epoch": epoch_idx + 1}, f)
             print(f"New best model (val {best_val:.4f})")
 
-    save_file({"epoch": max(num_epochs, start_epoch),
-               "model_state_dict": {k: v.detach().cpu().clone()
-                                    for k, v in model.student.state_dict().items()},
-               "config": config}, os.path.join(task_name, REF_CKPT))
+    save_file(reference_checkpoint(model.student.state_dict(), max(num_epochs, start_epoch),
+                                   config), os.path.join(task_name, REF_CKPT))
     best = restore_checkpoint(task_name, BEST_CKPT_NAME, map_location="cpu")
     if best is not None:
-        save_file({"epoch": best[1], "model_state_dict": dict(best[0]["state"]["params"]),
-                   "config": config}, os.path.join(task_name, BEST_REF_CKPT))
+        save_file(reference_checkpoint(best[0]["state"]["params"], best[1], config),
+                  os.path.join(task_name, BEST_REF_CKPT))
     if not no_plots:
         plot_training_curves({k: v for k, v in history.items() if k != "epochs"},
                              os.path.join(task_name, "dmd_training_curves.png"))

@@ -38,7 +38,8 @@ from controlnet_tpu_torch import cli, config as cfg
 from controlnet_tpu_torch.data.datasets import (batch_indices, iterate_batches,
                                                 latents_from_batch, load_hints, moments_nchw)
 from controlnet_tpu_torch.device import resolve_device
-from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
+from controlnet_tpu_torch.io.checkpoint import (cpu_state_dict, restore_checkpoint,
+                                                save_checkpoint, save_file)
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
 from controlnet_tpu_torch.models.controlnet import ControlNet
 from controlnet_tpu_torch.tools.sample_ldm_vae import latent_size, ldm_schedule
@@ -164,8 +165,7 @@ def train(config_path: str, hints_path: str | None = None, device=None) -> dict:
                     "frozen": {k: p.detach() for k, p in frozen.items()}}
             save_checkpoint(task_name, ckpt_name, epoch_idx + 1, tree,
                             max_to_keep=cli.ckpt_max_to_keep(tp))
-    save_file({k: v.detach().cpu() for k, v in cn.state_dict().items()},
-              os.path.join(task_name, ckpt_name))
+    save_file(cpu_state_dict(cn), os.path.join(task_name, ckpt_name))
     print("Done Training ...")
     return history
 

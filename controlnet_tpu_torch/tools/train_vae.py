@@ -34,7 +34,8 @@ import torch
 
 from controlnet_tpu_torch import cli, config as cfg
 from controlnet_tpu_torch.device import resolve_device
-from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
+from controlnet_tpu_torch.io.checkpoint import (cpu_state_dict, restore_checkpoint,
+                                                save_checkpoint, save_file)
 from controlnet_tpu_torch.models.discriminator import Discriminator
 from controlnet_tpu_torch.models.lpips import build_lpips
 from controlnet_tpu_torch.models.vae import VAE
@@ -135,8 +136,7 @@ def train(config_path: str, images_path: str | None = None, device=None) -> dict
         save_checkpoint(task_name, disc_ckpt, epoch_idx + 1, d_state.state_dict(),
                         max_to_keep=keep)
     for model, name in ((vae, vae_ckpt), (disc, disc_ckpt)):
-        save_file({k: v.detach().cpu() for k, v in model.state_dict().items()},
-                  os.path.join(task_name, name))
+        save_file(cpu_state_dict(model), os.path.join(task_name, name))
     print("Done Training...")
     return history
 

@@ -35,7 +35,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "tools.train_distribution_matching_controlnet_distilled",
                  "tools.sample_distribution_matching_controlnet_distilled",
                  "models.discriminator", "models.lpips", "tools.train_vae", "tools.infer_vae",
-                 "tools.train_ldm_vae", "tools.sample_ldm_vae", "tools.train_ldm_controlnet"):
+                 "tools.train_ldm_vae", "tools.sample_ldm_vae", "tools.train_ldm_controlnet",
+                 "utils.profiling", "utils.config_utils", "utils.extract_mnist_images",
+                 "utils.extract_cifar_images", "tools.eval_metrics",
+                 "tools.compare_controlnet_models", "tools.compare_all_controlnet_models",
+                 "tools.export_torch_checkpoint"):
         assert f"controlnet_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -55,12 +59,16 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 
 def test_data_modules_import_no_jax_pil_or_cv2():
-    """The readers, the synthetic-tree writer, the tools' data plumbing and
-    the new sample tool import no JAX, nothing of the JAX package (not even
-    its JAX-free ``data`` modules), and neither PIL nor cv2 until an image
-    is read."""
+    """The readers, the synthetic-tree writer, the tools' data plumbing, the
+    sample tool, the PNG extractors and the tools that read or write PNGs
+    import no JAX, nothing of the JAX package (not even its JAX-free
+    ``data`` modules), and neither PIL nor cv2 until an image is read."""
     mods = ["controlnet_tpu_torch.data.datasets", "controlnet_tpu_torch.data.synthetic",
-            "controlnet_tpu_torch.cli", "controlnet_tpu_torch.tools.sample_ddpm"]
+            "controlnet_tpu_torch.cli", "controlnet_tpu_torch.tools.sample_ddpm",
+            "controlnet_tpu_torch.utils.extract_mnist_images",
+            "controlnet_tpu_torch.utils.extract_cifar_images",
+            "controlnet_tpu_torch.tools.eval_metrics",
+            "controlnet_tpu_torch.tools.compare_all_controlnet_models"]
     assert set(mods) <= set(_all_modules())
     code = (
         "import importlib, sys\n"
@@ -290,5 +298,22 @@ def test_latent_training_entry_points_raise_on_cuda_less_host(monkeypatch):
                  lambda: train_ldm_controlnet.train(config, "unused.npy"),
                  lambda: train_ldm_controlnet.main(["--config", config, "--hints", "unused.npy"]),
                  lambda: train_ldm_controlnet.make_trainer(celebhq, {}, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_comparison_and_evaluation_tools_raise_on_cuda_less_host(monkeypatch, tmp_path):
+    """The compare tools and eval_metrics run on the card unless --device
+    cpu is passed."""
+    from controlnet_tpu_torch.tools import (compare_all_controlnet_models,
+                                            compare_controlnet_models, eval_metrics)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = os.path.join(REPO, "config", "mnist.yaml")
+    for call in (lambda: compare_controlnet_models.main(["--config", config]),
+                 lambda: compare_all_controlnet_models.main(["--config", config]),
+                 lambda: eval_metrics.main(["--dir_a", str(tmp_path), "--dir_b", str(tmp_path)]),
+                 lambda: eval_metrics.evaluate(None, None, 1),
+                 lambda: eval_metrics.ffd_with_ci(None, None, 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
