@@ -3,11 +3,18 @@
 
     python3 chip_smoke.py                  # the whole check, one card
     python3 chip_smoke.py --verbose-build  # also print ptxas's register report
-    python3 chip_smoke.py --distill-only   # phases 17-20 alone (no result line)
-    python3 chip_smoke.py --latent-train-only  # phases 21-26 alone (no result line)
-    python3 chip_smoke.py --cifar-only     # phases 27-31 alone (no result line)
-    python3 chip_smoke.py --cond-only      # phases 32-35 alone (no result line)
-    python3 chip_smoke.py --compare-only   # phases 36-37 alone (no result line)
+    python3 chip_smoke.py --phases 38      # phase 1 and the selected phases alone
+    python3 chip_smoke.py --phases 1-5,38  # (each group of phases holding one runs whole)
+    python3 chip_smoke.py --distill-only   # the same as --phases 17-20
+    python3 chip_smoke.py --latent-train-only  # --phases 21-26
+    python3 chip_smoke.py --cifar-only     # --phases 27-31
+    python3 chip_smoke.py --cond-only      # --phases 32-35
+    python3 chip_smoke.py --compare-only   # --phases 36-37
+
+The groups of phases are 1-4, 5-9, 10-14, 15-16, 17-20, 21-26, 27-31, 32-35,
+36-37 and 38; phase 1 (the card, the build) always runs.  A selection prints
+the JSON summaries of the groups it ran and, when they passed, the final
+``ok`` line, but no ``kernels`` line: that needs every phase.
 
 Phases (each one that fails makes the script exit non-zero):
 
@@ -218,10 +225,30 @@ Phases (each one that fails makes the script exit non-zero):
    the same function on the CPU, and a tree against itself (FFD ~ 0); then
    both TF32 switches set on, ``sample_ddpm_controlnet``'s ``main`` and
    ``serve.make_server`` on the card, and both switches read off after each.
-38. A ``{"distill": {...}}``, a ``{"latent_train": {...}}``, a
-   ``{"cifar": {...}}``, a ``{"cond": {...}}`` and a ``{"compare": {...}}``
-   JSON line, a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
-   as the last line ``{"ok": true, "device": {...}}``.
+38. Data parallelism (``controlnet_tpu_torch.parallel``), each rank a process
+   of its own.  NCCL refuses two ranks on one device ("Duplicate GPU
+   detected"), so on one card the semantics are held with two ranks on
+   cuda:0 over gloo (which reduces CUDA tensors through the host), and the
+   NCCL path, the tools' default on a card, at world size 1: (1) an NCCL group
+   of one takes three ControlNet steps through the data-parallel path
+   (all-reduces, sliced draws) bit-equal (max |diff| 0) to the same steps with
+   no mesh, under deterministic cuDNN; (2) two ranks of 32 rows against one
+   process of 64 at ``config/mnist.yaml``'s full width: three ControlNet
+   steps through kernels a and b, f32 and bf16, at phase 7's limits, the
+   launches of a and b per rank (26 and 18 a step), both ranks' weights
+   bit-equal; (3) ``train_ddpm_controlnet``'s ``main`` for one epoch of 128
+   seeded images (rank 0 alone writes; the .pth against the one-process
+   run's) and ``sample_ddpm_controlnet``'s ``main`` (DDIM 10 steps, 5
+   samples, padded to 6) against one process; (4) one consistency
+   (ddpm_distillation) and one DMD step, with the feature extractor's
+   global-batch BatchNorm; (5) two LDM ControlNet steps at
+   ``config/celebhq.yaml``'s full width, 8 rows a rank (7 kernel-c launches a
+   step a rank).  The wall ms/step of the two ranks beside one process are
+   two ranks time-sliced on one card through the host: not a scaling figure.
+39. A ``{"distill": {...}}``, a ``{"latent_train": {...}}``, a
+   ``{"cifar": {...}}``, a ``{"cond": {...}}``, a ``{"compare": {...}}`` and a
+   ``{"parallel": {...}}`` JSON line, a ``{"kernels": [...]}`` JSON line, the
+   ``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Kernel, plain-version and library times are device time: the profiler's sum
 of the GPU work a call launches (``device_time_ms``), the wrappers' own casts
@@ -926,14 +953,15 @@ def phase_main_path(config: dict, ckpt: str, device) -> dict:
     return results
 
 
-def train_setup(config: dict, base: dict, device, dtype_name: str):
+def train_setup(config: dict, base: dict, device, dtype_name: str, mesh=None):
     """The trainer tool's ControlNet, train state and step at ``dtype_name``
-    compute, trunks from ``base``, zero convs made nonzero from SEED."""
+    compute, trunks from ``base``, zero convs made nonzero from SEED;
+    data-parallel over ``mesh`` when given."""
     from controlnet_tpu_torch.tools import train_ddpm_controlnet as tool
 
     cfg = copy.deepcopy(config)
     cfg["train_params"]["compute_dtype"] = dtype_name
-    cn, state, step = tool.make_trainer(cfg, base, device, seed=SEED)
+    cn, state, step = tool.make_trainer(cfg, base, device, seed=SEED, mesh=mesh)
     randomize_zero_convs(cn)
     return cn, state, step
 
@@ -2031,12 +2059,13 @@ def seeded_teacher(ckpt: str) -> dict:
     return torch.load(ckpt, map_location="cpu", weights_only=True)
 
 
-def distill_setup(config: dict, teacher_sd: dict, device, kind: str, dtype_name: str):
+def distill_setup(config: dict, teacher_sd: dict, device, kind: str, dtype_name: str,
+                  mesh=None):
     """The trainer tool's (model, train state, step) for ``kind`` (a
     consistency mode or "dmd") at ``dtype_name`` compute, student from SEED,
-    teacher from ``teacher_sd``.  The DMD student's zero-initialised last hint
-    conv is made nonzero so the hint path takes gradient from the first
-    step."""
+    teacher from ``teacher_sd``, data-parallel over ``mesh`` when given.  The
+    DMD student's zero-initialised last hint conv is made nonzero so the hint
+    path takes gradient from the first step."""
     from controlnet_tpu_torch.tools import train_consistency_controlnet_distilled as cd_tool
     from controlnet_tpu_torch.tools import (
         train_distribution_matching_controlnet_distilled as dmd_tool)
@@ -2044,13 +2073,14 @@ def distill_setup(config: dict, teacher_sd: dict, device, kind: str, dtype_name:
     cfg = copy.deepcopy(config)
     cfg["train_params"]["compute_dtype"] = dtype_name
     if kind == "dmd":
-        model, state, step = dmd_tool.make_trainer(cfg, teacher_sd, 100, device, seed=SEED)
+        model, state, step = dmd_tool.make_trainer(cfg, teacher_sd, 100, device, seed=SEED,
+                                                   mesh=mesh)
         with torch.no_grad():
             model.student.hint_block[-1].weight.normal_(0.0, 0.05)
             model.student.hint_block[-1].bias.normal_(0.0, 0.05)
         return model, state, step
     cfg["train_params"].update(MODE_FLAGS[kind])
-    model, state, step, _ = cd_tool.make_trainer(cfg, teacher_sd, device, seed=SEED)
+    model, state, step, _ = cd_tool.make_trainer(cfg, teacher_sd, device, seed=SEED, mesh=mesh)
     return model, state, step
 
 
@@ -2622,13 +2652,14 @@ def seeded_ldm_state_dict() -> dict:
     return UNet(config["autoencoder_params"]["z_channels"], config["ldm_params"]).state_dict()
 
 
-def latent_trainer(kind: str, dtype_name: str, device, **train_params):
+def latent_trainer(kind: str, dtype_name: str, device, mesh=None, **train_params):
     """One latent trainer of config/celebhq.yaml at full width, from the
     trainer tools' ``make_trainer`` at ``dtype_name`` compute, with
     ``train_params`` overriding the config's: returns (modules by name,
     train states by name, ``run(batch, step_count, g, **draws) -> loss``).
     The ControlNet's zero convs are made nonzero from SEED, so the control
-    branch takes gradient from the first step."""
+    branch takes gradient from the first step; its trainer is data-parallel
+    over ``mesh`` when given."""
     from controlnet_tpu_torch.tools import train_ldm_controlnet, train_ldm_vae, train_vae
 
     cfg = celebhq_config()
@@ -2641,7 +2672,8 @@ def latent_trainer(kind: str, dtype_name: str, device, **train_params):
         unet, state, step = train_ldm_vae.make_trainer(cfg, LATENT_STEPS_PER_EPOCH, device, SEED)
         return {"unet": unet}, {"": state}, lambda b, i, g, **kw: step(state, b, g, **kw)
     cn, state, step = train_ldm_controlnet.make_trainer(cfg, seeded_ldm_state_dict(),
-                                                        LATENT_STEPS_PER_EPOCH, device, SEED)
+                                                        LATENT_STEPS_PER_EPOCH, device, SEED,
+                                                        mesh)
     randomize_zero_convs(cn)
     return {"cn": cn}, {"": state}, lambda b, i, g, **kw: step(state, b[0], b[1], g, **kw)
 
@@ -4019,6 +4051,441 @@ def compare_summary(res: dict) -> dict:
             "tf32_after": ev["tf32_after"], "phases_s": res["seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 38: data parallelism
+# ---------------------------------------------------------------------------
+#
+# NCCL refuses two ranks on one device ("Duplicate GPU detected"), so on a
+# one-card machine the data-parallel semantics are held with two ranks on
+# cuda:0 over gloo (which reduces CUDA tensors through the host), and the
+# NCCL path, the tools' default on the card, at world size 1.  Each rank is a
+# process of its own (``--parallel-rank``); the one-process references run in
+# this process.
+
+DP_WORLD = 2
+DP_STEPS = 3          # ControlNet train steps of check 2, per compute type
+DP_LDM_STEPS = 2      # LDM ControlNet steps of check 5 (global batch LDM_BATCH)
+DP_TOOL_IMAGES = 128  # the trainer tool's seeded set: 2 steps of 64 an epoch
+DP_SAMPLES = 5        # not divisible by 2: the sample tool's padding path
+DP_SAMPLE_STEPS = 10
+DP_SCALING_NOTE = ("two ranks time-sliced on one card, gloo through the host: not a "
+                   "scaling figure")
+
+
+def dp_work() -> str:
+    return os.path.join(REPO, "build", "smoke", "parallel")
+
+
+def dp_images(device) -> torch.Tensor:
+    """The seeded digit set of checks 2 and 4, NCHW in [-1, 1] on the card."""
+    from controlnet_tpu_torch.data.datasets import to_unit
+
+    return torch.from_numpy(to_unit(seeded_digits(2 * BATCH)))[:, None].to(device)
+
+
+def dp_cn_steps(config: dict, base: dict, images, device, dtype_name: str, mesh=None) -> dict:
+    """DP_STEPS ControlNet trainer steps on the global batches of
+    ``train_batches`` (this rank's rows of each under ``mesh``), one seeded
+    generator, cuDNN's deterministic algorithms: losses, the first step's
+    (averaged) gradients, the weights before and after, the noise-floor
+    mask, the launches of kernels a and b, and the wall ms of the steps after
+    the first."""
+    from controlnet_tpu_torch import cli
+
+    cn, state, step = train_setup(config, base, device, dtype_name, mesh)
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    g = torch.Generator(device=device).manual_seed(SEED)
+    losses, grads, noisy, times = [], None, {}, []
+    reset_launch_counts()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for batch, hints in train_batches(images, DP_STEPS):
+            batch, hints = cli.put_batch((batch, hints), mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(state, batch, hints, g))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            for k, p in state.params.items():
+                low = p.grad.abs() < NOISE_FLOOR
+                noisy[k] = low if k not in noisy else noisy[k] | low
+            if grads is None:
+                grads = {k: p.grad.detach().clone() for k, p in state.params.items()}
+    a, b, _ = launch_counts()
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}  # noqa: E731
+    return dict(losses=torch.stack(losses).float().cpu(), grads=cpu(grads), before=cpu(before),
+                after=cpu({k: p.detach() for k, p in state.params.items()}), noisy=cpu(noisy),
+                launches=(a, b), ms=1e3 * sum(times[1:]) / max(1, len(times) - 1),
+                allreduce_bytes=4 * (sum(p.numel() for p in state.params.values()) + 1))
+
+
+def dp_distill_steps(config: dict, teacher_sd: dict, images, device, mesh=None) -> dict:
+    """One ddpm_distillation and one DMD step (float32) on the first global
+    batch (this rank's rows under ``mesh``): the loss terms, the (averaged)
+    gradients, the weights before and after, and, for DMD, the feature
+    extractor's outputs on the global batch (gathered from the ranks: its
+    BatchNorm takes the global batch's statistics)."""
+    from controlnet_tpu_torch import cli
+    from controlnet_tpu_torch.parallel.mesh import gather_rows
+    from controlnet_tpu_torch.tools.train_ddpm_controlnet import device_hints
+
+    x0 = images[:BATCH]
+    x0_l, hint_l = cli.put_batch((x0, device_hints(x0)), mesh)
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for kind in ("ddpm_distillation", "dmd"):
+            model, state, step = distill_setup(config, teacher_sd, device, kind, "float32", mesh)
+            before = {k: p.detach().clone().cpu() for k, p in state.params.items()}
+            g = torch.Generator(device=device).manual_seed(SEED)
+            metrics = step(x0_l, hint_l, g)
+            res = dict(metrics={k: v.item() for k, v in metrics.items()}, before=before,
+                       grads={k: torch.zeros_like(p).cpu() if p.grad is None else p.grad.cpu()
+                              for k, p in state.params.items()},
+                       after={k: p.detach().cpu() for k, p in state.params.items()})
+            if kind == "dmd":
+                with torch.no_grad():
+                    feats = model.feature_extractor(x0_l.float(), mesh)
+                res["features"] = [gather_rows(f, mesh).cpu() for f in feats]
+            out[kind] = res
+            del model, state, step
+    return out
+
+
+def dp_ldm_steps(device, mesh=None) -> dict:
+    """DP_LDM_STEPS steps of the LDM ControlNet trainer at config/celebhq.yaml's
+    full width, float32, on LDM_BATCH-row global batches with 1024^2 hints
+    (this rank's rows under ``mesh``) and injected global draws: the losses,
+    the launches of kernels a, b and c, and the wall ms a step."""
+    from controlnet_tpu_torch import cli
+
+    _, _, run = latent_trainer("controlnet", "float32", device, mesh)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    losses, times = [], []
+    reset_launch_counts()
+    for i in range(DP_LDM_STEPS):
+        batch = latent_batch("controlnet", g, device)
+        draws = latent_draws("controlnet", batch, g, device)
+        batch = cli.put_batch(batch, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(run(batch, i, g, **draws).item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return dict(losses=losses, launches=launch_counts(),
+                ms=1e3 * sum(times[1:]) / max(1, len(times) - 1))
+
+
+def dp_tool_config(config: dict, task: str) -> str:
+    """The ControlNet trainer tool's config at full width: one epoch of
+    batch 64 under ``dp_work()/task``."""
+    import yaml
+
+    cfg = copy.deepcopy(config)
+    cfg["train_params"].update(task_name=os.path.join(dp_work(), task), controlnet_epochs=1,
+                               ckpt_save_every_epochs=1, batch_size=BATCH)
+    path = os.path.join(dp_work(), f"{task}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def dp_tools(ckpt: str, path: str, num_samples: int) -> dict:
+    """Through the tools' ``main`` on the config at ``path``:
+    train_ddpm_controlnet for one epoch on the seeded .npy set (hints from
+    the port's canny on the card), then sample_ddpm_controlnet (DDIM,
+    DP_SAMPLE_STEPS steps, ``num_samples`` samples from the seeded .pth
+    ``ckpt``).  Returns the sample tool's final samples and the trainer's
+    wall seconds."""
+    from controlnet_tpu_torch.tools import sample_ddpm_controlnet, train_ddpm_controlnet
+
+    start = time.perf_counter()
+    train_ddpm_controlnet.main(["--config", path, "--images",
+                                os.path.join(dp_work(), "images.npy"), "--hint_backend", "tpu"])
+    train_s = time.perf_counter() - start
+    traj = sample_ddpm_controlnet.main([
+        "--config", path, "--ckpt", ckpt, "--hints", os.path.join(dp_work(), "hints.npy"),
+        "--num_samples", str(num_samples), "--sampler", "ddim", "--sampler_steps",
+        str(DP_SAMPLE_STEPS), "--save_every", str(DP_SAMPLE_STEPS)])
+    return dict(samples=torch.from_numpy(traj[-1]), train_s=train_s)
+
+
+def dp_nccl_world1(config: dict, device) -> dict:
+    """Check 1, in a process of its own with torchrun's environment for one
+    rank: one ControlNet step with no mesh, then the same step through the
+    data-parallel path on an NCCL group of one (all-reduces, sliced draws),
+    under deterministic cuDNN."""
+    from controlnet_tpu_torch.parallel.mesh import make_mesh
+
+    images = dp_images(device)
+    base = seeded_unet_state_dict(config)
+    plain = dp_cn_steps(config, base, images, device, "float32")
+    mesh = make_mesh()  # the tools' default on a card: NCCL
+    if mesh.backend != "nccl" or mesh.world_size != 1:
+        raise SystemExit(f"expected an NCCL group of one, got {mesh}")
+    dp = dp_cn_steps(config, base, images, device, "float32", mesh)
+    loss_diff = (dp["losses"] - plain["losses"]).abs().max().item()
+    weight_diff = max((dp["after"][k] - plain["after"][k]).abs().max().item()
+                      for k in plain["after"])
+    return dict(backend=mesh.backend, loss_max_abs_diff=loss_diff,
+                weight_max_abs_diff=weight_diff, launches=dp["launches"], steps=DP_STEPS)
+
+
+def parallel_rank(spec: str) -> int:
+    """The child side of phase 38: ``spec`` names the check and, for the
+    two-rank run, the rank and the file rendezvous.  Writes its results with
+    ``torch.save`` to ``spec["out"]``."""
+    import torch.distributed as dist
+
+    args = json.loads(spec)
+    device = torch.device(DEVICE)  # every rank on the one card
+    config = mnist_config()
+    if args["check"] == "nccl":
+        torch.save(dp_nccl_world1(config, device), args["out"])
+        dist.destroy_process_group()
+        return 0
+    from controlnet_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{args['init']}", rank=args["rank"],
+                            world_size=DP_WORLD)
+    mesh = make_mesh(device=device)
+    images = dp_images(device)
+    base = seeded_unet_state_dict(config)
+    out = {"cn": {name: dp_cn_steps(config, base, images, device, name, mesh)
+                  for name in ("float32", "bfloat16")}}
+    out["distill"] = dp_distill_steps(config, seeded_teacher(args["ckpt"]), images, device, mesh)
+    out["ldm"] = dp_ldm_steps(device, mesh)
+    torch.cuda.empty_cache()
+    out["tools"] = dp_tools(args["ckpt"], args["config"], DP_SAMPLES)
+    torch.save(out, args["out"])
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(specs: list, env: dict) -> None:
+    """Start one process per spec (``--parallel-rank``) on the card, wait for
+    all, pass their log lines on; a failure fails the run."""
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               json.dumps(spec)], env={**os.environ, **env},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for spec in specs]
+    logs = []
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for i, text in enumerate(logs):
+        for line in text.splitlines()[-40:]:
+            log(f"  [rank {i}] {line}")
+    if any(p.returncode != 0 for p in procs):
+        raise SystemExit(f"phase 38 ranks failed (exit codes {[p.returncode for p in procs]})")
+
+
+def _rel_max(a: dict, b: dict) -> float:
+    """max |a - b| over max |b|, over every tensor of two dicts."""
+    scale = max(v.abs().max().item() for v in b.values())
+    return max((a[k] - b[k]).abs().max().item() for k in b) / max(scale, 1e-30)
+
+
+def phase_parallel(config: dict, ckpt: str, device) -> dict:
+    """Phase 38: data parallelism on the card, at config/mnist.yaml's full
+    width and global batch 64 (check 5 at config/celebhq.yaml's)."""
+    import numpy as np
+
+    from controlnet_tpu_torch.tools.train_ddpm_controlnet import device_hints
+    from controlnet_tpu_torch.train.state import TrainState
+
+    shutil.rmtree(dp_work(), ignore_errors=True)
+    os.makedirs(dp_work())
+    np.save(os.path.join(dp_work(), "images.npy"), seeded_digits(DP_TOOL_IMAGES))
+    np.save(os.path.join(dp_work(), "hints.npy"), seeded_hints(16, 28))
+    base = seeded_unet_state_dict(config)
+    paths = {}
+    for task in ("one", "two"):  # written here: the ranks only read them
+        os.makedirs(os.path.join(dp_work(), task))
+        torch.save(base, os.path.join(dp_work(), task, config["train_params"]["ddpm_ckpt_name"]))
+        paths[task] = dp_tool_config(config, task)
+    lr = config["train_params"]["controlnet_lr"]
+    start = time.perf_counter()
+
+    # 1: NCCL at world size 1
+    out1 = os.path.join(dp_work(), "nccl.pt")
+    run_ranks([{"check": "nccl", "out": out1}],
+              {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()), "RANK": "0",
+               "WORLD_SIZE": "1", "LOCAL_RANK": "0"})
+    nccl = torch.load(out1, weights_only=False)
+    ok1 = nccl["loss_max_abs_diff"] == 0.0 and nccl["weight_max_abs_diff"] == 0.0
+    log(f"parallel 1: NCCL group of one ({nccl['backend']}), {DP_STEPS} ControlNet steps through "
+        f"the data-parallel path against no mesh: losses max |diff| {nccl['loss_max_abs_diff']}, "
+        f"weights {nccl['weight_max_abs_diff']} (must be 0) -> {'ok' if ok1 else 'FAIL'}")
+    if not ok1:
+        raise SystemExit("the NCCL path at world size 1 is not the one-process step")
+
+    # the one-process references, then the two ranks over gloo on cuda:0
+    images = dp_images(device)
+    ref_cn = {name: dp_cn_steps(config, base, images, device, name)
+              for name in ("float32", "bfloat16")}
+    ref_distill = dp_distill_steps(config, seeded_teacher(ckpt), images, device)
+    ref_ldm = dp_ldm_steps(device)
+    noisy_tool: dict = {}
+    apply = TrainState.apply_gradients
+
+    def recording(self, *extra):  # the one-process tool run's noise-floor weights
+        for k, p in self.params.items():
+            low = (p.grad.abs() < NOISE_FLOOR).cpu()
+            noisy_tool[k] = low if k not in noisy_tool else noisy_tool[k] | low
+        return apply(self, *extra)
+
+    TrainState.apply_gradients = recording
+    try:
+        ref_tools = dp_tools(ckpt, paths["one"], DP_SAMPLES + 1)  # the padded count
+    finally:
+        TrainState.apply_gradients = apply
+    del images
+    torch.cuda.empty_cache()
+    init = os.path.join(dp_work(), "pg")
+    outs = [os.path.join(dp_work(), f"rank{r}.pt") for r in range(DP_WORLD)]
+    run_ranks([{"check": "gloo", "rank": r, "init": init, "out": outs[r], "ckpt": ckpt,
+                "config": paths["two"]} for r in range(DP_WORLD)], {"LOCAL_RANK": "0"})
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    res: dict = {"backend_two_ranks": "gloo", "world": DP_WORLD, "note": DP_SCALING_NOTE}
+    ok = True
+
+    # 2: three ControlNet steps, f32 and bf16
+    res["cn"] = {}
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        dp, ref = ranks[0]["cn"][name], ref_cn[name]
+        loss_err = ((dp["losses"] - ref["losses"]).abs().max()
+                    / ref["losses"].abs().max().clamp(min=1.0)).item()
+        grad_err = _rel_max(dp["grads"], ref["grads"])
+        noisy = {k: dp["noisy"][k] | ref["noisy"][k] for k in ref["noisy"]}
+        w = _weights_diff(dp["after"], ref["after"], ref["before"], noisy)
+        in_step = all(torch.equal(ranks[1]["cn"][name]["after"][k], v)
+                      for k, v in dp["after"].items())
+        launches = [r["cn"][name]["launches"] for r in ranks]
+        want = (26 * DP_STEPS, 18 * DP_STEPS)
+        good = (loss_err <= MODEL_TOL[dtype] and grad_err <= MODEL_TOL[dtype] and in_step
+                and all(tuple(x) == want for x in launches)
+                and (w["mean"] / lr < 0.15 and w["cos"] > 0.97 if dtype == torch.bfloat16
+                     else w["clean_max"] / lr < 1e-2))
+        ok = ok and good
+        res["cn"][name] = dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
+                               weights_clean_max_lr=w["clean_max"] / lr,
+                               weights_mean_lr=w["mean"] / lr, update_cos=w["cos"],
+                               clean_share=w["clean_share"], ranks_bit_equal=in_step,
+                               launches_per_rank=launches, ms_per_step_two_ranks=dp["ms"],
+                               ms_per_step_one_process=ref["ms"])
+        log(f"parallel 2: {DP_STEPS} ControlNet steps {name}, 2 ranks x {BATCH // DP_WORLD} rows "
+            f"(gloo, cuda:0) vs 1 process x {BATCH}: losses rel err {loss_err:.3g}, first-step "
+            f"grads rel err {grad_err:.3g} (tol {MODEL_TOL[dtype]:g}); weights max |diff| "
+            f"{w['clean_max'] / lr:.3g} lr over the {w['clean_share']:.3f} above the floor, mean "
+            f"{w['mean'] / lr:.3g} lr, cos {w['cos']:.6f}; ranks bit-equal {in_step}; launches "
+            f"a/b per rank {launches} (want {want}); {dp['ms']:.1f} vs {ref['ms']:.1f} ms/step "
+            f"({DP_SCALING_NOTE}) -> {'ok' if good else 'FAIL'}")
+    res["allreduce_bytes_per_step"] = ranks[0]["cn"]["float32"]["allreduce_bytes"]
+
+    # 3: the tools through their main
+    tp = config["train_params"]
+    name = tp["controlnet_ckpt_name"]
+    step_dirs = {t: sorted(os.listdir(os.path.join(dp_work(), t, name[:-4])))
+                 for t in ("one", "two")}
+    one = torch.load(os.path.join(dp_work(), "one", name), weights_only=True)
+    two = torch.load(os.path.join(dp_work(), "two", name), weights_only=True)
+    trainable = sorted(noisy_tool)
+    before = {k: v for k, v in seeded_controlnet_from_base(config, base).items()}
+    w = _weights_diff({k: two[k] for k in trainable}, {k: one[k] for k in trainable},
+                      {k: before[k] for k in trainable}, noisy_tool)
+    frozen_equal = all(torch.equal(one[k], two[k]) for k in one if k not in noisy_tool)
+    s2, s1 = ranks[0]["tools"]["samples"], ref_tools["samples"][:DP_SAMPLES]
+    sample_err = ((s2 - s1).abs().max() / s1.abs().max()).item()
+    good = (step_dirs == {"one": ["1.pt"], "two": ["1.pt"]} and frozen_equal
+            and w["clean_max"] / lr < 1e-2 and s2.shape == s1.shape
+            and sample_err <= MODEL_TOL[torch.float32])
+    ok = ok and good
+    res["tools"] = dict(checkpoints=step_dirs, weights_clean_max_lr=w["clean_max"] / lr,
+                        clean_share=w["clean_share"], frozen_bit_equal=frozen_equal,
+                        sample_rel_err=sample_err, samples=DP_SAMPLES,
+                        train_s_two_ranks=ranks[0]["tools"]["train_s"],
+                        train_s_one_process=ref_tools["train_s"])
+    log(f"parallel 3: train_ddpm_controlnet main, 1 epoch of {DP_TOOL_IMAGES} images, 2 ranks vs "
+        f"1 process: checkpoints {step_dirs}, .pth weights max |diff| {w['clean_max'] / lr:.3g} "
+        f"lr over the {w['clean_share']:.3f} above the floor, frozen bit-equal {frozen_equal}; "
+        f"sample_ddpm_controlnet main, DDIM {DP_SAMPLE_STEPS} steps, {DP_SAMPLES} samples "
+        f"(padded to {DP_SAMPLES + 1}) vs 1 process: rel err {sample_err:.3g} -> "
+        f"{'ok' if good else 'FAIL'}")
+
+    # 4: one consistency and one DMD step
+    res["distill"] = {}
+    for kind in ("ddpm_distillation", "dmd"):
+        dp, ref = ranks[0]["distill"][kind], ref_distill[kind]
+        loss_key = "total_loss"
+        loss_err = abs(dp["metrics"][loss_key] - ref["metrics"][loss_key]) / max(
+            abs(ref["metrics"][loss_key]), 1.0)
+        grad_err = _rel_max(dp["grads"], ref["grads"])
+        noisy = {k: (ref["grads"][k].abs() < NOISE_FLOOR) | (dp["grads"][k].abs() < NOISE_FLOOR)
+                 for k in ref["grads"]}
+        w = _weights_diff(dp["after"], ref["after"], ref["before"], noisy)
+        dlr = config["train_params"]["consistency_lr" if kind != "dmd"
+                                     else "distribution_matching_lr"]
+        entry = dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
+                     weights_clean_max_lr=w["clean_max"] / dlr)
+        good = (loss_err <= MODEL_TOL[torch.float32] and grad_err <= MODEL_TOL[torch.float32]
+                and w["clean_max"] / dlr < 1e-2)
+        if kind == "dmd":
+            feat_err = max(((a - b).abs().max() / b.abs().max()).item()
+                           for a, b in zip(dp["features"], ref["features"]))
+            entry["batchnorm_features_rel_err"] = feat_err
+            good = good and feat_err <= MODEL_TOL[torch.float32]
+        ok = ok and good
+        res["distill"][kind] = entry
+        log(f"parallel 4: one {kind} step, 2 ranks vs 1 process: loss rel err {loss_err:.3g}, "
+            f"grads rel err {grad_err:.3g}, weights max |diff| {w['clean_max'] / dlr:.3g} lr"
+            + (f", feature extractor (global-batch BatchNorm) rel err "
+               f"{entry['batchnorm_features_rel_err']:.3g}" if kind == "dmd" else "")
+            + f" -> {'ok' if good else 'FAIL'}")
+
+    # 5: the LDM ControlNet trainer at full width
+    dp, ref = ranks[0]["ldm"], ref_ldm
+    loss_err = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(dp["losses"], ref["losses"]))
+    launches = [tuple(r["ldm"]["launches"]) for r in ranks]
+    want = (22 * DP_LDM_STEPS, 14 * DP_LDM_STEPS, 7 * DP_LDM_STEPS)
+    good = loss_err <= MODEL_TOL[torch.float32] and all(x == want for x in launches)
+    ok = ok and good
+    res["ldm"] = dict(loss_rel_err=loss_err, launches_per_rank=launches,
+                      ms_per_step_two_ranks=dp["ms"], ms_per_step_one_process=ref["ms"])
+    log(f"parallel 5: {DP_LDM_STEPS} LDM ControlNet steps (celebhq width, 1024^2 hints), 2 ranks "
+        f"x {LDM_BATCH // DP_WORLD} rows vs 1 process x {LDM_BATCH}: losses {dp['losses']} vs "
+        f"{ref['losses']} (rel err {loss_err:.3g}); launches a/b/c per rank {launches} (want "
+        f"{want}); {dp['ms']:.1f} vs {ref['ms']:.1f} ms/step -> {'ok' if good else 'FAIL'}")
+    res["nccl_world1"] = nccl
+    res["seconds"] = round(time.perf_counter() - start, 1)
+    if not ok:
+        raise SystemExit("data parallelism disagrees with one process")
+    return res
+
+
+def seeded_controlnet_from_base(config: dict, base: dict) -> dict:
+    """The ControlNet trainer tool's starting weights (its ``make_trainer`` on
+    the CPU): the trunks from ``base``, the control branch from its seed."""
+    from controlnet_tpu_torch.tools import train_ddpm_controlnet as tool
+
+    cn, _, _ = tool.make_trainer(config, base, "cpu", seed=int(config["train_params"].get(
+        "seed", 0)))
+    return {k: v.detach().clone() for k, v in cn.state_dict().items()}
+
+
 # The kernel-timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32 and 33) and the
 # timed distillation, latent-training and conditional sampling main paths
 # (19, 25, 34).  Each runs in a
@@ -4066,28 +4533,49 @@ def timing_phase(spec: str) -> int:
     return 0
 
 
+# The groups of phases main() runs, in order; ``--phases`` selects some.
+PHASE_GROUPS = ("1-4", "5-9", "10-14", "15-16", "17-20", "21-26", "27-31", "32-35", "36-37",
+                "38")
+ALIASES = {"distill_only": "17-20", "latent_train_only": "21-26", "cifar_only": "27-31",
+           "cond_only": "32-35", "compare_only": "36-37"}
+
+
+def parse_phases(spec: str | None) -> set | None:
+    """``--phases``' phase numbers ("38", "1-5,38"), or None for every phase."""
+    if spec is None:
+        return None
+    picked = set()
+    for part in spec.split(","):
+        lo, _, hi = part.strip().partition("-")
+        picked.update(range(int(lo), int(hi or lo) + 1))
+    if not picked <= set(range(1, 40)):
+        raise SystemExit(f"--phases {spec!r}: phases are 1-39")
+    return picked
+
+
+def group_phases(group: str) -> set:
+    lo, _, hi = group.partition("-")
+    return set(range(int(lo), int(hi or lo) + 1))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--verbose-build", action="store_true",
                         help="print nvcc's register and shared-memory report")
-    parser.add_argument("--distill-only", action="store_true",
-                        help="build the kernels and run the distillation phases 17-20 alone "
-                             "(a quick check after a change to that path; no result line)")
-    parser.add_argument("--latent-train-only", action="store_true",
-                        help="build the kernels and run the latent-training phases 21-26 alone "
-                             "(a quick check after a change to that path; no result line)")
-    parser.add_argument("--cifar-only", action="store_true",
-                        help="build the kernels and run the CIFAR-10 phases 27-31 alone "
-                             "(a quick check after a change to that path; no result line)")
-    parser.add_argument("--cond-only", action="store_true",
-                        help="build the kernels and run the conditional-UNet phases 32-35 alone "
-                             "(a quick check after a change to that path; no result line)")
-    parser.add_argument("--compare-only", action="store_true",
-                        help="build the kernels and run the comparison / evaluation phases "
-                             "36-37 alone (a quick check after a change to those tools; no "
-                             "result line)")
+    parser.add_argument("--phases", default=None,
+                        help="run only these phases, e.g. 38 or 1-5,38 (each group of phases "
+                             "that holds one runs whole; 1, the card and the build, always "
+                             "runs); the final line is printed when they pass")
+    for flag, group in ALIASES.items():
+        parser.add_argument("--" + flag.replace("_", "-"), action="store_true",
+                            help=f"the same as --phases {group}")
     parser.add_argument("--timing-phase", help=argparse.SUPPRESS)  # set by in_fresh_process
+    parser.add_argument("--parallel-rank", help=argparse.SUPPRESS)  # set by run_ranks
     args = parser.parse_args()
+    picked = parse_phases(args.phases)
+    for flag, group in ALIASES.items():
+        if getattr(args, flag):
+            picked = (picked or set()) | group_phases(group)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4100,6 +4588,9 @@ def main() -> int:
     if args.timing_phase:
         _build.load()
         return timing_phase(args.timing_phase)
+    if args.parallel_rank:
+        _build.load()
+        return parallel_rank(args.parallel_rank)
     device = torch.device(DEVICE)
     smi = nvidia_smi_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4114,29 +4605,13 @@ def main() -> int:
     config = mnist_config()
     ckpt = os.path.join(REPO, "build", "smoke", f"mnist_controlnet_seed{SEED}.pth")
     write_seeded_checkpoint(config, ckpt)
-    if args.distill_only:
-        run_distill_phases(config, ckpt, device, None)
-        log(f"{smi}; distill-only run: phases 17-20 passed (a partial run: no result line)")
-        return 0
-    if args.latent_train_only:
-        log(json.dumps({"latent_train": latent_train_summary(run_latent_train_phases(device))}))
-        log(f"{smi}; latent-train-only run: phases 21-26 passed (a partial run: no result line)")
-        return 0
-    if args.cifar_only:
-        log(json.dumps({"cifar": cifar_summary(run_cifar_phases(device))}))
-        log(f"{smi}; cifar-only run: phases 27-31 passed (a partial run: no result line)")
-        return 0
-    if args.cond_only:
-        log(json.dumps({"cond": cond_summary(run_cond_phases(device))}))
-        log(f"{smi}; cond-only run: phases 32-35 passed (a partial run: no result line)")
-        return 0
-    if args.compare_only:
-        log(json.dumps({"compare": compare_summary(run_compare_phases(config, ckpt, device))}))
-        log(f"{smi}; compare-only run: phases 36-37 passed (a partial run: no result line)")
-        return 0
     from controlnet_tpu_torch.data.datasets import to_unit
     from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
 
+    def want(group: str) -> bool:
+        return picked is None or bool(picked & group_phases(group))
+
+    full = all(want(g) for g in PHASE_GROUPS)
     seconds: dict = {"build": time.perf_counter() - start}  # wall time by group of phases
     mark = time.perf_counter()
 
@@ -4146,45 +4621,78 @@ def main() -> int:
         seconds[group] = round(now - mark, 1)
         mark = now
 
-    cn, _ = tool.load_model(config, ckpt)
-    shapes = phase_forward(cn, device)
-    fused_launches = phase_mnist_fused_forward(cn, device)
-    del cn
-    kern = in_fresh_process("phase_kernels", shapes)
-    main_path = phase_main_path(config, ckpt, device)
-    done("1-4")
+    if want("1-4"):
+        cn, _ = tool.load_model(config, ckpt)
+        shapes = phase_forward(cn, device)
+        fused_launches = phase_mnist_fused_forward(cn, device)
+        del cn
+        kern = in_fresh_process("phase_kernels", shapes)
+        main_path = phase_main_path(config, ckpt, device)
+        done("1-4")
 
-    base = seeded_unet_state_dict(config)
-    images = torch.from_numpy(to_unit(seeded_digits(8 * BATCH)))[:, None].to(device)
-    bwd_shapes = phase_train_shapes(config, base, images, device)
-    kern_bwd = in_fresh_process("phase_kernels_bwd", bwd_shapes)
-    for dtype in (torch.float32, torch.bfloat16):
-        phase_train_parity(config, base, images, device, dtype)
-    train = phase_train_main_path(config, base, images, device)
-    phase_tools(config, device)
-    del images
-    torch.cuda.empty_cache()
-    done("5-9")
-    ldm = phase_ldm(device)
-    done("10-14")
-    proj16 = in_fresh_process("phase_proj_kernels", MNIST_PROJ_SHAPES, SERVE_BATCH,
-                              what="MNIST forward")
-    proj64 = in_fresh_process("phase_proj_kernels", MNIST_PROJ_SHAPES, BATCH,
-                              what="MNIST forward")
-    served = phase_serve(config, ckpt, device)
-    done("15-16")
+    if want("5-9"):
+        base = seeded_unet_state_dict(config)
+        images = torch.from_numpy(to_unit(seeded_digits(8 * BATCH)))[:, None].to(device)
+        bwd_shapes = phase_train_shapes(config, base, images, device)
+        kern_bwd = in_fresh_process("phase_kernels_bwd", bwd_shapes)
+        for dtype in (torch.float32, torch.bfloat16):
+            phase_train_parity(config, base, images, device, dtype)
+        train = phase_train_main_path(config, base, images, device)
+        phase_tools(config, device)
+        del images
+        torch.cuda.empty_cache()
+        done("5-9")
+    if want("10-14"):
+        ldm = phase_ldm(device)
+        done("10-14")
+    served = None
+    if want("15-16"):
+        proj16 = in_fresh_process("phase_proj_kernels", MNIST_PROJ_SHAPES, SERVE_BATCH,
+                                  what="MNIST forward")
+        proj64 = in_fresh_process("phase_proj_kernels", MNIST_PROJ_SHAPES, BATCH,
+                                  what="MNIST forward")
+        served = phase_serve(config, ckpt, device)
+        done("15-16")
 
-    students, parity, distill_main, distill_tools, served_students = run_distill_phases(
-        config, ckpt, device, served["steps4"]["latency_ms"])
-    done("17-20")
-    latent = run_latent_train_phases(device)
-    done("21-26")
-    cifar = run_cifar_phases(device)
-    done("27-31")
-    cond = run_cond_phases(device)
-    done("32-35")
-    compared = run_compare_phases(config, ckpt, device)
-    done("36-37")
+    if want("17-20"):
+        students, parity, distill_main, distill_tools, served_students = run_distill_phases(
+            config, ckpt, device, None if served is None else served["steps4"]["latency_ms"])
+        done("17-20")
+    if want("21-26"):
+        latent = run_latent_train_phases(device)
+        done("21-26")
+    if want("27-31"):
+        cifar = run_cifar_phases(device)
+        done("27-31")
+    if want("32-35"):
+        cond = run_cond_phases(device)
+        done("32-35")
+    if want("36-37"):
+        compared = run_compare_phases(config, ckpt, device)
+        done("36-37")
+    if want("38"):
+        parallel = phase_parallel(config, ckpt, device)
+        done("38")
+
+    if not full:  # a selection: the summaries of what ran, then the final line
+        if want("17-20"):
+            log(json.dumps({"distill": {"parity": parity, "sample": distill_tools}},
+                           default=str))
+        for group, key, summary in (("21-26", "latent_train", lambda: latent_train_summary(latent)),
+                                    ("27-31", "cifar", lambda: cifar_summary(cifar)),
+                                    ("32-35", "cond", lambda: cond_summary(cond)),
+                                    ("36-37", "compare", lambda: compare_summary(compared)),
+                                    ("38", "parallel", lambda: parallel)):
+            if want(group):
+                log(json.dumps({key: summary()}))
+        log(f"wall seconds by group of phases: {seconds}")
+        log(f"{smi}; phases {args.phases or ''} {sorted(a for a in ALIASES if getattr(args, a))} "
+            f"passed (a partial run: no kernels line)")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return 0
 
     def kernel_entry(name, source, replaces, tots, launches, bf16_launches, per):
         f32, bf16 = tots[torch.float32], tots[torch.bfloat16]
@@ -4344,6 +4852,7 @@ def main() -> int:
     fwd_entry["compare_launches"] = {k: r["launches"]
                                      for k, r in compared["compare"]["runs"].items()}
     log(json.dumps({"compare": compare_summary(compared)}))
+    log(json.dumps({"parallel": parallel}))
     log(f"device_time_ms: {PROFILER_WINDOWS['windows']} profiler windows for "
         f"{PROFILER_WINDOWS['measurements']} measurements (2 each when no window lost records), "
         f"{PROFILER_WINDOWS['foreign']} device records left out as launched outside a window")

@@ -73,6 +73,106 @@ def add_hint_backend_arg(parser) -> None:
                              "port's canny on the card")
 
 
+def mesh_or_none(device=None):
+    """The data-parallel mesh (``parallel.mesh.make_mesh`` on ``device``)
+    under ``torchrun`` with ``WORLD_SIZE`` above 1, or when a process group is
+    already up; else None (one process, no collective)."""
+    from controlnet_tpu_torch.device import in_group
+
+    if not in_group():
+        return None
+    from controlnet_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(device=device)
+
+
+_put_batch_warned: set = set()
+
+
+def _warn_once(key: str, msg: str) -> None:
+    if key not in _put_batch_warned:
+        _put_batch_warned.add(key)
+        print(f"controlnet_tpu_torch: {msg}")
+
+
+def put_batch(batch, mesh):
+    """This rank's rows of a global batch (a tensor, an array or a tree of
+    them, batch-leading).  A batch not divisible by the world size is trimmed
+    to the largest divisible size, with a one-time warning; a batch smaller
+    than the world size raises, as the JAX tool's multi-process branch does:
+    every rank is a process of its own, and a replicated fallback would give
+    each rank different data.  No mesh: the batch as it is."""
+    if mesh is None:
+        return batch
+    from controlnet_tpu_torch.parallel.mesh import shard_host_local_batch
+    from controlnet_tpu_torch.sample.common import tree_map
+
+    n = mesh.world_size
+    leaves = []
+    tree_map(leaves.append, batch)
+    b = leaves[0].shape[0] if leaves else 0
+    if b % n:
+        keep = (b // n) * n
+        if keep == 0:
+            raise ValueError(
+                f"batch of {b} is smaller than the world size ({n}); pad the batch or "
+                f"run fewer ranks: a replicated fallback is not safe across {n} processes")
+        _warn_once(f"trim:{b}", f"trimming batch {b} -> {keep} for {n}-way data-parallel "
+                   f"divisibility; warning shown once")
+        batch = tree_map(lambda x: x[:keep], batch)
+    return shard_host_local_batch(batch, mesh)
+
+
+def batch_rows(mesh):
+    """``ImageSource.batches``' ``rows`` for this rank: ``put_batch``'s rows
+    of each global batch's indices (None without a mesh)."""
+    return None if mesh is None else (lambda idx: put_batch(idx, mesh))
+
+
+def say(mesh, msg: str) -> None:
+    """Print on rank 0 only (every line once per run)."""
+    from controlnet_tpu_torch.parallel.mesh import is_writer
+
+    if is_writer(mesh):
+        print(msg, flush=True)
+
+
+def write_once(mesh, fn, *args, **kwargs) -> None:
+    """Call the writer ``fn`` on rank 0 only, then hold every rank at a
+    barrier, so no rank reads the file before it is whole."""
+    from controlnet_tpu_torch.parallel.mesh import barrier, is_writer
+
+    if is_writer(mesh):
+        fn(*args, **kwargs)
+    barrier(mesh)
+
+
+def sampler_mesh(num_samples: int, device=None):
+    """(mesh, padded count) for data-parallel sampling (the samplers'
+    ``mesh=``): the count is padded up to divisibility by the world size
+    (sampling costs per sample, so padding beats trimming) and callers slice
+    the output back to ``num_samples``.  One process: (None, num_samples)."""
+    mesh = mesh_or_none(device)
+    if mesh is None:
+        return None, num_samples
+    n = mesh.world_size
+    padded = ((num_samples + n - 1) // n) * n
+    if padded != num_samples:
+        _warn_once(f"pad:{num_samples}", f"padding sample batch {num_samples} -> {padded} "
+                   f"for {n}-way data-parallel sampling")
+    return mesh, padded
+
+
+def put_replicated(obj, mesh):
+    """``obj`` (a module, an optimizer, a tuple of them) with rank 0's
+    tensors on every rank."""
+    if mesh is None:
+        return obj
+    from controlnet_tpu_torch.parallel.mesh import replicate
+
+    return replicate(obj, mesh)
+
+
 def compute_dtype_from(train_config: dict) -> torch.dtype | None:
     """``train_params.compute_dtype`` ("bfloat16" | "float32"): the network's
     forward/backward type.  None (absent or "float32") is full float32."""
@@ -155,19 +255,23 @@ def apply_cfg(cfg_scale: float | None, eps_fn, hint_arg, null_hint_fn):
 
 
 def select_sampler(sampler: str, sampler_steps: int, eta: float, eps_fn, sched, shape,
-                   record_every: int, compute_dtype: torch.dtype | None = None, device=None):
+                   record_every: int, compute_dtype: torch.dtype | None = None, device=None,
+                   mesh=None):
     """Honor the ``add_sampler_args`` flags: returns ``(sampler, step_ts)``
     where ``step_ts`` is the few-step loop's visited timesteps (None for the
-    ancestral loop)."""
+    ancestral loop); ``mesh`` (``sampler_mesh``'s) samples the global batch
+    ``shape`` data-parallel."""
     if sampler != "ancestral":
         from controlnet_tpu_torch.sample import make_few_step_sampler
 
         loop = make_few_step_sampler(sampler, eps_fn, sched, shape, num_steps=sampler_steps,
-                                     eta=eta, compute_dtype=compute_dtype, device=device)
+                                     eta=eta, compute_dtype=compute_dtype, device=device,
+                                     mesh=mesh)
         return loop, loop.timesteps
     from controlnet_tpu_torch.sample.ddpm import make_ddpm_sampler
 
-    return make_ddpm_sampler(eps_fn, sched, shape, record_every, compute_dtype, device), None
+    return make_ddpm_sampler(eps_fn, sched, shape, record_every, compute_dtype, device,
+                             mesh), None
 
 
 def snapshot_timestep(k: int, step_ts, num_timesteps: int, record_every: int) -> int:

@@ -87,13 +87,17 @@ def _collate(items: list):
 
 
 def iterate_batches(data, batch_size: int, shuffle: bool = False, seed: int = 0,
-                    prefetch: int = 2):
+                    prefetch: int = 2, rows=None):
     """Batches of ``data`` in the order of ``batch_indices``.  ``data`` is a
     numpy array, a tensor (indexed on its own device), or a reader (items
     collated into numpy batches; a tuple item into a tuple of batches).  Over
     a reader, ``prefetch > 0`` decodes up to that many batches ahead on a
-    daemon thread, which stops when the generator is closed or dropped."""
+    daemon thread, which stops when the generator is closed or dropped.
+    ``rows`` maps each batch's index array to the indices to take (a
+    data-parallel rank's rows, ``cli.put_batch``), before anything is read."""
     chunks = batch_indices(len(data), batch_size, shuffle, seed)
+    if rows is not None:
+        chunks = (rows(idx) for idx in chunks)
     if isinstance(data, (np.ndarray, torch.Tensor)):
         for idx in chunks:
             if isinstance(data, torch.Tensor):
@@ -221,14 +225,19 @@ def moments_nchw(moments: np.ndarray, z_channels: int) -> np.ndarray:
 
 
 def latents_from_batch(moments: torch.Tensor, generator: torch.Generator | None = None,
-                       noise: torch.Tensor | None = None) -> torch.Tensor:
+                       noise: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
     """Latents drawn from (B, 2z, h, w) moments mean || logvar: mean +
     exp(logvar / 2) * noise, with standard-normal ``noise`` (the mean's
-    shape) from ``generator`` unless injected."""
+    shape) from ``generator`` unless injected.  Under a data-parallel
+    ``mesh`` the moments are this rank's rows and the noise is drawn at the
+    global batch's shape and sliced."""
     mean, logvar = torch.chunk(moments, 2, dim=1)
     if noise is None:
-        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                            dtype=mean.dtype)
+        from controlnet_tpu_torch.sample.common import global_batch, rank_rows
+
+        b = global_batch(mean.shape[0], mesh)
+        noise = rank_rows(torch.randn((b, *mean.shape[1:]), generator=generator,
+                                      device=mean.device, dtype=mean.dtype), mesh)
     return mean + torch.exp(0.5 * logvar) * noise.to(device=mean.device, dtype=mean.dtype)
 
 
@@ -440,15 +449,16 @@ class ImageSource:
     def __len__(self) -> int:
         return len(self.dataset) if self.dataset is not None else len(self.images)
 
-    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0):
-        """(images, hints or None) NCHW float32 on the device, one epoch."""
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0, rows=None):
+        """(images, hints or None) NCHW float32 on the device, one epoch;
+        ``rows`` as in ``iterate_batches`` (only those items are read)."""
         if self.dataset is None:
             # the batches of the items' indices, to take images and hints alike
             order = torch.arange(len(self.images), device=self.images.device)
-            for idx in iterate_batches(order, batch_size, shuffle, seed):
+            for idx in iterate_batches(order, batch_size, shuffle, seed, rows=rows):
                 yield self.images[idx], None if self.hints is None else self.hints[idx]
             return
-        for batch in iterate_batches(self.dataset, batch_size, shuffle, seed):
+        for batch in iterate_batches(self.dataset, batch_size, shuffle, seed, rows=rows):
             if isinstance(batch, tuple):
                 yield _nchw(batch[0], self.device), _nchw(batch[1], self.device)
             else:

@@ -9,6 +9,8 @@ device, and no flag turns them back on.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -21,8 +23,18 @@ def pin_float32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def in_group() -> bool:
+    """True under a data-parallel launch: torchrun's ``WORLD_SIZE`` above 1,
+    or a process group already initialised."""
+    import torch.distributed as dist
+
+    return int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
+        dist.is_available() and dist.is_initialized())
+
+
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` means the card; with no card that raises rather than quietly
+    """``None`` means the card (the rank's ``cuda:{LOCAL_RANK}`` under a
+    data-parallel group); with no card that raises rather than quietly
     running on the CPU.  Pass ``device="cpu"`` to run on the CPU.  Pins
     float32 to no TF32 (``pin_float32``) first."""
     pin_float32()
@@ -30,5 +42,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run on the CPU")
+        if in_group():
+            return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         return torch.device("cuda")
     return torch.device(device)

@@ -43,13 +43,15 @@ class _FeatureStage(nn.Module):
         self.conv2 = Conv2d(cout, cout, 3)
         self.bn2 = BatchNorm(cout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
-        return F.relu(self.bn2(self.conv2(x)))
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x), mesh))
+        return F.relu(self.bn2(self.conv2(x), mesh))
 
 
 class FeatureExtractor(nn.Module):
-    """Frozen multi-scale conv features; returns the 4 stages' outputs."""
+    """Frozen multi-scale conv features; returns the 4 stages' outputs.  Its
+    BatchNorm statistics are the global batch's under a data-parallel
+    ``mesh``."""
 
     def __init__(self, in_channels: int = 1, seed: int = 0):
         super().__init__()
@@ -66,10 +68,10 @@ class FeatureExtractor(nn.Module):
                     m.bias.zero_()
         self.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, mesh=None) -> list[torch.Tensor]:
         feats = []
         for stage in self.stages:
-            x = stage(x)
+            x = stage(x, mesh)
             feats.append(x)
         return feats
 
@@ -114,18 +116,35 @@ class DistributionMatchingDistilled(nn.Module):
         return eps_to_x0(self.teacher_schedule, x_t, noise_pred, t)
 
     @staticmethod
-    def feature_distribution_matching_loss(pred_features, target_features) -> torch.Tensor:
+    def _batch_moments(flat: torch.Tensor, mesh=None):
+        """Mean, biased variance and third central moment over the batch
+        axis of (B, N) ``flat``: over the global batch under a ``mesh``, each
+        rank holding its rows (two passes, the sums reduced over the group)."""
+        if mesh is None:
+            mean = flat.mean(dim=0)
+            return mean, flat.var(dim=0, correction=0), ((flat - mean) ** 3).mean(dim=0)
+        from controlnet_tpu_torch.parallel.mesh import all_reduce_sum
+
+        n = flat.shape[0] * mesh.world_size
+        mean = all_reduce_sum(flat.sum(dim=0), mesh) / n
+        d = flat - mean
+        var, skew = all_reduce_sum(torch.stack([(d * d).sum(dim=0), (d ** 3).sum(dim=0)]),
+                                   mesh) / n
+        return mean, var, skew
+
+    @staticmethod
+    def feature_distribution_matching_loss(pred_features, target_features,
+                                           mesh=None) -> torch.Tensor:
         """Batch moments per feature position: mean + var + 0.1 * skew, the
-        variance biased (``jnp.var``), averaged over the levels."""
+        variance biased (``jnp.var``), averaged over the levels; the moments
+        of the global batch under a ``mesh``."""
+        moments = DistributionMatchingDistilled._batch_moments
         total = 0.0
         for pf, tf in zip(pred_features, target_features):
-            pflat, tflat = pf.reshape(pf.shape[0], -1), tf.reshape(tf.shape[0], -1)
-            p_mean, t_mean = pflat.mean(dim=0), tflat.mean(dim=0)
+            p_mean, p_var, p_skew = moments(pf.reshape(pf.shape[0], -1), mesh)
+            t_mean, t_var, t_skew = moments(tf.reshape(tf.shape[0], -1), mesh)
             mean_loss = torch.mean((p_mean - t_mean) ** 2)
-            var_loss = torch.mean((pflat.var(dim=0, correction=0)
-                                   - tflat.var(dim=0, correction=0)) ** 2)
-            p_skew = ((pflat - p_mean) ** 3).mean(dim=0)
-            t_skew = ((tflat - t_mean) ** 3).mean(dim=0)
+            var_loss = torch.mean((p_var - t_var) ** 2)
             skew_loss = torch.mean((p_skew - t_skew) ** 2)
             total = total + mean_loss + var_loss + 0.1 * skew_loss
         return total / len(pred_features)
@@ -149,14 +168,19 @@ class DistributionMatchingDistilled(nn.Module):
             total = total + torch.mean((p_gram - t_gram) ** 2)
         return total / len(pred_features)
 
-    def true_distribution_matching_loss(self, x0_pred: torch.Tensor, x0_target: torch.Tensor):
+    def true_distribution_matching_loss(self, x0_pred: torch.Tensor, x0_target: torch.Tensor,
+                                        mesh=None):
         """1.0 feature moments + 0.5 Wasserstein + 0.3 Gram + 0.1 pixel MSE
-        on both x0 clipped to [-1, 1].  Returns (total, components)."""
+        on both x0 clipped to [-1, 1].  Returns (total, components).  Under a
+        data-parallel ``mesh`` the batch statistics (the extractor's
+        BatchNorm, the feature moments) are the global batch's; the other
+        terms are means over this rank's rows, which the averaged gradient
+        makes global."""
         x0_pred = torch.clamp(x0_pred, -1.0, 1.0)
         x0_target = torch.clamp(x0_target, -1.0, 1.0)
-        pred_feats = self.feature_extractor(x0_pred)
-        target_feats = self.feature_extractor(x0_target)
-        feature_dist = self.feature_distribution_matching_loss(pred_feats, target_feats)
+        pred_feats = self.feature_extractor(x0_pred, mesh)
+        target_feats = self.feature_extractor(x0_target, mesh)
+        feature_dist = self.feature_distribution_matching_loss(pred_feats, target_feats, mesh)
         wasserstein = self.wasserstein_distance_loss(x0_pred, x0_target)
         gram = self.gram_matrix_loss(pred_feats, target_feats)
         pixel = torch.mean((x0_pred - x0_target) ** 2)
@@ -166,15 +190,17 @@ class DistributionMatchingDistilled(nn.Module):
 
     def distillation_loss(self, x_t: torch.Tensor, t: torch.Tensor, hint: torch.Tensor,
                           x0_target: torch.Tensor, alpha: float = 0.3,
-                          compute_dtype: torch.dtype | None = None):
+                          compute_dtype: torch.dtype | None = None, mesh=None):
         """total = alpha * teacher MSE + (1 - alpha) * dmd; the networks run in
-        ``compute_dtype``, every loss in float32.  Returns (total, dmd,
-        teacher, components)."""
+        ``compute_dtype``, every loss in float32 (batch statistics over the
+        global batch under ``mesh``).  Returns (total, dmd, teacher,
+        components)."""
         cd = compute_dtype or x_t.dtype
         x_tc, hint_c = x_t.to(cd), hint.to(cd)
         x0_student = self.student(x_tc, t, hint_c).float()
         x0_teacher = self.teacher_prediction(x_tc, t, hint_c).float()
-        dmd_loss, components = self.true_distribution_matching_loss(x0_student, x0_target)
+        dmd_loss, components = self.true_distribution_matching_loss(x0_student, x0_target,
+                                                                    mesh)
         teacher_loss = torch.mean((x0_student - x0_teacher) ** 2)
         total = alpha * teacher_loss + (1.0 - alpha) * dmd_loss
         return total, dmd_loss, teacher_loss, components

@@ -151,7 +151,14 @@ class BatchNorm(nn.Module):
     channel axis (dim 1): biased variance, eps 1e-5, computed in float32 and
     cast back to the input type.  No running statistics are kept: the JAX
     package's users (the DMD feature extractor, the PatchGAN discriminator)
-    never run in eval mode.  Parameters are ``weight``/``bias``."""
+    never run in eval mode.  Parameters are ``weight``/``bias``.
+
+    Under a data-parallel ``mesh`` each rank holds its rows of the global
+    batch and the statistics are the global batch's, as under the JAX mesh:
+    two passes, as ``xf.mean`` / ``xf.var`` take them (the per-channel sum
+    and count summed over the group, then the summed squared deviations from
+    that mean), through ``parallel.mesh.all_reduce_sum``, which gradients
+    flow through."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -160,9 +167,22 @@ class BatchNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.batch_norm(x.float(), None, None, self.weight, self.bias, training=True,
-                           eps=self.eps)
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        if mesh is None:
+            out = F.batch_norm(x.float(), None, None, self.weight, self.bias, training=True,
+                               eps=self.eps)
+            return out.to(x.dtype)
+        from controlnet_tpu_torch.parallel.mesh import all_reduce_sum
+
+        xf = x.float()
+        red = [0, *range(2, x.dim())]
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        count = xf.new_tensor([xf.numel() // xf.shape[1]])
+        sums = all_reduce_sum(torch.cat([xf.sum(red), count]), mesh)
+        mean = (sums[:-1] / sums[-1]).reshape(shape)
+        d = xf - mean
+        var = (all_reduce_sum((d * d).sum(red), mesh) / sums[-1]).reshape(shape)
+        out = d * torch.rsqrt(var + self.eps) * self.weight.reshape(shape) + self.bias.reshape(shape)
         return out.to(x.dtype)
 
 

@@ -7,13 +7,22 @@ at the repository root.  The sources (and the ``*.cuh`` headers they share)
 have a plain C interface and include no PyTorch headers.  The library is
 rebuilt when any source or header is newer than it.
 
+Ranks of a data-parallel run share ``build/kernels/``: the staleness check,
+the build and the load run under an inter-process lock
+(``build/kernels/.lock``, ``fcntl.flock``), so the first rank builds and the
+others, which check again once they hold the lock, load what it built.  Each
+object file and the library are written under a per-process name and moved
+into place with ``os.replace``.
+
 Nothing here runs at import time: this module is imported on hosts with no
 ``nvcc`` (the CPU tests), where only the kernels' plain versions run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -73,31 +82,57 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
     return outputs
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile and link the kernels into ``LIB_PATH`` (always rebuilds).
-    ``verbose`` prints ptxas's register / shared-memory / spill report."""
-    nvcc = _nvcc()
+@contextlib.contextmanager
+def _build_lock():
+    """Hold ``build/kernels/.lock`` against every other process."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+def _compile_and_link(verbose: bool = False) -> Path:
+    """Compile every source and link ``LIB_PATH`` (the caller holds the
+    lock).  ``verbose`` prints ptxas's register / shared-memory / spill
+    report."""
+    nvcc = _nvcc()
     extra = ["-Xptxas", "-v"] if verbose else []
+    tag = f".{os.getpid()}.tmp"
     objs = [BUILD_DIR / f"{src.stem}.o" for src in sources()]
+    tmp_objs = [obj.with_suffix(tag) for obj in objs]
     outputs = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
-                        for src, obj in zip(sources(), objs)])
+                        for src, obj in zip(sources(), tmp_objs)])
     if verbose:
         print("\n".join(outputs), flush=True)
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
+    for tmp, obj in zip(tmp_objs, objs):
+        os.replace(tmp, obj)
+    tmp = LIB_PATH.with_suffix(tag)
     _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]])
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
 
 
+def build(verbose: bool = False) -> Path:
+    """Compile and link the kernels into ``LIB_PATH`` (always rebuilds),
+    under the build lock."""
+    with _build_lock():
+        return _compile_and_link(verbose)
+
+
 def load() -> ctypes.CDLL:
-    """The kernel library, built first if it is missing or stale."""
+    """The kernel library, built first if it is missing or stale.  The
+    staleness check, the build and the load hold the build lock; a process
+    that waited on another's build checks again and finds it done."""
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
-                build()
-            lib = ctypes.CDLL(str(LIB_PATH))
+            with _build_lock():
+                if _stale():
+                    _compile_and_link()
+                lib = ctypes.CDLL(str(LIB_PATH))
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             # (q, k, v, o, lse), (batch, heads, dh, lq, lk), batch strides,
             # (dtype, kv_tile, threads), stream

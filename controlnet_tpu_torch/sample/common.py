@@ -1,15 +1,63 @@
-"""Shared plumbing for the sampling loops: the x_T draw and the hint cast."""
+"""Shared plumbing for the sampling loops: the batch split over a
+data-parallel mesh, the x_T draw, the injected noise and the hint cast.
+
+Under a ``mesh`` (``parallel.mesh.Mesh``; the counterpart of the JAX
+samplers' ``batch_sharding``) a sampler's ``shape`` is the global batch,
+which must divide by the world size (``cli.sampler_mesh`` pads it), and each
+rank runs its rows: x_T and every step's noise are drawn at the global shape
+from the same seeded generator and sliced (injected ones are global too),
+the hint features are the rank's rows, and the result is joined on every
+rank by ``gather_rows``.  The samples equal one process's on the global
+batch.
+"""
 
 from __future__ import annotations
 
 import torch
 
 
-def draw_x_start(generator: torch.Generator, shape: tuple[int, ...],
-                 device: torch.device) -> torch.Tensor:
-    """x_T ~ N(0, 1) in float32, drawn from ``generator`` (which must live
-    on ``device``)."""
-    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+def local_batch(shape: tuple[int, ...], mesh) -> int:
+    """The rows of the global ``shape`` that this rank samples; raises when
+    the batch does not divide by the world size."""
+    if mesh is None:
+        return shape[0]
+    rows = mesh.rows(shape[0])
+    return rows.stop - rows.start
+
+
+def global_batch(rows: int, mesh) -> int:
+    """The global batch of which this rank holds ``rows`` rows."""
+    return rows if mesh is None else rows * mesh.world_size
+
+
+def rank_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a global draw (all of it without a mesh)."""
+    return x if mesh is None else x[mesh.rows(x.shape[0])]
+
+
+def draw_normal(generator: torch.Generator, shape: tuple[int, ...], device: torch.device,
+                mesh=None) -> torch.Tensor:
+    """N(0, 1) float32 (x_T, a step's noise) of the global ``shape`` from
+    ``generator`` (which must live on ``device``), this rank's rows of it."""
+    return rank_rows(torch.randn(shape, generator=generator, device=device,
+                                 dtype=torch.float32), mesh)
+
+
+def injected(x: torch.Tensor, device: torch.device, mesh=None) -> torch.Tensor:
+    """An injected global draw (x_T, a step's noise) as float32 on
+    ``device``, this rank's rows of it."""
+    return rank_rows(x, mesh).to(device=device, dtype=torch.float32)
+
+
+def gather_result(xt: torch.Tensor, traj: list, mesh):
+    """(x0, stacked trajectory) of the global batch on every rank."""
+    traj = torch.stack(traj)
+    if mesh is None:
+        return xt, traj
+    from controlnet_tpu_torch.parallel.mesh import gather_rows
+
+    return (gather_rows(xt, mesh),
+            gather_rows(traj.transpose(0, 1).contiguous(), mesh).transpose(0, 1))
 
 
 def tree_map(fn, tree, *rest):

@@ -13,7 +13,9 @@ import numpy as np
 import torch
 
 from controlnet_tpu_torch.device import resolve_device
-from controlnet_tpu_torch.sample.common import cast_hint, draw_x_start, predict_eps
+from controlnet_tpu_torch.sample.common import (cast_hint, draw_normal,
+                                                gather_result, injected, local_batch,
+                                                predict_eps)
 from controlnet_tpu_torch.schedules.linear import LinearSchedule, ddim_step
 
 
@@ -29,7 +31,7 @@ def ddim_timesteps(num_timesteps: int, num_steps: int) -> np.ndarray:
 
 def make_ddim_sampler(eps_fn: Callable, sched: LinearSchedule, shape: tuple[int, ...],
                       num_steps: int, eta: float = 0.0, clip_x0: bool = False,
-                      compute_dtype: torch.dtype | None = None, device=None):
+                      compute_dtype: torch.dtype | None = None, device=None, mesh=None):
     """Build a DDIM sampler over a ``num_steps`` timestep subsequence.
 
     Same contract as ``make_ddpm_sampler``: ``eps_fn(model, x_t, t_batch[,
@@ -39,19 +41,20 @@ def make_ddim_sampler(eps_fn: Callable, sched: LinearSchedule, shape: tuple[int,
     visited timesteps as ``sampler.timesteps`` (descending).  ``eta = 0`` is
     deterministic and draws nothing after x_T; with ``eta != 0`` the noise of
     step i is ``step_noise[i]`` ((steps, *shape)) or drawn from ``generator``.
+    ``mesh``: data-parallel sampling as in ``make_ddpm_sampler``.
     """
     device = resolve_device(device)
     ts = ddim_timesteps(sched.num_timesteps, num_steps).tolist()
     ts_prev = ts[1:] + [-1]
-    b = shape[0]
+    b = local_batch(shape, mesh)
 
     @torch.inference_mode()
     def sampler(model, generator: torch.Generator | None, hint_features=None, *,
                 x_start: torch.Tensor | None = None, step_noise: torch.Tensor | None = None):
         if x_start is None:
-            xt = draw_x_start(generator, shape, device)
+            xt = draw_normal(generator, shape, device, mesh)
         else:
-            xt = x_start.to(device=device, dtype=torch.float32)
+            xt = injected(x_start, device, mesh)
         hint_c = cast_hint(hint_features, compute_dtype)
         t_all = torch.tensor(ts, dtype=torch.int32, device=device)
         traj = []
@@ -60,12 +63,12 @@ def make_ddim_sampler(eps_fn: Callable, sched: LinearSchedule, shape: tuple[int,
             if eta == 0.0:
                 z = None
             elif step_noise is not None:
-                z = step_noise[i].to(device=device, dtype=torch.float32)
+                z = injected(step_noise[i], device, mesh)
             else:
-                z = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+                z = draw_normal(generator, shape, device, mesh)
             xt, _ = ddim_step(sched, xt, noise_pred, t, t_prev, z, eta=eta, clip_x0=clip_x0)
             traj.append(torch.clamp(xt, -1.0, 1.0))
-        return xt, torch.stack(traj)
+        return gather_result(xt, traj, mesh)
 
     sampler.timesteps = ts
     return sampler

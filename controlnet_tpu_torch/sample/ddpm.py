@@ -15,13 +15,15 @@ from typing import Callable
 import torch
 
 from controlnet_tpu_torch.device import resolve_device
-from controlnet_tpu_torch.sample.common import cast_hint, draw_x_start, predict_eps
+from controlnet_tpu_torch.sample.common import (cast_hint, draw_normal,
+                                                gather_result, injected, local_batch,
+                                                predict_eps)
 from controlnet_tpu_torch.schedules.linear import LinearSchedule, sample_prev_timestep
 
 
 def make_ddpm_sampler(eps_fn: Callable, sched: LinearSchedule, shape: tuple[int, ...],
                       record_every: int = 1, compute_dtype: torch.dtype | None = None,
-                      device=None):
+                      device=None, mesh=None):
     """Build a sampler for full (B, C, H, W) samples of ``shape``.
 
     ``eps_fn(model, x_t, t_batch[, hint_features])`` predicts epsilon.
@@ -32,20 +34,22 @@ def make_ddpm_sampler(eps_fn: Callable, sched: LinearSchedule, shape: tuple[int,
     ``generator`` (a ``torch.Generator`` on ``device``) unless a caller
     injects them: ``x_start`` of ``shape`` and ``step_noise`` of (T, *shape),
     where ``step_noise[i]`` is the noise of loop step i (timestep T-1-i).
+    ``mesh``: data-parallel sampling over the global batch ``shape``
+    (``sample/common.py``); ``hint_features`` are then this rank's rows.
     """
     device = resolve_device(device)
     T = sched.num_timesteps
     if record_every < 1 or T % record_every:
         raise ValueError(f"record_every {record_every} must divide the {T} timesteps")
-    b = shape[0]
+    b = local_batch(shape, mesh)
 
     @torch.inference_mode()
     def sampler(model, generator: torch.Generator | None, hint_features=None, *,
                 x_start: torch.Tensor | None = None, step_noise: torch.Tensor | None = None):
         if x_start is None:
-            xt = draw_x_start(generator, shape, device)
+            xt = draw_normal(generator, shape, device, mesh)
         else:
-            xt = x_start.to(device=device, dtype=torch.float32)
+            xt = injected(x_start, device, mesh)
         hint_c = cast_hint(hint_features, compute_dtype)
         timesteps = torch.arange(T - 1, -1, -1, dtype=torch.int32, device=device)
         traj = []
@@ -54,15 +58,15 @@ def make_ddpm_sampler(eps_fn: Callable, sched: LinearSchedule, shape: tuple[int,
             t_batch = timesteps[i].expand(b)
             noise_pred = predict_eps(eps_fn, model, xt, t_batch, hint_c, compute_dtype)
             if step_noise is not None:
-                z = step_noise[i].to(device=device, dtype=torch.float32)
+                z = injected(step_noise[i], device, mesh)
             elif t > 0:
-                z = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+                z = draw_normal(generator, shape, device, mesh)
             else:
                 z = None  # the last step adds no noise
             xt, _ = sample_prev_timestep(sched, xt, noise_pred, t, z)
             if (i + 1) % record_every == 0:
                 traj.append(torch.clamp(xt, -1.0, 1.0))
-        return xt, torch.stack(traj)
+        return gather_result(xt, traj, mesh)
 
     return sampler
 

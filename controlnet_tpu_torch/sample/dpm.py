@@ -23,17 +23,19 @@ import numpy as np
 import torch
 
 from controlnet_tpu_torch.device import resolve_device
-from controlnet_tpu_torch.sample.common import cast_hint, draw_x_start, predict_eps
+from controlnet_tpu_torch.sample.common import (cast_hint, draw_normal, gather_result,
+                                                injected, local_batch, predict_eps)
 from controlnet_tpu_torch.sample.ddim import ddim_timesteps
 from controlnet_tpu_torch.schedules.linear import LinearSchedule
 
 
 def make_dpm_sampler(eps_fn: Callable, sched: LinearSchedule, shape: tuple[int, ...],
-                     num_steps: int, compute_dtype: torch.dtype | None = None, device=None):
+                     num_steps: int, compute_dtype: torch.dtype | None = None, device=None,
+                     mesh=None):
     """Build a DPM-Solver++(2M) sampler over ``num_steps`` timesteps.  Same
     contract as ``make_ddim_sampler`` (``sampler(model, generator,
     hint_features=None, *, x_start=None) -> (x0, trajectory)``,
-    ``sampler.timesteps``)."""
+    ``sampler.timesteps``, data-parallel over ``mesh``)."""
     device = resolve_device(device)
     ts_np = ddim_timesteps(sched.num_timesteps, num_steps)
     acp = sched.alpha_cum_prod.double().cpu().numpy()
@@ -52,15 +54,15 @@ def make_dpm_sampler(eps_fn: Callable, sched: LinearSchedule, shape: tuple[int, 
     consts = list(zip(f32(alpha_t), f32(sigma_t), f32(alpha_p), f32(sigma_p),
                       f32(np.expm1(-np.minimum(h, 1e9))), f32(c)))
     ts = ts_np.tolist()
-    b = shape[0]
+    b = local_batch(shape, mesh)
 
     @torch.inference_mode()
     def sampler(model, generator: torch.Generator | None, hint_features=None, *,
                 x_start: torch.Tensor | None = None):
         if x_start is None:
-            xt = draw_x_start(generator, shape, device)
+            xt = draw_normal(generator, shape, device, mesh)
         else:
-            xt = x_start.to(device=device, dtype=torch.float32)
+            xt = injected(x_start, device, mesh)
         hint_c = cast_hint(hint_features, compute_dtype)
         t_all = torch.tensor(ts, dtype=torch.int32, device=device)
         x0_prev = torch.zeros_like(xt)
@@ -72,7 +74,7 @@ def make_dpm_sampler(eps_fn: Callable, sched: LinearSchedule, shape: tuple[int, 
             xt = float(s_p / s_t) * xt - float(a_p * em1) * d
             x0_prev = x0
             traj.append(torch.clamp(xt, -1.0, 1.0))
-        return xt, torch.stack(traj)
+        return gather_result(xt, traj, mesh)
 
     sampler.timesteps = ts
     return sampler

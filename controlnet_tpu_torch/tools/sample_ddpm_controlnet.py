@@ -17,7 +17,10 @@ are computed once, the sampling loop (the 1000-step ancestral one, or
         --config config/mnist.yaml [--hints hints.npy | --hint_backend tpu] [--ckpt path.pth] \\
         [--sampler dpm --sampler_steps 20] [--cfg_scale 2.0] [--attn_fused_proj]
 
-Runs on the card; ``--device cpu`` runs it on the CPU.
+Runs on the card; ``--device cpu`` runs it on the CPU.  Under ``torchrun
+--nproc_per_node N`` the sample batch is padded up to a multiple of N (the
+last hint repeated), each rank samples its rows, and rank 0 writes the grids
+of the first ``num_samples``.
 """
 
 from __future__ import annotations
@@ -87,23 +90,28 @@ def load_model(config: dict, ckpt_path: str | None, device=None) -> tuple[Contro
 def prepare(cn: ControlNet, sched: LinearSchedule, hints: np.ndarray,
             record_every: int | None = None, compute_dtype: torch.dtype | None = None,
             sampler: str = "ancestral", sampler_steps: int = 50, eta: float = 0.0,
-            cfg_scale: float | None = None):
+            cfg_scale: float | None = None, mesh=None):
     """The hint features (computed once) and the sampling loop the flags ask
     for.  Returns ``(loop, hint_arg, step_ts)``: ``loop(cn, generator,
     hint_arg)`` samples one batch; ``step_ts`` is a few-step loop's visited
-    timesteps, None for the ancestral loop."""
+    timesteps, None for the ancestral loop.  Under a data-parallel ``mesh``
+    (``cli.sampler_mesh``'s, the count of ``hints`` divisible by its world
+    size) the features are this rank's rows and the loop samples the global
+    batch."""
     device = next(cn.parameters()).device
     T = sched.num_timesteps
     record_every = T if record_every is None else record_every
-    hint = torch.as_tensor(np.asarray(hints, np.float32), device=device).permute(0, 3, 1, 2)
+    n = len(hints)
+    hints = cli.put_batch(np.asarray(hints, np.float32), mesh)
+    hint = torch.as_tensor(hints, device=device).permute(0, 3, 1, 2)
     with torch.inference_mode():
         feats = cn.hint_features(hint)
         eps_fn, hint_arg = cli.apply_cfg(
             cfg_scale, lambda m, x, t, f: m(x, t, hint_features=f), feats,
             lambda: null_hint_features(cn.hint_features, hint))
-    shape = (hint.shape[0], cn.trained_unet.im_channels, hint.shape[2], hint.shape[3])
+    shape = (n, cn.trained_unet.im_channels, hint.shape[2], hint.shape[3])
     loop, step_ts = cli.select_sampler(sampler, sampler_steps, eta, eps_fn, sched, shape,
-                                       record_every, compute_dtype, device)
+                                       record_every, compute_dtype, device, mesh)
     return loop, hint_arg, step_ts
 
 
@@ -120,7 +128,9 @@ def sample(cn: ControlNet, sched: LinearSchedule, hints: np.ndarray, seed: int =
     return loop(cn, generator, hint_arg)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> np.ndarray:
+    """Returns the trajectory of the ``num_samples`` samples, (snapshots, N,
+    H, W, C) in [-1, 1], as the grids show it."""
     parser = argparse.ArgumentParser(description="DDPM ControlNet sampling (PyTorch port)")
     parser.add_argument("--config", dest="config_path", default="config/mnist.yaml")
     parser.add_argument("--hints", default=None,
@@ -147,29 +157,40 @@ def main(argv=None) -> None:
     train_config = cfg.train_params(config)
     task_name = train_config["task_name"]
     ckpt = args.ckpt or os.path.join(task_name, train_config["controlnet_ckpt_name"])
-    cn, sched = load_model(config, ckpt, args.device)
+    device = resolve_device(args.device)
+    cn, sched = load_model(config, ckpt, device)
     set_attn_fused_proj(cn, args.attn_fused_proj)
 
     num_samples = args.num_samples or train_config["num_samples"]
+    mesh, batch = cli.sampler_mesh(num_samples, device)
+    cli.put_replicated(cn, mesh)
     nrow = train_config["num_grid_rows"]
     if args.hints is not None:
         hints = gather_hints(np.load(args.hints), num_samples, args.seed)
     else:
-        hints = split_hints(config, num_samples, args.seed, args.hint_backend, args.device)
+        hints = split_hints(config, num_samples, args.seed, args.hint_backend, device)
     out_dir = os.path.join(task_name, "hint_samples")
-    save_image_grid(hints, os.path.join(out_dir, "hints.png"), nrow=nrow)
+    cli.write_once(mesh, save_image_grid, hints, os.path.join(out_dir, "hints.png"), nrow=nrow)
+    if batch != num_samples:  # pad the hints for data-parallel divisibility
+        hints = np.concatenate([hints, np.repeat(hints[-1:], batch - num_samples, axis=0)])
 
     record_every = max(1, args.save_every)
     loop, hint_arg, step_ts = prepare(cn, sched, hints, record_every,
                                       COMPUTE_DTYPES[args.compute_dtype], args.sampler,
-                                      args.sampler_steps, args.eta, args.cfg_scale)
-    generator = torch.Generator(device=next(cn.parameters()).device).manual_seed(args.seed)
+                                      args.sampler_steps, args.eta, args.cfg_scale, mesh)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
     _, traj = loop(cn, generator, hint_arg)
-    traj = traj.float().permute(0, 1, 3, 4, 2).cpu().numpy()
-    for k in range(traj.shape[0]):
-        t = cli.snapshot_timestep(k, step_ts, sched.num_timesteps, record_every)
-        save_image_grid((traj[k] + 1.0) / 2.0, os.path.join(out_dir, f"x0_{t}.png"), nrow=nrow)
-    print(f"Wrote hint grid + {traj.shape[0]} step grids to {out_dir}")
+    traj = traj[:, :num_samples].float().permute(0, 1, 3, 4, 2).cpu().numpy()
+
+    def write_grids():
+        for k in range(traj.shape[0]):
+            t = cli.snapshot_timestep(k, step_ts, sched.num_timesteps, record_every)
+            save_image_grid((traj[k] + 1.0) / 2.0, os.path.join(out_dir, f"x0_{t}.png"),
+                            nrow=nrow)
+
+    cli.write_once(mesh, write_grids)
+    cli.say(mesh, f"Wrote hint grid + {traj.shape[0]} step grids to {out_dir}")
+    return traj
 
 
 if __name__ == "__main__":

@@ -21,7 +21,10 @@ student in the reference format (``epoch``, ``model_state_dict``,
 ``ema_teacher_state_dict``, ``model_config``) at
 ``<task_name>/consistency_controlnet_distilled.pth``, which the sample tool
 and the serve tool load.  Runs on the card; ``--device cpu`` runs it on the
-CPU.
+CPU.  ``torchrun --nproc_per_node N -m
+controlnet_tpu_torch.tools.train_consistency_controlnet_distilled`` trains
+data-parallel as ``train_ddpm_controlnet`` does; the EMA stays in step on
+every rank, as the averaged gradient is the same on each.
 """
 
 from __future__ import annotations
@@ -52,10 +55,12 @@ def mode_from(train_config: dict) -> str:
     return "manual"
 
 
-def make_trainer(config: dict, teacher_state_dict: dict | None, device=None, seed: int = 0):
+def make_trainer(config: dict, teacher_state_dict: dict | None, device=None, seed: int = 0,
+                 mesh=None):
     """(model, train state, step, mode): the student seeded from ``seed``, its
     EMA a copy, the teacher from ``teacher_state_dict`` (None in
-    ``consistency_only``), Adam at ``consistency_lr``."""
+    ``consistency_only``), Adam at ``consistency_lr`` (gradients averaged over
+    ``mesh``'s group)."""
     device = resolve_device(device)
     mp = cfg.model_params(config)
     tp = cfg.train_params(config)
@@ -70,7 +75,7 @@ def make_trainer(config: dict, teacher_state_dict: dict | None, device=None, see
             raise ValueError(f"mode {mode!r} needs the ControlNet teacher's weights")
         model.teacher.load_state_dict(teacher_state_dict, strict=True)
     state = create_train_state(dict(model.student.named_parameters()),
-                               tp.get("consistency_lr", 1e-4))
+                               tp.get("consistency_lr", 1e-4), mesh=mesh)
     step = make_consistency_train_step(model, state, mode=mode, total_epochs=None,
                                        compute_dtype=cli.compute_dtype_from(tp))
     return model, state, step, mode
@@ -85,14 +90,14 @@ def reference_checkpoint(model: ConsistencyDistilled, epoch: int, model_config: 
 
 def restore(task_name: str, state: TrainState, model: ConsistencyDistilled, device) -> int:
     """Resume from the newest {state, ema} checkpoint; returns its epoch (0
-    when there is none)."""
+    when there is none).  Every rank restores the same one."""
     restored = restore_checkpoint(task_name, CKPT_NAME, map_location=device)
     if restored is None:
         return 0
     tree, epoch = restored
     state.load_state_dict(tree["state"])
     model.ema_teacher.load_state_dict(tree["ema"], strict=True)
-    print(f"Resumed consistency training from epoch {epoch}")
+    cli.say(state.mesh, f"Resumed consistency training from epoch {epoch}")
     return epoch
 
 
@@ -101,6 +106,7 @@ def train(config_path: str, images_path: str | None = None, hints_path: str | No
     """Train to ``consistency_epochs``; returns {"epochs", "losses", "mode"}
     for the epochs this call ran (mean loss of each)."""
     device = resolve_device(device)
+    mesh = cli.mesh_or_none(device)
     config = cfg.load_config(config_path)
     tp = cfg.train_params(config)
     task_name = tp["task_name"]
@@ -108,9 +114,10 @@ def train(config_path: str, images_path: str | None = None, hints_path: str | No
     teacher = None
     if mode_from(tp) != "consistency_only":
         teacher = load_reference_checkpoint(os.path.join(task_name, tp["controlnet_ckpt_name"]))
-    model, state, step, mode = make_trainer(config, teacher, device, seed)
-    print(f"Consistency training mode: {mode}")
+    model, state, step, mode = make_trainer(config, teacher, device, seed, mesh)
+    cli.say(mesh, f"Consistency training mode: {mode}")
     start_epoch = restore(task_name, state, model, device)
+    cli.put_replicated((model, state.optimizer), mesh)
 
     source = cli.open_split(config, "train", device, images_path, hints_path, return_hints=True)
     num_epochs = tp.get("consistency_epochs", 10)
@@ -119,21 +126,23 @@ def train(config_path: str, images_path: str | None = None, hints_path: str | No
         timer = cli.EpochTimer()
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
-        for batch, hints in source.batches(tp["batch_size"], shuffle=True, seed=shuffle_seed):
+        for batch, hints in source.batches(tp["batch_size"], shuffle=True, seed=shuffle_seed,
+                                           rows=cli.batch_rows(mesh)):
             metrics = step(batch, device_hints(batch) if hints is None else hints, generator,
                            epoch_idx)
             timer.add(metrics.get("total_loss", metrics.get("consistency_loss")))
-        print(f"Epoch {epoch_idx + 1} | {timer.summary()}")
+        cli.say(mesh, f"Epoch {epoch_idx + 1} | {timer.summary()}")
         history["epochs"].append(epoch_idx + 1)
         history["losses"].append(timer.mean_loss())
         if cli.should_save_epoch(epoch_idx, num_epochs, tp.get("ckpt_save_every_epochs", 1)):
             tree = {"state": state.state_dict(),
                     "ema": {k: v.detach() for k, v in model.ema_teacher.state_dict().items()}}
-            save_checkpoint(task_name, CKPT_NAME, epoch_idx + 1, tree,
-                            max_to_keep=cli.ckpt_max_to_keep(tp))
-    save_file(reference_checkpoint(model, max(num_epochs, start_epoch), cfg.model_params(config)),
-              os.path.join(task_name, CKPT_NAME))
-    print("Distillation training completed!")
+            cli.write_once(mesh, save_checkpoint, task_name, CKPT_NAME, epoch_idx + 1, tree,
+                           max_to_keep=cli.ckpt_max_to_keep(tp))
+    cli.write_once(mesh, lambda: save_file(
+        reference_checkpoint(model, max(num_epochs, start_epoch), cfg.model_params(config)),
+        os.path.join(task_name, CKPT_NAME)))
+    cli.say(mesh, "Distillation training completed!")
     return history
 
 

@@ -15,7 +15,9 @@ newest one; at the end the UNet's reference-format ``.pth`` at
 ``<task_name>/<ddpm_ckpt_name>``, where the reference trainer writes it and
 where the ControlNet trainer reads it.  Each epoch's shuffle and noise come
 from ``(seed, epoch)``, so a resumed run continues as an unbroken one would.
-Runs on the card; ``--device cpu`` runs it on the CPU.
+Runs on the card; ``--device cpu`` runs it on the CPU.  ``torchrun
+--nproc_per_node N -m controlnet_tpu_torch.tools.train_ddpm`` trains
+data-parallel as ``train_ddpm_controlnet`` does.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ def train(config_path: str, images_path: str | None = None, device=None) -> dict
     """Train to ``num_epochs``; returns {"epochs": [...], "losses": [...]}
     for the epochs this call ran (mean loss of each)."""
     device = resolve_device(device)
+    mesh = cli.mesh_or_none(device)
     config = cfg.load_config(config_path)
     dp = cfg.diffusion_params(config)
     mp = cfg.model_params(config)
@@ -57,7 +60,7 @@ def train(config_path: str, images_path: str | None = None, device=None) -> dict
                                  device=device)
     torch.manual_seed(seed)
     unet = UNet(mp["im_channels"], mp).to(device)
-    state = create_train_state(dict(unet.named_parameters()), tp["ddpm_lr"])
+    state = create_train_state(dict(unet.named_parameters()), tp["ddpm_lr"], mesh=mesh)
 
     ckpt_name = tp["ddpm_ckpt_name"]
     start_epoch = 0
@@ -65,7 +68,8 @@ def train(config_path: str, images_path: str | None = None, device=None) -> dict
     if restored is not None:
         tree, start_epoch = restored
         state.load_state_dict(tree)
-        print(f"Resumed from checkpoint at epoch {start_epoch}")
+        cli.say(mesh, f"Resumed from checkpoint at epoch {start_epoch}")
+    cli.put_replicated((unet, state.optimizer), mesh)
 
     step = make_ddpm_train_step(unet, sched, compute_dtype=cli.compute_dtype_from(tp))
     source = cli.open_split(config, "train", device, images_path)
@@ -75,16 +79,18 @@ def train(config_path: str, images_path: str | None = None, device=None) -> dict
         timer = cli.EpochTimer()
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
-        for batch, _ in source.batches(tp["batch_size"], shuffle=True, seed=shuffle_seed):
+        for batch, _ in source.batches(tp["batch_size"], shuffle=True, seed=shuffle_seed,
+                                       rows=cli.batch_rows(mesh)):
             timer.add(step(state, batch, generator))
-        print(f"Finished epoch:{epoch_idx + 1} | {timer.summary()}")
+        cli.say(mesh, f"Finished epoch:{epoch_idx + 1} | {timer.summary()}")
         history["epochs"].append(epoch_idx + 1)
         history["losses"].append(timer.mean_loss())
         if cli.should_save_epoch(epoch_idx, num_epochs, tp.get("ckpt_save_every_epochs", 1)):
-            save_checkpoint(task_name, ckpt_name, epoch_idx + 1, state.state_dict(),
-                            max_to_keep=cli.ckpt_max_to_keep(tp))
-    save_file(cpu_state_dict(unet), os.path.join(task_name, ckpt_name))
-    print("Done Training ...")
+            cli.write_once(mesh, save_checkpoint, task_name, ckpt_name, epoch_idx + 1,
+                           state.state_dict(), max_to_keep=cli.ckpt_max_to_keep(tp))
+    cli.write_once(mesh, lambda: save_file(cpu_state_dict(unet),
+                                           os.path.join(task_name, ckpt_name)))
+    cli.say(mesh, "Done Training ...")
     return history
 
 

@@ -19,7 +19,17 @@ card.  Adam at
 frozen split every ``ckpt_save_every_epochs`` epochs, resumed from the
 newest one; at the end the merged ControlNet as a reference-format ``.pth``
 at ``<task_name>/<controlnet_ckpt_name>``, which the sampling tool loads.
-Runs on the card; ``--device cpu`` runs it on the CPU.
+Runs on the card; ``--device cpu`` runs it on the CPU.  Data-parallel over
+N cards, one process each:
+
+    torchrun --nproc_per_node N -m controlnet_tpu_torch.tools.train_ddpm_controlnet \
+        --config config/mnist.yaml
+
+Every rank walks the same seeded permutation and keeps its rows of each
+global batch of ``batch_size``; the gradients are averaged over the group
+(NCCL on the cards, gloo on the CPU), so the run equals one process on the
+global batches.  Only rank 0 writes checkpoints, the ``.pth`` and the log;
+the others wait at a barrier after each save.
 """
 
 from __future__ import annotations
@@ -48,10 +58,11 @@ def device_hints(images: torch.Tensor) -> torch.Tensor:
 
 
 def make_trainer(config: dict, unet_state_dict: dict, device=None,
-                 seed: int = 0) -> tuple[ControlNet, TrainState, object]:
+                 seed: int = 0, mesh=None) -> tuple[ControlNet, TrainState, object]:
     """(ControlNet, train state, step): the model seeded from the base UNet
-    with its trunk frozen, Adam at ``controlnet_lr``, and the train step of
-    ``train_params`` (compute type, ``cfg_drop_prob``)."""
+    with its trunk frozen, Adam at ``controlnet_lr`` (gradients averaged over
+    ``mesh``'s group), and the train step of ``train_params`` (compute type,
+    ``cfg_drop_prob``)."""
     device = resolve_device(device)
     dp = cfg.diffusion_params(config)
     mp = cfg.model_params(config)
@@ -63,7 +74,7 @@ def make_trainer(config: dict, unet_state_dict: dict, device=None,
     cn.init_from_unet(unet_state_dict)
     cn.to(device)
     trainable, _ = cn.freeze_trunk()
-    state = create_train_state(trainable, tp["controlnet_lr"])
+    state = create_train_state(trainable, tp["controlnet_lr"], mesh=mesh)
     step = make_controlnet_train_step(cn, sched, compute_dtype=cli.compute_dtype_from(tp),
                                       cfg_drop_prob=float(tp.get("cfg_drop_prob", 0.0)))
     return cn, state, step
@@ -76,6 +87,7 @@ def train(config_path: str, images_path: str | None = None, hints_path: str | No
     is ``--hint_backend``'s: cv2 or tpu (None: cv2 for a tree, the
     card for ``.npy`` images)."""
     device = resolve_device(device)
+    mesh = cli.mesh_or_none(device)
     config = cfg.load_config(config_path)
     tp = cfg.train_params(config)
     task_name = tp["task_name"]
@@ -86,7 +98,7 @@ def train(config_path: str, images_path: str | None = None, hints_path: str | No
                          "--hints with --images, or read the tree")
 
     base = load_reference_checkpoint(os.path.join(task_name, tp["ddpm_ckpt_name"]))
-    cn, state, step = make_trainer(config, base, device, seed)
+    cn, state, step = make_trainer(config, base, device, seed, mesh)
     _, frozen = cn.split_params()
 
     ckpt_name = tp["controlnet_ckpt_name"]
@@ -98,7 +110,8 @@ def train(config_path: str, images_path: str | None = None, hints_path: str | No
         with torch.no_grad():
             for k, p in frozen.items():
                 p.copy_(tree["frozen"][k])
-        print(f"Resumed ControlNet from epoch {start_epoch}")
+        cli.say(mesh, f"Resumed ControlNet from epoch {start_epoch}")
+    cli.put_replicated((cn, state.optimizer), mesh)
 
     source = cli.open_split(config, "train", device, images_path, hints_path,
                             return_hints=backend == "cv2")
@@ -109,19 +122,20 @@ def train(config_path: str, images_path: str | None = None, hints_path: str | No
         timer = cli.EpochTimer()
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
-        for batch, hints in source.batches(tp["batch_size"], shuffle=True, seed=shuffle_seed):
+        for batch, hints in source.batches(tp["batch_size"], shuffle=True, seed=shuffle_seed,
+                                           rows=cli.batch_rows(mesh)):
             timer.add(step(state, batch, device_hints(batch) if hints is None else hints,
                            generator))
-        print(f"Finished epoch:{epoch_idx + 1} | {timer.summary()}")
+        cli.say(mesh, f"Finished epoch:{epoch_idx + 1} | {timer.summary()}")
         history["epochs"].append(epoch_idx + 1)
         history["losses"].append(timer.mean_loss())
         if cli.should_save_epoch(epoch_idx, num_epochs, tp.get("ckpt_save_every_epochs", 1)):
             tree = {"state": state.state_dict(),
                     "frozen": {k: p.detach() for k, p in frozen.items()}}
-            save_checkpoint(task_name, ckpt_name, epoch_idx + 1, tree,
-                            max_to_keep=cli.ckpt_max_to_keep(tp))
-    save_file(cpu_state_dict(cn), os.path.join(task_name, ckpt_name))
-    print("Done Training ...")
+            cli.write_once(mesh, save_checkpoint, task_name, ckpt_name, epoch_idx + 1, tree,
+                           max_to_keep=cli.ckpt_max_to_keep(tp))
+    cli.write_once(mesh, lambda: save_file(cpu_state_dict(cn), os.path.join(task_name, ckpt_name)))
+    cli.say(mesh, "Done Training ...")
     return history
 
 

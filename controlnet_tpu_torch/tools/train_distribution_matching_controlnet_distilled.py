@@ -26,6 +26,14 @@ end the student in the reference format (``epoch``, ``model_state_dict``,
 ``config``) at ``<task_name>/distribution_matching_controlnet_distilled_ckpt.pth``
 and the best one at ``..._best_ckpt.pth``; loss curves when matplotlib
 imports.  Runs on the card; ``--device cpu`` runs it on the CPU.
+
+``torchrun --nproc_per_node N -m
+controlnet_tpu_torch.tools.train_distribution_matching_controlnet_distilled``
+trains data-parallel as ``train_ddpm_controlnet`` does: the gradients are
+averaged before the clip and the skipped-batch guard, the feature extractor's
+BatchNorm and the feature moments take the global batch's statistics, and the
+validation loss is averaged over the ranks before the best one is picked, so
+every rank agrees on it.  Rank 0 writes every file.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
 from controlnet_tpu_torch.models.dmd import DistributionMatchingDistilled
+from controlnet_tpu_torch.sample.common import global_batch, rank_rows
 from controlnet_tpu_torch.schedules.linear import add_noise
 from controlnet_tpu_torch.tools.train_ddpm import epoch_seeds
 from controlnet_tpu_torch.tools.train_ddpm_controlnet import device_hints
@@ -59,10 +68,11 @@ GRID_TIMESTEPS = (50, 200, 500)
 
 
 def make_trainer(config: dict, teacher_state_dict: dict, steps_per_epoch: int, device=None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
     """(model, train state, step): the student seeded from ``seed``, the
     teacher from ``teacher_state_dict``, the feature extractor from its own
-    seed, and the clipped AdamW on the cosine schedule."""
+    seed, and the clipped AdamW on the cosine schedule (gradients averaged
+    over ``mesh``'s group)."""
     device = resolve_device(device)
     mp = cfg.model_params(config)
     tp = cfg.train_params(config)
@@ -74,7 +84,7 @@ def make_trainer(config: dict, teacher_state_dict: dict, steps_per_epoch: int, d
     epochs = tp.get("distribution_matching_epochs", 20)
     state = create_dmd_train_state(dict(model.student.named_parameters()),
                                    tp.get("distribution_matching_lr", 5e-5),
-                                   epochs * steps_per_epoch)
+                                   epochs * steps_per_epoch, mesh=mesh)
     step = make_dmd_train_step(model, state, compute_dtype=cli.compute_dtype_from(tp))
     return model, state, step
 
@@ -89,13 +99,18 @@ def reference_checkpoint(student_state_dict: dict, epoch: int, config: dict) -> 
 
 @torch.no_grad()
 def val_loss(model: DistributionMatchingDistilled, x0: torch.Tensor, hint: torch.Tensor,
-             generator: torch.Generator) -> torch.Tensor:
-    """The DMD loss in float32 at uniform timesteps (a device scalar)."""
+             generator: torch.Generator, mesh=None) -> torch.Tensor:
+    """The DMD loss in float32 at uniform timesteps (a device scalar).  Under
+    a ``mesh`` ``x0`` is this rank's rows: t and the noise are drawn at the
+    global shape and sliced, the batch statistics are global, and the mean
+    over the ranks is the global batch's loss (``all_reduce_mean`` after)."""
     sched = model.teacher_schedule
-    t = torch.randint(0, sched.num_timesteps, (x0.shape[0],), generator=generator,
-                      device=x0.device)
-    noise = torch.randn(x0.shape, generator=generator, device=x0.device)
-    return model.distillation_loss(add_noise(sched, x0, noise, t), t, hint, x0)[0]
+    b = global_batch(x0.shape[0], mesh)
+    t = rank_rows(torch.randint(0, sched.num_timesteps, (b,), generator=generator,
+                                device=x0.device), mesh)
+    noise = rank_rows(torch.randn((b, *x0.shape[1:]), generator=generator, device=x0.device),
+                      mesh)
+    return model.distillation_loss(add_noise(sched, x0, noise, t), t, hint, x0, mesh=mesh)[0]
 
 
 @torch.no_grad()
@@ -165,6 +180,7 @@ def train(config_path: str, images_path: str | None = None,
     epochs this call ran (per-epoch means of each metric, ``val_loss``,
     ``skipped`` batches, ``epochs``) and ``best_val``."""
     device = resolve_device(device)
+    mesh = cli.mesh_or_none(device)
     config = cfg.load_config(config_path)
     tp = cfg.train_params(config)
     task_name = tp["task_name"]
@@ -181,20 +197,22 @@ def train(config_path: str, images_path: str | None = None,
     batch_size = tp["batch_size"]
     teacher = load_reference_checkpoint(os.path.join(task_name, tp["controlnet_ckpt_name"]))
     model, state, step = make_trainer(config, teacher, max(1, len(train_src) // batch_size),
-                                      device, seed)
+                                      device, seed, mesh)
 
     start_epoch = 0
     restored = restore_checkpoint(task_name, CKPT_NAME, map_location=device)
     if restored is not None:
         tree, start_epoch = restored
         state.load_state_dict(tree["state"])
-        print(f"Resumed DMD training from epoch {start_epoch}")
+        cli.say(mesh, f"Resumed DMD training from epoch {start_epoch}")
+    cli.put_replicated((model, state.optimizer), mesh)
     best_val_path = os.path.join(task_name, BEST_VAL)
     best_val = float("inf")
     if start_epoch > 0 and os.path.exists(best_val_path):
         with open(best_val_path) as f:
             best_val = float(json.load(f)["best_val"])
-        print(f"Resumed best val {best_val:.4f}")
+        cli.say(mesh, f"Resumed best val {best_val:.4f}")
+    rows = cli.batch_rows(mesh)
 
     num_epochs = tp.get("distribution_matching_epochs", 20)
     keep = cli.ckpt_max_to_keep(tp)
@@ -203,7 +221,7 @@ def train(config_path: str, images_path: str | None = None,
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
         epoch_metrics: list = []
-        for x0, hint in train_src.batches(batch_size, shuffle=True, seed=shuffle_seed):
+        for x0, hint in train_src.batches(batch_size, shuffle=True, seed=shuffle_seed, rows=rows):
             epoch_metrics.append(step(x0, device_hints(x0) if hint is None else hint, generator))
         # one read of the epoch's device scalars
         means = {k: torch.stack([m[k] for m in epoch_metrics]).float() for k in epoch_metrics[0]}
@@ -211,46 +229,59 @@ def train(config_path: str, images_path: str | None = None,
         means = {k: v.mean().item() for k, v in means.items()}
 
         val = []
-        val_batches = val_src.batches(batch_size, shuffle=True, seed=epoch_idx)
+        val_batches = val_src.batches(batch_size, shuffle=True, seed=epoch_idx, rows=rows)
         for _, (x0, hint) in zip(range(VAL_BATCHES), val_batches):
             val.append(val_loss(model, x0, device_hints(x0) if hint is None else hint,
-                                generator))
+                                generator, mesh))
         val_batches.close()
-        val_mean = torch.stack(val).mean().item()
+        val_mean = torch.stack(val).mean()
+        if mesh is not None:  # every rank picks the same best
+            from controlnet_tpu_torch.parallel.mesh import all_reduce_mean
+
+            val_mean = all_reduce_mean(val_mean.reshape(1), mesh)[0]
+        val_mean = val_mean.item()
         for k, v in means.items():
             history[f"train_{k}"].append(v)
         history["val_loss"].append(val_mean)
         history["skipped"].append(skipped)
         history["epochs"].append(epoch_idx + 1)
-        print(f"Epoch {epoch_idx + 1}/{num_epochs} | total {means['total_loss']:.4f} "
-              f"| dist {means['dist_matching_loss']:.4f} | teacher {means['teacher_loss']:.4f} "
-              f"| grad {means['grad_norm']:.3f} | val {val_mean:.4f} | skipped {skipped}")
+        cli.say(mesh, f"Epoch {epoch_idx + 1}/{num_epochs} | total {means['total_loss']:.4f} "
+                f"| dist {means['dist_matching_loss']:.4f} | teacher "
+                f"{means['teacher_loss']:.4f} | grad {means['grad_norm']:.3f} "
+                f"| val {val_mean:.4f} | skipped {skipped}")
 
-        if not no_plots:
-            save_grid(model, val_src, batch_size, epoch_idx, generator,
-                      os.path.join(task_name, "dmd_training_samples"))
-        save_checkpoint(task_name, CKPT_NAME, epoch_idx + 1, {"state": state.state_dict()},
-                        max_to_keep=keep)
+        if not no_plots:  # the grid's draws come last in the epoch's generator
+            cli.write_once(mesh, save_grid, model, val_src, batch_size, epoch_idx, generator,
+                           os.path.join(task_name, "dmd_training_samples"))
+        cli.write_once(mesh, save_checkpoint, task_name, CKPT_NAME, epoch_idx + 1,
+                       {"state": state.state_dict()}, max_to_keep=keep)
         if val_mean < best_val:
             best_val = val_mean
-            # the save is in place (written, then renamed) before the sidecar
-            # records it, so a resume never trusts a best that is not on disk
-            save_checkpoint(task_name, BEST_CKPT_NAME, epoch_idx + 1,
-                            {"state": state.state_dict()}, max_to_keep=keep)
-            with open(best_val_path, "w") as f:
-                json.dump({"best_val": best_val, "epoch": epoch_idx + 1}, f)
-            print(f"New best model (val {best_val:.4f})")
 
-    save_file(reference_checkpoint(model.student.state_dict(), max(num_epochs, start_epoch),
-                                   config), os.path.join(task_name, REF_CKPT))
-    best = restore_checkpoint(task_name, BEST_CKPT_NAME, map_location="cpu")
-    if best is not None:
-        save_file(reference_checkpoint(best[0]["state"]["params"], best[1], config),
-                  os.path.join(task_name, BEST_REF_CKPT))
-    if not no_plots:
-        plot_training_curves({k: v for k, v in history.items() if k != "epochs"},
-                             os.path.join(task_name, "dmd_training_curves.png"))
-    print("DMD distillation training completed!")
+            def save_best():
+                # the save is in place (written, then renamed) before the sidecar
+                # records it, so a resume never trusts a best that is not on disk
+                save_checkpoint(task_name, BEST_CKPT_NAME, epoch_idx + 1,
+                                {"state": state.state_dict()}, max_to_keep=keep)
+                with open(best_val_path, "w") as f:
+                    json.dump({"best_val": best_val, "epoch": epoch_idx + 1}, f)
+                print(f"New best model (val {best_val:.4f})")
+
+            cli.write_once(mesh, save_best)
+
+    def save_final():
+        save_file(reference_checkpoint(model.student.state_dict(), max(num_epochs, start_epoch),
+                                       config), os.path.join(task_name, REF_CKPT))
+        best = restore_checkpoint(task_name, BEST_CKPT_NAME, map_location="cpu")
+        if best is not None:
+            save_file(reference_checkpoint(best[0]["state"]["params"], best[1], config),
+                      os.path.join(task_name, BEST_REF_CKPT))
+        if not no_plots:
+            plot_training_curves({k: v for k, v in history.items() if k != "epochs"},
+                                 os.path.join(task_name, "dmd_training_curves.png"))
+
+    cli.write_once(mesh, save_final)
+    cli.say(mesh, "DMD distillation training completed!")
     return {**history, "best_val": best_val}
 
 

@@ -25,6 +25,10 @@ the frozen split every ``ckpt_save_every_epochs`` epochs, resumed from the
 newest one; at the end the ControlNet's reference-format ``.pth`` at
 ``<task_name>/<controlnet_ckpt_name>``, which ``sample_ldm_controlnet``
 loads.  Runs on the card; ``--device cpu`` runs it on the CPU.
+``torchrun --nproc_per_node N -m controlnet_tpu_torch.tools.train_ldm_controlnet``
+trains data-parallel as ``train_ddpm_controlnet`` does (each rank reads and
+encodes only its rows of every global batch; the latents' noise is drawn at
+the global shape).
 """
 
 from __future__ import annotations
@@ -50,10 +54,11 @@ from controlnet_tpu_torch.train.state import create_train_state, multistep_sched
 
 
 def make_trainer(config: dict, ldm_state_dict: dict, steps_per_epoch: int, device=None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
     """(ControlNet, train state, step): the latent ControlNet seeded from the
     LDM with its trunk frozen, Adam at ``controlnet_lr`` with gamma 0.1 at
-    the ``controlnet_lr_steps`` epochs, the step of ``train_params``."""
+    the ``controlnet_lr_steps`` epochs (gradients averaged over ``mesh``'s
+    group), the step of ``train_params``."""
     device = resolve_device(device)
     ds = cfg.dataset_params(config)
     ae = cfg.autoencoder_params(config)
@@ -67,7 +72,7 @@ def make_trainer(config: dict, ldm_state_dict: dict, steps_per_epoch: int, devic
     trainable, _ = cn.freeze_trunk()
     schedule = multistep_schedule(tp["controlnet_lr"], tp["controlnet_lr_steps"],
                                   steps_per_epoch, 0.1)
-    state = create_train_state(trainable, tp["controlnet_lr"], lr_schedule=schedule)
+    state = create_train_state(trainable, tp["controlnet_lr"], lr_schedule=schedule, mesh=mesh)
     step = make_controlnet_train_step(cn, ldm_schedule(config, device),
                                       compute_dtype=cli.compute_dtype_from(tp),
                                       cfg_drop_prob=float(tp.get("cfg_drop_prob", 0.0)))
@@ -94,8 +99,9 @@ class _CachedPairs:
     def __len__(self) -> int:
         return len(self.moments)
 
-    def batches(self, batch_size: int, seed: int):
+    def batches(self, batch_size: int, seed: int, rows=None):
         for idx in batch_indices(len(self.moments), batch_size, shuffle=True, seed=seed):
+            idx = idx if rows is None else rows(idx)
             yield (self.moments[torch.from_numpy(idx).to(self.moments.device)],
                    self.hints[torch.from_numpy(idx)].to(self.moments.device))
 
@@ -117,8 +123,9 @@ class _TreePairs:
     def __len__(self) -> int:
         return len(self.reader)
 
-    def batches(self, batch_size: int, seed: int):
-        for moments, hints in iterate_batches(self.reader, batch_size, shuffle=True, seed=seed):
+    def batches(self, batch_size: int, seed: int, rows=None):
+        for moments, hints in iterate_batches(self.reader, batch_size, shuffle=True, seed=seed,
+                                              rows=rows):
             yield (torch.from_numpy(moments_nchw(moments, self.z)).to(self.device),
                    torch.from_numpy(hints).permute(0, 3, 1, 2).contiguous().to(self.device))
 
@@ -127,6 +134,7 @@ def train(config_path: str, hints_path: str | None = None, device=None) -> dict:
     """Train to ``controlnet_epochs``; returns {"epochs": [...], "losses":
     [...]} for the epochs this call ran (mean loss of each)."""
     device = resolve_device(device)
+    mesh = cli.mesh_or_none(device)
     config = cfg.load_config(config_path)
     tp = cfg.train_params(config)
     task_name = tp["task_name"]
@@ -135,7 +143,8 @@ def train(config_path: str, hints_path: str | None = None, device=None) -> dict:
              else _CachedPairs(config, hints_path, device))
     batch_size = tp["ldm_batch_size"]
     ldm = load_reference_checkpoint(os.path.join(task_name, tp["ldm_ckpt_name"]))
-    cn, state, step = make_trainer(config, ldm, max(1, len(pairs) // batch_size), device, seed)
+    cn, state, step = make_trainer(config, ldm, max(1, len(pairs) // batch_size), device, seed,
+                                   mesh)
     _, frozen = cn.split_params()
 
     ckpt_name = tp["controlnet_ckpt_name"]
@@ -147,7 +156,8 @@ def train(config_path: str, hints_path: str | None = None, device=None) -> dict:
         with torch.no_grad():
             for k, p in frozen.items():
                 p.copy_(tree["frozen"][k])
-        print(f"Resumed LDM ControlNet from epoch {start_epoch}")
+        cli.say(mesh, f"Resumed LDM ControlNet from epoch {start_epoch}")
+    cli.put_replicated((cn, state.optimizer), mesh)
 
     num_epochs = tp["controlnet_epochs"]
     history = {"epochs": [], "losses": []}
@@ -155,18 +165,19 @@ def train(config_path: str, hints_path: str | None = None, device=None) -> dict:
         timer = cli.EpochTimer()
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
-        for moments, hints in pairs.batches(batch_size, shuffle_seed):
-            timer.add(step(state, latents_from_batch(moments, generator), hints, generator))
-        print(f"Finished epoch:{epoch_idx + 1} | {timer.summary()}")
+        for moments, hints in pairs.batches(batch_size, shuffle_seed, cli.batch_rows(mesh)):
+            timer.add(step(state, latents_from_batch(moments, generator, mesh=mesh), hints,
+                           generator))
+        cli.say(mesh, f"Finished epoch:{epoch_idx + 1} | {timer.summary()}")
         history["epochs"].append(epoch_idx + 1)
         history["losses"].append(timer.mean_loss())
         if cli.should_save_epoch(epoch_idx, num_epochs, tp.get("ckpt_save_every_epochs", 1)):
             tree = {"state": state.state_dict(),
                     "frozen": {k: p.detach() for k, p in frozen.items()}}
-            save_checkpoint(task_name, ckpt_name, epoch_idx + 1, tree,
-                            max_to_keep=cli.ckpt_max_to_keep(tp))
-    save_file(cpu_state_dict(cn), os.path.join(task_name, ckpt_name))
-    print("Done Training ...")
+            cli.write_once(mesh, save_checkpoint, task_name, ckpt_name, epoch_idx + 1, tree,
+                           max_to_keep=cli.ckpt_max_to_keep(tp))
+    cli.write_once(mesh, lambda: save_file(cpu_state_dict(cn), os.path.join(task_name, ckpt_name)))
+    cli.say(mesh, "Done Training ...")
     return history
 
 

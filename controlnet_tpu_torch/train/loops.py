@@ -15,6 +15,14 @@ The timesteps, the noise and the condition-drop mask come from an explicit
 tests hand it the JAX step's draws.  Images and hints are NCHW; the network
 runs in ``compute_dtype`` (None = float32) while the parameters, the
 schedule math, the loss and the optimizer stay float32.
+
+Under a data-parallel mesh (``state.mesh``) a step is handed this rank's
+rows of the global batch.  Every draw is taken at the global shape from the
+same seeded generator on every rank and sliced to the rank's rows (injected
+draws are global too, and sliced alike), the gradients and the returned loss
+terms are averaged over the group (``TrainState.reduce_gradients``), and
+batch statistics are global, so the step equals one process on the global
+batch.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 from controlnet_tpu_torch.models.consistency import ConsistencyDistilled
 from controlnet_tpu_torch.models.controlnet import ControlNet
 from controlnet_tpu_torch.models.dmd import DistributionMatchingDistilled
+from controlnet_tpu_torch.sample.common import global_batch, rank_rows
 from controlnet_tpu_torch.schedules.linear import LinearSchedule, add_noise
 from controlnet_tpu_torch.train.state import TrainState
 from controlnet_tpu_torch.utils.diffusion_utils import drop_image_condition
@@ -36,22 +45,24 @@ def _cast(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
 
 
 def _draw(sched: LinearSchedule, images: torch.Tensor, generator: torch.Generator | None,
-          t: torch.Tensor | None, noise: torch.Tensor | None):
+          t: torch.Tensor | None, noise: torch.Tensor | None, mesh=None):
+    b = global_batch(images.shape[0], mesh)
     if t is None:
-        t = torch.randint(0, sched.num_timesteps, (images.shape[0],), generator=generator,
+        t = torch.randint(0, sched.num_timesteps, (b,), generator=generator,
                           device=images.device)
     if noise is None:
-        noise = torch.randn(images.shape, generator=generator, device=images.device,
+        noise = torch.randn((b, *images.shape[1:]), generator=generator, device=images.device,
                             dtype=images.dtype)
-    return t.to(images.device), noise.to(device=images.device, dtype=images.dtype)
+    return (rank_rows(t, mesh).to(images.device),
+            rank_rows(noise, mesh).to(device=images.device, dtype=images.dtype))
 
 
 def _update(state: TrainState, pred: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     loss = torch.mean((pred.float() - noise) ** 2)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    state.apply_gradients()
-    return loss.detach()
+    (loss,) = state.apply_gradients(loss.detach())
+    return loss
 
 
 def make_ddpm_train_step(model: Callable, sched: LinearSchedule,
@@ -62,7 +73,7 @@ def make_ddpm_train_step(model: Callable, sched: LinearSchedule,
 
     def step(state: TrainState, images: torch.Tensor, generator: torch.Generator | None = None,
              *, t: torch.Tensor | None = None, noise: torch.Tensor | None = None):
-        t, noise = _draw(sched, images, generator, t, noise)
+        t, noise = _draw(sched, images, generator, t, noise, state.mesh)
         noisy = _cast(add_noise(sched, images, noise, t), compute_dtype)
         return _update(state, model(noisy, t), noise)
 
@@ -85,9 +96,16 @@ def make_controlnet_train_step(cn: ControlNet, sched: LinearSchedule,
     def step(state: TrainState, images: torch.Tensor, hints: torch.Tensor,
              generator: torch.Generator | None = None, *, t: torch.Tensor | None = None,
              noise: torch.Tensor | None = None, keep: torch.Tensor | None = None):
-        t, noise = _draw(sched, images, generator, t, noise)
+        mesh = state.mesh
+        t, noise = _draw(sched, images, generator, t, noise, mesh)
         noisy = _cast(add_noise(sched, images, noise, t), compute_dtype)
         if cfg_drop_prob > 0:
+            if keep is None and mesh is not None:  # the global mask, as _keep_mask draws it
+                b = global_batch(images.shape[0], mesh)
+                drop = torch.rand((b,), generator=generator, device=hints.device) < cfg_drop_prob
+                keep = 1.0 - drop.to(hints.dtype)
+            if keep is not None:
+                keep = rank_rows(keep, mesh)
             hints = drop_image_condition(hints, cfg_drop_prob, generator, keep)
         return _update(state, cn(noisy, t, _cast(hints, compute_dtype)), noise)
 
@@ -200,10 +218,12 @@ def make_consistency_train_step(model: ConsistencyDistilled, state: TrainState,
              epoch: int = 0, *, sigma: torch.Tensor | None = None,
              sigma_2: torch.Tensor | None = None, t: torch.Tensor | None = None,
              noise: torch.Tensor | None = None) -> dict:
-        b, device = x0.shape[0], x0.device
+        mesh, device = state.mesh, x0.device
+        b = global_batch(x0.shape[0], mesh)
         if mode == "consistency_only":
             s1 = model.sample_sigmas(b, generator) if sigma is None else sigma.to(device)
             s2 = model.sample_sigmas(b, generator) if sigma_2 is None else sigma_2.to(device)
+            s2 = rank_rows(s2, mesh)
         elif sigma is not None:
             s1 = sigma.to(device)
         elif mode == "manual":
@@ -216,9 +236,11 @@ def make_consistency_train_step(model: ConsistencyDistilled, state: TrainState,
             s1 = model.sigma_min * torch.pow(model.sigma_max / model.sigma_min, t / (T - 1))
         else:
             s1 = model.sample_sigmas(b, generator)
+        s1 = rank_rows(s1, mesh)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=generator, device=device, dtype=x0.dtype)
-        noise = noise.to(device=device, dtype=x0.dtype)
+            noise = torch.randn((b, *x0.shape[1:]), generator=generator, device=device,
+                                dtype=x0.dtype)
+        noise = rank_rows(noise, mesh).to(device=device, dtype=x0.dtype)
 
         if mode == "consistency_only":
             loss = model.consistency_training_loss(x0, hint, s1, s2, noise,
@@ -234,6 +256,7 @@ def make_consistency_train_step(model: ConsistencyDistilled, state: TrainState,
             metrics = {"total_loss": loss, "recon_loss": recon, "distill_loss": distill}
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        metrics = dict(zip(metrics, state.reduce_gradients(*metrics.values())))
         state.optimizer.step()
         state.step += 1
         model.update_ema()
@@ -264,23 +287,27 @@ def make_dmd_train_step(model: DistributionMatchingDistilled, state: TrainState,
 
     def step(x0: torch.Tensor, hint: torch.Tensor, generator: torch.Generator | None = None,
              *, t: torch.Tensor | None = None, noise: torch.Tensor | None = None) -> dict:
-        b, device = x0.shape[0], x0.device
+        mesh, device = state.mesh, x0.device
+        b = global_batch(x0.shape[0], mesh)
         if t is None:
             t_hi = torch.randint(int(0.75 * T), T, (b,), generator=generator, device=device)
             t_lo = torch.randint(0, T, (b,), generator=generator, device=device)
             coin = torch.rand((), generator=generator, device=device)
             t = torch.where(coin < 0.5, t_hi, t_lo)
-        t, noise = _draw(sched, x0, generator, t, noise)
+        t, noise = _draw(sched, x0, generator, t, noise, mesh)
         x_t = add_noise(sched, x0, noise, t)
         total, dmd, teacher_l, comps = model.distillation_loss(x_t, t, hint, x0,
-                                                               compute_dtype=compute_dtype)
+                                                               compute_dtype=compute_dtype,
+                                                               mesh=mesh)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        good = torch.isfinite(total)
-        grad_norm = state.optimizer.step(good)
-        state.step += 1
         metrics = {"total_loss": total, "dist_matching_loss": dmd, "teacher_loss": teacher_l,
                    **comps}
+        # averaged before the guard reads the loss: every rank skips alike
+        metrics = dict(zip(metrics, state.reduce_gradients(*metrics.values())))
+        good = torch.isfinite(metrics["total_loss"])
+        grad_norm = state.optimizer.step(good)
+        state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = grad_norm
         metrics["skipped"] = (~good).float()

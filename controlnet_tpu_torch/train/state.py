@@ -17,6 +17,12 @@ Adam's bias correction count updates, not calls.
 
 ``ClippedAdamW`` / ``create_dmd_train_state`` are the DMD trainer's optimizer
 (clip, AdamW, cosine schedule) with the skipped-batch guard on the device.
+
+A state that carries a data-parallel ``mesh`` (``parallel.mesh.Mesh``)
+averages each call's gradients over the group in one flat all-reduce
+(``reduce_gradients``) before any use of them: before the accumulation fold,
+Adam, DMD's clip and its skipped-batch guard, so every rank takes the same
+update.
 """
 
 from __future__ import annotations
@@ -46,11 +52,35 @@ class TrainState:
     acc_steps: int = 1  # calls whose mean gradient makes one update
     updates: int = 0  # optimizer updates applied
     acc: dict = field(default_factory=dict)  # running mean of this window's gradients
+    mesh: object | None = None  # parallel.mesh.Mesh: gradients averaged over its group
 
-    def apply_gradients(self) -> None:
+    def reduce_gradients(self, *extra: torch.Tensor) -> tuple:
+        """Under a mesh, the mean over the group of this call's gradients (in
+        ``.grad``, in place) and of the ``extra`` device scalars (the step's
+        loss terms), in one flat all-reduce; returns the extras, averaged.  A
+        parameter with no gradient keeps none.  Without a mesh: the extras as
+        they are."""
+        if self.mesh is None:
+            return extra
+        from controlnet_tpu_torch.parallel.mesh import all_reduce_mean
+
+        with torch.no_grad():
+            params = [p for p in self.params.values() if p.grad is not None]
+            parts = [p.grad.reshape(-1).float() for p in params]
+            parts += [e.detach().reshape(1).float() for e in extra]
+            flat = all_reduce_mean(torch.cat(parts), self.mesh)
+            out = flat.split([x.numel() for x in parts])
+            for p, g in zip(params, out):
+                p.grad = g.view_as(p).to(p.dtype)
+            return tuple(x.reshape(()) for x in out[len(params):])
+
+    def apply_gradients(self, *extra: torch.Tensor) -> tuple:
         """Take the parameters' ``.grad`` of one call: an Adam update now
         (``acc_steps`` 1), or a fold into the window's mean, applied on the
-        window's last call.  ``.grad`` holds the update's gradient after it."""
+        window's last call.  ``.grad`` holds the update's gradient after it.
+        Under a mesh the gradients (and ``extra``) are averaged over the group
+        first; returns ``extra`` (averaged)."""
+        extra = self.reduce_gradients(*extra)
         self.step += 1
         if self.acc_steps > 1:
             n = (self.step - 1) % self.acc_steps  # calls already in the window
@@ -62,7 +92,7 @@ class TrainState:
                     else:
                         self.acc[k].add_((g - self.acc[k]) / (n + 1))
             if n + 1 < self.acc_steps:
-                return
+                return extra
             for k, p in self.params.items():
                 p.grad = self.acc.pop(k)
         if self.lr_schedule is not None:
@@ -70,6 +100,7 @@ class TrainState:
                 group["lr"] = self.lr_schedule(self.updates)
         self.optimizer.step()
         self.updates += 1
+        return extra
 
     def state_dict(self) -> dict:
         return {"step": self.step, "updates": self.updates,
@@ -91,16 +122,16 @@ class TrainState:
 
 def create_train_state(params: dict, lr: float, betas: tuple[float, float] = (0.9, 0.999),
                        lr_schedule: Callable[[int], float] | None = None,
-                       acc_steps: int = 1) -> TrainState:
+                       acc_steps: int = 1, mesh=None) -> TrainState:
     """A fresh state (step 0, Adam moments zero) over ``params`` by name:
     ``optax.adam(lr, b1, b2)``, with the LR of ``lr_schedule`` (update index
     -> LR) when given, and gradients averaged over ``acc_steps`` calls per
-    update (``optax.MultiSteps``)."""
+    update (``optax.MultiSteps``) and over ``mesh``'s group."""
     if acc_steps < 1:
         raise ValueError(f"acc_steps must be at least 1, got {acc_steps}")
     opt = torch.optim.Adam(list(params.values()), lr=lr, betas=betas, eps=1e-8)
     return TrainState(step=0, params=dict(params), optimizer=opt, lr_schedule=lr_schedule,
-                      acc_steps=acc_steps)
+                      acc_steps=acc_steps, mesh=mesh)
 
 
 class ClippedAdamW:
@@ -184,7 +215,9 @@ class ClippedAdamW:
 
 
 def create_dmd_train_state(params: dict, lr: float, decay_steps: int,
-                           weight_decay: float = 1e-6, max_norm: float = 1.0) -> TrainState:
-    """A fresh DMD state: ``ClippedAdamW`` over ``params`` by name."""
+                           weight_decay: float = 1e-6, max_norm: float = 1.0,
+                           mesh=None) -> TrainState:
+    """A fresh DMD state: ``ClippedAdamW`` over ``params`` by name, its
+    gradients averaged over ``mesh``'s group."""
     opt = ClippedAdamW(list(params.values()), lr, decay_steps, weight_decay, max_norm)
-    return TrainState(step=0, params=dict(params), optimizer=opt)
+    return TrainState(step=0, params=dict(params), optimizer=opt, mesh=mesh)

@@ -39,7 +39,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "utils.profiling", "utils.config_utils", "utils.extract_mnist_images",
                  "utils.extract_cifar_images", "tools.eval_metrics",
                  "tools.compare_controlnet_models", "tools.compare_all_controlnet_models",
-                 "tools.export_torch_checkpoint"):
+                 "tools.export_torch_checkpoint", "parallel", "parallel.mesh"):
         assert f"controlnet_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
