@@ -12,7 +12,7 @@
     python3 chip_smoke.py --compare-only   # --phases 36-37
 
 The groups of phases are 1-4, 5-9, 10-14, 15-16, 17-20, 21-26, 27-31, 32-35,
-36-37 and 38; phase 1 (the card, the build) always runs.  A selection prints
+36-37, 38, 39, 40 and 41; phase 1 (the card, the build) always runs.  A selection prints
 the JSON summaries of the groups it ran and, when they passed, the final
 ``ok`` line, but no ``kernels`` line: that needs every phase.
 
@@ -30,7 +30,7 @@ Phases (each one that fails makes the script exit non-zero):
    of that forward are recorded for phase 3.
 3. The attention kernel against its plain version at every main-path shape
    (B*H = 256) and one cross-attention shape, f32 and bf16, with the stated
-   tolerances; device times (``device_time_ms``) of the kernel, the plain
+   tolerances; device times (``time_calls``) of the kernel, the plain
    version and ``torch.nn.functional.scaled_dot_product_attention`` (a
    yardstick the port never calls; the backend that ran is printed), beside
    the least time the card could take.
@@ -55,7 +55,7 @@ Phases (each one that fails makes the script exit non-zero):
 7. Three training steps through the kernels against the same steps with
    the plain attention forward and backward, from one generator, f32 and
    bf16: losses, first-step gradients and the weights after.
-8. The training main path: 10 timed steps of the trainer's step at batch
+8. The training main path: 5 timed steps of the trainer's step at batch
    64, f32 and bf16 compute, counters set to 0 just before and read just
    after (exactly 26 forward and 18 backward launches a step), trainable
    weights moved and frozen ones bit-identical; ms/step on the host clock
@@ -120,7 +120,7 @@ Phases (each one that fails makes the script exit non-zero):
    losses, first-step gradients, the weights and the EMA after; launches per
    step held to 42/16 (32/16 in consistency_only); a DMD step on a NaN batch
    leaves parameters, moments and count bit-identical and reports skipped 1.
-19. The distillation main path: 10 timed steps each of ddpm_distillation and
+19. The distillation main path: 5 timed steps each of ddpm_distillation and
    DMD at batch 64, f32 and bf16 (in a process of its own), counters set to 0
    just before and read just after, ms/step and a profiler window; both
    distillation trainer tools for 1 epoch, resumed to 2 (DMD with a seeded
@@ -148,7 +148,7 @@ Phases (each one that fails makes the script exit non-zero):
    against the plain attention and conv routes, with the same injected
    draws, f32 and bf16: losses, first-step gradients, weights after, and
    the launches of every step.
-25. The latent-training main path (in a process of its own): 10 timed
+25. The latent-training main path (in a process of its own): 5 timed
    steps of each trainer, f32 and bf16 (VAE-GAN batch 4 at 128^2, LDM batch
    16 on 32x32x4 latents, LDM ControlNet batch 16 with 1024^2 hints),
    counters set to 0 just before and read just after, ms/step, peak memory
@@ -167,7 +167,7 @@ Phases (each one that fails makes the script exit non-zero):
 29. Three CIFAR training steps through the kernels against the plain
    attention, f32 and bf16, under cuDNN's deterministic algorithms, at phase
    7's limits with phase 24's weight limit (2e-2 lr).
-30. The CIFAR main path: 20 timed training steps at batch 64, f32 and bf16
+30. The CIFAR main path: 10 timed training steps at batch 64, f32 and bf16
    (counters set to 0 just before and read just after: 26 / 18 a step; peak
    memory; a profiler window), then the ControlNet sample tool's ancestral
    loop at batch 64 cut to a 50-step schedule (26 launches a step),
@@ -245,13 +245,39 @@ Phases (each one that fails makes the script exit non-zero):
    ``config/celebhq.yaml``'s full width, 8 rows a rank (7 kernel-c launches a
    step a rank).  The wall ms/step of the two ranks beside one process are
    two ranks time-sliced on one card through the host: not a scaling figure.
-39. A ``{"distill": {...}}``, a ``{"latent_train": {...}}``, a
-   ``{"cifar": {...}}``, a ``{"cond": {...}}``, a ``{"compare": {...}}`` and a
-   ``{"parallel": {...}}`` JSON line, a ``{"kernels": [...]}`` JSON line, the
-   ``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
+39. The four latent tools' data-parallel paths at ``config/celebhq.yaml``'s
+   widths, through their ``main``, two gloo ranks on cuda:0 against one
+   process: ``train_vae`` (1 epoch of 8 seeded 128^2 images, batch 4, its
+   calls accumulated into one update), ``train_ldm_vae`` (1 epoch, one
+   batch of the 8, encoded by the seeded VAE), ``sample_ldm_vae`` and ``sample_ldm_controlnet``
+   (DPM 4 steps and the decode, 3 samples padded to 4, 1024^2 hints through
+   kernel c): one checkpoint each, .pth weights within LATENT_WEIGHT_TOL lr
+   above the noise floor, samples within MODEL_TOL, launches of a / b / c
+   per rank equal to one process's.
+40. The serve tool's replicas: two replicas of its model on cuda:0
+   (``make_server(..., devices=)``) against one, ``dpm_controlnet`` and the
+   consistency student at 4 steps: a 16-row request split 8 + 8 and a 1-row
+   request on the first replica, the samples within MODEL_TOL.
+41. Megatron tensor parallelism (``parallel/tp.py``) over a 2-D (data,
+   model) mesh: (i) an NCCL group of one with a model axis of 1, through
+   ``tp_shard_params``, bit-equal to no mesh; (ii) the MNIST ControlNet on a
+   (2, 2) mesh of four gloo ranks (2 of 4 heads a rank), three steps f32 and
+   bf16 against one process at phase 7's limits, launches of a and b per
+   rank; (iii) the CelebA-HQ LDM ControlNet on a (1, 2) mesh (8 of 16 heads a
+   rank) at batch 16, two steps against one process, each rank's parameter
+   bytes on the card against ``tp_memory_report``; (iv) kernels a and b at
+   the per-rank TP shapes, and c on the gathered remainder weights, against
+   their plain versions; (v) ``dryrun_multichip(4)``'s loss falling.  Times
+   are of ranks time-sliced on one card: not a scaling figure.
+42. A ``{"distill": {...}}``, a ``{"latent_train": {...}}``, a
+   ``{"cifar": {...}}``, a ``{"cond": {...}}``, a ``{"compare": {...}}``, a
+   ``{"parallel": {...}}``, a ``{"latent_dp": {...}}``, a
+   ``{"serve_replicas": {...}}`` and a ``{"tensor_parallel": {...}}`` JSON
+   line, a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
+   the last line ``{"ok": true, "device": {...}}``.
 
 Kernel, plain-version and library times are device time: the profiler's sum
-of the GPU work a call launches (``device_time_ms``), the wrappers' own casts
+of the GPU work a call launches (``time_calls``), the wrappers' own casts
 included, taken by the timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32, 33; and 19's,
 25's and 34's timed runs) each in a process of its own (``in_fresh_process``).  (PRs
 1-5 timed with CUDA events, PRs 6-7 printed those beside; PR 8 dropped them
@@ -329,17 +355,23 @@ MNIST_PROJ_SHAPES = [(784, 64, 4, 4), (196, 128, 4, 4), (196, 32, 4, 2), (49, 25
 LDM_PROJ_SHAPES = [(1024, 384, 16, 4), (1024, 128, 16, 2), (256, 512, 16, 4),
                    (256, 256, 16, 2), (64, 768, 16, 4), (64, 384, 16, 2), (16, 512, 16, 4)]
 LDM_BATCH = 16      # train_params.ldm_batch_size of config/celebhq.yaml
-TRAIN_STEPS = 10    # timed steps of the training main paths (8, 19, 25), per compute type
-CIFAR_TRAIN_STEPS = 20  # timed steps of the CIFAR training main path (30)
+TRAIN_STEPS = 5     # timed steps of the training main paths (8, 19, 25), per compute type
+CIFAR_TRAIN_STEPS = 10  # timed steps of the CIFAR training main path (30)
 TRAIN_WARMUP = 2
-PROFILE_STEPS = 3
+PROFILE_STEPS = 2
 CHECK_STEPS = 3     # kernel-vs-plain training steps
 NOISE_FLOOR = 1e-6  # |gradient| below which Adam (eps 1e-8) amplifies float noise
 TOOL_IMAGES = 256   # the trainer tools' seeded dataset: 4 steps per epoch
 
 
+START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print a line, led by the seconds since this process started; JSON
+    lines as they are."""
+    print(msg if msg.startswith("{") else f"[{time.perf_counter() - START:7.1f} s] {msg}",
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -503,62 +535,78 @@ def _device_ms(evt) -> float:
     return 0.0
 
 
-# device_time_ms's windows, and the device records in them launched elsewhere
-PROFILER_WINDOWS = {"measurements": 0, "windows": 0, "foreign": 0}
+# time_calls's windows, the measurements they hold, and the device records in
+# them launched elsewhere
+PROFILER_WINDOWS = {"measurements": 0, "groups": 0, "windows": 0, "foreign": 0, "seconds": 0.0}
+_RANGE = "time_calls::"
 
 
-def device_time_ms(fn, calls: int = 5, tries: int = 8) -> tuple[float, dict]:
-    """Device time per call: after a warm-up, a torch.profiler window (CPU +
-    CUDA) over ``calls`` calls; the device time of all the GPU work those
-    calls launched (the wrappers' casts and copies included), summed and
-    divided by ``calls``.  Returns (ms, {kernel name: ms per call}).
+def time_calls(calls: int = 5, tries: int = 8, **fns) -> dict:
+    """Device time per call of each named function, under its name, and its
+    kernels' names with their ms per call under ``<name>_names``.
 
-    Only device records whose launch (a `cuda*` or `cu*` API call, matched
-    by correlation id) lies in the window count: a process that has launched
-    millions of kernels since its first window was seen to report an old
-    window's records in every later one (why the timing phases run in fresh
+    After a warm-up, one torch.profiler window (CPU + CUDA) runs ``calls``
+    calls of each function in turn, each inside a ``record_function`` range
+    and followed by a synchronise; the device time of all the GPU work a
+    function's calls launched (the wrappers' casts and copies included) is
+    summed and divided by ``calls``.  A device record belongs to the
+    function whose range holds its launch (a `cuda*` or `cu*` API call,
+    matched by correlation id): a process that has launched millions of
+    kernels since its first window was seen to report an old window's
+    records in every later one (why the timing phases run in fresh
     processes).  Even a fresh process now and then loses some of a window's
-    records, so a window counts only when another window of the same calls
-    kept as many, a nonzero multiple of ``calls``.  No agreement in
-    ``tries`` windows fails the run: there is no fallback to another
-    clock."""
-    from torch.profiler import ProfilerActivity, profile
+    records, so a window counts only when another window kept as many for
+    every function, each a nonzero multiple of ``calls``.  No agreement in
+    ``tries`` windows fails the run: there is no fallback to another clock."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    for _ in range(2):
-        fn()
+    start = time.perf_counter()
+    for fn in fns.values():
+        for _ in range(2):
+            fn()
     torch.cuda.synchronize()
-    counts = []
-    PROFILER_WINDOWS["measurements"] += 1
+    seen = []
+    PROFILER_WINDOWS["measurements"] += len(fns)
+    PROFILER_WINDOWS["groups"] += 1
     for _ in range(tries):
         PROFILER_WINDOWS["windows"] += 1
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        launched = {e.id for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cu")}
+            for key, fn in fns.items():
+                with record_function(_RANGE + key):
+                    for _ in range(calls):
+                        fn()
+                    torch.cuda.synchronize()
+        cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+        spans = {e.name[len(_RANGE):]: e.time_range for e in cpu if e.name.startswith(_RANGE)}
+        owner = {}  # correlation id of a launch -> the function whose range holds it
+        for e in cpu:
+            if e.name.startswith("cu"):
+                for key, span in spans.items():
+                    if span.start <= e.time_range.start <= span.end:
+                        owner[e.id] = key
+                        break
         everything = device_events(prof)
-        events = [e for e in everything if e.id in launched]
-        if len(events) != len(everything):
-            PROFILER_WINDOWS["foreign"] += len(everything) - len(events)
-        if events and len(events) % calls == 0 and len(events) in counts:
-            names: dict = {}
-            for e in events:
-                names[e.name] = names.get(e.name, 0.0) + _device_ms(e) / calls
-            return sum(names.values()), names
-        counts.append(len(events))
+        mine = {key: [] for key in fns}
+        for e in everything:
+            if e.id in owner:
+                mine[owner[e.id]].append(e)
+        kept = sum(len(v) for v in mine.values())
+        PROFILER_WINDOWS["foreign"] += len(everything) - kept
+        counts = tuple(len(mine[key]) for key in fns)
+        if all(c and c % calls == 0 for c in counts) and counts in seen:
+            out = {}
+            for key, events in mine.items():
+                names: dict = {}
+                for e in events:
+                    names[e.name] = names.get(e.name, 0.0) + _device_ms(e) / calls
+                out[key], out[f"{key}_names"] = sum(names.values()), names
+            PROFILER_WINDOWS["seconds"] += time.perf_counter() - start
+            return out
+        seen.append(counts)
         last = collections.Counter(e.name[:48] for e in everything).most_common(6)
     raise SystemExit(f"the profiler recorded no consistent device time (device records per "
-                     f"window: {counts}; the last window's, launched there or not: {last})")
-
-
-def time_calls(**fns) -> dict:
-    """For each named call: ``device_time_ms`` under its name and the kernel
-    names of its window under ``<name>_names``."""
-    out = {}
-    for key, fn in fns.items():
-        out[key], out[f"{key}_names"] = device_time_ms(fn)
-    return out
+                     f"function and window: {seen}; the last window's, launched there or not: "
+                     f"{last})")
 
 
 def own_ms(names: dict, *keys: str) -> float:
@@ -1581,12 +1629,12 @@ def phase_ldm(device) -> dict:
     if conv_shapes != hint_conv_shapes(hints.shape[1], 3, cn.trained_unet.down_channels[0],
                                        cn.down_sample_factor, LDM_BATCH):
         raise SystemExit(f"unexpected conv shapes in the hint encode: {conv_shapes}")
-    kern_conv = in_fresh_process("phase_conv_kernels", conv_shapes)
     attn_shapes = phase_ldm_forward(cn, hints, device)
-    kern_attn = in_fresh_process("phase_kernels", attn_shapes, batch=LDM_BATCH, cross=())
+    kern_conv, kern_attn, kern_proj = in_fresh_processes(
+        ("phase_conv_kernels", (conv_shapes,), {}),
+        ("phase_kernels", (attn_shapes,), dict(batch=LDM_BATCH, cross=())),
+        ("phase_proj_kernels", (LDM_PROJ_SHAPES, LDM_BATCH), dict(what="latent forward")))
     phase_ldm_fused_forward(cn, hints, device)
-    kern_proj = in_fresh_process("phase_proj_kernels", LDM_PROJ_SHAPES, LDM_BATCH,
-                                 what="latent forward")
     runs = phase_ldm_main_path(config, cn, vae, sched, hints_path, device)
     return dict(conv=kern_conv, attn=kern_attn, proj=kern_proj, runs=runs)
 
@@ -3348,14 +3396,15 @@ def run_cifar_phases(device) -> dict:
     shapes = phase_forward(cn, device, channels=3, size=32, what="CIFAR forward")
     del cn
     torch.cuda.empty_cache()
-    kern = in_fresh_process("phase_kernels", shapes, cross=CIFAR_OFF_PATH_SHAPES)
     base = seeded_unet_state_dict(config)
     reader = CifarDataset("train", trees["train"])
     images = torch.from_numpy(np.stack([reader[i] for i in range(len(reader))])).permute(
         0, 3, 1, 2).contiguous().to(device)
     bwd_shapes = phase_train_shapes(config, base, images, device)
-    kern_bwd = in_fresh_process("phase_kernels_bwd", bwd_shapes, cross=CIFAR_OFF_PATH_SHAPES,
-                                per="CIFAR training step")
+    kern, kern_bwd = in_fresh_processes(
+        ("phase_kernels", (shapes,), dict(cross=CIFAR_OFF_PATH_SHAPES)),
+        ("phase_kernels_bwd", (bwd_shapes,), dict(cross=CIFAR_OFF_PATH_SHAPES,
+                                                  per="CIFAR training step")))
     parity = {str(dtype)[6:]: phase_train_parity(config, base, images, device, dtype,
                                                  deterministic=True, what="CIFAR training")
               for dtype in (torch.float32, torch.bfloat16)}
@@ -3774,14 +3823,15 @@ def run_cond_phases(device) -> dict:
     shapes = phase_cond_forward(device)
     torch.cuda.empty_cache()
     cross = [s for s in shapes if s[1] == COND_TEXT_LEN]
-    fwd = in_fresh_process("phase_kernels", cross, batch=LDM_BATCH, cross=())
     grad, bwd_shapes = phase_cond_grad(device)
     torch.cuda.empty_cache()
     bwd_cross = [s for s in bwd_shapes if s[1] == COND_TEXT_LEN]
     if collections.Counter(bwd_cross) != collections.Counter(cross):
         raise SystemExit(f"the gradient reaches kernel b at other cross shapes: {bwd_cross}")
-    bwd = in_fresh_process("phase_kernels_bwd", bwd_cross, batch=LDM_BATCH, cross=(),
-                           per="conditional LDM gradient")
+    fwd, bwd = in_fresh_processes(
+        ("phase_kernels", (cross,), dict(batch=LDM_BATCH, cross=())),
+        ("phase_kernels_bwd", (bwd_cross,), dict(batch=LDM_BATCH, cross=(),
+                                                 per="conditional LDM gradient")))
     sampling = in_fresh_process("phase_cond_sampling")
     mnist = phase_class_mnist(device)
     res = dict(cross_shapes=sorted(collections.Counter(cross).items(), reverse=True), fwd=fwd,
@@ -4072,6 +4122,11 @@ DP_SCALING_NOTE = ("two ranks time-sliced on one card, gloo through the host: no
                    "scaling figure")
 
 
+# phase 38's one-process references and its NCCL child's model-axis-1 run,
+# which phase 41 takes instead of computing them again
+REFS: dict = {}
+
+
 def dp_work() -> str:
     return os.path.join(REPO, "build", "smoke", "parallel")
 
@@ -4083,20 +4138,27 @@ def dp_images(device) -> torch.Tensor:
     return torch.from_numpy(to_unit(seeded_digits(2 * BATCH)))[:, None].to(device)
 
 
-def dp_cn_steps(config: dict, base: dict, images, device, dtype_name: str, mesh=None) -> dict:
+def dp_cn_steps(config: dict, base: dict, images, device, dtype_name: str, mesh=None,
+                tp: bool = False) -> dict:
     """DP_STEPS ControlNet trainer steps on the global batches of
     ``train_batches`` (this rank's rows of each under ``mesh``), one seeded
     generator, cuDNN's deterministic algorithms: losses, the first step's
     (averaged) gradients, the weights before and after, the noise-floor
     mask, the launches of kernels a and b, and the wall ms of the steps after
-    the first."""
+    the first.  ``tp``: the parameters sharded over ``mesh``'s model axis
+    first (``parallel/tp.py``); the tensors returned are joined whole."""
     from controlnet_tpu_torch import cli
+    from controlnet_tpu_torch.parallel import tp as tp_mod
+    from controlnet_tpu_torch.parallel.tp import tp_full_state_dict, tp_shard_params
 
     cn, state, step = train_setup(config, base, device, dtype_name, mesh)
+    if tp:
+        tp_shard_params(cn, mesh)
     before = {k: p.detach().clone() for k, p in state.params.items()}
     g = torch.Generator(device=device).manual_seed(SEED)
     losses, grads, noisy, times = [], None, {}, []
     reset_launch_counts()
+    tp_mod.moved_bytes = 0
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
         for batch, hints in train_batches(images, DP_STEPS):
@@ -4112,10 +4174,17 @@ def dp_cn_steps(config: dict, base: dict, images, device, dtype_name: str, mesh=
             if grads is None:
                 grads = {k: p.grad.detach().clone() for k, p in state.params.items()}
     a, b, _ = launch_counts()
+    model_group_bytes = tp_mod.moved_bytes / DP_STEPS  # a step, before the joins below
+    after = {k: p.detach() for k, p in state.params.items()}
+    if tp:  # the shards joined whole (the mask as 0 / 1)
+        grads, before, after = (tp_full_state_dict(cn, mesh, d) for d in (grads, before, after))
+        noisy = {k: v > 0 for k, v in tp_full_state_dict(
+            cn, mesh, {k: m.float() for k, m in noisy.items()}).items()}
     cpu = lambda d: {k: v.cpu() for k, v in d.items()}  # noqa: E731
     return dict(losses=torch.stack(losses).float().cpu(), grads=cpu(grads), before=cpu(before),
-                after=cpu({k: p.detach() for k, p in state.params.items()}), noisy=cpu(noisy),
+                after=cpu(after), noisy=cpu(noisy),
                 launches=(a, b), ms=1e3 * sum(times[1:]) / max(1, len(times) - 1),
+                model_group_bytes=model_group_bytes,
                 allreduce_bytes=4 * (sum(p.numel() for p in state.params.values()) + 1))
 
 
@@ -4152,17 +4221,38 @@ def dp_distill_steps(config: dict, teacher_sd: dict, images, device, mesh=None) 
     return out
 
 
-def dp_ldm_steps(device, mesh=None) -> dict:
+def dp_ldm_steps(device, mesh=None, tp: bool = False, keep_grads: bool = False) -> dict:
     """DP_LDM_STEPS steps of the LDM ControlNet trainer at config/celebhq.yaml's
     full width, float32, on LDM_BATCH-row global batches with 1024^2 hints
     (this rank's rows under ``mesh``) and injected global draws: the losses,
-    the launches of kernels a, b and c, and the wall ms a step."""
+    the launches of kernels a, b and c, the wall ms a step and the bytes a
+    step through the model group; with ``keep_grads`` the first step's
+    gradients, joined whole, on the CPU.  ``tp``: the parameters sharded
+    over ``mesh``'s model axis first (``parallel/tp.py``), with each rank's
+    parameter bytes on the card against ``tp_memory_report`` and, after the
+    steps, kernel c on the gathered remainder weights."""
     from controlnet_tpu_torch import cli
+    from controlnet_tpu_torch.parallel import tp as tp_mod
+    from controlnet_tpu_torch.parallel.tp import (tp_full_state_dict, tp_memory_report,
+                                                  tp_shard_params)
 
-    _, _, run = latent_trainer("controlnet", "float32", device, mesh)
+    mods, states, run = latent_trainer("controlnet", "float32", device, mesh)
+    cn, params = mods["cn"], states[""].params
+    res: dict = {}
+    if tp:
+        report = tp_memory_report(cn, mesh.model_parallel)
+        tp_shard_params(cn, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        res.update(param_bytes=torch.cuda.memory_allocated(device),
+                   tensor_bytes=sum(p.numel() * p.element_size() for p in cn.parameters()),
+                   per_device_bytes=report["per_device_bytes"],
+                   total_bytes=report["total_bytes"],
+                   params=sum(p.numel() for p in cn.parameters()))
     g = torch.Generator(device=device).manual_seed(SEED)
-    losses, times = [], []
+    losses, times, grads = [], [], None
     reset_launch_counts()
+    tp_mod.moved_bytes = 0
     for i in range(DP_LDM_STEPS):
         batch = latent_batch("controlnet", g, device)
         draws = latent_draws("controlnet", batch, g, device)
@@ -4172,8 +4262,18 @@ def dp_ldm_steps(device, mesh=None) -> dict:
         losses.append(run(batch, i, g, **draws).item())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return dict(losses=losses, launches=launch_counts(),
-                ms=1e3 * sum(times[1:]) / max(1, len(times) - 1))
+        if keep_grads and grads is None:
+            grads = {k: p.grad.detach().clone() for k, p in params.items()}
+    res.update(losses=losses, launches=launch_counts(),
+               ms=1e3 * sum(times[1:]) / max(1, len(times) - 1),
+               model_group_bytes=tp_mod.moved_bytes / DP_LDM_STEPS)
+    if keep_grads:
+        if tp:
+            grads = tp_full_state_dict(cn, mesh, grads)
+        res["grads"] = {k: v.cpu() for k, v in grads.items()}
+    if tp:
+        res["conv"] = tp_conv_check(cn, device)
+    return res
 
 
 def dp_tool_config(config: dict, task: str) -> str:
@@ -4228,18 +4328,25 @@ def dp_nccl_world1(config: dict, device) -> dict:
     weight_diff = max((dp["after"][k] - plain["after"][k]).abs().max().item()
                       for k in plain["after"])
     return dict(backend=mesh.backend, loss_max_abs_diff=loss_diff,
-                weight_max_abs_diff=weight_diff, launches=dp["launches"], steps=DP_STEPS)
+                weight_max_abs_diff=weight_diff, launches=dp["launches"], steps=DP_STEPS,
+                tp=tp_nccl_world1(config, device, plain))
 
 
 def parallel_rank(spec: str) -> int:
-    """The child side of phase 38: ``spec`` names the check and, for the
-    two-rank run, the rank and the file rendezvous.  Writes its results with
+    """The child side of phases 38, 39 and 41: ``spec`` names the check and,
+    for a run of several ranks, the rank and the file rendezvous.  Writes its results with
     ``torch.save`` to ``spec["out"]``."""
     import torch.distributed as dist
 
     args = json.loads(spec)
+    if args["check"] in ("latent_tools", "tp_mnist", "tp_ldm"):
+        return multi_rank(args)
     device = torch.device(DEVICE)  # every rank on the one card
     config = mnist_config()
+    if args["check"] == "tp_nccl":
+        torch.save(tp_nccl_world1(config, device), args["out"])
+        dist.destroy_process_group()
+        return 0
     if args["check"] == "nccl":
         torch.save(dp_nccl_world1(config, device), args["out"])
         dist.destroy_process_group()
@@ -4289,7 +4396,7 @@ def run_ranks(specs: list, env: dict) -> None:
         for line in text.splitlines()[-40:]:
             log(f"  [rank {i}] {line}")
     if any(p.returncode != 0 for p in procs):
-        raise SystemExit(f"phase 38 ranks failed (exit codes {[p.returncode for p in procs]})")
+        raise SystemExit(f"ranks failed (exit codes {[p.returncode for p in procs]})")
 
 
 def _rel_max(a: dict, b: dict) -> float:
@@ -4325,6 +4432,7 @@ def phase_parallel(config: dict, ckpt: str, device) -> dict:
               {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()), "RANK": "0",
                "WORLD_SIZE": "1", "LOCAL_RANK": "0"})
     nccl = torch.load(out1, weights_only=False)
+    REFS["tp_nccl"] = nccl.pop("tp")
     ok1 = nccl["loss_max_abs_diff"] == 0.0 and nccl["weight_max_abs_diff"] == 0.0
     log(f"parallel 1: NCCL group of one ({nccl['backend']}), {DP_STEPS} ControlNet steps through "
         f"the data-parallel path against no mesh: losses max |diff| {nccl['loss_max_abs_diff']}, "
@@ -4337,7 +4445,8 @@ def phase_parallel(config: dict, ckpt: str, device) -> dict:
     ref_cn = {name: dp_cn_steps(config, base, images, device, name)
               for name in ("float32", "bfloat16")}
     ref_distill = dp_distill_steps(config, seeded_teacher(ckpt), images, device)
-    ref_ldm = dp_ldm_steps(device)
+    ref_ldm = dp_ldm_steps(device, keep_grads=True)  # phase 41 compares its gradients
+    REFS.update(cn=ref_cn, ldm=ref_ldm)
     noisy_tool: dict = {}
     apply = TrainState.apply_gradients
 
@@ -4486,6 +4595,610 @@ def seeded_controlnet_from_base(config: dict, base: dict) -> dict:
     return {k: v.detach().clone() for k, v in cn.state_dict().items()}
 
 
+# ---------------------------------------------------------------------------
+# Phases 39-41: the rest of multi-GPU.  39: the four latent tools'
+# data-parallel paths at config/celebhq.yaml's widths, two gloo ranks on
+# cuda:0 against one process.  40: the serve tool's replicas, two on cuda:0
+# against one.  41: Megatron tensor parallelism (parallel/tp.py) over a 2-D
+# (data, model) mesh: an NCCL group of one with a model axis of 1; the MNIST
+# ControlNet on a (2, 2) mesh of four gloo ranks; the CelebA-HQ LDM
+# ControlNet on (1, 2); kernels a, b and c at the TP shapes against their
+# plain versions; dryrun_multichip(4).  One card holds every rank, so every
+# time here is of ranks time-sliced on it, not a scaling figure.
+
+LT_WORLD = 2
+LT_IMAGES = 8         # the latent tools' seeded 128^2 set: 2 VAE-GAN calls of 4, 1 LDM step of 8
+LT_SAMPLES = 3        # the sample tools' count at two ranks, padded to 4
+LT_SAMPLE_STEPS = 4   # DPM-Solver++ steps of both latent sample tools
+TP_WORLD = 4          # check (ii) runs DP_STEPS MNIST ControlNet steps per compute type
+# each rank's memory_allocated after sharding against tp_memory_report's
+# per_device_bytes, relative: the caching allocator leaves a large block
+# unsplit when less than 1 MiB would remain, so a large tensor may hold up to
+# 1 MiB more than it asked (its tensors' own bytes must match exactly)
+TP_BYTES_TOL = 0.05
+
+
+def ranks_note(n: int) -> str:
+    return f"{n} ranks time-sliced on one card, gloo through the host: not a scaling figure"
+
+
+def lt_work() -> str:
+    return os.path.join(REPO, "build", "smoke", "latent_dp")
+
+
+def lt_config(task: str) -> str:
+    """config/celebhq.yaml at full width, one epoch of each latent trainer,
+    under ``lt_work()/task``.  The VAE-GAN's epoch accumulates its two calls
+    into one Adam update: after a first update the two runs' weights differ
+    by float rounding, which the next calls' Adam normalisation amplifies in
+    this randomly initialised VAE far past the tolerance, while its one
+    update from the averaged gradient holds it.  ``disc_start`` 1: the
+    second call trains the PatchGAN (its BatchNorm over the global batch)
+    and adds its loss to the VAE's."""
+    import yaml
+
+    cfg = celebhq_config()
+    cfg["train_params"].update(task_name=os.path.join(lt_work(), task), autoencoder_epochs=1,
+                               ldm_epochs=1, ckpt_save_every_epochs=1, disc_start=1,
+                               autoencoder_img_save_steps=10**6,
+                               autoencoder_acc_steps=LT_IMAGES // cfg["train_params"][
+                                   "autoencoder_batch_size"])
+    path = os.path.join(lt_work(), f"{task}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def lt_tools(config_path: str, num_samples: int, keep_grads: bool = True) -> dict:
+    """Phase 39's run of the four latent tools through their ``main`` on the
+    seeded files of ``lt_work()``: train_vae (1 epoch of LT_IMAGES at 128^2,
+    batch 4), train_ldm_vae (1 epoch: one short batch of them, encoded by the
+    seeded VAE), sample_ldm_vae and sample_ldm_controlnet (DPM
+    LT_SAMPLE_STEPS steps, ``num_samples`` samples, decoded; the ControlNet's
+    hints at 1024^2 through kernel c; none when it is 0) on the seeded .pth
+    files.  Returns the
+    decoded samples, each tool's launches of a / b / c and wall seconds, and
+    with ``keep_grads`` each trained parameter's weights before its first
+    update and that update's gradient (averaged over the ranks; on the
+    CPU).  The trainers run cuDNN's deterministic algorithms."""
+    import numpy as np
+
+    from controlnet_tpu_torch.tools import (sample_ldm_controlnet, sample_ldm_vae, train_ldm_vae,
+                                            train_vae)
+    from controlnet_tpu_torch.train.state import TrainState
+
+    work = lt_work()
+    out = {"launches": {}, "seconds": {}, "samples": {}, "before": {}, "grads": {}}
+    apply = TrainState.apply_gradients
+
+    def recording(self, *extra):
+        for k, p in self.params.items():
+            out["before"].setdefault(k, p.detach().cpu().clone())
+        updates = self.updates
+        res = apply(self, *extra)
+        if self.updates > updates:  # .grad holds the update's (accumulated) gradient
+            for k, p in self.params.items():
+                out["grads"].setdefault(k, p.grad.detach().cpu().clone())
+        return res
+
+    def run(name, fn, argv):
+        reset_launch_counts()
+        start = time.perf_counter()
+        res = fn(argv)
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - start
+        out["launches"][name] = launch_counts()
+        return res
+
+    images, vae = os.path.join(work, "images.npy"), os.path.join(work, "vae.pth")
+    if keep_grads:
+        TrainState.apply_gradients = recording
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            run("train_vae", train_vae.main, ["--config", config_path, "--images", images])
+            run("train_ldm_vae", train_ldm_vae.main,
+                ["--config", config_path, "--images", images, "--vae_ckpt", vae])
+    finally:
+        TrainState.apply_gradients = apply
+    fixed = ["--config", config_path, "--vae_ckpt", vae, "--num_samples", str(num_samples),
+             "--sampler", "dpm", "--sampler_steps", str(LT_SAMPLE_STEPS), "--save_every",
+             str(LT_SAMPLE_STEPS)]
+    for name, tool, extra in () if not num_samples else (
+            ("sample_ldm_vae", sample_ldm_vae, ["--ckpt", os.path.join(work, "ldm.pth")]),
+            ("sample_ldm_controlnet", sample_ldm_controlnet,
+             ["--ckpt", os.path.join(work, "cn.pth"), "--hints", os.path.join(work, "hints.npy")])):
+        out["samples"][name] = torch.from_numpy(np.asarray(run(name, tool.main, fixed + extra)))
+    return out
+
+
+def phase_latent_tools_dp(device) -> dict:
+    """Phase 39: the four latent tools at two ranks against one process.  A
+    trainer is held by its update's gradient, each tensor within MODEL_TOL
+    of that tensor's own largest gradient, and by its written weights
+    (LATENT_WEIGHT_TOL lr) where the gradient stands above the noise floor
+    and above 10 x MODEL_TOL of its tensor's largest: there the first check
+    leaves the gradient's sign no room to flip (Adam's first step is lr
+    times the sign; below, two runs may disagree on it).  Both bounds come
+    from the one-process run, so a fault of the two-rank path cannot widen
+    them.  The trainers run cuDNN's deterministic algorithms: with its
+    default ones a discriminator weight's gradient moved by up to ~1e-2 of
+    its largest between runs of the same code.  Every tensor's update
+    gradient must be nonzero: the discriminator's too."""
+    import numpy as np
+
+    shutil.rmtree(lt_work(), ignore_errors=True)
+    os.makedirs(lt_work())
+    config = celebhq_config()
+    size = config["dataset_params"]["im_size"]
+    rng = np.random.default_rng(SEED)
+    np.save(os.path.join(lt_work(), "images.npy"),
+            (rng.random((LT_IMAGES, size, size, 3)) * 255).astype(np.uint8))
+    write_seeded_ldm_hints(LT_SAMPLES + 1, config["dataset_params"]["canny_im_size"],
+                           os.path.join(lt_work(), "hints.npy"))
+    write_seeded_ldm_checkpoints(config, os.path.join(lt_work(), "cn.pth"),
+                                 os.path.join(lt_work(), "vae.pth"))
+    torch.save(seeded_ldm_state_dict(), os.path.join(lt_work(), "ldm.pth"))
+    paths = {task: lt_config(task) for task in ("one", "two")}
+    for task in paths:
+        os.makedirs(os.path.join(lt_work(), task))
+    start = time.perf_counter()
+
+    one = lt_tools(paths["one"], LT_SAMPLES + 1)
+    torch.cuda.empty_cache()
+    init = os.path.join(lt_work(), "pg")
+    outs = [os.path.join(lt_work(), f"rank{r}.pt") for r in range(LT_WORLD)]
+    run_ranks([{"check": "latent_tools", "rank": r, "init": init, "out": outs[r],
+                "world": LT_WORLD, "config": paths["two"]} for r in range(LT_WORLD)],
+              {"LOCAL_RANK": "0"})
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    two = ranks[0]
+
+    tp = config["train_params"]
+    res: dict = {"world": LT_WORLD, "note": ranks_note(LT_WORLD)}
+    ok = True
+    for name, files, lr in (("train_vae", (tp["vae_autoencoder_ckpt_name"],
+                                           tp["vae_discriminator_ckpt_name"]),
+                             tp["autoencoder_lr"]),
+                            ("train_ldm_vae", (tp["ldm_ckpt_name"],), tp["ldm_lr"])):
+        a, b, dirs = {}, {}, {}
+        for f in files:
+            a.update(torch.load(os.path.join(lt_work(), "two", f), weights_only=True))
+            b.update(torch.load(os.path.join(lt_work(), "one", f), weights_only=True))
+            dirs[f] = [sorted(os.listdir(os.path.join(lt_work(), t, f[:-4])))
+                       for t in ("one", "two")]
+        g1, g2 = ({k: g[k] for k in b} for g in (one["grads"], two["grads"]))
+        top = {k: g1[k].abs().max().item() for k in b}
+        errs = {k: (g2[k] - g1[k]).abs().max().item() / max(top[k], 1e-30) for k in b}
+        worst = max(errs, key=errs.get)
+        trained = all(top[k] > 0 for k in b)
+        floor = {k: max(NOISE_FLOOR, 10 * MODEL_TOL[torch.float32] * top[k]) for k in b}
+        noisy = {k: (g1[k].abs() < floor[k]) | (g2[k].abs() < floor[k]) for k in b}
+        w = _weights_diff(a, b, {k: one["before"][k] for k in b}, noisy)
+        with open(os.path.join(lt_work(), f"{name}_tensors.json"), "w") as f:
+            json.dump({k: dict(largest=top[k], rel_err=errs[k]) for k in b}, f, indent=0)
+        launches = [tuple(r["launches"][name]) for r in ranks]
+        # LATENT_WEIGHT_TOL: at these learning rates one float32 ulp of a
+        # GroupNorm scale near 1 is 0.012 lr (phase 24's tolerance)
+        good = (all(d == [["1.pt"], ["1.pt"]] for d in dirs.values())
+                and errs[worst] <= MODEL_TOL[torch.float32] and trained
+                and w["clean_max"] / lr < LATENT_WEIGHT_TOL and w["clean_share"] > 0
+                and launches[0] == tuple(one["launches"][name]))
+        ok = ok and good
+        res[name] = dict(grad_rel_err=errs[worst], grad_worst_tensor=worst, tensors=len(b),
+                         every_tensor_trained=trained, weights_clean_max_lr=w["clean_max"] / lr,
+                         clean_share=w["clean_share"], update_cos=w["cos"], checkpoints=dirs,
+                         launches_per_rank=launches, launches_one_process=one["launches"][name],
+                         s_two_ranks=two["seconds"][name], s_one_process=one["seconds"][name])
+        log(f"latent tools 39: {name} main, 1 epoch, 2 ranks vs 1 process: update gradients rel "
+            f"err up to {errs[worst]:.3g} of their own tensor's largest, in {worst} (tol "
+            f"{MODEL_TOL[torch.float32]:g}), each of {len(b)} tensors' nonzero {trained}; "
+            f"weights max |diff| {w['clean_max'] / lr:.3g} lr over the {w['clean_share']:.3f} "
+            f"above the floor, cos {w['cos']:.6f}; checkpoints {dirs}; launches a/b/c per "
+            f"rank {launches} (one process {tuple(one['launches'][name])}); "
+            f"{two['seconds'][name]:.1f} vs {one['seconds'][name]:.1f} s "
+            f"({ranks_note(LT_WORLD)}) -> {'ok' if good else 'FAIL'}")
+    for name in ("sample_ldm_vae", "sample_ldm_controlnet"):
+        s2, s1 = two["samples"][name], one["samples"][name][:LT_SAMPLES]
+        err = ((s2 - s1).abs().max() / s1.abs().max()).item()
+        launches = [tuple(r["launches"][name]) for r in ranks]
+        good = (s2.shape == s1.shape and err <= MODEL_TOL[torch.float32]
+                and all(x == tuple(one["launches"][name]) for x in launches)
+                and all(x[0] > 0 for x in launches)
+                and (name != "sample_ldm_controlnet" or all(x[2] == 7 for x in launches)))
+        ok = ok and good
+        res[name] = dict(sample_rel_err=err, samples=LT_SAMPLES, launches_per_rank=launches,
+                         launches_one_process=one["launches"][name],
+                         s_two_ranks=two["seconds"][name], s_one_process=one["seconds"][name])
+        log(f"latent tools 39: {name} main, DPM {LT_SAMPLE_STEPS} steps + decode, "
+            f"{LT_SAMPLES} samples (padded to {LT_SAMPLES + 1}) at 2 ranks vs 1 process: rel err "
+            f"{err:.3g} (tol {MODEL_TOL[torch.float32]:g}); launches a/b/c per rank {launches} "
+            f"(one process {tuple(one['launches'][name])}) -> {'ok' if good else 'FAIL'}")
+    res["seconds"] = round(time.perf_counter() - start, 1)
+    if not ok:
+        raise SystemExit("the latent tools' data-parallel paths disagree with one process")
+    return res
+
+
+def phase_serve_replicas(config: dict, ckpt: str, device) -> dict:
+    """Phase 40: the serve tool with two replicas of its model on the card
+    (``make_server(..., devices=)``; on a host with several cards the default
+    is one replica per card) against one replica: a 16-row bucket split 8 + 8
+    and a 1-row bucket on the first replica, dpm_controlnet and the
+    consistency student at 4 steps, through /generate_batch."""
+    import io
+    import threading
+    import types
+
+    import numpy as np
+
+    from controlnet_tpu_torch.tools import serve
+    from controlnet_tpu_torch.tools import train_consistency_controlnet_distilled as cd_train
+
+    task = os.path.join(REPO, "build", "smoke", "serve_replicas")
+    shutil.rmtree(task, ignore_errors=True)
+    os.makedirs(task)
+    write_seeded_students(config, task)
+    card = torch.device("cuda", 0) if device.type == "cuda" else device
+    hints = seeded_hints(SERVE_BATCH, 28)
+    res: dict = {"replicas": 2,
+                 "note": "two replicas time-sliced on one card: not a scaling figure"}
+    ok = True
+    start = time.perf_counter()
+    for model, path in (("dpm_controlnet", ckpt),
+                        ("consistency", os.path.join(task, cd_train.CKPT_NAME))):
+        runs = {}
+        for n in (1, 2):
+            args = types.SimpleNamespace(model=model, ckpt=path, host="127.0.0.1", port=0,
+                                         seed=SEED, max_batch=SERVE_BATCH, max_steps=8,
+                                         dynamic_batching=True, batch_window_ms=2.0, device=None,
+                                         attn_fused_proj=False)
+            server = serve.make_server(args, config, devices=[card] * n)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            try:
+                out = {}
+                for rows in (SERVE_BATCH, 1):
+                    reset_launch_counts()
+                    url = f"http://127.0.0.1:{server.server_address[1]}/generate_batch?steps=4"
+                    status, headers, body, _ = _post(url, _npz(hints=hints[:rows]))
+                    if status != 200:
+                        raise SystemExit(f"{model} with {n} replicas answered {status}")
+                    with np.load(io.BytesIO(body)) as z:
+                        out[rows] = (torch.from_numpy(z["samples"]),
+                                     float(headers["X-Latency-Ms"]), launch_counts()[0])
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(10)
+            runs[n] = out
+        entry = {}
+        for rows in (SERVE_BATCH, 1):
+            s2, s1 = runs[2][rows][0], runs[1][rows][0]
+            err = ((s2 - s1).abs().max() / s1.abs().max()).item()
+            split = serve.splits_over_replicas(rows, 2)
+            good = (s2.shape == s1.shape == (rows, 28, 28, 1) and err <= MODEL_TOL[torch.float32]
+                    and runs[2][rows][2] == runs[1][rows][2] * (2 if split else 1) > 0)
+            ok = ok and good
+            entry[f"rows{rows}"] = dict(rel_err=err, split=split,
+                                        launches_a=(runs[2][rows][2], runs[1][rows][2]),
+                                        latency_ms=(runs[2][rows][1], runs[1][rows][1]))
+            log(f"serve replicas 40: {model}, a {rows}-row request at 4 steps, 2 replicas on "
+                f"cuda:0 vs 1: rel err {err:.3g} (tol {MODEL_TOL[torch.float32]:g}), split "
+                f"{split}, launches of a {runs[2][rows][2]} vs {runs[1][rows][2]}, "
+                f"{runs[2][rows][1]:.1f} vs {runs[1][rows][1]:.1f} ms (two replicas time-sliced "
+                f"on one card: not a scaling figure) -> {'ok' if good else 'FAIL'}")
+        res[model] = entry
+    res["seconds"] = round(time.perf_counter() - start, 1)
+    if not ok:
+        raise SystemExit("two serve replicas disagree with one")
+    return res
+
+
+@contextlib.contextmanager
+def record_attention_calls(into: set):
+    """Record the (B, H, dh, Lq, Lk) of every kernel a call (the TP shapes)."""
+    from controlnet_tpu_torch.ops import cuda_attention
+
+    orig = cuda_attention.fused_attention_t
+
+    def rec(qt, kt, vt):
+        into.add((*qt.shape, kt.shape[3]))
+        return orig(qt, kt, vt)
+
+    cuda_attention.fused_attention_t = rec
+    try:
+        yield
+    finally:
+        cuda_attention.fused_attention_t = orig
+
+
+def tp_attention_check(shapes: set, device) -> dict:
+    """Kernels a and b at each recorded TP shape, f32 and bf16, against their
+    plain versions on seeded inputs: max abs errors of the output and of the
+    three gradients (these launches are not the main path's)."""
+    from controlnet_tpu_torch.ops import cuda_attention
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd = bwd = 0.0
+        for b, h, dh, lq, lk in sorted(shapes):
+            q, k, v = (torch.randn((b, h, dh, n), generator=g, device=device).to(dtype)
+                       .requires_grad_() for n in (lq, lk, lk))
+            dout = torch.randn((b, h, dh, lq), generator=g, device=device).to(dtype)
+            o = cuda_attention.fused_attention_t(q, k, v)
+            grads = torch.autograd.grad(o, (q, k, v), dout)
+            ref = cuda_attention.fused_attention_t_plain(q.detach(), k.detach(), v.detach())
+            ref_grads = cuda_attention.fused_attention_t_bwd_plain(q.detach(), k.detach(),
+                                                                   v.detach(), dout)
+            fwd = max(fwd, (o.float() - ref.float()).abs().max().item())
+            bwd = max(bwd, max((a.float() - r.float()).abs().max().item() / max(
+                r.float().abs().max().item(), 1e-30) for a, r in zip(grads, ref_grads)))
+        good = fwd <= KERNEL_TOL[dtype] and bwd <= BWD_KERNEL_TOL[dtype]
+        out[str(dtype)[6:]] = dict(a_max_abs_err=fwd, b_max_rel_err=bwd, good=good)
+    return out
+
+
+def tp_conv_check(cn, device) -> dict:
+    """Kernel c on the hint encoder's gathered remainder weights (every
+    stride-1 3x3 conv of it that the plan shards, each weight gathered over
+    the model group: a collective) against the plain version, at its
+    full resolution, batch 2, f32 and bf16."""
+    from controlnet_tpu_torch.nn.layers import Conv2d
+    from controlnet_tpu_torch.ops import cuda_conv
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    size = celebhq_config()["dataset_params"]["canny_im_size"]
+    errs, n = {"float32": 0.0, "bfloat16": 0.0}, 0
+    for m in cn.hint_block.modules():
+        if not (isinstance(m, Conv2d) and m.tp_gather and m.stride[0] == 1
+                and m.kernel_size[0] == 3):
+            continue
+        with torch.no_grad():
+            w, bias = m._param("weight"), m._param("bias")
+        n += 1
+        side = size >> _stage_of(cn, m)
+        hw = (side, side)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((w.shape[1], 2, hw[0] * hw[1]), generator=g, device=device).to(dtype)
+            with torch.no_grad():
+                got = cuda_conv.conv3x3_tl(w, bias, x, hw)
+                ref = cuda_conv.conv3x3_tl_plain(w, bias, x, hw)
+            errs[str(dtype)[6:]] = max(errs[str(dtype)[6:]], (
+                (got.float() - ref.float()).abs().max() / ref.float().abs().max()).item())
+    good = n > 0 and all(errs[str(d)[6:]] <= CONV_TOL[d] for d in CONV_TOL)
+    return dict(gathered_convs=n, max_rel_err=errs, good=good)
+
+
+def _stage_of(cn, conv) -> int:
+    """The number of stride-2 convs of the hint encoder before ``conv``."""
+    from controlnet_tpu_torch.nn.layers import Conv2d
+
+    k = 0
+    for m in cn.hint_block.modules():
+        if m is conv:
+            return k
+        if isinstance(m, Conv2d) and m.stride[0] == 2:
+            k += 1
+    raise ValueError("not a conv of the hint encoder")
+
+
+def tp_nccl_world1(config: dict, device, plain: dict | None = None) -> dict:
+    """Phase 41's check (i), in a process with torchrun's environment for
+    one rank (phase 38's, when it runs): three ControlNet steps with no mesh
+    (``plain``, when given), then the same steps on an NCCL group of one with
+    a model axis of 1, through ``tp_shard_params`` (which shards nothing
+    there)."""
+    from controlnet_tpu_torch.parallel.mesh import make_mesh
+
+    images = dp_images(device)
+    base = seeded_unet_state_dict(config)
+    plain = plain or dp_cn_steps(config, base, images, device, "float32")
+    mesh = make_mesh(model_parallel=1)
+    if mesh.backend != "nccl" or (mesh.world_size, mesh.model_parallel) != (1, 1):
+        raise SystemExit(f"expected an NCCL group of one with a model axis of 1, got {mesh}")
+    tp = dp_cn_steps(config, base, images, device, "float32", mesh, tp=True)
+    return dict(backend=mesh.backend,
+                loss_max_abs_diff=(tp["losses"] - plain["losses"]).abs().max().item(),
+                weight_max_abs_diff=max((tp["after"][k] - plain["after"][k]).abs().max().item()
+                                        for k in plain["after"]))
+
+
+def multi_rank(args: dict) -> int:
+    """The child side of phases 39 and 41's gloo runs: join the group of
+    ``args["world"]`` ranks through the file rendezvous, run the check, write
+    its results with ``torch.save`` to ``args["out"]``."""
+    import torch.distributed as dist
+
+    from controlnet_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device(DEVICE)  # every rank on the one card
+    dist.init_process_group("gloo", init_method=f"file://{args['init']}", rank=args["rank"],
+                            world_size=args["world"])
+    if args["check"] == "latent_tools":  # rank 0's gradients are every rank's
+        out = lt_tools(args["config"], LT_SAMPLES, keep_grads=args["rank"] == 0)
+    elif args["check"] == "tp_mnist":
+        config = mnist_config()
+        mesh = make_mesh(device=device, model_parallel=2)
+        images = dp_images(device)
+        base = seeded_unet_state_dict(config)
+        shapes: set = set()
+        with record_attention_calls(shapes):
+            out = {"cn": {name: dp_cn_steps(config, base, images, device, name, mesh, tp=True)
+                          for name in ("float32", "bfloat16")}}
+        out["mesh"] = (mesh.data_size, mesh.model_parallel, mesh.data_index, mesh.model_index)
+        out["shapes"] = sorted(shapes)
+        if args["rank"] == 0:
+            out["kernels"] = tp_attention_check(shapes, device)
+        from controlnet_tpu_torch.parallel.dryrun import dryrun_multichip
+
+        out["dryrun"] = dryrun_multichip(args["world"], device)
+    else:  # tp_ldm; the first step's gradients joined on every rank, kept by rank 0
+        mesh = make_mesh(device=device, model_parallel=2)
+        out = dp_ldm_steps(device, mesh, tp=True, keep_grads=True)
+        if args["rank"] != 0:
+            del out["grads"]
+    torch.save(out, args["out"])
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tp(config: dict, device) -> dict:
+    """Phase 41: tensor parallelism on the card."""
+    shutil.rmtree(tp_work(), ignore_errors=True)
+    os.makedirs(tp_work())
+    lr = config["train_params"]["controlnet_lr"]
+    start = time.perf_counter()
+    res: dict = {}
+    ok = True
+
+    # (i) an NCCL group of one, model axis 1 (in phase 38's NCCL process when
+    # it ran)
+    nccl = REFS.get("tp_nccl")
+    if nccl is None:
+        out1 = os.path.join(tp_work(), "nccl.pt")
+        run_ranks([{"check": "tp_nccl", "out": out1}],
+                  {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()), "RANK": "0",
+                   "WORLD_SIZE": "1", "LOCAL_RANK": "0"})
+        nccl = torch.load(out1, weights_only=False)
+    good = nccl["loss_max_abs_diff"] == 0.0 and nccl["weight_max_abs_diff"] == 0.0
+    ok = ok and good
+    res["nccl_world1"] = nccl
+    log(f"tensor parallel 41 (i): NCCL group of one, model axis 1, {DP_STEPS} ControlNet steps "
+        f"through tp_shard_params and the mesh against no mesh: losses max |diff| "
+        f"{nccl['loss_max_abs_diff']}, weights {nccl['weight_max_abs_diff']} (must be 0) -> "
+        f"{'ok' if good else 'FAIL'}")
+
+    # the one-process references: phase 38's, the same steps, when it ran
+    ref_cn, ref_ldm = REFS.get("cn"), REFS.get("ldm")
+    if ref_cn is None:
+        images = dp_images(device)
+        base = seeded_unet_state_dict(config)
+        ref_cn = {name: dp_cn_steps(config, base, images, device, name)
+                  for name in ("float32", "bfloat16")}
+        del images
+    if ref_ldm is None:
+        ref_ldm = dp_ldm_steps(device, keep_grads=True)
+    torch.cuda.empty_cache()
+
+    # (ii), (iv), (v): four ranks, a (2, 2) mesh
+    init = os.path.join(tp_work(), "pg4")
+    outs = [os.path.join(tp_work(), f"mnist{r}.pt") for r in range(TP_WORLD)]
+    run_ranks([{"check": "tp_mnist", "rank": r, "init": init, "out": outs[r],
+                "world": TP_WORLD} for r in range(TP_WORLD)], {"LOCAL_RANK": "0"})
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    res["cn"] = {}
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        tp, ref = ranks[0]["cn"][name], ref_cn[name]
+        loss_err = ((tp["losses"] - ref["losses"]).abs().max()
+                    / ref["losses"].abs().max().clamp(min=1.0)).item()
+        grad_err = _rel_max(tp["grads"], ref["grads"])
+        noisy = {k: tp["noisy"][k] | ref["noisy"][k] for k in ref["noisy"]}
+        w = _weights_diff(tp["after"], ref["after"], ref["before"], noisy)
+        in_step = all(torch.equal(r["cn"][name]["after"][k], v) for r in ranks[1:]
+                      for k, v in tp["after"].items())
+        launches = [tuple(r["cn"][name]["launches"]) for r in ranks]
+        want = (26 * DP_STEPS, 18 * DP_STEPS)
+        good = (loss_err <= MODEL_TOL[dtype] and grad_err <= MODEL_TOL[dtype] and in_step
+                and all(x == want for x in launches)
+                and (w["mean"] / lr < 0.15 and w["cos"] > 0.97 if dtype == torch.bfloat16
+                     else w["clean_max"] / lr < 1e-2))
+        ok = ok and good
+        res["cn"][name] = dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
+                               weights_clean_max_lr=w["clean_max"] / lr,
+                               weights_mean_lr=w["mean"] / lr, update_cos=w["cos"],
+                               clean_share=w["clean_share"], ranks_equal=in_step,
+                               launches_per_rank=launches, ms_per_step_four_ranks=tp["ms"],
+                               ms_per_step_one_process=ref["ms"],
+                               model_group_bytes_per_step=tp["model_group_bytes"])
+        log(f"tensor parallel 41 (ii): {DP_STEPS} MNIST ControlNet steps {name} on a (2, 2) mesh "
+            f"(4 gloo ranks on cuda:0, {BATCH // 2} rows a data index, 2 of 4 heads a rank) vs 1 "
+            f"process x {BATCH}: losses rel err {loss_err:.3g}, first-step grads rel err "
+            f"{grad_err:.3g} (tol {MODEL_TOL[dtype]:g}); weights max |diff| "
+            f"{w['clean_max'] / lr:.3g} lr over the {w['clean_share']:.3f} above the floor, mean "
+            f"{w['mean'] / lr:.3g} lr, cos {w['cos']:.6f}; joined weights equal on every rank "
+            f"{in_step}; launches a/b per rank {launches} (want {want}); "
+            f"{tp['model_group_bytes']:.0f} B a step a rank through the model group; "
+            f"{tp['ms']:.1f} vs "
+            f"{ref['ms']:.1f} ms/step ({ranks_note(TP_WORLD)}) -> {'ok' if good else 'FAIL'}")
+    kern = ranks[0]["kernels"]
+    good = all(v["good"] for v in kern.values())
+    ok = ok and good
+    res["kernels_tp_shapes"] = {"shapes": ranks[0]["shapes"], **kern}
+    log(f"tensor parallel 41 (iv): kernels a and b at the {len(ranks[0]['shapes'])} per-rank TP "
+        f"shapes (B, H/2, dh, Lq, Lk) {ranks[0]['shapes']} vs plain: "
+        + ", ".join(f"{d}: a {v['a_max_abs_err']:.3g}, b rel {v['b_max_rel_err']:.3g}"
+                    for d, v in kern.items()) + f" -> {'ok' if good else 'FAIL'}")
+    dry = [r["dryrun"] for r in ranks]
+    losses = dry[0]["losses"]
+    good = (all(d["mesh"] == (2, 2) and d["losses"] == losses for d in dry)
+            and sum(losses[-5:]) < sum(losses[:5]))
+    ok = ok and good
+    res["dryrun"] = dict(mesh=dry[0]["mesh"], loss_first5=sum(losses[:5]) / 5,
+                         loss_last5=sum(losses[-5:]) / 5)
+    log(f"tensor parallel 41 (v): dryrun_multichip(4) on cuda:0 (mesh (2, 2)), 20 steps: loss "
+        f"{sum(losses[:5]) / 5:.5f} -> {sum(losses[-5:]) / 5:.5f} -> {'ok' if good else 'FAIL'}")
+
+    # (iii): two ranks, a (1, 2) mesh, the CelebA-HQ LDM ControlNet
+    init = os.path.join(tp_work(), "pg2")
+    outs = [os.path.join(tp_work(), f"ldm{r}.pt") for r in range(2)]
+    run_ranks([{"check": "tp_ldm", "rank": r, "init": init, "out": outs[r], "world": 2}
+               for r in range(2)], {"LOCAL_RANK": "0"})
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    tp = ranks[0]
+    loss_err = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(tp["losses"], ref_ldm["losses"]))
+    # the first step's gradients, each tensor against its own largest: the
+    # backward of the rank's heads, of the gathered weights and of the
+    # GroupNorm sums over the model group
+    grad_errs = {k: _rel_max({k: tp["grads"][k]}, {k: v}) for k, v in ref_ldm["grads"].items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    grad_err = grad_errs[worst]
+    launches = [tuple(r["launches"]) for r in ranks]
+    want = (22 * DP_LDM_STEPS, 14 * DP_LDM_STEPS, 7 * DP_LDM_STEPS)
+    bytes_err = [abs(r["param_bytes"] - r["per_device_bytes"]) / r["per_device_bytes"]
+                 for r in ranks]
+    good = (loss_err <= MODEL_TOL[torch.float32] and grad_err <= MODEL_TOL[torch.float32]
+            and set(tp["grads"]) == set(ref_ldm["grads"]) and all(x == want for x in launches)
+            and all(e <= TP_BYTES_TOL for e in bytes_err) and all(r["conv"]["good"] for r in ranks)
+            and all(r["tensor_bytes"] == r["per_device_bytes"] for r in ranks))
+    ok = ok and good
+    res["ldm"] = dict(loss_rel_err=loss_err, grad_rel_err=grad_err, grad_worst_tensor=worst,
+                      grad_rel_err_global=_rel_max(tp["grads"], ref_ldm["grads"]),
+                      launches_per_rank=launches,
+                      param_bytes_per_rank=[r["param_bytes"] for r in ranks],
+                      tensor_bytes_per_rank=[r["tensor_bytes"] for r in ranks],
+                      per_device_bytes=tp["per_device_bytes"], total_bytes=tp["total_bytes"],
+                      bytes_rel_err=bytes_err, conv=tp["conv"],
+                      model_group_bytes_per_step=tp["model_group_bytes"],
+                      ms_per_step_two_ranks=tp["ms"], ms_per_step_one_process=ref_ldm["ms"])
+    heads = celebhq_config()["ldm_params"]["num_heads"]
+    log(f"tensor parallel 41 (iii): {DP_LDM_STEPS} LDM ControlNet steps (celebhq width, "
+        f"{tp['total_bytes'] / 4e6:.1f} M parameters, {heads // 2} of {heads} heads a rank, "
+        f"1024^2 hints) on a "
+        f"(1, 2) mesh x {LDM_BATCH} vs 1 process: losses {tp['losses']} vs {ref_ldm['losses']} "
+        f"(rel err {loss_err:.3g}); first-step gradients rel err {grad_err:.3g} of their own "
+        f"tensor's largest, at worst in {worst} (tol {MODEL_TOL[torch.float32]:g}; "
+        f"{res['ldm']['grad_rel_err_global']:.3g} of the largest of all); launches a/b/c per rank "
+        f"{launches} (want {want}); parameter "
+        f"bytes per rank {[r['param_bytes'] for r in ranks]} allocated, "
+        f"{[r['tensor_bytes'] for r in ranks]} in the tensors, vs tp_memory_report "
+        f"{tp['per_device_bytes']} (rel {max(bytes_err):.3g}, tol {TP_BYTES_TOL}); kernel c on "
+        f"the {tp['conv']['gathered_convs']} gathered remainder weights vs plain "
+        f"{tp['conv']['max_rel_err']}; {tp['model_group_bytes']:.0f} B a step a rank through "
+        f"the model group; {tp['ms']:.1f} vs {ref_ldm['ms']:.1f} ms/step "
+        f"({ranks_note(2)}) -> {'ok' if good else 'FAIL'}")
+    res["seconds"] = round(time.perf_counter() - start, 1)
+    if not ok:
+        raise SystemExit("tensor parallelism disagrees with one process")
+    return res
+
+
+def tp_work() -> str:
+    return os.path.join(REPO, "build", "smoke", "tp")
+
+
 # The kernel-timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32 and 33) and the
 # timed distillation, latent-training and conditional sampling main paths
 # (19, 25, 34).  Each runs in a
@@ -4501,41 +5214,51 @@ TIMING_PHASES = ("phase_kernels", "phase_kernels_bwd", "phase_conv_kernels",
 def in_fresh_process(phase: str, *args, **kwargs) -> dict:
     """Run the timing phase ``phase`` (one of TIMING_PHASES) with JSON-able
     ``args`` / ``kwargs`` and ``device`` set to the card, in a new Python
-    process on the same card; pass its log lines on and return its totals by
-    dtype.  A failure there fails the run."""
-    spec = json.dumps([phase, args, kwargs])
+    process on the same card; return its totals by dtype."""
+    return in_fresh_processes((phase, args, kwargs))[0]
+
+
+def in_fresh_processes(*calls) -> list:
+    """Run the timing phases ``calls`` ((phase, args, kwargs) each) one after
+    another in one new Python process on the same card; pass its log lines
+    on and return each phase's totals by dtype, in order.  A failure there
+    fails the run."""
+    spec = json.dumps([[phase, list(args), kwargs] for phase, args, kwargs in calls])
     torch.cuda.empty_cache()  # the child allocates its own inputs
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--timing-phase", spec],
                           stdout=subprocess.PIPE, text=True, timeout=1200, check=False)
     lines = proc.stdout.splitlines()
     for line in lines[:-1]:
-        log(line)
+        print(line, flush=True)  # the child's lines, with its own clock
+    names = [phase for phase, _, _ in calls]
     if proc.returncode != 0 or not lines:
-        raise SystemExit(f"{phase} failed in its own process (exit code {proc.returncode})")
+        raise SystemExit(f"{names} failed in their own process (exit code {proc.returncode})")
     result = json.loads(lines[-1])
     for key in PROFILER_WINDOWS:
         PROFILER_WINDOWS[key] += result["profiler_windows"][key]
-    return {getattr(torch, name): tot for name, tot in result["totals"].items()}
+    return [{getattr(torch, name): tot for name, tot in totals.items()}
+            for totals in result["totals"]]
 
 
 def timing_phase(spec: str) -> int:
-    """The child side of ``in_fresh_process``: run the phase, print its
+    """The child side of ``in_fresh_processes``: run the phases, print their
     totals and this process's profiler windows as the last line."""
-    phase, args, kwargs = json.loads(spec)
-    if phase not in TIMING_PHASES:
-        raise SystemExit(f"no timing phase {phase!r}")
-    # shape lists come back from JSON as lists of lists; the phases count them
-    args = [[tuple(x) for x in a] if isinstance(a, list) and a and isinstance(a[0], list) else a
-            for a in args]
-    totals = globals()[phase](*args, device=torch.device(DEVICE), **kwargs)
-    print(json.dumps({"totals": {str(d)[6:]: tot for d, tot in totals.items()},
-                      "profiler_windows": PROFILER_WINDOWS}), flush=True)
+    out = []
+    for phase, args, kwargs in json.loads(spec):
+        if phase not in TIMING_PHASES:
+            raise SystemExit(f"no timing phase {phase!r}")
+        # shape lists come back from JSON as lists of lists; the phases count them
+        args = [[tuple(x) for x in a] if isinstance(a, list) and a and isinstance(a[0], list)
+                else a for a in args]
+        totals = globals()[phase](*args, device=torch.device(DEVICE), **kwargs)
+        out.append({str(d)[6:]: tot for d, tot in totals.items()})
+    print(json.dumps({"totals": out, "profiler_windows": PROFILER_WINDOWS}), flush=True)
     return 0
 
 
 # The groups of phases main() runs, in order; ``--phases`` selects some.
 PHASE_GROUPS = ("1-4", "5-9", "10-14", "15-16", "17-20", "21-26", "27-31", "32-35", "36-37",
-                "38")
+                "38", "39", "40", "41")
 ALIASES = {"distill_only": "17-20", "latent_train_only": "21-26", "cifar_only": "27-31",
            "cond_only": "32-35", "compare_only": "36-37"}
 
@@ -4548,8 +5271,8 @@ def parse_phases(spec: str | None) -> set | None:
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
         picked.update(range(int(lo), int(hi or lo) + 1))
-    if not picked <= set(range(1, 40)):
-        raise SystemExit(f"--phases {spec!r}: phases are 1-39")
+    if not picked <= set(range(1, 42)):
+        raise SystemExit(f"--phases {spec!r}: phases are 1-41")
     return picked
 
 
@@ -4647,10 +5370,9 @@ def main() -> int:
         done("10-14")
     served = None
     if want("15-16"):
-        proj16 = in_fresh_process("phase_proj_kernels", MNIST_PROJ_SHAPES, SERVE_BATCH,
-                                  what="MNIST forward")
-        proj64 = in_fresh_process("phase_proj_kernels", MNIST_PROJ_SHAPES, BATCH,
-                                  what="MNIST forward")
+        proj16, proj64 = in_fresh_processes(
+            ("phase_proj_kernels", (MNIST_PROJ_SHAPES, SERVE_BATCH), dict(what="MNIST forward")),
+            ("phase_proj_kernels", (MNIST_PROJ_SHAPES, BATCH), dict(what="MNIST forward")))
         served = phase_serve(config, ckpt, device)
         done("15-16")
 
@@ -4673,6 +5395,15 @@ def main() -> int:
     if want("38"):
         parallel = phase_parallel(config, ckpt, device)
         done("38")
+    if want("39"):
+        latent_dp = phase_latent_tools_dp(device)
+        done("39")
+    if want("40"):
+        replicas = phase_serve_replicas(config, ckpt, device)
+        done("40")
+    if want("41"):
+        tensor_parallel = phase_tp(config, device)
+        done("41")
 
     if not full:  # a selection: the summaries of what ran, then the final line
         if want("17-20"):
@@ -4682,12 +5413,16 @@ def main() -> int:
                                     ("27-31", "cifar", lambda: cifar_summary(cifar)),
                                     ("32-35", "cond", lambda: cond_summary(cond)),
                                     ("36-37", "compare", lambda: compare_summary(compared)),
-                                    ("38", "parallel", lambda: parallel)):
+                                    ("38", "parallel", lambda: parallel),
+                                    ("39", "latent_dp", lambda: latent_dp),
+                                    ("40", "serve_replicas", lambda: replicas),
+                                    ("41", "tensor_parallel", lambda: tensor_parallel)):
             if want(group):
                 log(json.dumps({key: summary()}))
+        log(f"time_calls: {PROFILER_WINDOWS}")
         log(f"wall seconds by group of phases: {seconds}")
-        log(f"{smi}; phases {args.phases or ''} {sorted(a for a in ALIASES if getattr(args, a))} "
-            f"passed (a partial run: no kernels line)")
+        print(f"{smi}; phases {args.phases or ''} {sorted(a for a in ALIASES if getattr(args, a))} "
+              f"passed (a partial run: no kernels line)", flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}),
@@ -4700,7 +5435,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": f32["max_abs_err"],
             # per ControlNet forward (kernel a) or training step (kernel b): every
-            # call at its main-path shape, f32; device time (device_time_ms)
+            # call at its main-path shape, f32; device time (time_calls)
             "per": per,
             "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
@@ -4810,7 +5545,7 @@ def main() -> int:
     bwd_entry["latent_train"]["bf16"]["max_rel_err"] = latent["bwd"][torch.bfloat16]["max_rel_err"]
     conv_entry["latent_train_autograd"] = latent["conv_grad"]
     log(json.dumps({"latent_train": latent_train_summary(latent)}))
-    # CIFAR-10 (phases 27-31): launches of each timed run (20 training steps,
+    # CIFAR-10 (phases 27-31): launches of each timed run (10 training steps,
     # the 50-step sample), and a's times per CIFAR forward (26 calls), b's per
     # CIFAR training step (18 calls)
     for entry, key in ((fwd_entry, "launches"), (bwd_entry, "bwd_launches")):
@@ -4853,12 +5588,33 @@ def main() -> int:
                                      for k, r in compared["compare"]["runs"].items()}
     log(json.dumps({"compare": compare_summary(compared)}))
     log(json.dumps({"parallel": parallel}))
-    log(f"device_time_ms: {PROFILER_WINDOWS['windows']} profiler windows for "
-        f"{PROFILER_WINDOWS['measurements']} measurements (2 each when no window lost records), "
-        f"{PROFILER_WINDOWS['foreign']} device records left out as launched outside a window")
+    # phases 39-41: launches per rank of a / b / c in the latent tools at two
+    # ranks, of a in the served requests at two replicas, and of a / b (c) per
+    # rank under tensor parallelism
+    for entry, i in ((fwd_entry, 0), (bwd_entry, 1), (conv_entry, 2)):
+        entry["latent_tools_dp_launches"] = {
+            k: [x[i] for x in latent_dp[k]["launches_per_rank"]]
+            for k in ("train_vae", "train_ldm_vae", "sample_ldm_vae", "sample_ldm_controlnet")}
+        entry["tp_launches"] = {"ldm_controlnet_1x2": [x[i] for x in tensor_parallel["ldm"][
+            "launches_per_rank"]]}
+        if i < 2:
+            entry["tp_launches"].update({
+                f"mnist_controlnet_2x2_{n}": [x[i] for x in r["launches_per_rank"]]
+                for n, r in tensor_parallel["cn"].items()})
+    fwd_entry["serve_replicas_launches"] = {
+        f"{m}_rows{rows}": replicas[m][f"rows{rows}"]["launches_a"][0]
+        for m in ("dpm_controlnet", "consistency") for rows in (SERVE_BATCH, 1)}
+    log(json.dumps({"latent_dp": latent_dp}))
+    log(json.dumps({"serve_replicas": replicas}))
+    log(json.dumps({"tensor_parallel": tensor_parallel}, default=str))
+    log(f"time_calls: {PROFILER_WINDOWS['windows']} profiler windows for "
+        f"{PROFILER_WINDOWS['measurements']} measurements in {PROFILER_WINDOWS['groups']} "
+        f"groups (2 windows a group when no window lost records), "
+        f"{PROFILER_WINDOWS['foreign']} device records left out as launched outside a window, "
+        f"{PROFILER_WINDOWS['seconds']:.1f} s in all")
     log(f"wall seconds by group of phases: {seconds}")
     log(json.dumps({"kernels": [fwd_entry, bwd_entry, conv_entry, proj_entry]}))
-    log(smi)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -107,7 +107,7 @@ def put_batch(batch, mesh):
     from controlnet_tpu_torch.parallel.mesh import shard_host_local_batch
     from controlnet_tpu_torch.sample.common import tree_map
 
-    n = mesh.world_size
+    n = mesh.data_size
     leaves = []
     tree_map(leaves.append, batch)
     b = leaves[0].shape[0] if leaves else 0
@@ -155,7 +155,7 @@ def sampler_mesh(num_samples: int, device=None):
     mesh = mesh_or_none(device)
     if mesh is None:
         return None, num_samples
-    n = mesh.world_size
+    n = mesh.data_size
     padded = ((num_samples + n - 1) // n) * n
     if padded != num_samples:
         _warn_once(f"pad:{num_samples}", f"padding sample batch {num_samples} -> {padded} "

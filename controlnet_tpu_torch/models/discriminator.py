@@ -36,7 +36,11 @@ class Discriminator(nn.Module):
                 nn.LeakyReLU(0.2) if i < n - 1 else nn.Identity())
             for i in range(n))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.layers:
-            x = layer(x)
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        """Patch logits.  Under a data-parallel ``mesh`` ``x`` is this rank's
+        rows and the batch norms take the global batch's statistics."""
+        for conv, norm, act in self.layers:
+            x = conv(x)
+            x = norm(x, mesh) if isinstance(norm, BatchNorm) else norm(x)
+            x = act(x)
         return x

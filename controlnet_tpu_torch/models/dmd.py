@@ -125,7 +125,7 @@ class DistributionMatchingDistilled(nn.Module):
             return mean, flat.var(dim=0, correction=0), ((flat - mean) ** 3).mean(dim=0)
         from controlnet_tpu_torch.parallel.mesh import all_reduce_sum
 
-        n = flat.shape[0] * mesh.world_size
+        n = flat.shape[0] * mesh.data_size
         mean = all_reduce_sum(flat.sum(dim=0), mesh) / n
         d = flat - mean
         var, skew = all_reduce_sum(torch.stack([(d * d).sum(dim=0), (d ** 3).sum(dim=0)]),

@@ -69,15 +69,20 @@ class VAE(nn.Module):
         return self.pre_quant_conv(out)
 
     def encode(self, x: torch.Tensor, generator: torch.Generator | None = None,
-               noise: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+               noise: torch.Tensor | None = None, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
         """(reparameterized sample, mean || logvar).  The standard-normal
         ``noise`` (shape of the mean) is drawn from ``generator`` unless a
-        caller injects it."""
+        caller injects it; under a data-parallel ``mesh`` ``x`` is this
+        rank's rows and the noise is drawn at the global batch's shape and
+        sliced."""
         enc = self.moments(x)
         mean, logvar = torch.chunk(enc, 2, dim=1)
         if noise is None:
-            noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                                dtype=mean.dtype)
+            from controlnet_tpu_torch.sample.common import global_batch, rank_rows
+
+            noise = rank_rows(torch.randn((global_batch(mean.shape[0], mesh), *mean.shape[1:]),
+                                          generator=generator, device=mean.device,
+                                          dtype=mean.dtype), mesh)
         return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype), enc
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
@@ -89,6 +94,6 @@ class VAE(nn.Module):
         return self.decoder_conv_out(silu(self.decoder_norm_out(out)))
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                noise: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-        z, enc = self.encode(x, generator, noise)
+                noise: torch.Tensor | None = None, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+        z, enc = self.encode(x, generator, noise, mesh)
         return self.decode(z), enc

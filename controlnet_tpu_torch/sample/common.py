@@ -27,7 +27,7 @@ def local_batch(shape: tuple[int, ...], mesh) -> int:
 
 def global_batch(rows: int, mesh) -> int:
     """The global batch of which this rank holds ``rows`` rows."""
-    return rows if mesh is None else rows * mesh.world_size
+    return rows if mesh is None else rows * mesh.data_size
 
 
 def rank_rows(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -74,7 +74,7 @@ def make_ddpm_sampler(eps_fn: Callable, sched: LinearSchedule, shape: tuple[int,
 def make_ldm_sampler(eps_fn: Callable, decode_fn: Callable, sched: LinearSchedule,
                      latent_shape: tuple[int, ...], record_every: int = 1,
                      ddim_steps: int | None = None, eta: float = 0.0, solver: str = "ddim",
-                     compute_dtype: torch.dtype | None = None, device=None):
+                     compute_dtype: torch.dtype | None = None, device=None, mesh=None):
     """Latent-space sampler: the loop runs on latents of ``latent_shape``
     and only the final x_0 is decoded, by ``decode_fn(vae, z)`` (which sees z
     in ``compute_dtype``).
@@ -85,23 +85,34 @@ def make_ldm_sampler(eps_fn: Callable, decode_fn: Callable, sched: LinearSchedul
     latent loop to a few-step sampler (``solver`` "ddim", with ``eta``, or
     "dpm"); ``record_every`` is ignored then (one snapshot per update) and
     the visited timesteps are ``sampler.timesteps`` (None for the ancestral
-    loop)."""
+    loop).
+
+    ``mesh``: data-parallel over the global batch ``latent_shape``, as the
+    latent loops are (``sample/common.py``; ``hint_features`` are this
+    rank's rows); each rank decodes its own rows of the final latent, and
+    the decoded images are gathered.  Returns the global batch on every
+    rank."""
+    from controlnet_tpu_torch.parallel.mesh import gather_rows
+    from controlnet_tpu_torch.sample.common import rank_rows
+
     device = resolve_device(device)
     if ddim_steps is not None:
         from controlnet_tpu_torch.sample import make_few_step_sampler
 
         latent_sampler = make_few_step_sampler(solver, eps_fn, sched, latent_shape,
                                                num_steps=ddim_steps, eta=eta,
-                                               compute_dtype=compute_dtype, device=device)
+                                               compute_dtype=compute_dtype, device=device,
+                                               mesh=mesh)
     else:
         latent_sampler = make_ddpm_sampler(eps_fn, sched, latent_shape, record_every,
-                                           compute_dtype, device)
+                                           compute_dtype, device, mesh)
 
     @torch.inference_mode()
     def sampler(model, vae, generator: torch.Generator | None, hint_features=None, **noise):
         z0, traj = latent_sampler(model, generator, hint_features, **noise)
+        z0 = rank_rows(z0, mesh)  # the loop's result is gathered; decode this rank's rows
         images = decode_fn(vae, z0 if compute_dtype is None else z0.to(compute_dtype))
-        return images, traj
+        return gather_rows(images, mesh), traj
 
     sampler.timesteps = getattr(latent_sampler, "timesteps", None)
     return sampler

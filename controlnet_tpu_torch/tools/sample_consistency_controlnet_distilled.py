@@ -88,12 +88,14 @@ def load_student(config: dict, ckpt_path: str, device=None) -> ConsistencyDistil
 
 
 def generate(model: ConsistencyDistilled, hints: torch.Tensor, num_steps: int = 1,
-             generator: torch.Generator | None = None,
-             x_start: torch.Tensor | None = None) -> torch.Tensor:
-    """One batch: NCHW hints on the model's device -> NCHW x0."""
+             generator: torch.Generator | None = None, x_start: torch.Tensor | None = None,
+             noise=None) -> torch.Tensor:
+    """One batch: NCHW hints on the model's device -> NCHW x0; ``x_start``
+    and ``noise`` (the noise re-injected after each step but the last)
+    replace the draws."""
     shape = (hints.shape[0], model.student.unet.im_channels, hints.shape[2], hints.shape[3])
     with torch.inference_mode():
-        return model.generate(hints, shape, generator, num_steps, x_start=x_start)
+        return model.generate(hints, shape, generator, num_steps, x_start=x_start, noise=noise)
 
 
 def pick_hints(mode: str, config: dict, num_samples: int, generator: torch.Generator, device,

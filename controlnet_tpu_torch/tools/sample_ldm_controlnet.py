@@ -24,7 +24,11 @@ random from ``--seed``, with replacement.
         [--ckpt controlnet.pth] [--vae_ckpt vae.pth] \\
         [--sampler dpm --sampler_steps 20] [--cfg_scale 2.0]
 
-Runs on the card; ``--device cpu`` runs it on the CPU.
+Runs on the card; ``--device cpu`` runs it on the CPU.  Under
+``torchrun --nproc_per_node N`` it samples data-parallel, as the JAX tool does
+on a mesh: the hints are padded to divide by the data size, each rank
+encodes its rows' hints (kernel c), samples and decodes its rows, and rank 0
+writes the grids.
 """
 
 from __future__ import annotations
@@ -71,18 +75,22 @@ def load_models(config: dict, ckpt_path: str | None, vae_ckpt_path: str | None,
 def prepare(cn: ControlNet, sched: LinearSchedule, hints: np.ndarray,
             record_every: int | None = None, compute_dtype: torch.dtype | None = None,
             sampler: str = "ancestral", sampler_steps: int = 50, eta: float = 0.0,
-            cfg_scale: float | None = None, hint_chunk: int = 16):
+            cfg_scale: float | None = None, hint_chunk: int = 16, mesh=None):
     """The hint features (encoded once, ``hint_chunk`` hints at a time) and
     the latent sampler the flags ask for.  Returns ``(loop, hint_arg)``:
     ``loop(cn, vae, generator, hint_arg)`` samples and decodes one batch, and
     ``loop.timesteps`` is a few-step loop's visited timesteps (None for the
-    ancestral loop)."""
+    ancestral loop).  Under a data-parallel ``mesh`` (``cli.sampler_mesh``'s,
+    the count of ``hints`` divisible by its data size) the features are this
+    rank's rows and the loop samples the global batch."""
     device = next(cn.parameters()).device
     T = sched.num_timesteps
     record_every = T if record_every is None else record_every
+    n = len(hints)
     # one copy to contiguous NCHW: the conv kernel reads rows of pixels at
     # stride 1, and from here on the encoder copies nothing of hint size
-    hint = torch.as_tensor(np.asarray(hints, np.float32), device=device)
+    hints = cli.put_batch(np.asarray(hints, np.float32), mesh)
+    hint = torch.as_tensor(hints, device=device)
     hint = hint.permute(0, 3, 1, 2).contiguous()
     factor = cn.down_sample_factor
     if hint.shape[2] % factor or hint.shape[3] % factor:
@@ -94,14 +102,13 @@ def prepare(cn: ControlNet, sched: LinearSchedule, hints: np.ndarray,
         eps_fn, hint_arg = cli.apply_cfg(
             cfg_scale, lambda m, x, t, f: m(x, t, hint_features=f), feats,
             lambda: null_hint_features(cn.hint_features, hint))
-    shape = (hint.shape[0], cn.trained_unet.im_channels, hint.shape[2] // factor,
-             hint.shape[3] // factor)
+    shape = (n, cn.trained_unet.im_channels, hint.shape[2] // factor, hint.shape[3] // factor)
     few = sampler != "ancestral"
     loop = make_ldm_sampler(eps_fn, lambda vae, z: vae.decode(z), sched, shape,
                             record_every=record_every,
                             ddim_steps=sampler_steps if few else None,
                             eta=eta if few else 0.0, solver=sampler if few else "ddim",
-                            compute_dtype=compute_dtype, device=device)
+                            compute_dtype=compute_dtype, device=device, mesh=mesh)
     return loop, hint_arg
 
 
@@ -149,8 +156,11 @@ def main(argv=None) -> None:
     vae_ckpt = args.vae_ckpt or os.path.join(task_name,
                                              train_config["vae_autoencoder_ckpt_name"])
     cn, vae, sched = load_models(config, ckpt, vae_ckpt, args.device)
+    device = next(cn.parameters()).device
 
     num_samples = args.num_samples or train_config["num_samples"]
+    mesh, batch = cli.sampler_mesh(num_samples, device)
+    cli.put_replicated((cn, vae), mesh)
     nrow = train_config["num_grid_rows"]
     if args.hints is not None:
         pool = np.load(args.hints)
@@ -161,22 +171,30 @@ def main(argv=None) -> None:
                             canny_im_size=ds["canny_im_size"])
     hints = gather_hints(pool, num_samples, args.seed)
     out_dir = os.path.join(task_name, "hint_samples")
-    save_image_grid(hints, os.path.join(out_dir, "hints.png"), nrow=nrow)
+    cli.write_once(mesh, save_image_grid, hints, os.path.join(out_dir, "hints.png"), nrow=nrow)
+    if batch != num_samples:  # pad the hints for data-parallel divisibility
+        hints = np.concatenate([hints, np.repeat(hints[-1:], batch - num_samples, axis=0)])
 
     record_every = max(1, args.save_every)
     loop, hint_arg = prepare(cn, sched, hints, record_every,
                              COMPUTE_DTYPES[args.compute_dtype], args.sampler,
-                             args.sampler_steps, args.eta, args.cfg_scale, args.hint_chunk)
-    generator = torch.Generator(device=next(cn.parameters()).device).manual_seed(args.seed)
+                             args.sampler_steps, args.eta, args.cfg_scale, args.hint_chunk, mesh)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
     images, traj = loop(cn, vae, generator, hint_arg)
-    images = images.float().permute(0, 2, 3, 1).cpu().numpy()
-    traj = traj.float().permute(0, 1, 3, 4, 2).cpu().numpy()
-    for k in range(traj.shape[0]):
-        t = cli.snapshot_timestep(k, loop.timesteps, sched.num_timesteps, record_every)
-        save_image_grid((traj[k][..., :1] + 1.0) / 2.0, os.path.join(out_dir, f"x0_{t}.png"),
+    images = images[:num_samples].float().permute(0, 2, 3, 1).cpu().numpy()
+    traj = traj[:, :num_samples].float().permute(0, 1, 3, 4, 2).cpu().numpy()
+
+    def write_grids():
+        for k in range(traj.shape[0]):
+            t = cli.snapshot_timestep(k, loop.timesteps, sched.num_timesteps, record_every)
+            save_image_grid((traj[k][..., :1] + 1.0) / 2.0,
+                            os.path.join(out_dir, f"x0_{t}.png"), nrow=nrow)
+        save_image_grid((images + 1.0) / 2.0, os.path.join(out_dir, "final_decoded.png"),
                         nrow=nrow)
-    save_image_grid((images + 1.0) / 2.0, os.path.join(out_dir, "final_decoded.png"), nrow=nrow)
-    print(f"Wrote hint grid + {traj.shape[0]} latent grids + decoded grid to {out_dir}")
+
+    cli.write_once(mesh, write_grids)
+    cli.say(mesh, f"Wrote hint grid + {traj.shape[0]} latent grids + decoded grid to {out_dir}")
+    return images
 
 
 if __name__ == "__main__":

@@ -13,7 +13,10 @@ steps of the ancestral loop) and the decoded grid ``final_decoded.png``.
 Weights come from reference-format ``.pth`` files: by default the LDM at
 ``<task_name>/<ldm_ckpt_name>`` (what ``train_ldm_vae`` writes) and the VAE
 at ``<task_name>/<vae_autoencoder_ckpt_name>`` (what ``train_vae`` writes).
-Runs on the card; ``--device cpu`` runs it on the CPU.
+Runs on the card; ``--device cpu`` runs it on the CPU.  Under
+``torchrun --nproc_per_node N`` it samples data-parallel, as the JAX tool does
+on a mesh: the count is padded to divide by the data size, each rank runs and
+decodes its rows, and rank 0 writes the grids.
 """
 
 from __future__ import annotations
@@ -71,10 +74,12 @@ def load_ldm(config: dict, path: str | None, device=None) -> UNet:
 def sample(unet: UNet, vae: VAE, sched: LinearSchedule, num_samples: int, latent: int,
            seed: int = 0, record_every: int | None = None,
            compute_dtype: torch.dtype | None = None, sampler: str = "ancestral",
-           sampler_steps: int = 50, eta: float = 0.0):
+           sampler_steps: int = 50, eta: float = 0.0, mesh=None):
     """One batch of ``num_samples``: returns (decoded images (B, C, H, W),
     latent trajectory (snapshots, B, z, h, w)) as device tensors, and the
-    loop's visited timesteps (None for the ancestral loop)."""
+    loop's visited timesteps (None for the ancestral loop).  ``mesh``
+    (``cli.sampler_mesh``'s, ``num_samples`` divisible by its data size):
+    data-parallel, the global batch returned on every rank."""
     device = next(unet.parameters()).device
     T = sched.num_timesteps
     few = sampler != "ancestral"
@@ -83,7 +88,7 @@ def sample(unet: UNet, vae: VAE, sched: LinearSchedule, num_samples: int, latent
                             record_every=T if record_every is None else record_every,
                             ddim_steps=sampler_steps if few else None, eta=eta if few else 0.0,
                             solver=sampler if few else "ddim", compute_dtype=compute_dtype,
-                            device=device)
+                            device=device, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(seed)
     images, traj = loop(unet, vae, generator)
     return images, traj, loop.timesteps
@@ -116,21 +121,29 @@ def main(argv=None) -> None:
                                                         tp["vae_autoencoder_ckpt_name"]), device)
     sched = ldm_schedule(config, device)
     num_samples = args.num_samples or tp["num_samples"]
+    mesh, batch = cli.sampler_mesh(num_samples, device)
+    cli.put_replicated((unet, vae), mesh)
     nrow = tp["num_grid_rows"]
     record_every = max(1, args.save_every)
     latent = latent_size(cfg.dataset_params(config), cfg.autoencoder_params(config))
-    images, traj, step_ts = sample(unet, vae, sched, num_samples, latent, args.seed,
+    images, traj, step_ts = sample(unet, vae, sched, batch, latent, args.seed,
                                    record_every, COMPUTE_DTYPES[args.compute_dtype],
-                                   args.sampler, args.sampler_steps, args.eta)
-    images = images.float().permute(0, 2, 3, 1).cpu().numpy()
-    traj = traj.float().permute(0, 1, 3, 4, 2).cpu().numpy()
+                                   args.sampler, args.sampler_steps, args.eta, mesh)
+    images = images[:num_samples].float().permute(0, 2, 3, 1).cpu().numpy()
+    traj = traj[:, :num_samples].float().permute(0, 1, 3, 4, 2).cpu().numpy()
     out_dir = os.path.join(task_name, "samples")
-    for k in range(traj.shape[0]):
-        t = cli.snapshot_timestep(k, step_ts, sched.num_timesteps, record_every)
-        save_image_grid((traj[k][..., :1] + 1.0) / 2.0, os.path.join(out_dir, f"x0_{t}.png"),
+
+    def write_grids():
+        for k in range(traj.shape[0]):
+            t = cli.snapshot_timestep(k, step_ts, sched.num_timesteps, record_every)
+            save_image_grid((traj[k][..., :1] + 1.0) / 2.0,
+                            os.path.join(out_dir, f"x0_{t}.png"), nrow=nrow)
+        save_image_grid((images + 1.0) / 2.0, os.path.join(out_dir, "final_decoded.png"),
                         nrow=nrow)
-    save_image_grid((images + 1.0) / 2.0, os.path.join(out_dir, "final_decoded.png"), nrow=nrow)
-    print(f"Wrote {traj.shape[0]} latent grids + decoded grid to {out_dir}")
+
+    cli.write_once(mesh, write_grids)
+    cli.say(mesh, f"Wrote {traj.shape[0]} latent grids + decoded grid to {out_dir}")
+    return images
 
 
 if __name__ == "__main__":

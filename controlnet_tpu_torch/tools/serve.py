@@ -40,6 +40,11 @@ power-of-two buckets up to ``--max-batch``.  Warm-up runs one generation per
 bucket before the server accepts requests; on the card that is where the CUDA
 kernels are built, so no request pays for it.
 
+With more than one card visible the server holds one replica of its model
+per card and splits a bucket evenly over them when its rows divide by their
+count, as the JAX server shards a bucket over its mesh's data axis; other
+buckets run on the first replica (``_replicated``).
+
 Runs on the card; ``--device cpu`` runs it on the CPU.  Arrays are NHWC on the
 wire and NCHW inside, permuted at the boundary.
 """
@@ -74,20 +79,19 @@ from controlnet_tpu_torch.tools import (
 MODELS = ("consistency", "dmd", "ddim_controlnet", "dpm_controlnet")
 
 
-def _student_generator(args, config):
+def _student_generator(args, config, device):
     """``generate`` of a distilled student (``args.model`` consistency or
-    dmd), unclamped."""
+    dmd) on ``device``, unclamped."""
     task_name = cfg.train_params(config)["task_name"]
     ckpt = getattr(args, "ckpt", None)
-    device = getattr(args, "device", None)
     if args.model == "consistency":
         model = cd_tool.load_student(config, ckpt or os.path.join(task_name, cd_tool.CKPT_NAME),
                                      device)
         set_attn_fused_proj(model, getattr(args, "attn_fused_proj", False))
 
-        def generate(hints, generator, steps=1, x_start=None):
+        def generate(hints, generator, steps=1, x_start=None, noise=None):
             h = torch.as_tensor(hints, device=model.device).permute(0, 3, 1, 2)
-            return cd_tool.generate(model, h, steps, generator, x_start)
+            return cd_tool.generate(model, h, steps, generator, x_start, noise)
 
         return generate
     student = dmd_tool.load_student(config, ckpt or dmd_tool.default_ckpt(task_name, True),
@@ -96,40 +100,27 @@ def _student_generator(args, config):
     num_timesteps = cfg.diffusion_params(config)["num_timesteps"]
     student_device = student.unet.conv_in.weight.device
 
-    def generate(hints, generator, steps=1, x_start=None):
-        del steps  # one call at t = T - 1
+    def generate(hints, generator, steps=1, x_start=None, noise=None):
+        del steps, noise  # one call at t = T - 1
         h = torch.as_tensor(hints, device=student_device).permute(0, 3, 1, 2)
         return dmd_tool.generate(student, h, num_timesteps, generator, x_start)
 
     return generate
 
 
-def build_generator(args, config):
-    """Load the model and return ``(generate, im_size, im_channels,
-    hint_channels, steps_cap)``.
-
-    ``generate(hints_nhwc, generator, steps, x_start=None)`` returns a (B, C,
-    H, W) tensor on the model's device; ``x_start`` replaces the x_T drawn
-    from ``generator``.  A student runs its ``steps``-call generation (DMD:
-    one call) unclamped; a teacher encodes the hints once, runs the
-    ``steps``-step solver of ``args.model`` and clamps to [-1, 1].
-    ``steps_cap`` is a teacher's schedule length (a solver walks a
-    subsequence of it), None for a student."""
-    if args.model not in MODELS:
-        raise ValueError(f"unknown model {args.model!r} (one of {', '.join(MODELS)})")
-    model_config = cfg.model_params(config)
-    shape = (model_config["im_size"], model_config["im_channels"], model_config["hint_channels"])
-    if args.model in ("consistency", "dmd"):
-        return (_student_generator(args, config), *shape, None)
+def _teacher_generator(args, config, device):
+    """``generate`` of the few-step DDPM ControlNet teacher on ``device``,
+    clamped, and its schedule."""
     train_config = cfg.train_params(config)
     ckpt = getattr(args, "ckpt", None) or os.path.join(
         train_config["task_name"], train_config["controlnet_ckpt_name"])
-    cn, sched = sample_tool.load_model(config, ckpt, getattr(args, "device", None))
+    cn, sched = sample_tool.load_model(config, ckpt, device)
     set_attn_fused_proj(cn, getattr(args, "attn_fused_proj", False))
     solver = args.model.split("_")[0]  # "ddim" | "dpm"
 
     def generate(hints: np.ndarray, generator: torch.Generator | None, steps: int = 1,
-                 x_start: torch.Tensor | None = None) -> torch.Tensor:
+                 x_start: torch.Tensor | None = None, noise=None) -> torch.Tensor:
+        del noise  # DDIM at eta 0 and DPM-Solver++ draw x_T only
         with torch.inference_mode():
             loop, hint_arg, _ = sample_tool.prepare(cn, sched, hints, sampler=solver,
                                                     sampler_steps=steps)
@@ -137,7 +128,90 @@ def build_generator(args, config):
             # few-step x0 estimates can slightly overshoot the image range
             return torch.clamp(x0, -1.0, 1.0)
 
-    return (generate, *shape, sched.num_timesteps)
+    return generate, sched
+
+
+def serve_devices(device: torch.device) -> list:
+    """The devices that hold a replica each: every visible card when the
+    server runs on the card (``cuda`` with no index) and more than one is
+    visible, else ``device`` alone."""
+    if device.type == "cuda" and device.index is None and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def splits_over_replicas(rows: int, n_replicas: int) -> bool:
+    """The JAX server's rule (``hint.shape[0] % n_data == 0``): a bucket whose
+    rows divide by the replica count is split evenly over the replicas;
+    another runs on the first."""
+    return n_replicas > 1 and rows % n_replicas == 0
+
+
+def _replicated(gens: list, devices: list, draw):
+    """One ``generate`` over replicas ``gens`` (one per device): a bucket
+    that splits is cut into equal row blocks, replica i taking block i; its
+    draws (``draw(generator, rows, steps, x_start)``: x_T, and the consistency
+    student's re-injected noise) are taken at the bucket's shape from the
+    one generator, in the order one replica takes them (an injected
+    ``x_start`` in place of the x_T draw), and sliced, so the answer is one
+    replica's."""
+    n = len(gens)
+
+    def generate(hints, generator, steps=1, x_start=None):
+        b = hints.shape[0]
+        if not splits_over_replicas(b, n):
+            return gens[0](hints, generator, steps, x_start)
+        drawn, noise = draw(generator, b, steps, x_start)
+        per = b // n
+        outs = []
+        for i, (gen, device) in enumerate(zip(gens, devices)):
+            rows = slice(i * per, (i + 1) * per)
+            with (torch.cuda.device(device) if device.type == "cuda"
+                  else contextlib.nullcontext()):
+                outs.append(gen(hints[rows], None, steps, drawn[rows].to(device),
+                                None if noise is None else [z[rows].to(device) for z in noise]))
+        return torch.cat([o.to(devices[0]) for o in outs])
+
+    return generate
+
+
+def build_generator(args, config, devices: list | None = None):
+    """Load the model and return ``(generate, im_size, im_channels,
+    hint_channels, steps_cap)``.
+
+    ``generate(hints_nhwc, generator, steps, x_start=None)`` returns a (B, C,
+    H, W) tensor on the (first) model's device; ``x_start`` replaces the x_T
+    drawn from ``generator``.  A student runs its ``steps``-call generation
+    (DMD: one call) unclamped; a teacher encodes the hints once, runs the
+    ``steps``-step solver of ``args.model`` and clamps to [-1, 1].
+    ``steps_cap`` is a teacher's schedule length (a solver walks a
+    subsequence of it), None for a student.  ``devices`` (default: the one
+    of ``args.device``) each hold a replica of the model (``_replicated``)."""
+    if args.model not in MODELS:
+        raise ValueError(f"unknown model {args.model!r} (one of {', '.join(MODELS)})")
+    model_config = cfg.model_params(config)
+    im_size, im_channels = model_config["im_size"], model_config["im_channels"]
+    shape = (im_size, im_channels, model_config["hint_channels"])
+    devices = devices or [resolve_device(getattr(args, "device", None))]
+    steps_cap = None
+    if args.model in ("consistency", "dmd"):
+        gens = [_student_generator(args, config, d) for d in devices]
+    else:
+        built = [_teacher_generator(args, config, d) for d in devices]
+        gens, steps_cap = [g for g, _ in built], built[0][1].num_timesteps
+    if len(gens) == 1:
+        return (gens[0], *shape, steps_cap)
+
+    def draw(generator, rows, steps, x_start):
+        size = (rows, im_channels, im_size, im_size)
+        x_t = x_start if x_start is not None else torch.randn(size, generator=generator,
+                                                               device=generator.device)
+        if args.model != "consistency" or steps == 1:
+            return x_t, None
+        return x_t, [torch.randn(size, generator=generator, device=generator.device)
+                     for _ in range(steps - 1)]
+
+    return (_replicated(gens, devices, draw), *shape, steps_cap)
 
 
 def _bucket(b: int, max_batch: int) -> int:
@@ -313,10 +387,15 @@ def _buckets(max_batch: int) -> list[int]:
     return out
 
 
-def make_server(args, config, warm: bool = True) -> ThreadingHTTPServer:
-    """Build the (not yet running) HTTP server; tests drive it in a thread."""
-    device = resolve_device(getattr(args, "device", None))
-    gen, im_size, _, hint_channels, steps_cap = build_generator(args, config)
+def make_server(args, config, warm: bool = True,
+                devices: list | None = None) -> ThreadingHTTPServer:
+    """Build the (not yet running) HTTP server; tests drive it in a thread.
+    ``devices`` hold one replica of the model each (default
+    ``serve_devices``: every card when more than one is visible); the
+    generator and the dispatcher live on the first."""
+    devices = devices or serve_devices(resolve_device(getattr(args, "device", None)))
+    device = devices[0]
+    gen, im_size, _, hint_channels, steps_cap = build_generator(args, config, devices)
     max_batch = getattr(args, "max_batch", 8)
     # A solver cannot take more steps than the schedule has: the schedule
     # length caps the operator's --max-steps, and a request above it is a 400.

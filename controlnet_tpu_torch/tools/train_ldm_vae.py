@@ -22,7 +22,11 @@ epochs, resumed from the newest one; each epoch's shuffle and noise come from
 ``(seed, epoch)``.  At the end the UNet's reference-format ``.pth`` goes to
 ``<task_name>/<ldm_ckpt_name>``, which ``sample_ldm_vae`` and
 ``train_ldm_controlnet`` load.  Runs on the card; ``--device cpu`` runs it on
-the CPU.
+the CPU.  ``torchrun --nproc_per_node N -m controlnet_tpu_torch.tools.train_ldm_vae``
+trains data-parallel, as the JAX tool does on a mesh: each rank takes its
+rows of every global batch (of the cache's moments, or of the images, which
+it encodes itself), every draw is taken at the global shape and sliced, and
+only rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -106,30 +110,36 @@ class LatentSource:
     def __len__(self) -> int:
         return len(self.moments if self.moments is not None else self.images)
 
-    def batches(self, batch_size: int, seed: int, generator: torch.Generator | None):
-        """One epoch of latent batches in the shuffled order of ``seed``."""
+    def batches(self, batch_size: int, seed: int, generator: torch.Generator | None,
+                mesh=None):
+        """One epoch of latent batches in the shuffled order of ``seed``; under
+        a data-parallel ``mesh`` this rank's rows of each, their noise drawn
+        at the global shape."""
+        rows = cli.batch_rows(mesh)
         if self.moments is not None:
             for idx in batch_indices(len(self.moments), batch_size, shuffle=True, seed=seed):
+                idx = idx if rows is None else rows(idx)
                 yield latents_from_batch(self.moments[torch.from_numpy(idx).to(
-                    self.moments.device)], generator)
+                    self.moments.device)], generator, mesh=mesh)
             return
-        for images, _ in self.images.batches(batch_size, shuffle=True, seed=seed):
+        for images, _ in self.images.batches(batch_size, shuffle=True, seed=seed, rows=rows):
             with torch.no_grad():  # left before the yield: the step takes gradients
-                latents = self.vae.encode(images, generator)[0]
+                latents = self.vae.encode(images, generator, mesh=mesh)[0]
             yield latents
 
 
-def make_trainer(config: dict, steps_per_epoch: int, device=None, seed: int = 0):
+def make_trainer(config: dict, steps_per_epoch: int, device=None, seed: int = 0, mesh=None):
     """(unet, train state, step): the LDM of ``ldm_params``, Adam at
-    ``ldm_lr`` with gamma 0.5 at the ``ldm_lr_steps`` epochs, the step at the
-    config's compute type."""
+    ``ldm_lr`` with gamma 0.5 at the ``ldm_lr_steps`` epochs (gradients
+    averaged over ``mesh``'s data group), the step at the config's compute
+    type."""
     device = resolve_device(device)
     tp = cfg.train_params(config)
     torch.manual_seed(seed)
     unet = UNet(cfg.autoencoder_params(config)["z_channels"], cfg.ldm_params(config)).to(device)
     schedule = multistep_schedule(tp["ldm_lr"], tp["ldm_lr_steps"], steps_per_epoch, 0.5)
     state = create_train_state(dict(unet.named_parameters()), tp["ldm_lr"],
-                               lr_schedule=schedule)
+                               lr_schedule=schedule, mesh=mesh)
     step = make_ddpm_train_step(unet, ldm_schedule(config, device),
                                 compute_dtype=cli.compute_dtype_from(tp))
     return unet, state, step
@@ -140,13 +150,15 @@ def train(config_path: str, images_path: str | None = None, vae_ckpt: str | None
     """Train to ``ldm_epochs``; returns {"epochs": [...], "losses": [...]}
     for the epochs this call ran (mean loss of each)."""
     device = resolve_device(device)
+    mesh = cli.mesh_or_none(device)
     config = cfg.load_config(config_path)
     tp = cfg.train_params(config)
     task_name = tp["task_name"]
     seed = int(tp.get("seed", 0))
     source = LatentSource(config, device, images_path, vae_ckpt)
     batch_size = tp["ldm_batch_size"]
-    unet, state, step = make_trainer(config, max(1, len(source) // batch_size), device, seed)
+    unet, state, step = make_trainer(config, max(1, len(source) // batch_size), device, seed,
+                                     mesh)
 
     ckpt_name = tp["ldm_ckpt_name"]
     start_epoch = 0
@@ -154,7 +166,8 @@ def train(config_path: str, images_path: str | None = None, vae_ckpt: str | None
     if restored is not None:
         tree, start_epoch = restored
         state.load_state_dict(tree)
-        print(f"Resumed LDM from epoch {start_epoch}")
+        cli.say(mesh, f"Resumed LDM from epoch {start_epoch}")
+    cli.put_replicated((unet, state.optimizer), mesh)
 
     num_epochs = tp["ldm_epochs"]
     history = {"epochs": [], "losses": []}
@@ -162,16 +175,17 @@ def train(config_path: str, images_path: str | None = None, vae_ckpt: str | None
         timer = cli.EpochTimer()
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
-        for latents in source.batches(batch_size, shuffle_seed, generator):
+        for latents in source.batches(batch_size, shuffle_seed, generator, mesh):
             timer.add(step(state, latents, generator))
-        print(f"Finished epoch:{epoch_idx + 1} | {timer.summary()}")
+        cli.say(mesh, f"Finished epoch:{epoch_idx + 1} | {timer.summary()}")
         history["epochs"].append(epoch_idx + 1)
         history["losses"].append(timer.mean_loss())
         if cli.should_save_epoch(epoch_idx, num_epochs, tp.get("ckpt_save_every_epochs", 1)):
-            save_checkpoint(task_name, ckpt_name, epoch_idx + 1, state.state_dict(),
-                            max_to_keep=cli.ckpt_max_to_keep(tp))
-    save_file(cpu_state_dict(unet), os.path.join(task_name, ckpt_name))
-    print("Done Training ...")
+            cli.write_once(mesh, save_checkpoint, task_name, ckpt_name, epoch_idx + 1,
+                           state.state_dict(), max_to_keep=cli.ckpt_max_to_keep(tp))
+    cli.write_once(mesh, lambda: save_file(cpu_state_dict(unet),
+                                           os.path.join(task_name, ckpt_name)))
+    cli.say(mesh, "Done Training ...")
     return history
 
 

@@ -23,6 +23,11 @@ the VAE's reference-format ``.pth`` goes to
 ``<task_name>/<vae_autoencoder_ckpt_name>`` (what the latent tools load) and
 the discriminator's to ``<task_name>/<vae_discriminator_ckpt_name>``.
 Runs on the card; ``--device cpu`` runs it on the CPU.
+``torchrun --nproc_per_node N -m controlnet_tpu_torch.tools.train_vae`` trains
+data-parallel, as the JAX tool does on a mesh: each rank reads its rows of
+every global batch, the VAE's noise is drawn at the global shape, the
+discriminator's batch norms take the global batch's statistics, and only
+rank 0 writes the grids and the checkpoints.
 """
 
 from __future__ import annotations
@@ -46,9 +51,10 @@ from controlnet_tpu_torch.train.state import create_train_state
 BETAS = (0.5, 0.999)
 
 
-def make_trainer(config: dict, device=None, seed: int = 0):
+def make_trainer(config: dict, device=None, seed: int = 0, mesh=None):
     """(vae, discriminator, g_state, d_state, step) at the config's widths
-    and ``train_params``, weights from ``seed``."""
+    and ``train_params``, weights from ``seed``, gradients averaged over
+    ``mesh``'s data group."""
     device = resolve_device(device)
     ds = cfg.dataset_params(config)
     tp = cfg.train_params(config)
@@ -58,9 +64,9 @@ def make_trainer(config: dict, device=None, seed: int = 0):
     lpips = build_lpips(device, torch.Generator().manual_seed(seed + 1))
     acc = int(tp["autoencoder_acc_steps"])
     g_state = create_train_state(dict(vae.named_parameters()), tp["autoencoder_lr"], BETAS,
-                                 acc_steps=acc)
+                                 acc_steps=acc, mesh=mesh)
     d_state = create_train_state(dict(disc.named_parameters()), tp["autoencoder_lr"], BETAS,
-                                 acc_steps=acc)
+                                 acc_steps=acc, mesh=mesh)
     step = make_vae_gan_train_step(vae, disc, lpips, disc_start=tp["disc_start"],
                                    disc_weight=tp["disc_weight"], kl_weight=tp["kl_weight"],
                                    perceptual_weight=tp["perceptual_weight"],
@@ -82,12 +88,15 @@ def save_grid(vae: VAE, batch: torch.Tensor, generator: torch.Generator, path: s
 def train(config_path: str, images_path: str | None = None, device=None) -> dict:
     """Train to ``autoencoder_epochs``; returns {"epochs": [...], "metrics":
     [...]} for the epochs this call ran (the mean of each metric)."""
+    from controlnet_tpu_torch.parallel.mesh import gather_rows
+
     device = resolve_device(device)
+    mesh = cli.mesh_or_none(device)
     config = cfg.load_config(config_path)
     tp = cfg.train_params(config)
     task_name = tp["task_name"]
     seed = int(tp.get("seed", 0))
-    vae, disc, g_state, d_state, step = make_trainer(config, device, seed)
+    vae, disc, g_state, d_state, step = make_trainer(config, device, seed, mesh)
 
     vae_ckpt, disc_ckpt = tp["vae_autoencoder_ckpt_name"], tp["vae_discriminator_ckpt_name"]
     start_epoch = 0
@@ -96,7 +105,9 @@ def train(config_path: str, images_path: str | None = None, device=None) -> dict
         tree, start_epoch = restored
         g_state.load_state_dict(tree["g"])
         d_state.load_state_dict(tree["d"])
-        print(f"Resumed VAE training from epoch {start_epoch}")
+        cli.say(mesh, f"Resumed VAE training from epoch {start_epoch}")
+    # LPIPS is the same on every rank: seeded, or read from the same file
+    cli.put_replicated((vae, disc, g_state.optimizer, d_state.optimizer), mesh)
 
     source = cli.open_split(config, "train", device, images_path, kind="celebhq")
     size = cfg.dataset_params(config)["im_size"]
@@ -116,28 +127,32 @@ def train(config_path: str, images_path: str | None = None, device=None) -> dict
         shuffle_seed, gen_seed = epoch_seeds(seed, epoch_idx)
         generator = torch.Generator(device=device).manual_seed(gen_seed)
         epoch_metrics = []
-        for batch, _ in source.batches(batch_size, shuffle=True, seed=shuffle_seed):
+        for batch, _ in source.batches(batch_size, shuffle=True, seed=shuffle_seed,
+                                       rows=cli.batch_rows(mesh)):
             step_count += 1
             if step_count % save_steps == 0 or step_count == 1:
                 grid_gen = torch.Generator(device=device).manual_seed(step_count)
-                save_grid(vae, batch, grid_gen, os.path.join(
-                    grid_dir, f"current_autoencoder_sample_{step_count}.png"))
+                cli.write_once(mesh, save_grid, vae, gather_rows(batch, mesh), grid_gen,
+                               os.path.join(grid_dir,
+                                            f"current_autoencoder_sample_{step_count}.png"))
             epoch_metrics.append(step(g_state, d_state, batch, step_count, generator))
         means = {k: torch.stack([m[k] for m in epoch_metrics]).mean().item()
                  for k in epoch_metrics[0]}
-        print(f"Finished epoch: {epoch_idx + 1} | Recon Loss : {means['recon_loss']:.4f} | "
-              f"Perceptual Loss : {means['perceptual_loss']:.4f} | G Loss : "
-              f"{means['gen_adv_loss']:.4f} | D Loss {means['disc_loss']:.4f}")
+        cli.say(mesh, f"Finished epoch: {epoch_idx + 1} | Recon Loss : "
+                      f"{means['recon_loss']:.4f} | Perceptual Loss : "
+                      f"{means['perceptual_loss']:.4f} | G Loss : {means['gen_adv_loss']:.4f} "
+                      f"| D Loss {means['disc_loss']:.4f}")
         history["epochs"].append(epoch_idx + 1)
         history["metrics"].append(means)
         keep = cli.ckpt_max_to_keep(tp)
-        save_checkpoint(task_name, vae_ckpt, epoch_idx + 1,
-                        {"g": g_state.state_dict(), "d": d_state.state_dict()}, max_to_keep=keep)
-        save_checkpoint(task_name, disc_ckpt, epoch_idx + 1, d_state.state_dict(),
-                        max_to_keep=keep)
+        cli.write_once(mesh, save_checkpoint, task_name, vae_ckpt, epoch_idx + 1,
+                       {"g": g_state.state_dict(), "d": d_state.state_dict()}, max_to_keep=keep)
+        cli.write_once(mesh, save_checkpoint, task_name, disc_ckpt, epoch_idx + 1,
+                       d_state.state_dict(), max_to_keep=keep)
     for model, name in ((vae, vae_ckpt), (disc, disc_ckpt)):
-        save_file(cpu_state_dict(model), os.path.join(task_name, name))
-    print("Done Training...")
+        cli.write_once(mesh, lambda m=model, n=name: save_file(cpu_state_dict(m),
+                                                               os.path.join(task_name, n)))
+    cli.say(mesh, "Done Training...")
     return history
 
 

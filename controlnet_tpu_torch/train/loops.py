@@ -133,20 +133,29 @@ def make_vae_gan_train_step(vae: torch.nn.Module, discriminator: torch.nn.Module
     the VAE only; then the discriminator's loss on the detached
     reconstruction and on the input, with the discriminator's parameters
     from before this step's generator update.  The VAE's reparameterisation
-    noise (the mean's shape) comes from ``generator`` unless injected."""
+    noise (the mean's shape) comes from ``generator`` unless injected.
+
+    Under a data-parallel mesh (``g_state.mesh``, which ``d_state`` shares)
+    ``images`` are this rank's rows: the noise is drawn at the global shape
+    and sliced (an injected one is global too), the discriminator's batch
+    norms take the global batch's statistics, and the gradients and the
+    returned loss terms are averaged over the data group."""
 
     def step(g_state: TrainState, d_state: TrainState, images: torch.Tensor, step_count: int,
              generator: torch.Generator | None = None, *,
              noise: torch.Tensor | None = None) -> dict:
+        mesh = g_state.mesh
         disc_on = float(step_count > disc_start)
         x_in = _cast(images, compute_dtype)
-        recon, enc = vae(x_in, generator, noise)
+        if noise is not None:
+            noise = rank_rows(noise, mesh)
+        recon, enc = vae(x_in, generator, noise, mesh)
         mean, logvar = torch.chunk(enc.float(), 2, dim=1)
         kl = torch.mean(0.5 * torch.sum(torch.exp(logvar) + mean ** 2 - 1.0 - logvar,
                                         dim=(1, 2, 3)))
         recon_f = recon.float()
         recon_loss = torch.mean((recon_f - images) ** 2)
-        fool = torch.mean((discriminator(recon).float() - 1.0) ** 2)
+        fool = torch.mean((discriminator(recon, mesh).float() - 1.0) ** 2)
         lp = torch.mean(lpips(recon_f, images))
         g_loss = (recon_loss + kl_weight * kl + disc_on * disc_weight * fool
                   + perceptual_weight * lp)
@@ -154,15 +163,16 @@ def make_vae_gan_train_step(vae: torch.nn.Module, discriminator: torch.nn.Module
         grads = torch.autograd.grad(g_loss, g_params)
         for p, g in zip(g_params, grads):
             p.grad = g
-        g_state.apply_gradients()
+        recon_loss, kl, lp, fool, g_loss = g_state.apply_gradients(
+            recon_loss.detach(), kl.detach(), lp.detach(), fool.detach(), g_loss.detach())
 
-        fake_pred = discriminator(recon.detach()).float()
-        real_pred = discriminator(x_in).float()
+        fake_pred = discriminator(recon.detach(), mesh).float()
+        real_pred = discriminator(x_in, mesh).float()
         d_loss = disc_weight * (torch.mean(fake_pred ** 2)
                                 + torch.mean((real_pred - 1.0) ** 2)) / 2.0
         d_state.optimizer.zero_grad(set_to_none=True)
         (disc_on * d_loss).backward()
-        d_state.apply_gradients()
+        (d_loss,) = d_state.apply_gradients(d_loss.detach())
         metrics = {"recon_loss": recon_loss, "kl_loss": kl,
                    "perceptual_loss": perceptual_weight * lp,
                    "gen_adv_loss": disc_weight * fool * disc_on,

@@ -22,7 +22,11 @@ A state that carries a data-parallel ``mesh`` (``parallel.mesh.Mesh``)
 averages each call's gradients over the group in one flat all-reduce
 (``reduce_gradients``) before any use of them: before the accumulation fold,
 Adam, DMD's clip and its skipped-batch guard, so every rank takes the same
-update.
+update.  On a 2-D mesh the average of a shard's gradient runs over the
+rank's data group: under tensor parallelism (``parallel/tp.py``) a rank's
+gradients are those of its shards, which its model group does not share, and
+Adam runs on each rank's shards; a replicated parameter's gradient and the
+loss terms are averaged over every rank.
 """
 
 from __future__ import annotations
@@ -66,6 +70,8 @@ class TrainState:
 
         with torch.no_grad():
             params = [p for p in self.params.values() if p.grad is not None]
+            if self.mesh.model_parallel > 1:
+                return self._reduce_tp(params, extra)
             parts = [p.grad.reshape(-1).float() for p in params]
             parts += [e.detach().reshape(1).float() for e in extra]
             flat = all_reduce_mean(torch.cat(parts), self.mesh)
@@ -73,6 +79,32 @@ class TrainState:
             for p, g in zip(params, out):
                 p.grad = g.view_as(p).to(p.dtype)
             return tuple(x.reshape(()) for x in out[len(params):])
+
+    def _reduce_tp(self, params: list, extra: tuple) -> tuple:
+        """``reduce_gradients`` under tensor parallelism: a shard's gradient
+        (``tp_dim``) averaged over the data group; a replicated parameter's,
+        equal in exact arithmetic on every rank of a model group, and the
+        extras averaged over every rank, so the replicas stay bit-equal
+        whatever order their kernels summed in."""
+        import torch.distributed as dist
+
+        mesh = self.mesh
+        out = []
+        for group, size, keep in ((mesh.data_group, mesh.data_size, True),
+                                  (None, mesh.world_size, False)):
+            mine = [p for p in params if (getattr(p, "tp_dim", None) is not None) == keep]
+            parts = [p.grad.reshape(-1).float() for p in mine]
+            if not keep:
+                parts += [e.detach().reshape(1).float() for e in extra]
+            if not parts:
+                continue
+            flat = torch.cat(parts)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+            flat = flat.div_(size).split([x.numel() for x in parts])
+            for p, g in zip(mine, flat):
+                p.grad = g.view_as(p).to(p.dtype)
+            out = flat[len(mine):]
+        return tuple(x.reshape(()) for x in out)
 
     def apply_gradients(self, *extra: torch.Tensor) -> tuple:
         """Take the parameters' ``.grad`` of one call: an Adam update now
@@ -149,7 +181,14 @@ class ClippedAdamW:
     parameters' device.  ``step(good)`` commits the update only where the
     0-dim bool ``good`` is true, as ``jnp.where(good, new, old)`` does over the
     JAX state: with ``good`` false nothing moves (parameters, moments, count,
-    schedule position), and no value is read back to the host."""
+    schedule position), and no value is read back to the host.
+
+    Under tensor parallelism (``tp_mesh`` set by ``create_dmd_train_state``)
+    the clip reads the global norm: the squares of the sharded parameters'
+    gradients (``tp_dim``) summed over the model group, the replicated ones
+    counted once."""
+
+    tp_mesh = None
 
     def __init__(self, params, lr: float, decay_steps: int, weight_decay: float = 1e-6,
                  max_norm: float = 1.0, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -185,7 +224,10 @@ class ClippedAdamW:
                        for p in self.params]).float()
         p_flat = torch.cat([p.detach().reshape(-1) for p in self.params])
         g = torch.where(good, g, torch.zeros_like(g))
-        g_norm = torch.sqrt(torch.sum(g * g))  # optax's global_norm; a cascaded sum
+        if self.tp_mesh is None:
+            g_norm = torch.sqrt(torch.sum(g * g))  # optax's global_norm; a cascaded sum
+        else:
+            g_norm = self._tp_norm(g)
         g = torch.where(g_norm < self.max_norm, g, g / g_norm * self.max_norm)
         mu = (1.0 - self.b1) * g + self.b1 * self.exp_avg
         nu = (1.0 - self.b2) * (g * g) + self.b2 * self.exp_avg_sq
@@ -201,6 +243,17 @@ class ClippedAdamW:
         torch._foreach_copy_(self.params, [v.view_as(p) for v, p in
                                            zip(new_p.split(self._sizes), self.params)])
         return g_norm
+
+    def _tp_norm(self, g: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        sharded = torch.cat([torch.full((n,), getattr(p, "tp_dim", None) is not None,
+                                        device=g.device)
+                             for p, n in zip(self.params, self._sizes)])
+        sq = g * g
+        part = torch.sum(torch.where(sharded, sq, torch.zeros_like(sq)))
+        dist.all_reduce(part, group=self.tp_mesh.model_group)
+        return torch.sqrt(torch.sum(torch.where(sharded, torch.zeros_like(sq), sq)) + part)
 
     def state_dict(self) -> dict:
         return {"exp_avg": self.exp_avg.clone(), "exp_avg_sq": self.exp_avg_sq.clone(),
@@ -218,6 +271,9 @@ def create_dmd_train_state(params: dict, lr: float, decay_steps: int,
                            weight_decay: float = 1e-6, max_norm: float = 1.0,
                            mesh=None) -> TrainState:
     """A fresh DMD state: ``ClippedAdamW`` over ``params`` by name, its
-    gradients averaged over ``mesh``'s group."""
+    gradients averaged over ``mesh``'s data group (and its clip reading the
+    global norm of the shards on a model axis above 1)."""
     opt = ClippedAdamW(list(params.values()), lr, decay_steps, weight_decay, max_norm)
+    if mesh is not None and mesh.model_parallel > 1:
+        opt.tp_mesh = mesh
     return TrainState(step=0, params=dict(params), optimizer=opt, mesh=mesh)

@@ -1,4 +1,5 @@
-"""One rank of the two-rank runs of tests/test_torch_port_parallel.py.
+"""One rank of the two-rank runs of tests/test_torch_port_parallel.py and
+tests/test_torch_port_parallel_latent.py.
 
     python tests/_torch_port_parallel_rank.py WORKDIR RANK WORLD
 
@@ -129,8 +130,32 @@ def run_samplers(case, mesh):
     return out
 
 
+def run_ldm_sampler(case, mesh):
+    """The latent sampler (ancestral and DPM) with injected global draws:
+    each rank samples and decodes its rows; returns the gathered images and
+    latent trajectory."""
+    from controlnet_tpu_torch.models.unet import UNet
+    from controlnet_tpu_torch.models.vae import VAE
+    from controlnet_tpu_torch.sample.ddpm import make_ldm_sampler
+    from controlnet_tpu_torch.schedules.linear import make_linear_schedule
+
+    unet = UNet(case["shape"][1], case["cfg"]).eval()
+    unet.load_state_dict(case["unet"], strict=True)
+    vae = VAE(3, case["vae_cfg"]).eval()
+    vae.load_state_dict(case["vae"], strict=True)
+    sched = make_linear_schedule(case["T"], 1e-4, 0.02, device="cpu")
+    eps, dec = (lambda m, x, t: m(x, t)), (lambda v, z: v.decode(z))
+    ancestral = make_ldm_sampler(eps, dec, sched, case["shape"], record_every=5, device="cpu",
+                                 mesh=mesh)
+    dpm = make_ldm_sampler(eps, dec, sched, case["shape"], ddim_steps=case["dpm_steps"],
+                           solver="dpm", device="cpu", mesh=mesh)
+    return {"ancestral": ancestral(unet, vae, None, x_start=case["x_start"],
+                                   step_noise=case["step_noise"]),
+            "dpm": dpm(unet, vae, None, x_start=case["x_start"])}
+
+
 CASES = {"ddpm": run_ddpm, "controlnet": run_controlnet, "dmd": run_dmd,
-         "batchnorm": run_batchnorm, "samplers": run_samplers}
+         "batchnorm": run_batchnorm, "samplers": run_samplers, "ldm_sampler": run_ldm_sampler}
 
 
 def main() -> int:
