@@ -10,9 +10,10 @@
     python3 chip_smoke.py --cifar-only     # --phases 27-31
     python3 chip_smoke.py --cond-only      # --phases 32-35
     python3 chip_smoke.py --compare-only   # --phases 36-37
+    python3 chip_smoke.py --tl-only        # --phases 42
 
 The groups of phases are 1-4, 5-9, 10-14, 15-16, 17-20, 21-26, 27-31, 32-35,
-36-37, 38, 39, 40 and 41; phase 1 (the card, the build) always runs.  A selection prints
+36-37, 38, 39, 40, 41 and 42; phase 1 (the card, the build) always runs.  A selection prints
 the JSON summaries of the groups it ran and, when they passed, the final
 ``ok`` line, but no ``kernels`` line: that needs every phase.
 
@@ -269,17 +270,38 @@ Phases (each one that fails makes the script exit non-zero):
    the per-rank TP shapes, and c on the gathered remainder weights, against
    their plain versions; (v) ``dryrun_multichip(4)``'s loss falling.  Times
    are of ranks time-sliced on one card: not a scaling figure.
-42. A ``{"distill": {...}}``, a ``{"latent_train": {...}}``, a
+42. The transposed-layout and dual-trunk forwards: (ii-iii) at the MNIST
+   width (batch 64, the seeded .pth) and the CelebA-HQ one (batch 16, 1024^2
+   hints, phase 10's seeded files), ``forward_tl``, ``forward_paired`` and
+   ``forward_fused`` (and MNIST's ``UNet.forward_tl``, and a paired call with
+   the fused layer on) against the default forward and against their plain
+   versions, f32 and bf16, within MODEL_TOL, launches of c / a / d per call
+   (MNIST 63 c + 26 a TL, 16 a paired and fused, 38 c + 16 a UNet TL, 12 a + 4
+   d paired with the switch; latent 51 c + 22 a TL, 14 a paired and fused),
+   and each TL forward once more with every kernel-c call held against the
+   plain version on the same inputs within CONV_TOL (every shape of both
+   widths); in a process of its own, first, (i) kernel c against its plain
+   version and ``F.conv2d`` at every conv shape of the MNIST ControlNet's
+   ``forward_tl`` (16 distinct, 1 -> 32 and 16 -> 1 channels included), batch
+   64, f32 and bf16, timed as in phase 10, summed per ControlNet (63 calls)
+   and UNet (38) TL forward, and (v) the wall ms per call of ``forward``,
+   ``forward_tl`` and ``forward_paired`` in turns on the host clock, with each
+   one's device ms (the union of its records' intervals) and busy share from
+   a profiler window, at both widths.
+43. A ``{"distill": {...}}``, a ``{"latent_train": {...}}``, a
    ``{"cifar": {...}}``, a ``{"cond": {...}}``, a ``{"compare": {...}}``, a
    ``{"parallel": {...}}``, a ``{"latent_dp": {...}}``, a
-   ``{"serve_replicas": {...}}`` and a ``{"tensor_parallel": {...}}`` JSON
-   line, a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
+   ``{"serve_replicas": {...}}``, a ``{"tensor_parallel": {...}}`` and a
+   ``{"tl": {...}}`` JSON line, a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Kernel, plain-version and library times are device time: the profiler's sum
 of the GPU work a call launches (``time_calls``), the wrappers' own casts
-included, taken by the timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32, 33; and 19's,
-25's and 34's timed runs) each in a process of its own (``in_fresh_process``).  (PRs
+included, taken by the timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32, 33, 42; and 19's,
+25's and 34's timed runs) each in a process of its own (``in_fresh_process``).  The
+device time of a profiled step or call (phases 8, 16, 19, 25, 34, 42) is the
+union of its records' intervals (``device_span_ms``), so a busy share never
+passes 1.  (PRs
 1-5 timed with CUDA events, PRs 6-7 printed those beside; PR 8 dropped them
 to keep the run inside its time limit.)  TF32 is off for
 matmuls and convolutions throughout, so float32 means float32: the script
@@ -299,6 +321,7 @@ import functools
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -535,6 +558,24 @@ def _device_ms(evt) -> float:
     return 0.0
 
 
+def device_span_ms(events) -> float:
+    """Device time of a window's records: the length of the union of their
+    [start, end] intervals, in ms.  Records overlap (kernels on other
+    streams, a library's nested launches), so their summed durations can
+    exceed the window's wall time; the union cannot."""
+    total, lo, hi = 0.0, None, None
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if hi is None or start > hi:
+            if hi is not None:
+                total += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    if hi is not None:
+        total += hi - lo
+    return total / 1e3
+
+
 # time_calls's windows, the measurements they hold, and the device records in
 # them launched elsewhere
 PROFILER_WINDOWS = {"measurements": 0, "groups": 0, "windows": 0, "foreign": 0, "seconds": 0.0}
@@ -693,14 +734,17 @@ def record_conv_shapes(into: list):
 RAGGED_CONV_SHAPE = (24, 40, 30, 30, LDM_BATCH)  # (Cin, Cout, H, W, B): every edge masked
 
 
-def phase_conv_kernels(shapes: list, device) -> dict:
-    """Kernel c against its plain version at every shape of the hint encode
-    and RAGGED_CONV_SHAPE (inputs as (C, B, L) views of NCHW tensors, as the
-    encoder passes them), f32 and bf16; device times of the kernel (and of
-    its own launch, without the wrapper's weight cast), the plain version
-    and ``F.conv2d`` on the contiguous NCHW tensor (the library yardstick,
-    which the port never calls for these convs).  The per-encode totals sum
-    ``shapes`` only."""
+def phase_conv_kernels(shapes: list, device, off_path: list = (RAGGED_CONV_SHAPE,),
+                       what: str = "hint encode") -> dict:
+    """Kernel c against its plain version at every distinct shape of
+    ``shapes`` (the convs of one unit of the main path: a hint encode, a TL
+    forward) and at the ``off_path`` shapes (inputs as (C, B, L) views of
+    NCHW tensors, as the models pass them), f32 and bf16; device times of
+    the kernel (and of its own launch, without the wrapper's weight cast),
+    the plain version and ``F.conv2d`` on the contiguous NCHW tensor (the
+    library yardstick, which the port never calls for these convs).  The
+    per-unit totals sum ``shapes``, each distinct shape times its count;
+    ``per_shape`` holds each distinct shape's figures."""
     import torch.nn.functional as F
 
     from controlnet_tpu_torch.ops import cuda_conv
@@ -708,9 +752,11 @@ def phase_conv_kernels(shapes: list, device) -> dict:
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, own_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, flops=0.0,
-                   ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0)
-        for cin, cout, h, w, b in list(shapes) + [RAGGED_CONV_SHAPE]:
-            on_path = (cin, cout, h, w, b) != RAGGED_CONV_SHAPE
+                   ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0, per_shape=[])
+        mix = collections.Counter(tuple(s) for s in shapes)
+        for cin, cout, h, w, b in list(mix) + [tuple(s) for s in off_path]:
+            n = mix.get((cin, cout, h, w, b), 0)
+            on_path = n > 0
             g = torch.Generator(device=device).manual_seed(SEED)
             img = torch.randn((b, cin, h, w), generator=g, device=device).to(dtype)
             bound = 1.0 / (9 * cin) ** 0.5
@@ -741,7 +787,7 @@ def phase_conv_kernels(shapes: list, device) -> dict:
                 f"{own:.4f} ms ({flops / own / 1e9:.2f} TFLOP/s, {bound_ms / own:.3f} of the "
                 f"bound), plain {t['plain_ms']:.4f} ms, F.conv2d {t['library_ms']:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by})"
-                f"{'' if on_path else ' | ragged, off the main path'}")
+                f"{f' | x{n} per {what}' if on_path else ' | off the main path'}")
             if not ok:
                 raise SystemExit("conv kernel disagrees with its plain version")
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
@@ -749,16 +795,20 @@ def phase_conv_kernels(shapes: list, device) -> dict:
             del img, x
             if not on_path:
                 continue
+            tot["per_shape"].append(dict(shape=[cin, cout, h, w, b], count=n, ms=t["ms"],
+                                         own_ms=own, plain_ms=t["plain_ms"],
+                                         library_ms=t["library_ms"], bound_ms=bound_ms,
+                                         bound_by=bound_by, flops=flops))
             for key in ("ms", "plain_ms", "library_ms"):
-                tot[key] += t[key]
-            tot["own_ms"] += own
-            tot["bound_ms"] += bound_ms
-            tot["flops"] += flops
-            tot["ops_ms"] += bound_ms if bound_by == "operations" else 0.0
-            tot["bytes_ms"] += bound_ms if bound_by == "bytes" else 0.0
+                tot[key] += n * t[key]
+            tot["own_ms"] += n * own
+            tot["bound_ms"] += n * bound_ms
+            tot["flops"] += n * flops
+            tot["ops_ms"] += n * bound_ms if bound_by == "operations" else 0.0
+            tot["bytes_ms"] += n * bound_ms if bound_by == "bytes" else 0.0
         tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
         totals[dtype] = tot
-        log(f"conv3x3_tl {str(dtype)[6:]} per hint encode ({len(shapes)} calls), device: "
+        log(f"conv3x3_tl {str(dtype)[6:]} per {what} ({len(shapes)} calls), device: "
             f"kernel {tot['ms']:.4f} ms (own launches {tot['own_ms']:.4f}), plain "
             f"{tot['plain_ms']:.4f} ms, F.conv2d {tot['library_ms']:.4f} ms, bound "
             f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), {tot['flops'] / 1e9:.2f} GFLOP")
@@ -1289,7 +1339,7 @@ def phase_train_main_path(config: dict, base: dict, images: torch.Tensor, device
                 step(state, batch, hints, g)
             torch.cuda.synchronize()
         kernels = device_events(prof)
-        dev_ms = sum(_device_ms(e) for e in kernels) / PROFILE_STEPS
+        dev_ms = device_span_ms(kernels) / PROFILE_STEPS
         fwd_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name))
         bwd_ms = sum(_device_ms(e) for e in kernels if "attention_bwd_" in e.name)
 
@@ -1416,6 +1466,22 @@ def write_seeded_ldm_hints(n: int, size: int, path: str) -> None:
     import numpy as np
 
     np.save(path, seeded_hints(n, size).astype(np.uint8))
+
+
+def seeded_ldm_files() -> tuple[str, str, str]:
+    """The seeded latent ControlNet and VAE .pth files and the hints .npy at
+    ``config/celebhq.yaml``'s full width (phases 10-14 and 42), written
+    where missing."""
+    config = celebhq_config()
+    work = os.path.join(REPO, "build", "smoke", "ldm")
+    os.makedirs(work, exist_ok=True)
+    paths = tuple(os.path.join(work, name) for name in (
+        f"ldm_controlnet_seed{SEED}.pth", f"vae_seed{SEED}.pth", f"hints_seed{SEED}.npy"))
+    if not all(os.path.exists(path) for path in paths):
+        write_seeded_ldm_checkpoints(config, *paths[:2])
+        write_seeded_ldm_hints(2 * LDM_BATCH, config["dataset_params"]["canny_im_size"],
+                               paths[2])
+    return paths
 
 
 def phase_hint_encode(cn, hints, device) -> list:
@@ -1610,14 +1676,8 @@ def phase_ldm(device) -> dict:
     from controlnet_tpu_torch.tools import sample_ldm_controlnet as tool
 
     config = celebhq_config()
-    work = os.path.join(REPO, "build", "smoke", "ldm")
-    os.makedirs(work, exist_ok=True)
-    cn_path = os.path.join(work, f"ldm_controlnet_seed{SEED}.pth")
-    vae_path = os.path.join(work, f"vae_seed{SEED}.pth")
-    hints_path = os.path.join(work, f"hints_seed{SEED}.npy")
     start = time.perf_counter()
-    write_seeded_ldm_checkpoints(config, cn_path, vae_path)
-    write_seeded_ldm_hints(2 * LDM_BATCH, config["dataset_params"]["canny_im_size"], hints_path)
+    cn_path, vae_path, hints_path = seeded_ldm_files()
     cn, vae, sched = tool.load_models(config, cn_path, vae_path)
     n_params = sum(p.numel() for p in cn.parameters()) + sum(p.numel() for p in vae.parameters())
     log(f"latent models: config/celebhq.yaml at full width, {n_params / 1e6:.1f} M parameters, "
@@ -2073,7 +2133,7 @@ def phase_serve(config: dict, ckpt: str, device) -> dict:
             gen(hints, None, mid, x_start=x_start)
             torch.cuda.synchronize()
         kernels = device_events(prof)
-        dev_ms = sum(_device_ms(e) for e in kernels)
+        dev_ms = device_span_ms(kernels)
         d_ms = sum(_device_ms(e) for e in kernels if "attention_proj_kernel" in e.name)
         a_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name))
         res[f"profile_{name}"] = dict(wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms,
@@ -2416,7 +2476,7 @@ def phase_distill_main_path(ckpt: str, device) -> dict:
                     step(batch, hints, g)
                 torch.cuda.synchronize()
             kernels = device_events(prof)
-            dev_ms = sum(_device_ms(e) for e in kernels) / PROFILE_STEPS
+            dev_ms = device_span_ms(kernels) / PROFILE_STEPS
             a_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name)) / PROFILE_STEPS
             b_ms = sum(_device_ms(e) for e in kernels if "attention_bwd_" in e.name) / PROFILE_STEPS
             trained = [k for k, p in state.params.items() if p.grad is not None]
@@ -3035,7 +3095,7 @@ def phase_latent_main_path(device) -> dict:
             kernels = device_events(prof)
             t2 = time.perf_counter()
             n_prof = LATENT_PROFILE_STEPS
-            dev_ms = sum(_device_ms(e) for e in kernels) / n_prof
+            dev_ms = device_span_ms(kernels) / n_prof
             a_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name)) / n_prof
             b_ms = sum(_device_ms(e) for e in kernels if "attention_bwd_" in e.name) / n_prof
             c_ms = sum(_device_ms(e) for e in kernels if "conv3x3_tl" in e.name) / n_prof
@@ -3709,7 +3769,7 @@ def phase_cond_sampling(device) -> dict:
                     eps(unet, x_in, t_in, pair_in)
                 torch.cuda.synchronize()
         kernels = device_events(prof)
-        call_ms = sum(_device_ms(e) for e in kernels) / COND_PROFILE_CALLS
+        call_ms = device_span_ms(kernels) / COND_PROFILE_CALLS
         a_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name)) / COND_PROFILE_CALLS
         ok = (launches == COND_CALLS * COND_DPM_STEPS
               and images.shape == (LDM_BATCH, 3, im_size, im_size)
@@ -5199,16 +5259,311 @@ def tp_work() -> str:
     return os.path.join(REPO, "build", "smoke", "tp")
 
 
-# The kernel-timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32 and 33) and the
-# timed distillation, latent-training and conditional sampling main paths
-# (19, 25, 34).  Each runs in a
+# Phase 42: the transposed-layout and dual-trunk forwards (UNet.forward_tl,
+# ControlNet.forward_tl / forward_paired / forward_fused).  The fused forward
+# is checked, not timed: no path runs it.
+TL_TIMED = ("forward", "forward_tl", "forward_paired")
+# launches of kernels (c, a, d) per call, the hint encode outside it: c on
+# every stride-1 3x3 conv of a TL forward, a on every self-attention layer
+# (one call for a paired layer of both trunks), d with the fused layer on
+# (not at head dim 4: the decoder's last two MNIST layers stay on a)
+TL_LAUNCHES = {
+    "mnist": {"forward": (0, 26, 0), "forward_tl": (63, 26, 0), "forward_paired": (0, 16, 0),
+              "forward_fused": (0, 16, 0), "unet_forward_tl": (38, 16, 0),
+              "forward_paired_fused_proj": (0, 12, 4)},
+    "ldm": {"forward": (0, 22, 0), "forward_tl": (51, 22, 0), "forward_paired": (0, 14, 0),
+            "forward_fused": (0, 14, 0)},
+}
+TL_TIMED_CALLS = 3    # host-clock calls of each forward a round
+TL_ROUNDS = 3         # rounds, in turns: TL_TIMED, then reversed, then forwards
+TL_PROFILE_CALLS = 1  # calls of each forward in its profiler window
+
+
+def tl_counts() -> tuple[int, int, int]:
+    from controlnet_tpu_torch.ops import cuda_attention, cuda_attention_proj, cuda_conv
+
+    return cuda_conv.launches, cuda_attention.launches, cuda_attention_proj.launches
+
+
+def reset_tl_counts() -> None:
+    from controlnet_tpu_torch.ops import cuda_attention, cuda_attention_proj, cuda_conv
+
+    cuda_conv.launches = cuda_attention.launches = cuda_attention_proj.launches = 0
+
+
+@contextlib.contextmanager
+def checked_conv(into: dict):
+    """Hold every kernel-c call of this process against the plain version on
+    the same inputs (the activations and views the model hands it): under
+    (Cin, Cout, H, W, B), the calls and the worst max|err| / max|plain out|."""
+    from controlnet_tpu_torch.ops import cuda_conv, tl_conv
+
+    orig = tl_conv.conv3x3_tl
+
+    def check(weight, bias, x, hw):
+        out = orig(weight, bias, x, hw)
+        ref = cuda_conv.conv3x3_tl_plain(weight, bias, x, hw)
+        scale = max(ref.float().abs().max().item(), 1e-30)
+        rel = (out.float() - ref.float()).abs().max().item() / scale
+        if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+            rel = float("inf")
+        key = (x.shape[0], weight.shape[0], int(hw[0]), int(hw[1]), x.shape[1])
+        calls, worst = into.get(key, (0, 0.0))
+        into[key] = (calls + 1, max(worst, rel))
+        return out
+
+    tl_conv.conv3x3_tl = check
+    try:
+        yield
+    finally:
+        tl_conv.conv3x3_tl = orig
+
+
+def tl_models(config: dict, ckpt: str) -> dict:
+    """The MNIST ControlNet from the seeded .pth and the latent one at
+    ``config/celebhq.yaml``'s width from phase 10's seeded files, each with
+    its batch and hint size."""
+    from controlnet_tpu_torch.tools import sample_ddpm_controlnet as mnist_tool
+    from controlnet_tpu_torch.tools import sample_ldm_controlnet as ldm_tool
+
+    cn_path, _, _ = seeded_ldm_files()
+    ldm, _, _ = ldm_tool.load_models(celebhq_config(), cn_path, None)
+    return {"mnist": (mnist_tool.load_model(config, ckpt)[0], BATCH, 28),
+            "ldm": (ldm, LDM_BATCH, celebhq_config()["dataset_params"]["canny_im_size"])}
+
+
+def tl_inputs(cn, batch: int, hint_size: int, device):
+    """Seeded x_t, t and hint features (the hints binary, as canny maps are)."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    hint = (torch.rand((batch, 3, hint_size, hint_size), generator=g, device=device)
+            < 0.15).float()
+    size = hint_size // (cn.down_sample_factor or 1)
+    x = torch.randn((batch, cn.trained_unet.im_channels, size, size), generator=g, device=device)
+    t = torch.randint(0, 1000, (batch,), generator=g, device=device)
+    with torch.inference_mode():
+        feats = cn.hint_features_chunked(hint)
+    return x, t, feats
+
+
+def phase_tl_forwards(width: str, cn, batch: int, hint_size: int, device) -> dict:
+    """Phase 42 (ii)-(iii): each forward of TL_LAUNCHES[width] against the
+    default forward (the same function by another route) and against itself
+    with the plain versions of kernels a and c (the kernels' check), f32 and
+    bf16, launches of c, a and d counted from 0 around the call; MNIST's
+    UNet.forward_tl against UNet.forward, and a paired call with the fused
+    layer on.  A TL forward runs once more with every kernel-c call held
+    against the plain version at CONV_TOL (``checked_conv``)."""
+    from controlnet_tpu_torch.nn.layers import set_attn_fused_proj
+
+    x, t, feats32 = tl_inputs(cn, batch, hint_size, device)
+    res: dict = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            xin, feats = x.to(dtype), feats32.to(dtype)
+            refs = {"controlnet": cn(xin, t, hint_features=feats),
+                    "unet": cn.trained_unet(xin, t)}
+            for name, want in TL_LAUNCHES[width].items():
+                if name == "forward":
+                    continue
+                unet = name.startswith("unet_")
+                call = ((lambda: cn.trained_unet.forward_tl(xin, t)) if unet else
+                        (lambda n=name.replace("_fused_proj", ""):
+                         getattr(cn, n)(xin, t, hint_features=feats)))
+                set_attn_fused_proj(cn, name.endswith("_fused_proj"))
+                try:
+                    torch.cuda.synchronize()
+                    reset_tl_counts()
+                    out = call()
+                    torch.cuda.synchronize()
+                    got = tl_counts()
+                    with plain_attention(), plain_conv(), plain_attention_proj():
+                        plain = call()
+                finally:
+                    set_attn_fused_proj(cn, False)
+                conv_ok, conv_check = True, []
+                if got[0]:
+                    per_shape: dict = {}
+                    with checked_conv(per_shape):
+                        call()
+                    conv_ok = sum(n for n, _ in per_shape.values()) == want[0] and all(
+                        r <= CONV_TOL[dtype] for _, r in per_shape.values())
+                    conv_check = [dict(shape=list(k), calls=n, rel_err=r)
+                                  for k, (n, r) in per_shape.items()]
+                    log(f"42 {width} {name} {str(dtype)[6:]}: kernel c against its plain "
+                        f"version on each of its {sum(n for n, _ in per_shape.values())} calls, "
+                        f"{len(per_shape)} distinct shapes: worst max|err| / max|out| "
+                        f"{max(r for _, r in per_shape.values()):.3g} (tol "
+                        f"{CONV_TOL[dtype]:g}) -> {'ok' if conv_ok else 'FAIL'}")
+                    if not conv_ok:
+                        raise SystemExit(f"{width} {name} ({dtype}): kernel c disagrees with "
+                                         "its plain version")
+                ref = refs["unet" if unet else "controlnet"]
+                scale = max(ref.float().abs().max().item(), 1.0)
+                err = (out.float() - ref.float()).abs().max().item()
+                err_plain = (out.float() - plain.float()).abs().max().item()
+                ok = (got == want and out.shape == ref.shape and out.dtype == dtype
+                      and bool(torch.isfinite(out).all()) and err <= MODEL_TOL[dtype] * scale
+                      and err_plain <= MODEL_TOL[dtype] * scale)
+                res[f"{name}_{str(dtype)[6:]}"] = dict(launches_c_a_d=got, max_abs_err=err,
+                                                       max_abs_err_plain=err_plain, scale=scale,
+                                                       conv_check=conv_check)
+                log(f"42 {width} {name} {str(dtype)[6:]}: batch {batch}, launches c/a/d {got} "
+                    f"(expect {want}); max abs err vs "
+                    f"{'UNet.forward' if unet else 'forward'} {err:.3g}, vs its plain versions "
+                    f"{err_plain:.3g} (tol {MODEL_TOL[dtype]:g} x max(1, max|out|) = "
+                    f"{MODEL_TOL[dtype] * scale:.3g}) -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"{width} {name} ({dtype}) disagrees with forward")
+    return res
+
+
+def tl_conv_shapes(cn, device) -> dict:
+    """(Cin, Cout, H, W, B) of every 3x3 conv the MNIST ControlNet's and its
+    UNet's forward_tl ask kernel c for, at batch BATCH in f32."""
+    x, t, feats = tl_inputs(cn, BATCH, 28, device)
+    shapes: dict = {"forward_tl": [], "unet_forward_tl": []}
+    with torch.inference_mode():
+        with record_conv_shapes(shapes["forward_tl"]):
+            cn.forward_tl(x, t, hint_features=feats)
+        with record_conv_shapes(shapes["unet_forward_tl"]):
+            cn.trained_unet.forward_tl(x, t)
+    return shapes
+
+
+def phase_tl_timing(width: str, cn, batch: int, hint_size: int, device) -> dict:
+    """Phase 42 (v): wall ms per call of the ControlNet forwards of TL_TIMED
+    on the host clock, in turns (TL_ROUNDS rounds, every other one
+    reversed; TL_TIMED_CALLS calls each a round, ending in a synchronise;
+    the median round, and the fastest and slowest), and each one's device
+    ms per call from a profiler window of TL_PROFILE_CALLS calls that
+    traces the device alone (the union of the window's device records:
+    nothing else runs), with the busy share device ms / wall ms (not over
+    the profiled call's own time, which the profiler's host work stretches
+    by up to 1.4x); f32 and bf16.  Returns the figures by dtype, then
+    forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, t, feats32 = tl_inputs(cn, batch, hint_size, device)
+    out: dict = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            xin, feats = x.to(dtype), feats32.to(dtype)
+            fns = {name: (lambda n=name: getattr(cn, n)(xin, t, hint_features=feats))
+                   for name in TL_TIMED}
+            for fn in fns.values():
+                fn()
+            torch.cuda.synchronize()
+            rounds: dict = {name: [] for name in fns}
+            for k in range(TL_ROUNDS):
+                for name in TL_TIMED[::-1] if k % 2 else TL_TIMED:
+                    start = time.perf_counter()
+                    for _ in range(TL_TIMED_CALLS):
+                        fns[name]()
+                    torch.cuda.synchronize()
+                    rounds[name].append((time.perf_counter() - start) * 1e3 / TL_TIMED_CALLS)
+            wall = {name: statistics.median(r) for name, r in rounds.items()}
+            out[dtype] = {}
+            for name, fn in fns.items():
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(TL_PROFILE_CALLS):
+                        fn()
+                    torch.cuda.synchronize()
+                events = device_events(prof)
+                if not events:
+                    raise SystemExit(f"the profiler recorded no device time for {name}")
+                dev = device_span_ms(events) / TL_PROFILE_CALLS
+                r = out[dtype][f"{width}_{name}"] = dict(
+                    wall_ms=wall[name], wall_ms_min=min(rounds[name]),
+                    wall_ms_max=max(rounds[name]), device_ms=dev, busy=dev / wall[name],
+                    kernels=len(events) / TL_PROFILE_CALLS)
+                log(f"42 {width} {name} {str(dtype)[6:]}, batch {batch}: wall "
+                    f"{r['wall_ms']:.3f} ms a call (host clock, the median of {TL_ROUNDS} rounds "
+                    f"of {TL_TIMED_CALLS} calls in turns; rounds {r['wall_ms_min']:.3f} to "
+                    f"{r['wall_ms_max']:.3f}), device {dev:.3f} ms a call (the union of "
+                    f"its records), busy {r['busy']:.3f}, {r['kernels']:.0f} device records "
+                    "a call")
+    return out
+
+
+def phase_tl_measured(ckpt: str, device) -> dict:
+    """Phase 42's work on the card, in a process of its own (the models
+    loaded once): (i) kernel c against its plain version and F.conv2d at
+    every conv shape of the MNIST ControlNet's forward_tl, batch 64, first,
+    as the other timing phases run first in theirs; then (ii)-(iii) the
+    forwards at both widths against the default one, c against its plain
+    version on every call of a TL forward, and (v) the timed forwards.
+    Returns by dtype the checks, c's figures (per_shape included), the
+    times and, under float32, the MNIST conv shapes."""
+    models = tl_models(mnist_config(), ckpt)
+    shapes = tl_conv_shapes(models["mnist"][0], device)
+    conv = phase_conv_kernels(shapes["forward_tl"], device, off_path=[],
+                              what=f"MNIST ControlNet forward_tl, batch {BATCH}")
+    checks, timing = {}, {}
+    for width in list(models):
+        cn, batch, hint_size = models.pop(width)
+        checks[width] = phase_tl_forwards(width, cn, batch, hint_size, device)
+        timing[width] = phase_tl_timing(width, cn, batch, hint_size, device)
+        del cn
+        torch.cuda.empty_cache()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        out[dtype] = dict(
+            forwards={w: {k[:-len(name) - 1]: r for k, r in c.items() if k.endswith(name)}
+                      for w, c in checks.items()},
+            conv=conv[dtype], timing={k: v for w in timing for k, v in timing[w][dtype].items()},
+            conv_shapes=shapes if dtype == torch.float32 else {})
+    return out
+
+
+def phase_tl(config: dict, ckpt: str, device) -> dict:
+    """Phase 42: the forwards' checks (ii-iii), kernel c at the MNIST TL
+    shapes (i) and the forwards' times (v) in a fresh process
+    (``phase_tl_measured``).  Kernel c's times per forward are summed for
+    the ControlNet's 63 calls and for the UNet's 38."""
+    start = time.perf_counter()
+    measured = in_fresh_process("phase_tl_measured", ckpt)
+    f32 = measured[torch.float32]
+    unet = collections.Counter(tuple(x) for x in f32["conv_shapes"]["unet_forward_tl"])
+    conv_unet = {}
+    for dtype, m in measured.items():
+        rows = [(unet[tuple(r["shape"])], r) for r in m["conv"]["per_shape"]]
+        conv_unet[dtype] = {k: sum(n * r[k] for n, r in rows)
+                            for k in ("ms", "own_ms", "plain_ms", "library_ms", "bound_ms",
+                                      "flops")}
+        log(f"42 conv3x3_tl {str(dtype)[6:]} per MNIST UNet forward_tl ({sum(unet.values())} "
+            f"calls), device: kernel {conv_unet[dtype]['ms']:.4f} ms (own launches "
+            f"{conv_unet[dtype]['own_ms']:.4f}), plain {conv_unet[dtype]['plain_ms']:.4f} ms, "
+            f"F.conv2d {conv_unet[dtype]['library_ms']:.4f} ms, bound "
+            f"{conv_unet[dtype]['bound_ms']:.4f} ms, {conv_unet[dtype]['flops'] / 1e9:.2f} GFLOP")
+    forwards = {w: {f"{k}_{str(d)[6:]}": r for d, m in measured.items()
+                    for k, r in m["forwards"][w].items()} for w in f32["forwards"]}
+    return dict(forwards=forwards,
+                conv={d: m["conv"] for d, m in measured.items()}, conv_unet=conv_unet,
+                timing={d: m["timing"] for d, m in measured.items()},
+                seconds=round(time.perf_counter() - start, 1))
+
+
+def tl_summary(res: dict) -> dict:
+    keys = ("ms", "own_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "flops",
+            "max_abs_err", "max_rel_err")
+    return {"forwards": res["forwards"],
+            "conv_per_mnist_forward_tl": {str(d)[6:]: {k: t[k] for k in keys}
+                                          for d, t in res["conv"].items()},
+            "conv_per_mnist_unet_forward_tl": {str(d)[6:]: t for d, t in res["conv_unet"].items()},
+            "timing": {str(d)[6:]: t for d, t in res["timing"].items()},
+            "seconds": res["seconds"]}
+
+# The kernel-timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32, 33 and 42's) and
+# the timed distillation, latent-training and conditional sampling main paths
+# and the four forwards of phase 42 (19, 25, 34, 42).  Each runs in a
 # process of its own (``in_fresh_process``): on the H100 a process that has
 # launched millions of kernels since its first profiler window loses device
 # records in later windows, often all of a window's own, while a fresh one
 # does not.
 TIMING_PHASES = ("phase_kernels", "phase_kernels_bwd", "phase_conv_kernels",
                  "phase_proj_kernels", "phase_distill_main_path", "phase_latent_main_path",
-                 "phase_cond_sampling")
+                 "phase_cond_sampling", "phase_tl_measured")
 
 
 def in_fresh_process(phase: str, *args, **kwargs) -> dict:
@@ -5258,9 +5613,9 @@ def timing_phase(spec: str) -> int:
 
 # The groups of phases main() runs, in order; ``--phases`` selects some.
 PHASE_GROUPS = ("1-4", "5-9", "10-14", "15-16", "17-20", "21-26", "27-31", "32-35", "36-37",
-                "38", "39", "40", "41")
+                "38", "39", "40", "41", "42")
 ALIASES = {"distill_only": "17-20", "latent_train_only": "21-26", "cifar_only": "27-31",
-           "cond_only": "32-35", "compare_only": "36-37"}
+           "cond_only": "32-35", "compare_only": "36-37", "tl_only": "42"}
 
 
 def parse_phases(spec: str | None) -> set | None:
@@ -5271,8 +5626,8 @@ def parse_phases(spec: str | None) -> set | None:
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
         picked.update(range(int(lo), int(hi or lo) + 1))
-    if not picked <= set(range(1, 42)):
-        raise SystemExit(f"--phases {spec!r}: phases are 1-41")
+    if not picked <= set(range(1, 43)):
+        raise SystemExit(f"--phases {spec!r}: phases are 1-42")
     return picked
 
 
@@ -5404,6 +5759,9 @@ def main() -> int:
     if want("41"):
         tensor_parallel = phase_tp(config, device)
         done("41")
+    if want("42"):
+        tl = phase_tl(config, ckpt, device)
+        done("42")
 
     if not full:  # a selection: the summaries of what ran, then the final line
         if want("17-20"):
@@ -5416,7 +5774,8 @@ def main() -> int:
                                     ("38", "parallel", lambda: parallel),
                                     ("39", "latent_dp", lambda: latent_dp),
                                     ("40", "serve_replicas", lambda: replicas),
-                                    ("41", "tensor_parallel", lambda: tensor_parallel)):
+                                    ("41", "tensor_parallel", lambda: tensor_parallel),
+                                    ("42", "tl", lambda: tl_summary(tl))):
             if want(group):
                 log(json.dumps({key: summary()}))
         log(f"time_calls: {PROFILER_WINDOWS}")
@@ -5607,6 +5966,27 @@ def main() -> int:
     log(json.dumps({"latent_dp": latent_dp}))
     log(json.dumps({"serve_replicas": replicas}))
     log(json.dumps({"tensor_parallel": tensor_parallel}, default=str))
+    # phase 42: launches of c, a and d per call of the TL, paired and fused
+    # forwards (f32 and bf16), and kernel c's times per MNIST TL forward at
+    # batch 64 (63 calls a ControlNet, 38 a UNet)
+    tl_runs = {(w, k): r["launches_c_a_d"] for w, runs in tl["forwards"].items()
+               for k, r in runs.items()}
+
+    def tl_launches(i: int, *names: str) -> dict:
+        return {f"{w}_{k}": n[i] for (w, k), n in tl_runs.items()
+                if any(name in k for name in names)}
+
+    conv_entry["tl_launches"] = tl_launches(0, "forward_tl")
+    fwd_entry["tl_launches"] = tl_launches(1, "forward_tl")
+    fwd_entry["paired_launches"] = tl_launches(1, "forward_paired")
+    fwd_entry["fused_launches"] = tl_launches(1, "forward_fused")
+    proj_entry["paired_launches"] = tl_launches(2, "forward_paired")
+    proj_entry["fused_launches"] = tl_launches(2, "forward_fused")
+    tl_c = kernel_entry("conv3x3_tl", "", "", tl["conv"], None, None,
+                        f"MNIST ControlNet forward_tl at batch {BATCH} (63 calls)")
+    conv_entry["tl"] = {k: tl_c[k] for k in keys}
+    conv_entry["tl"]["unet_forward_tl"] = {str(d)[6:]: t for d, t in tl["conv_unet"].items()}
+    log(json.dumps({"tl": tl_summary(tl)}))
     log(f"time_calls: {PROFILER_WINDOWS['windows']} profiler windows for "
         f"{PROFILER_WINDOWS['measurements']} measurements in {PROFILER_WINDOWS['groups']} "
         f"groups (2 windows a group when no window lost records), "

@@ -10,7 +10,14 @@ Port of ``controlnet_tpu/models/controlnet.py``, both variants in one class:
   Its ``hint_features`` run in the transposed (C, B, L) layout, where every
   stride-1 3x3 conv is the hand-written kernel of ``ops/cuda_conv.py``.
 
-The fused / paired / transposed-layout forwards are not ported yet.
+Three more forwards compute the same function for sampling, as in the JAX
+package: ``forward_tl`` in the transposed (C, B, L) layout (every stride-1
+3x3 conv of both trunks is kernel c), ``forward_paired`` with the two trunks
+advanced in lockstep so that each layer's two self-attention cores run as one
+kernel-a call at twice the batch, and ``forward_fused`` with the two
+encoder trunks joined on the channel axis (``nn/blocks.py``).  Each keeps
+``forward``'s gradients, and each raises under tensor parallelism.  No tool
+calls them: every tool samples through ``forward``.
 
 Module names follow the reference state dicts.  DDPM: ``trained_unet``,
 ``control_copy_unet``, ``control_copy_unet_hint_block``,
@@ -34,6 +41,7 @@ from __future__ import annotations
 from typing import Any, Mapping
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from controlnet_tpu_torch.models.unet import UNet
@@ -182,6 +190,13 @@ class ControlNet(nn.Module):
             return self.hint_features(hint)
         return torch.cat([self.hint_features(hint[i:i + chunk]) for i in range(0, n, chunk)])
 
+    def _features(self, hint: torch.Tensor | None,
+                  hint_features: torch.Tensor | None) -> torch.Tensor:
+        if hint_features is None:
+            assert hint is not None, "pass hint or precomputed hint_features"
+            hint_features = self.hint_features(hint)
+        return hint_features
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, hint: torch.Tensor | None = None,
                 hint_features: torch.Tensor | None = None) -> torch.Tensor:
         unet, ctrl = self.trained_unet, self.control
@@ -192,10 +207,7 @@ class ControlNet(nn.Module):
             f_out, f_down_outs = unet.encode(f_out, f_t_emb)
 
         c_t_emb = ctrl.time_embed(t)
-        if hint_features is None:
-            assert hint is not None, "pass hint or precomputed hint_features"
-            hint_features = self.hint_features(hint)
-        c_out = ctrl.stem(x) + hint_features
+        c_out = ctrl.stem(x) + self._features(hint, hint_features)
 
         c_down_outs = []
         for i, blk in enumerate(ctrl.downs):
@@ -209,4 +221,109 @@ class ControlNet(nn.Module):
             m_out = m_out + self.mid_zero_convs[i](c_out)
 
         skips = [f + c for f, c in zip(f_down_outs, c_down_outs)]
+        return unet.decode(m_out, skips, f_t_emb)
+
+    def forward_tl(self, x: torch.Tensor, t: torch.Tensor, hint: torch.Tensor | None = None,
+                   hint_features: torch.Tensor | None = None) -> torch.Tensor:
+        """``forward`` in the transposed layout (NCHW in and out).  The hint
+        encoder runs as ``hint_features`` runs it (once a sampling loop); the
+        zero convs are ``conv1x1_tl``."""
+        unet, ctrl = self.trained_unet, self.control
+
+        with torch.no_grad():
+            f_t_emb = unet.time_embed(t)
+            f_out, hw0 = unet.stem_tl(x)
+            f_out, f_down_outs, hws, hw = unet.encode_tl(f_out, f_t_emb, hw0)
+
+        c_t_emb = ctrl.time_embed(t)
+        c_out, c_hw = ctrl.stem_tl(x)
+        c_out = c_out + tl_conv.to_tl(self._features(hint, hint_features))
+        c_down_outs = []
+        for i, blk in enumerate(ctrl.downs):
+            c_down_outs.append(self.down_zero_convs[i].tl(c_out, c_hw))
+            c_out = blk.tl(c_out, c_t_emb, hw=c_hw)
+            if ctrl.down_sample[i]:
+                c_hw = (c_hw[0] // 2, c_hw[1] // 2)
+
+        m_out = f_out
+        for i in range(len(unet.mids)):
+            c_out = ctrl.mid_stage_tl(i, c_out, c_t_emb, c_hw)
+            m_out = unet.mid_stage_tl(i, m_out, f_t_emb, hw)
+            m_out = m_out + self.mid_zero_convs[i].tl(c_out, c_hw)
+
+        skips = [f + c for f, c in zip(f_down_outs, c_down_outs)]
+        return unet.decode_tl(m_out, skips, hws, f_t_emb, hw)
+
+    def forward_paired(self, x: torch.Tensor, t: torch.Tensor, hint: torch.Tensor | None = None,
+                       hint_features: torch.Tensor | None = None) -> torch.Tensor:
+        """``forward`` with the frozen and control trunks advanced block by
+        block in lockstep: each layer's two self-attention cores run as one
+        attention call at twice the batch (``DownBlock.pair``,
+        ``MidBlock.pair``); convs stay per trunk.  The frozen down path
+        takes no gradient, as under ``forward``'s ``no_grad``: its block
+        outputs are detached (the joint attention call would otherwise carry
+        the control trunk's graph into it)."""
+        unet, ctrl = self.trained_unet, self.control
+
+        with torch.no_grad():
+            f_t_emb = unet.time_embed(t)
+            f_out = unet.stem(x)
+        c_t_emb = ctrl.time_embed(t)
+        c_out = ctrl.stem(x) + self._features(hint, hint_features)
+
+        f_down_outs, c_down_outs = [], []
+        for i, (f_blk, c_blk) in enumerate(zip(unet.downs, ctrl.downs)):
+            f_down_outs.append(f_out)
+            c_down_outs.append(self.down_zero_convs[i](c_out))
+            f_out, c_out = f_blk.pair(c_blk, f_out, c_out, f_t_emb, c_t_emb)
+            f_out = f_out.detach()
+
+        m_out = f_out
+        for i in range(len(unet.mids)):
+            m_out, c_out = unet.mids[i].pair(ctrl.mids[i], m_out, c_out, f_t_emb, c_t_emb)
+            m_out = m_out + self.mid_zero_convs[i](c_out)
+
+        skips = [f + c for f, c in zip(f_down_outs, c_down_outs)]
+        return unet.decode(m_out, skips, f_t_emb)
+
+    def forward_fused(self, x: torch.Tensor, t: torch.Tensor, hint: torch.Tensor | None = None,
+                      hint_features: torch.Tensor | None = None) -> torch.Tensor:
+        """``forward`` with the frozen and control encoder trunks as one
+        stream, joined on the channel axis (frozen first): conv_in, the down
+        blocks and the mids run each layer pair as one call
+        (``DownBlock.fused``, ``MidBlock.fused``: ``groups=2`` convolutions,
+        group norms of twice the groups, attention at twice the batch).  The
+        frozen trunk's conv_in and down weights take no gradient; its mids
+        do, as under ``forward``.  The PyTorch form of the JAX package's
+        ``vmap`` over the stacked trunks."""
+        unet, ctrl = self.trained_unet, self.control
+        if any(getattr(m, "tp_mesh", None) is not None for m in self.modules()):
+            raise NotImplementedError("no fused forward under tensor parallelism")
+
+        with torch.no_grad():
+            f_t_emb = unet.time_embed(t)
+        c_t_emb = ctrl.time_embed(t)
+        feats = self._features(hint, hint_features)
+
+        w = torch.cat([unet.conv_in.weight.detach(), ctrl.conv_in.weight]).to(x.dtype)
+        b = torch.cat([unet.conv_in.bias.detach(), ctrl.conv_in.bias]).to(x.dtype)
+        out2 = F.conv2d(x, w, b, padding=1)  # both trunks read x
+        c = out2.shape[1] // 2
+        out2 = torch.cat([out2[:, :c], out2[:, c:] + feats], dim=1)
+
+        skips = []
+        for i, (f_blk, c_blk) in enumerate(zip(unet.downs, ctrl.downs)):
+            c = out2.shape[1] // 2
+            skips.append(out2[:, :c] + self.down_zero_convs[i](out2[:, c:]))
+            out2 = f_blk.fused(c_blk, out2, f_t_emb, c_t_emb, stop_a=True)
+
+        c = out2.shape[1] // 2
+        m_out, c_out = out2[:, :c], out2[:, c:]
+        for i in range(len(unet.mids)):
+            out2 = unet.mids[i].fused(ctrl.mids[i], torch.cat([m_out, c_out], dim=1), f_t_emb,
+                                      c_t_emb)
+            c = out2.shape[1] // 2
+            c_out = out2[:, c:]
+            m_out = out2[:, :c] + self.mid_zero_convs[i](c_out)
+
         return unet.decode(m_out, skips, f_t_emb)

@@ -18,7 +18,11 @@ branches (``unet_cond_base.py``), any subset of
 
 The staged methods (``time_embed``, ``stem``, ``encode``, ``mid_stage``,
 ``decode``) are what ControlNet composes; their conditioning arguments
-default to None.
+default to None.  ``forward_tl`` computes the same function in the
+transposed (C, B, L) layout of ``ops/tl_conv.py`` (NCHW in and out), where
+every stride-1 3x3 conv is the hand-written kernel c, through the staged
+``stem_tl``, ``encode_tl``, ``mid_stage_tl`` and ``decode_tl``, which track
+the grid beside the activations.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from controlnet_tpu_torch import config as cfg
 from controlnet_tpu_torch.nn.blocks import DownBlock, MidBlock, UpBlock
 from controlnet_tpu_torch.nn.layers import (Conv2d, GroupNorm, Linear, Sequential,
                                             get_time_embedding, silu)
+from controlnet_tpu_torch.ops import tl_conv
 
 
 def resize_nearest(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
@@ -157,21 +162,81 @@ class UNet(nn.Module):
             out = blk(out, down_outs.pop(), t_emb, context)
         return self.conv_out(silu(self.norm_out(out)))
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor,
-                cond_input: Mapping[str, torch.Tensor] | None = None) -> torch.Tensor:
-        """epsilon = UNet(x_t, t [, cond_input]).  x: (B, C, H, W);
-        ``cond_input`` holds "class" (B, num_classes), "text" (B, L_ctx,
-        text_embed_dim) and "image" (B, C_mask, H', W') as configured."""
+    def _require_cond(self, cond_input) -> None:
         if self.cond and cond_input is None:
             raise ValueError("model initialized with conditioning; cond_input required")
-        out = self.stem(x, cond_input)
+
+    def _conditioned(self, x: torch.Tensor, t: torch.Tensor,
+                     cond_input: Mapping[str, torch.Tensor] | None):
+        """(t_emb with the class term, the text context or None)."""
         t_emb = self.time_embed(t)
         if self.class_cond:
             cfg.validate_class_conditional_input(cond_input, x, self.num_classes)
             # one-hot (B, num_classes) @ (num_classes, D), float32 like t_emb
             t_emb = t_emb + cond_input["class"].to(t_emb.dtype) @ self.class_emb.weight
-        context = cond_input.get("text") if self.text_cond else None
+        return t_emb, cond_input.get("text") if self.text_cond else None
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                cond_input: Mapping[str, torch.Tensor] | None = None) -> torch.Tensor:
+        """epsilon = UNet(x_t, t [, cond_input]).  x: (B, C, H, W);
+        ``cond_input`` holds "class" (B, num_classes), "text" (B, L_ctx,
+        text_embed_dim) and "image" (B, C_mask, H', W') as configured."""
+        self._require_cond(cond_input)
+        out = self.stem(x, cond_input)
+        t_emb, context = self._conditioned(x, t, cond_input)
         out, down_outs = self.encode(out, t_emb, context)
         for i in range(len(self.mids)):
             out = self.mid_stage(i, out, t_emb, context)
         return self.decode(out, down_outs, t_emb, context)
+
+    # -- transposed layout: (C, B, L) activations, the grid tracked beside ----------------
+
+    def stem_tl(self, x: torch.Tensor, cond_input: Mapping[str, torch.Tensor] | None = None
+                ) -> tuple[torch.Tensor, tuple[int, int]]:
+        """NCHW x -> (conv_in's TL features, hw).  The image condition is
+        merged in NCHW (a 1x1 conv of the resized mask, once a call)."""
+        hw = (x.shape[2], x.shape[3])
+        if self.image_cond:
+            cfg.validate_image_conditional_input(cond_input, x)
+            im = self.cond_conv_in(resize_nearest(cond_input["image"], hw))
+            x = torch.cat([x, im], dim=1)
+        return self.conv_in.tl(tl_conv.to_tl(x.contiguous()), hw), hw
+
+    def encode_tl(self, out: torch.Tensor, t_emb: torch.Tensor, hw: tuple[int, int],
+                  context: torch.Tensor | None = None):
+        """The down path.  Returns (out, skips, their grids, the grid of
+        out); the skips are the inputs of each down block."""
+        down_outs, hws = [], []
+        for i, blk in enumerate(self.downs):
+            down_outs.append(out)
+            hws.append(hw)
+            out = blk.tl(out, t_emb, context, hw=hw)
+            if self.down_sample[i]:
+                hw = (hw[0] // 2, hw[1] // 2)
+        return out, down_outs, hws, hw
+
+    def mid_stage_tl(self, i: int, out: torch.Tensor, t_emb: torch.Tensor, hw: tuple[int, int],
+                     context: torch.Tensor | None = None) -> torch.Tensor:
+        return self.mids[i].tl(out, t_emb, context, hw=hw)
+
+    def decode_tl(self, out: torch.Tensor, down_outs: list, hws: list, t_emb: torch.Tensor,
+                  hw: tuple[int, int], context: torch.Tensor | None = None) -> torch.Tensor:
+        """The up path from the grid ``hw``; returns contiguous NCHW."""
+        down_outs, hws = list(down_outs), list(hws)
+        for blk in self.ups:
+            skip, skip_hw = down_outs.pop(), hws.pop()
+            out = blk.tl(out, skip, t_emb, context, hw=hw)
+            hw = skip_hw
+        out = self.conv_out.tl(silu(self.norm_out.tl(out)), hw)
+        return tl_conv.from_tl(out, hw).contiguous()
+
+    def forward_tl(self, x: torch.Tensor, t: torch.Tensor,
+                   cond_input: Mapping[str, torch.Tensor] | None = None) -> torch.Tensor:
+        """``forward`` in the transposed layout (NCHW in and out)."""
+        self._require_cond(cond_input)
+        out, hw = self.stem_tl(x, cond_input)
+        t_emb, context = self._conditioned(x, t, cond_input)
+        out, down_outs, hws, hw = self.encode_tl(out, t_emb, hw, context)
+        for i in range(len(self.mids)):
+            out = self.mid_stage_tl(i, out, t_emb, hw, context)
+        return self.decode_tl(out, down_outs, hws, t_emb, hw, context)

@@ -81,6 +81,12 @@ class _TPLayer:
             return out + bias.to(out.dtype).reshape((1, -1) + (1,) * (out.dim() - 2))
         return fn(x, _bias(bias, x.dtype))
 
+    def _refuse_tp(self, what: str) -> None:
+        """Raise where this layer computes a part of a tensor-parallel pair (a
+        layer that only gathers a remainder shard at use runs whole)."""
+        if self.tp_mode is not None:
+            raise NotImplementedError(f"no {what} of a tensor-parallel {type(self).__name__}")
+
 
 class Conv2d(_TPLayer, nn.Conv2d):
     """Conv2d with ``padding`` defaulting to (k-1)//2 and an optional zero
@@ -106,19 +112,20 @@ class Conv2d(_TPLayer, nn.Conv2d):
     def tl(self, x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
         """Transposed-layout forward on (C, B, L) activations
         (``ops/tl_conv.py``).  A stride-2 conv halves ``hw``; the caller
-        keeps track of it."""
-        if self.tp_mode is not None:
-            raise NotImplementedError("no transposed-layout forward of a tensor-parallel conv")
+        keeps track of it.  A shape without a TL function goes through the
+        NCHW forward and back, as in the JAX package."""
+        self._refuse_tp("transposed-layout forward")
         shape = (self.kernel_size[0], self.stride[0], self.padding[0])
         weight, bias = self._param("weight"), self._param("bias")
         if shape == (3, 1, 1):
             return tl_conv.conv3x3_tl(weight, bias, x, hw)
         if shape == (1, 1, 0):
             return tl_conv.conv1x1_tl(weight, bias, x)
+        if shape == (4, 2, 1):
+            return tl_conv.downconv4_tl(weight, bias, x, hw)
         if shape == (3, 2, 1):
             return tl_conv.conv3x3s2_tl(weight, bias, x, hw)
-        raise ValueError(f"no transposed-layout forward for a conv of (kernel, stride, "
-                         f"padding) {shape}")
+        return tl_conv.to_tl(self(tl_conv.from_tl(x, hw)))
 
 
 class Sequential(nn.Sequential):
@@ -127,16 +134,23 @@ class Sequential(nn.Sequential):
 
     def tl(self, x: torch.Tensor, hw: tuple[int, int]) -> tuple[torch.Tensor, tuple[int, int]]:
         """Transposed-layout forward on (C, B, L) activations for chains of
-        convs and activations (the hint encoders), nested or flat.  Follows
-        the spatial dims through stride-2 convs; returns (out, final hw)."""
+        convs, norms and activations (the hint encoders, the resnet layers'
+        norm-SiLU-conv), nested or flat.  Follows the spatial dims through
+        stride-2 convs (halved) and transposed convs (doubled); returns (out,
+        final hw)."""
         h, w = hw
         for step in self:
             if isinstance(step, Sequential):
                 x, (h, w) = step.tl(x, (h, w))
+            elif isinstance(step, ConvTranspose2d):
+                x = step.tl(x, (h, w))
+                h, w = h * 2, w * 2
             elif isinstance(step, Conv2d):
                 x = step.tl(x, (h, w))
                 if step.stride[0] == 2:
                     h, w = h // 2, w // 2
+            elif isinstance(step, GroupNorm):
+                x = step.tl(x)
             elif isinstance(step, nn.SiLU):
                 x = step(x)
             else:
@@ -155,6 +169,14 @@ class ConvTranspose2d(_TPLayer, nn.ConvTranspose2d):
         return F.conv_transpose2d(x, self._param("weight").to(x.dtype),
                                   _bias(self._param("bias"), x.dtype), self.stride, self.padding)
 
+    def tl(self, x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+        """(C, B, L) -> (C_out, B, 4L): the 2x upsample in the transposed
+        layout; the caller doubles ``hw``."""
+        self._refuse_tp("transposed-layout forward")
+        if (self.kernel_size[0], self.stride[0], self.padding[0]) != (4, 2, 1):
+            raise ValueError("the transposed-layout upsample is ConvTranspose2d(4, 2, 1)")
+        return tl_conv.upconvT4_tl(self._param("weight"), self._param("bias"), x, hw)
+
 
 class Linear(_TPLayer, nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -162,6 +184,27 @@ class Linear(_TPLayer, nn.Linear):
             return F.linear(x, self.weight.to(x.dtype), _bias(self.bias, x.dtype))
         w = self._param("weight").to(x.dtype)
         return self._tp_apply(lambda v, b: F.linear(v, w, b), x, self._param("bias"))
+
+
+def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """GroupNorm over the channel axis (dim 1) of (B, C, ...) tensors with
+    the JAX package's single-pass statistics: float32 E[x^2] - E[x]^2,
+    clamped at 0; the affine map in float32, one rounding to ``x``'s type."""
+    b, c = x.shape[:2]
+    g, cg = num_groups, c // num_groups
+    xf = x.float()
+    red = tuple(range(2, x.dim()))
+    n = math.prod(x.shape[2:]) * cg
+    s = xf.sum(dim=red).reshape(b, g, cg).sum(-1)  # (B, G)
+    ss = (xf * xf).sum(dim=red).reshape(b, g, cg).sum(-1)
+    mean = s / n
+    inv = torch.rsqrt(torch.clamp(ss / n - mean * mean, min=0.0) + eps)
+    shape = (b, c) + (1,) * (x.dim() - 2)
+    mean_c = mean.repeat_interleave(cg, dim=1).reshape(shape)
+    inv_c = inv.repeat_interleave(cg, dim=1).reshape(shape)
+    pshape = (1, c) + (1,) * (x.dim() - 2)
+    return ((xf - mean_c) * inv_c * weight.reshape(pshape) + bias.reshape(pshape)).to(x.dtype)
 
 
 class GroupNorm(_TPLayer, nn.Module):
@@ -185,28 +228,24 @@ class GroupNorm(_TPLayer, nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_mode != "shard":
+            return group_norm(x, self.num_groups, self._param("weight"), self._param("bias"),
+                              self.eps)
         b, c = x.shape[:2]
-        g = self.num_groups
         xf = x.float()
-        red = tuple(range(2, x.dim()))
         shape = (b, c) + (1,) * (x.dim() - 2)
-        if self.tp_mode == "shard":
-            mean_c, inv_c = self._sharded_stats(xf, red)
-            mean_c, inv_c = mean_c.reshape(shape), inv_c.reshape(shape)
-        else:
-            cg = c // g
-            n = math.prod(x.shape[2:]) * cg
-            s = xf.sum(dim=red).reshape(b, g, cg).sum(-1)  # (B, G)
-            ss = (xf * xf).sum(dim=red).reshape(b, g, cg).sum(-1)
-            mean = s / n
-            var = torch.clamp(ss / n - mean * mean, min=0.0)
-            inv = torch.rsqrt(var + self.eps)
-            mean_c = mean.repeat_interleave(cg, dim=1).reshape(shape)
-            inv_c = inv.repeat_interleave(cg, dim=1).reshape(shape)
+        mean_c, inv_c = self._sharded_stats(xf, tuple(range(2, x.dim())))
         pshape = (1, c) + (1,) * (x.dim() - 2)
         weight, bias = self._param("weight"), self._param("bias")
-        out = (xf - mean_c) * inv_c * weight.reshape(pshape) + bias.reshape(pshape)
+        out = ((xf - mean_c.reshape(shape)) * inv_c.reshape(shape) * weight.reshape(pshape)
+               + bias.reshape(pshape))
         return out.to(x.dtype)
+
+    def tl(self, x: torch.Tensor) -> torch.Tensor:
+        """GroupNorm on (C, B, L) activations (``tl_conv.group_norm_tl``)."""
+        self._refuse_tp("transposed-layout forward")
+        return tl_conv.group_norm_tl(self._param("weight"), self._param("bias"), x,
+                                     self.num_groups, self.eps)
 
     def _sharded_stats(self, xf: torch.Tensor, red: tuple) -> tuple:
         """(mean, 1 / std) of each local channel's global group, (B, c)."""
@@ -306,26 +345,71 @@ class MultiheadAttention(_TPLayer, nn.Module):
         if self.tp_mesh is not None:
             return self._forward_tp(q_in, kv_in)
         dt = q_in.dtype
-        d = self.embed_dim
-        w = self.in_proj_weight.to(dt)
         if (kv_in is None and self.fused_proj and cuda_attention_proj.fused_proj_supported(
-                q_in.shape[1], q_in.shape[2], d, self.num_heads, dt)):
+                q_in.shape[1], q_in.shape[2], self.embed_dim, self.num_heads, dt)):
             return cuda_attention_proj.fused_attention_proj(
-                q_in, w, self.in_proj_bias.to(dt), self.out_proj.weight.to(dt),
-                self.out_proj.bias.to(dt), self.num_heads)
-        bias = self.in_proj_bias.to(dt)[:, None]
+                q_in, self.in_proj_weight.to(dt), self.in_proj_bias.to(dt),
+                self.out_proj.weight.to(dt), self.out_proj.bias.to(dt), self.num_heads)
+        return self._attend_t(q_in.transpose(1, 2), kv_in).transpose(1, 2)  # (B, L, C)
+
+    def _qkv_t(self, q_in_t: torch.Tensor) -> torch.Tensor:
+        """The packed self-attention projection of (B, C, L) tokens, (3D, C)
+        @ (B, C, L): a contiguous (B, 3D, L) tensor whose q, k and v slices
+        the attention kernel reads without a copy."""
+        dt = q_in_t.dtype
+        return torch.matmul(self.in_proj_weight.to(dt), q_in_t) + self.in_proj_bias.to(dt)[:, None]
+
+    def _out_t(self, out_t: torch.Tensor) -> torch.Tensor:
+        """The output projection of (B, D, L) attention outputs -> (B, C, L)."""
+        dt = out_t.dtype
+        return torch.matmul(self.out_proj.weight.to(dt), out_t) + self.out_proj.bias.to(dt)[:, None]
+
+    def _attend_t(self, q_in_t: torch.Tensor, kv_in: torch.Tensor | None) -> torch.Tensor:
+        """The split path on (B, C, L) tokens -> (B, C, L)."""
+        d = self.embed_dim
         if kv_in is None:
-            # (3D, C) @ (B, C, L) -> (B, 3D, L), contiguous
-            qkv = torch.matmul(w, q_in.transpose(1, 2)) + bias
+            qkv = self._qkv_t(q_in_t)
             qt, kt, vt = qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:]
         else:
-            kv_t = kv_in.to(dt).transpose(1, 2)
-            qt = torch.matmul(w[:d], q_in.transpose(1, 2)) + bias[:d]
-            kvt = torch.matmul(w[d:], kv_t) + bias[d:]
+            dt = q_in_t.dtype
+            w, bias = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)[:, None]
+            qt = torch.matmul(w[:d], q_in_t) + bias[:d]
+            kvt = torch.matmul(w[d:], kv_in.to(dt).transpose(1, 2)) + bias[d:]
             kt, vt = kvt[:, :d], kvt[:, d:]
-        out_t = attention_ops.multi_head_attention_t(qt, kt, vt, self.num_heads)
-        out = torch.matmul(self.out_proj.weight.to(dt), out_t) + self.out_proj.bias.to(dt)[:, None]
-        return out.transpose(1, 2)  # (B, L, C)
+        return self._out_t(attention_ops.multi_head_attention_t(qt, kt, vt, self.num_heads))
+
+    def _refuse_heads_tp(self, what: str) -> None:
+        if self.tp_mesh is not None:
+            raise NotImplementedError(f"no {what} of a tensor-parallel attention layer")
+
+    def tl(self, x_tl: torch.Tensor, kv_in: torch.Tensor | None = None) -> torch.Tensor:
+        """Attention on transposed-layout tokens (C, B, L) -> (C, B, L), a
+        view of a (B, C, L) tensor.  ``kv_in`` (cross attention) stays (B,
+        L_ctx, D).  Never the fused layer: the JAX package's ``tl`` has no
+        fused branch."""
+        self._refuse_heads_tp("transposed-layout forward")
+        return self._attend_t(x_tl.transpose(0, 1), kv_in).transpose(0, 1)
+
+    def pair(self, other: MultiheadAttention, xa: torch.Tensor,
+             xb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Two self-attention layers of one shape and different weights (this
+        one on ``xa``, ``other`` on ``xb``, each (B, L, C) tokens) with their
+        attention cores in one call at twice the batch: per-layer packed
+        projections, q | k | v of both joined on the batch axis, one kernel
+        call on (2B, H, dh, L), per-layer output projections.  The same
+        function as two ``forward`` calls (attention is independent per
+        (batch, head) slice).  Never the fused layer, as in the JAX
+        package."""
+        for m in (self, other):
+            m._refuse_heads_tp("paired forward")
+        if (other.embed_dim, other.num_heads) != (self.embed_dim, self.num_heads):
+            raise ValueError("paired attention layers must have one width and head count")
+        d, b = self.embed_dim, xa.shape[0]
+        qkv = torch.cat([self._qkv_t(xa.transpose(1, 2)), other._qkv_t(xb.transpose(1, 2))])
+        out_t = attention_ops.multi_head_attention_t(qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:],
+                                                     self.num_heads)
+        return (self._out_t(out_t[:b]).transpose(1, 2),
+                other._out_t(out_t[b:]).transpose(1, 2))
 
     def _forward_tp(self, q_in: torch.Tensor, kv_in: torch.Tensor | None) -> torch.Tensor:
         from controlnet_tpu_torch.parallel import tp

@@ -122,13 +122,19 @@ def test_non_power_of_two_factor_raises(factor):
 
 
 def test_tl_forward_rejects_what_it_has_no_route_for():
-    from controlnet_tpu_torch.nn.layers import Conv2d, Sequential
+    """A step with no transposed-layout forward raises; a conv never does
+    (a shape without a TL function goes through NCHW and back, as in JAX)."""
+    from controlnet_tpu_torch.nn.layers import Conv2d, ConvTranspose2d, Sequential
 
     x = torch.zeros(4, 1, 64)
-    with pytest.raises(ValueError, match="no transposed-layout forward for a conv"):
-        Conv2d(4, 4, 4, stride=2, padding=1).tl(x, (8, 8))
+    with pytest.raises(ValueError, match="upsample is ConvTranspose2d"):
+        ConvTranspose2d(4, 4, 3, 1, 1).tl(x, (8, 8))
     with pytest.raises(ValueError, match="no transposed-layout forward for Tanh"):
         Sequential(Conv2d(4, 4, 3), torch.nn.Tanh()).tl(x, (8, 8))
+    conv = Conv2d(4, 4, 4, stride=2, padding=1)
+    with torch.no_grad():
+        out = conv.tl(torch.randn(4, 1, 64), (8, 8))
+    assert out.shape == (4, 1, 16)
 
 
 def test_hint_features_needs_rows_of_pixels_contiguous():
