@@ -11,9 +11,10 @@
     python3 chip_smoke.py --cond-only      # --phases 32-35
     python3 chip_smoke.py --compare-only   # --phases 36-37
     python3 chip_smoke.py --tl-only        # --phases 42
+    python3 chip_smoke.py --phases 43      # the background checkpoint save
 
 The groups of phases are 1-4, 5-9, 10-14, 15-16, 17-20, 21-26, 27-31, 32-35,
-36-37, 38, 39, 40, 41 and 42; phase 1 (the card, the build) always runs.  A selection prints
+36-37, 38, 39, 40, 41, 42 and 43; phase 1 (the card, the build) always runs.  A selection prints
 the JSON summaries of the groups it ran and, when they passed, the final
 ``ok`` line, but no ``kernels`` line: that needs every phase.
 
@@ -160,8 +161,13 @@ Phases (each one that fails makes the script exit non-zero):
 27. CIFAR-10 at the full width of ``config/cifar.yaml`` (batch 64, random
    weights from SEED, 32x32x3; attention at head dims 4-128, L 1024/256/64):
    the ControlNet forward through kernel a against the plain attention, f32
-   and bf16, 26 launches; then kernel a against its plain version at those
-   shapes, timed as in phase 3 (in a process of its own).
+   and bf16, 26 launches; the same forward with the fused layer on (24 kernel
+   d launches at head dims 16-128, 2 of a at head dim 4) against the switch
+   off and the plain versions; kernel d against its plain version at head
+   dims 72-128 off the model paths (``PROJ_WIDE_SHAPES``); then, in a process
+   of its own, kernel a against its plain version at the forward's shapes,
+   timed as in phase 3, and kernel d at its six CIFAR shapes, timed as in
+   phase 15.
 28. One CIFAR training step (26 forward and 18 backward launches, the
    backward shapes recorded), then kernel b against its plain version at
    those shapes, timed as in phase 6 (in a process of its own).
@@ -172,7 +178,8 @@ Phases (each one that fails makes the script exit non-zero):
    (counters set to 0 just before and read just after: 26 / 18 a step; peak
    memory; a profiler window), then the ControlNet sample tool's ancestral
    loop at batch 64 cut to a 50-step schedule (26 launches a step),
-   samples/s.
+   samples/s; and a 10-step f32 sample with ``--attn_fused_proj`` (24 d + 2 a
+   launches a step) against the same sample with it off.
 31. The tools on file trees written by the port's ``data/synthetic.py``: a
    CIFAR-10 style class tree (128 train, 32 test RGB PNGs) at full width,
    ``--config`` alone: train_ddpm -> sample_ddpm, train_ddpm_controlnet with
@@ -284,21 +291,37 @@ Phases (each one that fails makes the script exit non-zero):
    version and ``F.conv2d`` at every conv shape of the MNIST ControlNet's
    ``forward_tl`` (16 distinct, 1 -> 32 and 16 -> 1 channels included), batch
    64, f32 and bf16, timed as in phase 10, summed per ControlNet (63 calls)
-   and UNet (38) TL forward, and (v) the wall ms per call of ``forward``,
-   ``forward_tl`` and ``forward_paired`` in turns on the host clock, with each
-   one's device ms (the union of its records' intervals) and busy share from
-   a profiler window, at both widths.
-43. A ``{"distill": {...}}``, a ``{"latent_train": {...}}``, a
+   and UNet (38) TL forward, and the same at the latent ControlNet's
+   ``forward_tl`` (51 calls, 16 shapes, batch 16), and (v) the wall ms per
+   call of ``forward``, ``forward_tl`` and ``forward_paired`` in turns on the
+   host clock, with each one's device ms (the union of its records'
+   intervals) and busy share from a profiler window, at both widths.
+43. Background checkpoint saves: the f32 train state that
+   ``train_ldm_controlnet`` saves (config/celebhq.yaml's LDM ControlNet at
+   full width, Adam's two moments, the frozen split) after one seeded step;
+   the training thread's ms inside ``save_checkpoint`` and inside
+   ``save_checkpoint_background`` and the seconds until the worker's write
+   commits; one in-place Adam update right after the background call, and the
+   file against a host copy taken before it, tensor by tensor (equal); the
+   files are deleted.  Phases 9 and 19 resume ``train_ddpm`` and both
+   distillation trainers, which save in the background.
+44. A ``{"phase_seconds": {...}}`` line (wall seconds by group of phases),
+   a ``{"distill": {...}}``, a ``{"latent_train": {...}}``, a
    ``{"cifar": {...}}``, a ``{"cond": {...}}``, a ``{"compare": {...}}``, a
    ``{"parallel": {...}}``, a ``{"latent_dp": {...}}``, a
-   ``{"serve_replicas": {...}}``, a ``{"tensor_parallel": {...}}`` and a
-   ``{"tl": {...}}`` JSON line, a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
+   ``{"serve_replicas": {...}}``, a ``{"tensor_parallel": {...}}``, a
+   ``{"tl": {...}}`` and a ``{"background_save": {...}}`` JSON line, a
+   ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Kernel, plain-version and library times are device time: the profiler's sum
 of the GPU work a call launches (``time_calls``), the wrappers' own casts
 included, taken by the timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32, 33, 42; and 19's,
-25's and 34's timed runs) each in a process of its own (``in_fresh_process``).  The
+25's and 34's timed runs) in fresh processes (``in_fresh_processes``): one per group
+of phases, and 3 with 6, 15 with 10 and 12, 19 with 22 and 25 where both groups
+run; each forked
+from a server that imported torch once (``start_fork_server``), as are the
+ranks of phases 38-41.  The
 device time of a profiled step or call (phases 8, 16, 19, 25, 34, 42) is the
 union of its records' intervals (``device_span_ms``), so a busy share never
 passes 1.  (PRs
@@ -318,7 +341,10 @@ import collections
 import contextlib
 import copy
 import functools
+import itertools
 import json
+import multiprocessing
+import multiprocessing.forkserver
 import os
 import shutil
 import statistics
@@ -377,14 +403,22 @@ MNIST_PROJ_SHAPES = [(784, 64, 4, 4), (196, 128, 4, 4), (196, 32, 4, 2), (49, 25
                      (49, 128, 4, 4), (49, 64, 4, 2)]
 LDM_PROJ_SHAPES = [(1024, 384, 16, 4), (1024, 128, 16, 2), (256, 512, 16, 4),
                    (256, 256, 16, 2), (64, 768, 16, 4), (64, 384, 16, 2), (16, 512, 16, 4)]
+# config/cifar.yaml's: head dims 32-128 (its two (1024, 16, 4) layers, head
+# dim 4, keep the split path)
+CIFAR_PROJ_SHAPES = [(1024, 128, 4, 4), (256, 256, 4, 4), (64, 512, 4, 8), (64, 256, 4, 4),
+                     (64, 128, 4, 2), (256, 64, 4, 2)]
+# Off the model paths, head dims past 64 with ragged tiles: 72 and 96 run as
+# 96, 120 and 128 as 128, in 16- and 32-row tiles; (300, 256, 2) takes 64-row
+# tiles, a bf16 plan only
+PROJ_WIDE_SHAPES = [(49, 288, 4, 1), (33, 192, 2, 1), (100, 192, 2, 1), (100, 120, 1, 1),
+                    (20, 256, 2, 1), (300, 256, 2, 1)]
 LDM_BATCH = 16      # train_params.ldm_batch_size of config/celebhq.yaml
-TRAIN_STEPS = 5     # timed steps of the training main paths (8, 19, 25), per compute type
-CIFAR_TRAIN_STEPS = 10  # timed steps of the CIFAR training main path (30)
-TRAIN_WARMUP = 2
-PROFILE_STEPS = 2
+TRAIN_STEPS = 3     # timed steps of the training main paths (8, 19, 25, 30), per compute type
+TRAIN_WARMUP = 1
+PROFILE_STEPS = 1
 CHECK_STEPS = 3     # kernel-vs-plain training steps
 NOISE_FLOOR = 1e-6  # |gradient| below which Adam (eps 1e-8) amplifies float noise
-TOOL_IMAGES = 256   # the trainer tools' seeded dataset: 4 steps per epoch
+TOOL_IMAGES = 128   # the trainer tools' seeded dataset: 2 steps per epoch
 
 
 START = time.perf_counter()
@@ -508,13 +542,28 @@ SASS_KERNELS = (
 )
 
 
-def phase_sass(lib_path: str, nvcc: str) -> dict:
-    """HMMA instructions per kernel in the built library's SASS: every bf16
-    instantiation of kernels a, b, c and d runs its products on the tensor
-    cores, and no float32 instantiation does."""
+def start_sass(lib_path: str, nvcc: str) -> tuple:
+    """``cuobjdump -sass`` of the built library into a file beside it,
+    started now and read by ``phase_sass``, so that the phases in between
+    overlap it (it takes ~20 s of one host core)."""
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+    out = open(os.path.join(os.path.dirname(lib_path), "sass.txt"), "w+")
+    return subprocess.Popen([tool, "-sass", lib_path], stdout=out, stderr=subprocess.PIPE,
+                            text=True), out
+
+
+def phase_sass(job: tuple) -> dict:
+    """HMMA instructions per kernel in the built library's SASS (``job``
+    from ``start_sass``): every bf16 instantiation of kernels a, b, c and d
+    runs its products on the tensor cores, and no float32 instantiation
+    does."""
+    proc, out = job
+    _, err = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise SystemExit(f"cuobjdump failed ({proc.returncode}): {err}")
+    with out:
+        out.seek(0)
+        sass = out.read()
     funcs: dict = {}
     name = None
     for line in sass.splitlines():
@@ -582,7 +631,7 @@ PROFILER_WINDOWS = {"measurements": 0, "groups": 0, "windows": 0, "foreign": 0, 
 _RANGE = "time_calls::"
 
 
-def time_calls(calls: int = 5, tries: int = 8, **fns) -> dict:
+def time_calls(calls: int = 3, tries: int = 8, **fns) -> dict:
     """Device time per call of each named function, under its name, and its
     kernels' names with their ms per call under ``<name>_names``.
 
@@ -603,8 +652,7 @@ def time_calls(calls: int = 5, tries: int = 8, **fns) -> dict:
 
     start = time.perf_counter()
     for fn in fns.values():
-        for _ in range(2):
-            fn()
+        fn()
     torch.cuda.synchronize()
     seen = []
     PROFILER_WINDOWS["measurements"] += len(fns)
@@ -993,7 +1041,7 @@ def phase_kernels(shapes: list, device, batch: int = BATCH,
     return totals
 
 
-MNIST_ANCESTRAL_STEPS = 50  # the ancestral loop's schedule length in phase 4
+MNIST_ANCESTRAL_STEPS = 20  # the ancestral loop's schedule length in phase 4
 
 
 def phase_main_path(config: dict, ckpt: str, device) -> dict:
@@ -1334,7 +1382,9 @@ def phase_train_main_path(config: dict, base: dict, images: torch.Tensor, device
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         losses = torch.stack(losses).float()
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the device alone: this window runs in the parent, which times no
+        # kernel with time_calls after it
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for batch, hints in data[steps:]:
                 step(state, batch, hints, g)
             torch.cuda.synchronize()
@@ -1589,11 +1639,11 @@ def phase_ldm_fused_forward(cn, hints, device) -> None:
     phase_fused_forward(cn, x, t, feats, LDM_PROJ_SHAPES, 0, "latent")
 
 
-LDM_ANCESTRAL_STEPS = 50  # the ancestral loop's schedule length in phase 13
+LDM_ANCESTRAL_STEPS = 20  # the ancestral loop's schedule length in phase 13
 LDM_MODES = (
     ("ancestral", dict()),
-    ("dpm20_cfg2", dict(sampler="dpm", sampler_steps=20, cfg_scale=2.0)),
-    ("ddim50", dict(sampler="ddim", sampler_steps=50)),
+    ("dpm10_cfg2", dict(sampler="dpm", sampler_steps=10, cfg_scale=2.0)),
+    ("ddim20", dict(sampler="ddim", sampler_steps=20)),
 )
 
 
@@ -1669,8 +1719,10 @@ def phase_ldm_main_path(config: dict, cn, vae, sched, hints_path: str, device) -
     return results
 
 
-def phase_ldm(device) -> dict:
-    """Phases 10-13: the CelebA-HQ latent slice."""
+def phase_ldm(device, extra: tuple = ()) -> dict:
+    """Phases 10-13: the CelebA-HQ latent slice.  ``extra`` timing phases
+    ((phase, args, kwargs) each) run in phases 10 and 12's fresh process
+    after theirs; their totals come back under "extra"."""
     import numpy as np
 
     from controlnet_tpu_torch.tools import sample_ldm_controlnet as tool
@@ -1690,13 +1742,14 @@ def phase_ldm(device) -> dict:
                                        cn.down_sample_factor, LDM_BATCH):
         raise SystemExit(f"unexpected conv shapes in the hint encode: {conv_shapes}")
     attn_shapes = phase_ldm_forward(cn, hints, device)
-    kern_conv, kern_attn, kern_proj = in_fresh_processes(
+    kern_conv, kern_attn, kern_proj, *more = in_fresh_processes(
         ("phase_conv_kernels", (conv_shapes,), {}),
         ("phase_kernels", (attn_shapes,), dict(batch=LDM_BATCH, cross=())),
-        ("phase_proj_kernels", (LDM_PROJ_SHAPES, LDM_BATCH), dict(what="latent forward")))
+        ("phase_proj_kernels", (LDM_PROJ_SHAPES, LDM_BATCH), dict(what="latent forward")),
+        *extra)
     phase_ldm_fused_forward(cn, hints, device)
     runs = phase_ldm_main_path(config, cn, vae, sched, hints_path, device)
-    return dict(conv=kern_conv, attn=kern_attn, proj=kern_proj, runs=runs)
+    return dict(conv=kern_conv, attn=kern_attn, proj=kern_proj, runs=runs, extra=more)
 
 
 def proj_inputs(b: int, l: int, c: int, dtype: torch.dtype, device):
@@ -1858,14 +1911,54 @@ def phase_fused_forward(cn, x, t, feats32, expect: list, want_a: int, what: str)
     return launches
 
 
-def phase_mnist_fused_forward(cn, device) -> dict:
+def phase_pixel_fused_forward(cn, device, channels: int, size: int, shapes: list,
+                              what: str) -> dict:
+    """``phase_fused_forward`` of a pixel-space ControlNet at batch BATCH on
+    seeded inputs: kernel d at ``shapes``, kernel a twice (head dim 4)."""
     g = torch.Generator(device=device).manual_seed(SEED)
-    x = torch.randn((BATCH, 1, 28, 28), generator=g, device=device)
+    x = torch.randn((BATCH, channels, size, size), generator=g, device=device)
     t = torch.randint(0, 1000, (BATCH,), generator=g, device=device)
-    hint = (torch.rand((BATCH, 3, 28, 28), generator=g, device=device) < 0.15).float()
+    hint = (torch.rand((BATCH, 3, size, size), generator=g, device=device) < 0.15).float()
     with torch.inference_mode():
         feats = cn.hint_features(hint)
-    return phase_fused_forward(cn, x, t, feats, MNIST_PROJ_SHAPES, 2, "MNIST")
+    return phase_fused_forward(cn, x, t, feats, shapes, 2, what)
+
+
+def phase_mnist_fused_forward(cn, device) -> dict:
+    return phase_pixel_fused_forward(cn, device, 1, 28, MNIST_PROJ_SHAPES, "MNIST")
+
+
+def phase_proj_checks(cases: list, batch: int, device) -> dict:
+    """Kernel d against its plain version once at ``cases`` ((L, C, heads,
+    calls)), in each type that has a plan for the shape, on the channel-major
+    view and on contiguous tokens; no timing.  Returns, by dtype name, the
+    worst error over max|out| and the shapes run."""
+    from controlnet_tpu_torch.ops import cuda_attention_proj as proj
+
+    out: dict = {}
+    for l, c, heads, _ in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            if not proj.fused_proj_supported(l, c, c, heads, dtype):
+                continue  # a wide shape with no float32 plan
+            xt, *params = proj_inputs(batch, l, c, dtype, device)
+            x = xt.transpose(1, 2)
+            with torch.inference_mode():
+                ref = proj.fused_attention_proj_plain(x, *params, heads).float()
+                err = max((proj.fused_attention_proj(v, *params, heads).float() - ref)
+                          .abs().max().item() for v in (x, x.contiguous()))
+            torch.cuda.synchronize()
+            rel = err / ref.abs().max().item()
+            ok = rel <= PROJ_TOL[dtype]
+            log(f"attention_proj check {str(dtype)[6:]:8s} B {batch:2d} L {l:4d} C {c:3d} dh "
+                f"{c // heads:3d}: plan {proj.launch_plan(l, c, c, heads, dtype)}, err "
+                f"{rel:.3g} of max|out| (tol {PROJ_TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("fused projection + attention kernel disagrees with its "
+                                 "plain version")
+            entry = out.setdefault(str(dtype)[6:], {"max_rel_err": 0.0, "shapes": []})
+            entry["max_rel_err"] = max(entry["max_rel_err"], rel)
+            entry["shapes"].append([l, c, heads])
+    return out
 
 
 # The concurrent clients of phase 16, run as ``python -c`` in a process of
@@ -2129,7 +2222,7 @@ def phase_serve(config: dict, ckpt: str, device) -> dict:
         start = time.perf_counter()
         gen(hints, None, mid, x_start=x_start).cpu()
         wall_ms = (time.perf_counter() - start) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the device alone, as phase 8's
             gen(hints, None, mid, x_start=x_start)
             torch.cuda.synchronize()
         kernels = device_events(prof)
@@ -2159,7 +2252,7 @@ STUDENT_CALLS = 16  # kernel a launches per student forward (its 16 attention la
 MODE_FLAGS = {"ddpm_distillation": {}, "consistency_only": {"use_consistency_only": True},
               "manual": {"use_ddpm_distillation": False}}
 DISTILL_MAIN = ("ddpm_distillation", "dmd")  # the timed main path of phase 19
-SAMPLE_REPS = 20      # timed 1-step generations of batch 64 per sample tool
+SAMPLE_REPS = 5       # timed 1-step generations of batch 64 per sample tool
 DMD_TEST_IMAGES = 5 * BATCH  # the DMD trainer validates on 5 test batches
 
 
@@ -2197,13 +2290,15 @@ def frozen_modules(model) -> dict:
     return {name: m for name, m in model.named_children() if name != "student"}
 
 
-def run_distill_phases(config: dict, ckpt: str, device, dpm_4step_ms: float | None):
-    """Phases 17-20 in order; returns their results."""
+def run_distill_phases(config: dict, ckpt: str, device, dpm_4step_ms: float | None,
+                       timed: bool = True):
+    """Phases 17-20 in order; returns their results.  ``timed`` False leaves
+    phase 19's timed part to another group's fresh process (None here)."""
     torch.cuda.empty_cache()
     students = phase_student_forwards(config, device)
     parity = phase_distill_parity(config, seeded_teacher(ckpt), device)
     torch.cuda.empty_cache()
-    distill_main = in_fresh_process("phase_distill_main_path", ckpt)
+    distill_main = in_fresh_process("phase_distill_main_path", ckpt) if timed else None
     distill_tools = phase_distill_tools(config, ckpt, device)
     served = phase_serve_students(config, distill_tools["paths"], device, dpm_4step_ms)
     return students, parity, distill_main, distill_tools, served
@@ -2471,7 +2566,10 @@ def phase_distill_main_path(ckpt: str, device) -> dict:
             fwd, bwd = cuda_attention.launches, cuda_attention.bwd_launches
             key = "total_loss"
             losses = torch.stack([m[key] for m in losses]).float()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # the device alone, as phase 25's and 34's windows: each comes after
+            # its process's time_calls, never before them (a device-only window
+            # makes later time_calls windows lose records)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for batch, hints in data[TRAIN_STEPS:]:
                     step(batch, hints, g)
                 torch.cuda.synchronize()
@@ -2745,7 +2843,7 @@ LATENT_KINDS = ("vae", "ldm", "controlnet")
 LATENT_CALLS = {"vae": (0, 0, 0), "ldm": (14, 14, 0), "controlnet": (22, 14, 7)}
 LATENT_BATCH = {"vae": 4, "ldm": LDM_BATCH, "controlnet": LDM_BATCH}  # train_params' batches
 LATENT_STEPS_PER_EPOCH = 10**6  # no LR milestone falls inside a run here
-LATENT_PROFILE_STEPS = 2  # the f32 VAE-GAN step launches ~35,000 kernels
+LATENT_PROFILE_STEPS = 1  # the f32 VAE-GAN step launches ~35,000 kernels
 
 
 @functools.lru_cache(maxsize=1)
@@ -3088,7 +3186,7 @@ def phase_latent_main_path(device) -> dict:
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             losses = torch.stack(losses).float()
             t1 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:  # as phase 19's
                 for i in range(LATENT_PROFILE_STEPS):
                     run(pool[i % len(pool)], TRAIN_WARMUP + TRAIN_STEPS + i + 1, g)
                 torch.cuda.synchronize()
@@ -3247,21 +3345,24 @@ def latent_train_summary(res: dict) -> dict:
             "phases_s": res["seconds"]}
 
 
-def run_latent_train_phases(device) -> dict:
-    """Phases 21-26 in order; returns their results."""
+def run_latent_train_phases(device, extra: tuple = ()) -> dict:
+    """Phases 21-26 in order; returns their results.  ``extra`` timing
+    phases run last in phases 22 and 25's fresh process; their totals come
+    back under "extra"."""
     torch.cuda.empty_cache()
     start = time.perf_counter()
     shapes = phase_latent_shapes(device)
-    torch.cuda.empty_cache()
-    kern_bwd = in_fresh_process("phase_kernels_bwd", shapes, batch=LDM_BATCH, cross=(),
-                                per="latent training step")
     conv_grad = phase_conv_autograd(device)
     parity = phase_latent_parity(device)
     torch.cuda.empty_cache()
-    main_path = in_fresh_process("phase_latent_main_path")
+    # phases 22 and 25 share one fresh process
+    kern_bwd, main_path, *more = in_fresh_processes(
+        ("phase_kernels_bwd", (shapes,), dict(batch=LDM_BATCH, cross=(),
+                                              per="latent training step")),
+        ("phase_latent_main_path", (), {}), *extra)
     tools = phase_latent_tools(device)
     res = dict(bwd=kern_bwd, conv_grad=conv_grad, parity=parity, main_path=main_path,
-               tools=tools, seconds=time.perf_counter() - start)
+               tools=tools, extra=more, seconds=time.perf_counter() - start)
     log(f"latent training phases 21-26: {res['seconds']:.1f} s")
     return res
 
@@ -3270,7 +3371,7 @@ def run_latent_train_phases(device) -> dict:
 
 CIFAR_TRAIN_IMAGES = 128  # the synthetic train tree: 2 steps an epoch at batch 64
 CIFAR_TEST_IMAGES = 32
-CIFAR_ANCESTRAL_STEPS = 50  # the ancestral loop's schedule length in phase 30
+CIFAR_ANCESTRAL_STEPS = 20  # the ancestral loop's schedule length in phase 30
 CIFAR_TOOL_STEPS = 10  # DDIM steps of the sample tools in phase 31
 CELEB_TREE_IMAGES = 16
 
@@ -3330,6 +3431,57 @@ def phase_cifar_sampling(config: dict, ckpt: str, device) -> dict:
         if not ok:
             raise SystemExit(f"CIFAR sampling ({name}) failed")
     return results
+
+
+CIFAR_FUSED_STEPS = 10  # the ancestral schedule of the fused-layer sample in phase 30
+
+
+def phase_cifar_fused_sampling(config: dict, ckpt: str, device) -> dict:
+    """Phase 30 (end): the ControlNet sample tool's ``sample`` at batch 64
+    over a CIFAR_FUSED_STEPS-step ancestral schedule, f32, with the fused
+    layer on (``--attn_fused_proj``: 24 d and 2 a launches a step) against
+    the same run with it off (26 a), from one seed; counters set to 0 just
+    before and read just after each run."""
+    from controlnet_tpu_torch.nn.layers import set_attn_fused_proj
+    from controlnet_tpu_torch.ops import cuda_attention, cuda_attention_proj
+    from controlnet_tpu_torch.schedules.linear import make_linear_schedule
+    from controlnet_tpu_torch.tools import sample_ddpm_controlnet as tool
+
+    cn, _ = tool.load_model(config, ckpt)
+    hints = tool.gather_hints(seeded_hints(4 * BATCH, 32), BATCH, seed=SEED)
+    dp = config["diffusion_params"]
+    sched = make_linear_schedule(CIFAR_FUSED_STEPS, dp["beta_start"], dp["beta_end"],
+                                 device=device)
+    runs = {}
+    for on in (False, True):
+        set_attn_fused_proj(cn, on)
+        torch.cuda.synchronize()
+        cuda_attention.launches = cuda_attention_proj.launches = 0
+        start = time.perf_counter()
+        x0, _ = tool.sample(cn, sched, hints, seed=SEED)
+        torch.cuda.synchronize()
+        runs[on] = dict(x0=x0, seconds=time.perf_counter() - start,
+                        launches_a=cuda_attention.launches,
+                        launches_d=cuda_attention_proj.launches)
+    set_attn_fused_proj(cn, False)
+    steps = CIFAR_FUSED_STEPS
+    scale = max(runs[False]["x0"].abs().max().item(), 1.0)
+    err = (runs[True]["x0"] - runs[False]["x0"]).abs().max().item()
+    tol = FUSED_VS_SPLIT_TOL[torch.float32] * scale
+    ok = (runs[True]["launches_d"] == 24 * steps and runs[True]["launches_a"] == 2 * steps
+          and runs[False]["launches_d"] == 0 and runs[False]["launches_a"] == 26 * steps
+          and bool(torch.isfinite(runs[True]["x0"]).all()) and err <= tol)
+    log(f"CIFAR sampling with --attn_fused_proj, float32: {steps} ancestral steps, batch "
+        f"{BATCH}: kernel d launches {runs[True]['launches_d']} (expect {24 * steps}), kernel a "
+        f"{runs[True]['launches_a']} (expect {2 * steps}); off: a {runs[False]['launches_a']} "
+        f"(expect {26 * steps}); max abs diff of the samples {err:.3g} (tol "
+        f"{FUSED_VS_SPLIT_TOL[torch.float32]:g} x max(1, max|x0|) = {tol:.3g}); "
+        f"{runs[True]['seconds']:.3f} s on, {runs[False]['seconds']:.3f} s off -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("CIFAR sampling with the fused layer failed")
+    return {("on" if on else "off"): {k: v for k, v in r.items() if k != "x0"}
+            for on, r in runs.items()} | {"max_abs_diff": err}
 
 
 def phase_cifar_tools(config: dict, trees: dict, device) -> dict:
@@ -3454,6 +3606,8 @@ def run_cifar_phases(device) -> dict:
     write_seeded_checkpoint(config, ckpt)
     cn, _ = tool.load_model(config, ckpt)
     shapes = phase_forward(cn, device, channels=3, size=32, what="CIFAR forward")
+    fused = phase_pixel_fused_forward(cn, device, 3, 32, CIFAR_PROJ_SHAPES, "CIFAR")
+    wide = phase_proj_checks(PROJ_WIDE_SHAPES, SERVE_BATCH, device)
     del cn
     torch.cuda.empty_cache()
     base = seeded_unet_state_dict(config)
@@ -3461,22 +3615,24 @@ def run_cifar_phases(device) -> dict:
     images = torch.from_numpy(np.stack([reader[i] for i in range(len(reader))])).permute(
         0, 3, 1, 2).contiguous().to(device)
     bwd_shapes = phase_train_shapes(config, base, images, device)
-    kern, kern_bwd = in_fresh_processes(
+    kern, kern_bwd, proj = in_fresh_processes(
         ("phase_kernels", (shapes,), dict(cross=CIFAR_OFF_PATH_SHAPES)),
         ("phase_kernels_bwd", (bwd_shapes,), dict(cross=CIFAR_OFF_PATH_SHAPES,
-                                                  per="CIFAR training step")))
+                                                  per="CIFAR training step")),
+        ("phase_proj_kernels", (CIFAR_PROJ_SHAPES, BATCH), dict(what="CIFAR forward")))
     parity = {str(dtype)[6:]: phase_train_parity(config, base, images, device, dtype,
                                                  deterministic=True, what="CIFAR training")
               for dtype in (torch.float32, torch.bfloat16)}
-    train = phase_train_main_path(config, base, images, device, what="CIFAR training main path",
-                                  steps=CIFAR_TRAIN_STEPS)
+    train = phase_train_main_path(config, base, images, device, what="CIFAR training main path")
     del images
     torch.cuda.empty_cache()
     sampling = phase_cifar_sampling(config, ckpt, device)
+    fused_sampling = phase_cifar_fused_sampling(config, ckpt, device)
     tools = phase_cifar_tools(config, trees, device)
     celeb = phase_celeb_tree_tools(device)
-    res = dict(fwd=kern, bwd=kern_bwd, parity=parity, train=train, sampling=sampling,
-               tools=tools, celeb=celeb, seconds=time.perf_counter() - start)
+    res = dict(fwd=kern, bwd=kern_bwd, proj=proj, fused=fused, wide=wide, parity=parity,
+               train=train, sampling=sampling, fused_sampling=fused_sampling, tools=tools,
+               celeb=celeb, seconds=time.perf_counter() - start)
     log(f"CIFAR phases 27-31: {res['seconds']:.1f} s")
     return res
 
@@ -3485,6 +3641,7 @@ def cifar_summary(res: dict) -> dict:
     """The ``{"cifar": ...}`` line: the timed training and sampling runs,
     the parity checks, the tool runs' seconds."""
     return {"train": res["train"], "sampling": res["sampling"], "parity": res["parity"],
+            "fused_sampling": res["fused_sampling"],
             "tools_s": res["tools"]["seconds"], "hint_backends": res["tools"]["backends"],
             "celeb_tree_tools_s": res["celeb"]["seconds"], "phases_s": res["seconds"]}
 
@@ -3505,11 +3662,11 @@ COND_MASK_SIZE = 512
 COND_CALLS = 28      # kernel a (and b) launches per conditional LDM call: 14 self, 14 cross
 CLASS_CALLS = 16     # kernel a launches per class-conditioned MNIST UNet call
 COND_CFG_SCALE = 7.5
-COND_DPM_STEPS = 20
+COND_DPM_STEPS = 10
 COND_CHECK_STEPS = 5
-CLASS_ANCESTRAL_STEPS = 50
+CLASS_ANCESTRAL_STEPS = 20
 CLASS_CHECK_STEPS = 10
-COND_PROFILE_CALLS = 3
+COND_PROFILE_CALLS = 1
 
 
 def cond_ldm_config() -> dict:
@@ -3764,7 +3921,7 @@ def phase_cond_sampling(device) -> dict:
         with torch.inference_mode():
             eps(unet, x_in, t_in, pair_in)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:  # as phase 19's
                 for _ in range(COND_PROFILE_CALLS):
                     eps(unet, x_in, t_in, pair_in)
                 torch.cuda.synchronize()
@@ -3888,11 +4045,11 @@ def run_cond_phases(device) -> dict:
     bwd_cross = [s for s in bwd_shapes if s[1] == COND_TEXT_LEN]
     if collections.Counter(bwd_cross) != collections.Counter(cross):
         raise SystemExit(f"the gradient reaches kernel b at other cross shapes: {bwd_cross}")
-    fwd, bwd = in_fresh_processes(
+    fwd, bwd, sampling = in_fresh_processes(
         ("phase_kernels", (cross,), dict(batch=LDM_BATCH, cross=())),
         ("phase_kernels_bwd", (bwd_cross,), dict(batch=LDM_BATCH, cross=(),
-                                                 per="conditional LDM gradient")))
-    sampling = in_fresh_process("phase_cond_sampling")
+                                                 per="conditional LDM gradient")),
+        ("phase_cond_sampling", (), {}))
     mnist = phase_class_mnist(device)
     res = dict(cross_shapes=sorted(collections.Counter(cross).items(), reverse=True), fwd=fwd,
                bwd=bwd, grad=grad, sampling=sampling, mnist=mnist,
@@ -3915,7 +4072,7 @@ def cond_summary(res: dict) -> dict:
 # config/mnist.yaml's full width.  The JAX tools default to 1000 DDPM steps;
 # 50 keep the phase short, as phases 4 and 30 are cut.
 COMPARE_SAMPLES = 5
-COMPARE_STEPS = 50
+COMPARE_STEPS = 20
 COMPARE_CHECK_STEPS = 10
 COMPARE_TREE_IMAGES = 16   # the test split the tools draw their batch from
 EVAL_IMAGES = 512          # per tree: more than the 256 features, full-rank covariances
@@ -4438,25 +4595,15 @@ def _free_port() -> int:
 
 
 def run_ranks(specs: list, env: dict) -> None:
-    """Start one process per spec (``--parallel-rank``) on the card, wait for
-    all, pass their log lines on; a failure fails the run."""
-    torch.cuda.empty_cache()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
-                               json.dumps(spec)], env={**os.environ, **env},
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for spec in specs]
-    logs = []
-    try:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for i, text in enumerate(logs):
-        for line in text.splitlines()[-40:]:
+    """Start one fresh process per spec (``--parallel-rank``) on the card,
+    wait for all, pass their log lines on; a failure fails the run."""
+    runs = run_fresh([(["--parallel-rank", json.dumps(spec)], env) for spec in specs], 600,
+                     with_stderr=True)
+    for i, (_, lines) in enumerate(runs):
+        for line in lines[-40:]:
             log(f"  [rank {i}] {line}")
-    if any(p.returncode != 0 for p in procs):
-        raise SystemExit(f"ranks failed (exit codes {[p.returncode for p in procs]})")
+    if any(code != 0 for code, _ in runs):
+        raise SystemExit(f"ranks failed (exit codes {[code for code, _ in runs]})")
 
 
 def _rel_max(a: dict, b: dict) -> float:
@@ -5275,7 +5422,7 @@ TL_LAUNCHES = {
             "forward_fused": (0, 14, 0)},
 }
 TL_TIMED_CALLS = 3    # host-clock calls of each forward a round
-TL_ROUNDS = 3         # rounds, in turns: TL_TIMED, then reversed, then forwards
+TL_ROUNDS = 2         # rounds, in turns: TL_TIMED, then reversed
 TL_PROFILE_CALLS = 1  # calls of each forward in its profiler window
 
 
@@ -5417,16 +5564,17 @@ def phase_tl_forwards(width: str, cn, batch: int, hint_size: int, device) -> dic
     return res
 
 
-def tl_conv_shapes(cn, device) -> dict:
-    """(Cin, Cout, H, W, B) of every 3x3 conv the MNIST ControlNet's and its
-    UNet's forward_tl ask kernel c for, at batch BATCH in f32."""
-    x, t, feats = tl_inputs(cn, BATCH, 28, device)
+def tl_conv_shapes(cn, batch: int, hint_size: int, device, unet: bool = True) -> dict:
+    """(Cin, Cout, H, W, B) of every 3x3 conv the ControlNet's forward_tl
+    (and, with ``unet``, its UNet's) asks kernel c for, at ``batch`` in f32."""
+    x, t, feats = tl_inputs(cn, batch, hint_size, device)
     shapes: dict = {"forward_tl": [], "unet_forward_tl": []}
     with torch.inference_mode():
         with record_conv_shapes(shapes["forward_tl"]):
             cn.forward_tl(x, t, hint_features=feats)
-        with record_conv_shapes(shapes["unet_forward_tl"]):
-            cn.trained_unet.forward_tl(x, t)
+        if unet:
+            with record_conv_shapes(shapes["unet_forward_tl"]):
+                cn.trained_unet.forward_tl(x, t)
     return shapes
 
 
@@ -5488,16 +5636,21 @@ def phase_tl_timing(width: str, cn, batch: int, hint_size: int, device) -> dict:
 def phase_tl_measured(ckpt: str, device) -> dict:
     """Phase 42's work on the card, in a process of its own (the models
     loaded once): (i) kernel c against its plain version and F.conv2d at
-    every conv shape of the MNIST ControlNet's forward_tl, batch 64, first,
-    as the other timing phases run first in theirs; then (ii)-(iii) the
-    forwards at both widths against the default one, c against its plain
-    version on every call of a TL forward, and (v) the timed forwards.
-    Returns by dtype the checks, c's figures (per_shape included), the
-    times and, under float32, the MNIST conv shapes."""
+    every conv shape of the MNIST ControlNet's forward_tl, batch 64, and of
+    the latent ControlNet's, batch 16, first, as the other timing phases run
+    first in theirs; then (ii)-(iii) the forwards at both widths against the
+    default one, c against its plain version on every call of a TL forward,
+    and (v) the timed forwards.  Returns by dtype the checks, c's figures
+    (per_shape included; the latent ones under ``conv_ldm``), the times and,
+    under float32, the MNIST conv shapes."""
     models = tl_models(mnist_config(), ckpt)
-    shapes = tl_conv_shapes(models["mnist"][0], device)
+    shapes = tl_conv_shapes(models["mnist"][0], BATCH, 28, device)
     conv = phase_conv_kernels(shapes["forward_tl"], device, off_path=[],
                               what=f"MNIST ControlNet forward_tl, batch {BATCH}")
+    ldm, ldm_batch, ldm_hint = models["ldm"]
+    ldm_shapes = tl_conv_shapes(ldm, ldm_batch, ldm_hint, device, unet=False)["forward_tl"]
+    conv_ldm = phase_conv_kernels(ldm_shapes, device, off_path=[],
+                                  what=f"latent ControlNet forward_tl, batch {ldm_batch}")
     checks, timing = {}, {}
     for width in list(models):
         cn, batch, hint_size = models.pop(width)
@@ -5511,7 +5664,8 @@ def phase_tl_measured(ckpt: str, device) -> dict:
         out[dtype] = dict(
             forwards={w: {k[:-len(name) - 1]: r for k, r in c.items() if k.endswith(name)}
                       for w, c in checks.items()},
-            conv=conv[dtype], timing={k: v for w in timing for k, v in timing[w][dtype].items()},
+            conv=conv[dtype], conv_ldm=conv_ldm[dtype],
+            timing={k: v for w in timing for k, v in timing[w][dtype].items()},
             conv_shapes=shapes if dtype == torch.float32 else {})
     return out
 
@@ -5540,6 +5694,7 @@ def phase_tl(config: dict, ckpt: str, device) -> dict:
                     for k, r in m["forwards"][w].items()} for w in f32["forwards"]}
     return dict(forwards=forwards,
                 conv={d: m["conv"] for d, m in measured.items()}, conv_unet=conv_unet,
+                conv_ldm={d: m["conv_ldm"] for d, m in measured.items()},
                 timing={d: m["timing"] for d, m in measured.items()},
                 seconds=round(time.perf_counter() - start, 1))
 
@@ -5551,8 +5706,92 @@ def tl_summary(res: dict) -> dict:
             "conv_per_mnist_forward_tl": {str(d)[6:]: {k: t[k] for k in keys}
                                           for d, t in res["conv"].items()},
             "conv_per_mnist_unet_forward_tl": {str(d)[6:]: t for d, t in res["conv_unet"].items()},
+            "conv_per_latent_forward_tl": {str(d)[6:]: {k: t[k] for k in keys}
+                                           for d, t in res["conv_ldm"].items()},
             "timing": {str(d)[6:]: t for d, t in res["timing"].items()},
             "seconds": res["seconds"]}
+
+
+# --- phase 43: background checkpoint saves -------------------------------------------------
+
+def _tree_diff(a, b, where: str = "") -> list:
+    """Where two checkpoint trees differ (structure, types or any value)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b))
+        return [] if same else [where]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{where}: keys"]
+        return [d for k in a for d in _tree_diff(a[k], b[k], f"{where}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{where}: length"]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in _tree_diff(x, y, f"{where}/{i}")]
+    return [] if a == b else [where]
+
+
+def phase_background_save(device) -> dict:
+    """Phase 43: the checkpoint tree ``train_ldm_controlnet`` saves (its train
+    state with Adam's two moments, and the frozen split) of config/celebhq.yaml's
+    LDM ControlNet at full width, f32, after one seeded step.  The training
+    thread's ms inside ``save_checkpoint`` and inside
+    ``save_checkpoint_background``, and the seconds until the worker's write
+    commits; one in-place Adam update of the live tensors right after the
+    background call, after which the file must equal, tensor by tensor, a
+    host copy taken before it (the clones are ordered on the stream before
+    the update).  The files are deleted afterwards."""
+    from controlnet_tpu_torch.io import checkpoint as ckpt
+
+    work = os.path.join(REPO, "build", "smoke", "background_save")
+    shutil.rmtree(work, ignore_errors=True)
+    modules, states, run = latent_trainer("controlnet", "float32", device)
+    cn, state = modules["cn"], states[""]
+    g = torch.Generator(device=device).manual_seed(SEED)
+    batch = latent_batch("controlnet", g, device)
+    run(batch, 0, g, **latent_draws("controlnet", batch, g, device))  # moments nonzero
+    _, frozen = cn.split_params()
+
+    def tree() -> dict:  # what train_ldm_controlnet saves each epoch
+        return {"state": state.state_dict(), "frozen": {k: p.detach() for k, p in frozen.items()}}
+
+    params = sum(p.numel() for p in cn.parameters())
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    ckpt.save_checkpoint(work, "blocking.pth", 1, tree())
+    blocking_ms = (time.perf_counter() - start) * 1e3
+    torch.cuda.synchronize()
+    before = ckpt._map_tensors(tree(), lambda t: t.detach().cpu().clone())  # a host copy
+    live = next(iter(state.params.values()))
+    live_before = live.detach().clone()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    path = ckpt.save_checkpoint_background(work, "background.pth", 1, tree())
+    background_ms = (time.perf_counter() - start) * 1e3
+    state.optimizer.step()  # in place, on the live tensors, at once (.grad is last step's)
+    update_ms = (time.perf_counter() - start) * 1e3
+    ckpt.wait_for_checkpoints()
+    commit_s = time.perf_counter() - start
+    moved = not torch.equal(live, live_before)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    diffs = _tree_diff(saved, before)
+    size = os.path.getsize(path)
+    ok = moved and not diffs and bool(before["state"]["opt_state"]["state"])  # moments saved
+    del saved, before, live_before
+    shutil.rmtree(work)
+    log(f"background checkpoint save: LDM ControlNet train state, f32, {params} parameters, "
+        f"a {size / 1e9:.3f} GB file: training thread "
+        f"{blocking_ms:.1f} ms in save_checkpoint, {background_ms:.1f} ms in "
+        f"save_checkpoint_background (then the in-place Adam update issued by "
+        f"{update_ms:.1f} ms), the write committed {commit_s:.2f} s after the call; the "
+        f"update moved the live weights: {moved}; the file against the host copy taken "
+        f"before the update: {'equal, tensor by tensor' if not diffs else diffs[:5]} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("background checkpoint save failed")
+    return dict(parameters=params, file_gb=size / 1e9, blocking_ms=blocking_ms,
+                background_ms=background_ms, commit_s=commit_s)
+
 
 # The kernel-timing phases (3, 6, 10, 12, 15, 22, 27, 28, 32, 33 and 42's) and
 # the timed distillation, latent-training and conditional sampling main paths
@@ -5564,6 +5803,65 @@ def tl_summary(res: dict) -> dict:
 TIMING_PHASES = ("phase_kernels", "phase_kernels_bwd", "phase_conv_kernels",
                  "phase_proj_kernels", "phase_distill_main_path", "phase_latent_main_path",
                  "phase_cond_sampling", "phase_tl_measured")
+
+
+# Fresh processes (the timing phases' and the ranks') are forked from a server
+# that imported torch once, at the start of the run (``start_fork_server``):
+# each is a new process with no CUDA context and no profiler state, as one
+# started from the command line, without paying Python's and torch's start-up
+# again (~10 s a process on the card's host).
+_FORK = multiprocessing.get_context("forkserver")
+_FRESH = itertools.count()
+
+
+def start_fork_server() -> None:
+    """Start the fork server now, so that its import of torch overlaps the
+    kernel build."""
+    _FORK.set_forkserver_preload(["torch"])
+    multiprocessing.forkserver.ensure_running()
+
+
+def _fresh_child(argv: list, env: dict, log_path: str, with_stderr: bool) -> None:
+    """A process from the fork server: ``env``, its output into ``log_path``
+    (stderr too when ``with_stderr``), then ``main`` on ``argv``."""
+    os.environ.update(env)
+    fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    if with_stderr:
+        os.dup2(fd, 2)
+    os.close(fd)
+    sys.argv = [os.path.abspath(__file__), *argv]
+    sys.exit(main())
+
+
+def run_fresh(children: list, timeout: float, with_stderr: bool = False) -> list:
+    """Start a fresh process on the card for each (argv, env) of
+    ``children``, all at once, and wait for all (killing any still running at
+    ``timeout`` seconds); returns each one's (exit code, output lines)."""
+    torch.cuda.empty_cache()  # the children allocate their own memory
+    work = os.path.join(REPO, "build", "fresh")
+    os.makedirs(work, exist_ok=True)
+    procs = []
+    for argv, env in children:
+        path = os.path.join(work, f"{os.getpid()}_{next(_FRESH)}.log")
+        proc = _FORK.Process(target=_fresh_child, args=(argv, env, path, with_stderr))
+        proc.start()
+        procs.append((proc, path))
+    deadline = time.monotonic() + timeout
+    for proc, _ in procs:
+        proc.join(max(0.0, deadline - time.monotonic()))
+    out = []
+    for proc, path in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        lines = []
+        if os.path.exists(path):  # a process that died early may have written nothing
+            with open(path) as f:
+                lines = f.read().splitlines()
+            os.remove(path)
+        out.append((proc.exitcode, lines))
+    return out
 
 
 def in_fresh_process(phase: str, *args, **kwargs) -> dict:
@@ -5579,15 +5877,12 @@ def in_fresh_processes(*calls) -> list:
     on and return each phase's totals by dtype, in order.  A failure there
     fails the run."""
     spec = json.dumps([[phase, list(args), kwargs] for phase, args, kwargs in calls])
-    torch.cuda.empty_cache()  # the child allocates its own inputs
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--timing-phase", spec],
-                          stdout=subprocess.PIPE, text=True, timeout=1200, check=False)
-    lines = proc.stdout.splitlines()
+    [(code, lines)] = run_fresh([(["--timing-phase", spec], {})], 1200)
     for line in lines[:-1]:
         print(line, flush=True)  # the child's lines, with its own clock
     names = [phase for phase, _, _ in calls]
-    if proc.returncode != 0 or not lines:
-        raise SystemExit(f"{names} failed in their own process (exit code {proc.returncode})")
+    if code != 0 or not lines:
+        raise SystemExit(f"{names} failed in their own process (exit code {code})")
     result = json.loads(lines[-1])
     for key in PROFILER_WINDOWS:
         PROFILER_WINDOWS[key] += result["profiler_windows"][key]
@@ -5613,7 +5908,7 @@ def timing_phase(spec: str) -> int:
 
 # The groups of phases main() runs, in order; ``--phases`` selects some.
 PHASE_GROUPS = ("1-4", "5-9", "10-14", "15-16", "17-20", "21-26", "27-31", "32-35", "36-37",
-                "38", "39", "40", "41", "42")
+                "38", "39", "40", "41", "42", "43")
 ALIASES = {"distill_only": "17-20", "latent_train_only": "21-26", "cifar_only": "27-31",
            "cond_only": "32-35", "compare_only": "36-37", "tl_only": "42"}
 
@@ -5626,8 +5921,8 @@ def parse_phases(spec: str | None) -> set | None:
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
         picked.update(range(int(lo), int(hi or lo) + 1))
-    if not picked <= set(range(1, 43)):
-        raise SystemExit(f"--phases {spec!r}: phases are 1-42")
+    if not picked <= set(range(1, 44)):
+        raise SystemExit(f"--phases {spec!r}: phases are 1-43")
     return picked
 
 
@@ -5670,6 +5965,7 @@ def main() -> int:
         _build.load()
         return parallel_rank(args.parallel_rank)
     device = torch.device(DEVICE)
+    start_fork_server()
     smi = nvidia_smi_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -5678,7 +5974,7 @@ def main() -> int:
     _build.load()
     log(f"kernel build: {time.perf_counter() - start:.2f} s ({_build.LIB_PATH.name} from "
         f"{', '.join(p.name for p in _build.sources())})")
-    sass = phase_sass(str(_build.LIB_PATH), _build._nvcc())
+    sass_job = start_sass(str(_build.LIB_PATH), _build._nvcc())
 
     config = mnist_config()
     ckpt = os.path.join(REPO, "build", "smoke", f"mnist_controlnet_seed{SEED}.pth")
@@ -5699,12 +5995,17 @@ def main() -> int:
         seconds[group] = round(now - mark, 1)
         mark = now
 
+    # A group's timing phases share another group's fresh process where both
+    # groups run: phase 3's with 6's, 15's with 10 and 12's, 19's timed part
+    # with 22 and 25's.  Not 42's: after phase 34's profiler windows in one
+    # process, its time_calls of kernel c lost a record in every window.
     if want("1-4"):
         cn, _ = tool.load_model(config, ckpt)
         shapes = phase_forward(cn, device)
         fused_launches = phase_mnist_fused_forward(cn, device)
         del cn
-        kern = in_fresh_process("phase_kernels", shapes)
+        if not want("5-9"):
+            kern = in_fresh_process("phase_kernels", shapes)
         main_path = phase_main_path(config, ckpt, device)
         done("1-4")
 
@@ -5712,7 +6013,11 @@ def main() -> int:
         base = seeded_unet_state_dict(config)
         images = torch.from_numpy(to_unit(seeded_digits(8 * BATCH)))[:, None].to(device)
         bwd_shapes = phase_train_shapes(config, base, images, device)
-        kern_bwd = in_fresh_process("phase_kernels_bwd", bwd_shapes)
+        if want("1-4"):
+            kern, kern_bwd = in_fresh_processes(("phase_kernels", (shapes,), {}),
+                                                ("phase_kernels_bwd", (bwd_shapes,), {}))
+        else:
+            kern_bwd = in_fresh_process("phase_kernels_bwd", bwd_shapes)
         for dtype in (torch.float32, torch.bfloat16):
             phase_train_parity(config, base, images, device, dtype)
         train = phase_train_main_path(config, base, images, device)
@@ -5720,23 +6025,28 @@ def main() -> int:
         del images
         torch.cuda.empty_cache()
         done("5-9")
+    mnist_proj = (
+        ("phase_proj_kernels", (MNIST_PROJ_SHAPES, SERVE_BATCH), dict(what="MNIST forward")),
+        ("phase_proj_kernels", (MNIST_PROJ_SHAPES, BATCH), dict(what="MNIST forward")))
     if want("10-14"):
-        ldm = phase_ldm(device)
+        ldm = phase_ldm(device, mnist_proj if want("15-16") else ())
         done("10-14")
     served = None
     if want("15-16"):
-        proj16, proj64 = in_fresh_processes(
-            ("phase_proj_kernels", (MNIST_PROJ_SHAPES, SERVE_BATCH), dict(what="MNIST forward")),
-            ("phase_proj_kernels", (MNIST_PROJ_SHAPES, BATCH), dict(what="MNIST forward")))
+        proj16, proj64 = ldm["extra"] if want("10-14") else in_fresh_processes(*mnist_proj)
         served = phase_serve(config, ckpt, device)
         done("15-16")
 
     if want("17-20"):
         students, parity, distill_main, distill_tools, served_students = run_distill_phases(
-            config, ckpt, device, None if served is None else served["steps4"]["latency_ms"])
+            config, ckpt, device, None if served is None else served["steps4"]["latency_ms"],
+            timed=not want("21-26"))
         done("17-20")
     if want("21-26"):
-        latent = run_latent_train_phases(device)
+        latent = run_latent_train_phases(
+            device, (("phase_distill_main_path", (ckpt,), {}),) if want("17-20") else ())
+        if want("17-20"):
+            [distill_main] = latent["extra"]
         done("21-26")
     if want("27-31"):
         cifar = run_cifar_phases(device)
@@ -5762,6 +6072,11 @@ def main() -> int:
     if want("42"):
         tl = phase_tl(config, ckpt, device)
         done("42")
+    if want("43"):
+        background_save = phase_background_save(device)
+        done("43")
+    sass = phase_sass(sass_job)  # phase 1's SASS count, overlapped with the phases
+    log(json.dumps({"phase_seconds": seconds}))
 
     if not full:  # a selection: the summaries of what ran, then the final line
         if want("17-20"):
@@ -5775,11 +6090,11 @@ def main() -> int:
                                     ("39", "latent_dp", lambda: latent_dp),
                                     ("40", "serve_replicas", lambda: replicas),
                                     ("41", "tensor_parallel", lambda: tensor_parallel),
-                                    ("42", "tl", lambda: tl_summary(tl))):
+                                    ("42", "tl", lambda: tl_summary(tl)),
+                                    ("43", "background_save", lambda: background_save)):
             if want(group):
                 log(json.dumps({key: summary()}))
         log(f"time_calls: {PROFILER_WINDOWS}")
-        log(f"wall seconds by group of phases: {seconds}")
         print(f"{smi}; phases {args.phases or ''} {sorted(a for a in ALIASES if getattr(args, a))} "
               f"passed (a partial run: no kernels line)", flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5863,6 +6178,17 @@ def main() -> int:
     for name, tots in ((f"batch{BATCH}", proj64), ("ldm", ldm["proj"])):
         proj_entry[name] = {str(dtype)[6:]: {k: tots[dtype][k] for k in keys}
                             for dtype in (torch.float32, torch.bfloat16)}
+    # config/cifar.yaml (phases 27 and 30): d's times per CIFAR forward at
+    # batch 64 (24 calls at its six shapes), its launches in the batch-64
+    # forward and the 10-step sample with the switch, and the shapes past head
+    # dim 64 held against the plain version off the model paths
+    proj_entry["cifar"] = {"shapes": CIFAR_PROJ_SHAPES, **{
+        str(dtype)[6:]: {k: cifar["proj"][dtype][k] for k in keys}
+        for dtype in (torch.float32, torch.bfloat16)}}
+    proj_entry["cifar_launches"] = {
+        **{f"forward_{n}": d for n, d in cifar["fused"].items()},
+        "sample_float32": cifar["fused_sampling"]["on"]["launches_d"]}
+    proj_entry["wide_shapes"] = cifar["wide"]
     proj_entry["served"] = {k: served[k] for k in (
         *(f"steps{n}" for n in SERVE_STEPS), "on_ms", "off_ms", "ddim_ms", "batched",
         "unbatched", "profile_on", "profile_off")}
@@ -5986,13 +6312,16 @@ def main() -> int:
                         f"MNIST ControlNet forward_tl at batch {BATCH} (63 calls)")
     conv_entry["tl"] = {k: tl_c[k] for k in keys}
     conv_entry["tl"]["unet_forward_tl"] = {str(d)[6:]: t for d, t in tl["conv_unet"].items()}
+    tl_ldm = kernel_entry("conv3x3_tl", "", "", tl["conv_ldm"], None, None,
+                          f"latent ControlNet forward_tl at batch {LDM_BATCH} (51 calls)")
+    conv_entry["tl_ldm"] = {k: tl_ldm[k] for k in keys}
     log(json.dumps({"tl": tl_summary(tl)}))
     log(f"time_calls: {PROFILER_WINDOWS['windows']} profiler windows for "
         f"{PROFILER_WINDOWS['measurements']} measurements in {PROFILER_WINDOWS['groups']} "
         f"groups (2 windows a group when no window lost records), "
         f"{PROFILER_WINDOWS['foreign']} device records left out as launched outside a window, "
         f"{PROFILER_WINDOWS['seconds']:.1f} s in all")
-    log(f"wall seconds by group of phases: {seconds}")
+    log(json.dumps({"background_save": background_save}))
     log(json.dumps({"kernels": [fwd_entry, bwd_entry, conv_entry, proj_entry]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,19 @@
-// Kernel d's C entry point and its float32 instantiation; the kernel itself,
-// and what it replaces and why it is built so, is in attention_proj.cuh.
+// Kernel d's C entry point and its float32 instantiations at head dims 8-48
+// (64-128 in attention_proj_f32_64_96.cu and attention_proj_f32_128.cu); the
+// kernel itself, and what it replaces and why it is built so, is in
+// attention_proj.cuh.
 //
 // Launch from the host through `controlnet_attention_proj` below (plain C, no
 // PyTorch headers): it launches on the caller's stream, allocates nothing and
 // returns the launch's cudaError_t so the caller can raise on a refused launch.
 
 #include "attention_proj.cuh"
+
+CONTROLNET_PROJ_INSTANTIATE(float, 8)
+CONTROLNET_PROJ_INSTANTIATE(float, 16)
+CONTROLNET_PROJ_INSTANTIATE(float, 24)
+CONTROLNET_PROJ_INSTANTIATE(float, 32)
+CONTROLNET_PROJ_INSTANTIATE(float, 48)
 
 namespace {
 
@@ -20,7 +28,7 @@ int run(const void* x, const void* in_w, const void* in_b, const void* out_w, co
   using controlnet_proj::kMaxSharedBytes;
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   if (batch < 1 || batch > 65535 || l < 1 || c < 8 || c % 8 != 0 || d < 8 || heads < 1 ||
-      d % heads != 0 || (d / heads) % 8 != 0 || d / heads > 64 ||
+      d % heads != 0 || (d / heads) % 8 != 0 || d / heads > controlnet_proj::kMaxHeadDim ||
       (rows != 16 && rows != 32 && rows != 64) || q_tiles != (l + rows - 1) / rows ||
       head_groups < 1 || heads % head_groups != 0 || c % head_groups != 0 ||
       (c / head_groups) % 8 != 0 || q_tiles * head_groups > kMaxCluster ||

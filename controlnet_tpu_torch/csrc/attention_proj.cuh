@@ -1,8 +1,10 @@
 // Kernel d, the whole self-attention layer in one launch, for Hopper (sm_90a):
 // the packed q|k|v projection, per-head softmax attention and the output
 // projection.  The template is instantiated for float32 in attention_proj.cu
-// (which also holds the C entry point) and for bfloat16 in
-// attention_proj_bf16.cu, so that nvcc builds the two in parallel.
+// (which also holds the C entry point; head dims 8-48),
+// attention_proj_f32_64_96.cu and attention_proj_f32_128.cu, and for bfloat16
+// in attention_proj_bf16.cu (8-48), attention_proj_bf16_64_96.cu and
+// attention_proj_bf16_128.cu, so that nvcc builds the six in parallel.
 //
 // Replaces the TPU kernel `_attn_proj_kernel` (controlnet_tpu/ops/pallas_attention.py,
 // reached through `fused_attention_proj`).  Forward only.  For tokens x (B, L, C),
@@ -64,9 +66,13 @@
 // x and y are addressed by (batch, row, channel) strides, so the channel-major
 // (B, C, L) activation the model holds is read and written in place (in bf16
 // the x slabs keep that layout and feed the mma through ldmatrix.trans).  Head
-// dimensions 8, 16, 24, 32, 48 and 64 are instantiated (40 and 56 run in the
-// next size up with zero columns); in bfloat16 the q.k depth is padded with
-// zeros to a multiple of 16 (24 -> 32, 48 stays).
+// dimensions 8, 16, 24, 32, 48, 64, 96 and 128 are instantiated (40, 56, 72-88
+// and 104-120 run in the next size up with zero columns); in bfloat16 the q.k
+// depth is padded with zeros to a multiple of 16 (24 -> 32, 48 stays).  Past
+// 64 the attention holds 16 n-tiles of output a thread's quad (64 float32
+// registers), and the projection passes widen to DP / 8 tiles so that the q
+// columns stay in one pass (the last, whose epilogue writes the q tile over
+// the slabs).
 
 #pragma once
 
@@ -90,12 +96,14 @@ constexpr int kMaxSharedBytes = 232448;
 
 __host__ __device__ constexpr int round16(int v) { return (v + 15) & ~15; }
 
-// n-tiles per pass of the q|k|v projection of one head (3 DP columns, 96 at
-// most), a multiple of the warps sharing a row block.
+// n-tiles per pass of the q|k|v projection of one head (3 DP columns), a
+// multiple of the warps sharing a row block: at most 12, or DP / 8 where that
+// is more, so that the q columns [0, DP) always lie in the last pass.
 __host__ __device__ constexpr int proj_tiles(int R, int DP) {
-  return (3 * DP / 8 + kWarps / (R / 16) - 1) / (kWarps / (R / 16)) * (kWarps / (R / 16)) < 12
-             ? (3 * DP / 8 + kWarps / (R / 16) - 1) / (kWarps / (R / 16)) * (kWarps / (R / 16))
-             : 12;
+  const int split = kWarps / (R / 16);
+  const int want = (3 * DP / 8 + split - 1) / split * split;
+  const int cap = DP / 8 > 12 ? DP / 8 : 12;
+  return want < cap ? want : cap;
 }
 
 // Rows of one weight slab: the larger of the two products' passes.
@@ -445,9 +453,12 @@ __global__ void __launch_bounds__(kThreads) attention_proj_kernel(const Args<T> 
   T* const os = base + lay.o_os;
   T* const of = base + lay.o_of;
   float* const scratch = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + lay.merge_off);
-  static_assert(R * row_pitch(DK, sizeof(T)) <= 2 * x_slab_elems(R, sizeof(T)),
-                "the q tile fits the x slabs");
   constexpr int kWStage = weight_rows(R, DP) * row_pitch(kSlab, sizeof(T));  // a weight slab
+  // The q tile lies over the slabs (past DP 64 it reaches into the weight
+  // slabs), which no thread reads after the last pass of the projection.
+  static_assert(R * row_pitch(DK, sizeof(T)) <= kStages * (x_slab_elems(R, sizeof(T)) + kWStage),
+                "the q tile fits the slabs");
+  static_assert(DP <= 8 * proj_tiles(R, DP), "the q columns lie in one projection pass");
   constexpr int PK = row_pitch(DK, sizeof(T));  // pitches of the q, K and V tiles
   constexpr int PV = row_pitch(DP, sizeof(T));
   constexpr int kKV = R * (PK + PV);            // a K|V tile
@@ -725,9 +736,34 @@ cudaError_t launch_rows(const Args<T>& a, int batch, int rows, int smem, cudaStr
                         int* max_clusters) {
   if (rows == 16) return launch_kernel<T, DP, 16>(a, batch, smem, stream, max_clusters);
   if (rows == 32) return launch_kernel<T, DP, 32>(a, batch, smem, stream, max_clusters);
-  if (rows == 64) return launch_kernel<T, DP, 64>(a, batch, smem, stream, max_clusters);
+  // No float32 plan of 64 rows past DP 64 fits a block's shared memory (its
+  // own K|V alone take 150 KB at DP 96), so none is built.
+  if constexpr (sizeof(T) == 2 || DP <= 64) {
+    if (rows == 64) return launch_kernel<T, DP, 64>(a, batch, smem, stream, max_clusters);
+  }
   return cudaErrorInvalidValue;
 }
+
+// Each (type, padded head dim) is instantiated in one source file
+// (CONTROLNET_PROJ_INSTANTIATE there), and nowhere else.
+#define CONTROLNET_PROJ_LAUNCH_ROWS(EXTERN, T, DP)                                        \
+  EXTERN template cudaError_t launch_rows<T, DP>(const Args<T>&, int, int, int, cudaStream_t, \
+                                                 int*);
+#define CONTROLNET_PROJ_EACH_HEAD_DIM(EXTERN, T)                                          \
+  CONTROLNET_PROJ_LAUNCH_ROWS(EXTERN, T, 8)                                               \
+  CONTROLNET_PROJ_LAUNCH_ROWS(EXTERN, T, 16)                                              \
+  CONTROLNET_PROJ_LAUNCH_ROWS(EXTERN, T, 24)                                              \
+  CONTROLNET_PROJ_LAUNCH_ROWS(EXTERN, T, 32)                                              \
+  CONTROLNET_PROJ_LAUNCH_ROWS(EXTERN, T, 48)                                              \
+  CONTROLNET_PROJ_LAUNCH_ROWS(EXTERN, T, 64)                                              \
+  CONTROLNET_PROJ_LAUNCH_ROWS(EXTERN, T, 96)                                              \
+  CONTROLNET_PROJ_LAUNCH_ROWS(EXTERN, T, 128)
+CONTROLNET_PROJ_EACH_HEAD_DIM(extern, float)
+CONTROLNET_PROJ_EACH_HEAD_DIM(extern, bf16)
+#define CONTROLNET_PROJ_INSTANTIATE(T, DP) \
+  namespace controlnet_proj {              \
+  CONTROLNET_PROJ_LAUNCH_ROWS(, T, DP)     \
+  }
 
 template <typename T>
 cudaError_t dispatch(const Args<T>& a, int batch, int rows, int smem, cudaStream_t stream,
@@ -738,12 +774,18 @@ cudaError_t dispatch(const Args<T>& a, int batch, int rows, int smem, cudaStream
   if (a.dh <= 32) return launch_rows<T, 32>(a, batch, rows, smem, stream, max_clusters);
   if (a.dh <= 48) return launch_rows<T, 48>(a, batch, rows, smem, stream, max_clusters);
   if (a.dh <= 64) return launch_rows<T, 64>(a, batch, rows, smem, stream, max_clusters);
+  if (a.dh <= 96) return launch_rows<T, 96>(a, batch, rows, smem, stream, max_clusters);
+  if (a.dh <= 128) return launch_rows<T, 128>(a, batch, rows, smem, stream, max_clusters);
   return cudaErrorInvalidValue;
 }
 
-// The padded head dimension the kernel runs a head dim in.
+// The largest head dimension instantiated.
+constexpr int kMaxHeadDim = 128;
+
+// The padded head dimension the kernel runs a head dim (at most kMaxHeadDim) in.
 inline int padded_head_dim(int dh) {
-  return dh <= 8 ? 8 : dh <= 16 ? 16 : dh <= 24 ? 24 : dh <= 32 ? 32 : dh <= 48 ? 48 : 64;
+  return dh <= 8 ? 8 : dh <= 16 ? 16 : dh <= 24 ? 24 : dh <= 32 ? 32 : dh <= 48 ? 48
+         : dh <= 64 ? 64 : dh <= 96 ? 96 : 128;
 }
 
 }  // namespace controlnet_proj

@@ -28,8 +28,8 @@ launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
-MAX_HEAD_DIM = 64
-HEAD_DIMS = (8, 16, 24, 32, 48, 64)   # the kernel's instantiations
+MAX_HEAD_DIM = 128
+HEAD_DIMS = (8, 16, 24, 32, 48, 64, 96, 128)   # the kernel's instantiations
 MAX_SHARED_BYTES = 232448             # what one block may use on an H100
 MAX_CLUSTER = 16                      # blocks of one cluster (past 8: non-portable)
 # constants of csrc/attention_proj.cuh
@@ -39,8 +39,17 @@ _STAGES = 3                           # slabs in the cp.async ring
 _OUT_TILES = 8                        # n-tiles per pass of the output projection
 
 
-def _padded_head_dim(dh: int) -> int:
-    return next(dp for dp in HEAD_DIMS if dp >= dh)
+def _padded_head_dim(dh: int) -> int | None:
+    """The instantiation a head dim runs in, or None past ``MAX_HEAD_DIM``."""
+    return next((dp for dp in HEAD_DIMS if dp >= dh), None)
+
+
+def proj_tiles(rows: int, dp: int) -> int:
+    """``proj_tiles`` of csrc/attention_proj.cuh: n-tiles per pass of the
+    q|k|v projection, a multiple of the warps sharing a row block, at most 12
+    or ``dp / 8`` where that is more (the q columns lie in one pass)."""
+    split = _THREADS // 32 // (rows // 16)
+    return min(-(-(3 * dp // 8) // split) * split, max(12, dp // 8))
 
 
 def _round16(v: int) -> int:
@@ -70,8 +79,7 @@ def shared_bytes(rows: int, dh: int, d: int, heads: int, head_groups: int, items
     # one peer's (the other stage buffer is the own K|V of the other head)
     x_slab = max(rows * p_slab, _SLAB * _row_pitch(rows, itemsize))  # row- or channel-major
     split = _THREADS // 32 // (rows // 16)
-    proj_tiles = min(-(-(3 * dp // 8) // split) * split, 12)  # per pass of the projection
-    w_slab = 8 * max(proj_tiles, _OUT_TILES) * p_slab
+    w_slab = 8 * max(proj_tiles(rows, dp), _OUT_TILES) * p_slab
     elems = (_STAGES * (x_slab + w_slab) + 3 * rows * (p_k + p_v)
              + rows * _row_pitch(_round16(dg), itemsize))
     if head_groups > 1:
@@ -83,7 +91,8 @@ def shared_bytes(rows: int, dh: int, d: int, heads: int, head_groups: int, items
 def launch_plan(l: int, c: int, d: int, heads: int,
                 dtype: torch.dtype) -> tuple[int, int, int, int] | None:
     """(rows, q_tiles, head_groups, smem_bytes) of kernel d for one layer, or
-    None where the cluster cannot hold it.
+    None where the kernel has no instantiation for its head dim or the
+    cluster cannot hold it.
 
     rows: query rows per block, 64 past L = 256, 32 past 64, else 16;
     q_tiles = ceil(L / rows) blocks share one batch element's K and V (each
@@ -92,7 +101,8 @@ def launch_plan(l: int, c: int, d: int, heads: int,
     keeps the cluster, q_tiles * head_groups blocks, within 16, so that short
     sequences still fill the card; smem_bytes: ``shared_bytes``, at most
     ``MAX_SHARED_BYTES``."""
-    if dtype not in _ITEMSIZE or heads < 1 or d % heads or l < 1:
+    if (dtype not in _ITEMSIZE or heads < 1 or d % heads or l < 1
+            or _padded_head_dim(d // heads) is None):
         return None
     rows = 64 if l > 256 else (32 if l > 64 else 16)
     q_tiles = -(-l // rows)
@@ -112,7 +122,8 @@ def launch_plan(l: int, c: int, d: int, heads: int,
 def fused_proj_supported(l: int, c: int, d: int, heads: int, dtype: torch.dtype) -> bool:
     """The shapes kernel d takes, decided before any launch: float32 or
     bfloat16; a head dimension that is a multiple of 8 (as the JAX layer
-    requires) and at most 64; a channel count that is a multiple of 8; and a
+    requires) and at most 128 (``MAX_HEAD_DIM``, where kernels a and b stop
+    too); a channel count that is a multiple of 8; and a
     launch plan (``launch_plan``): L up to 1,024 (16 blocks of 64 rows in one
     cluster) and a block's shared memory within 227 KB (D up to ~1,600 in
     float32).  A layer outside this rule takes the split path (projection,

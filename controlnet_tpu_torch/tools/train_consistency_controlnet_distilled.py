@@ -16,7 +16,9 @@ their cv2 canny hints come from the train split of the reader
 ``dataset_params`` names, as in the JAX tool; with ``--images``, from an
 ``.npy`` held on the device, hints from ``--hints`` or the port's canny on
 the device.  Step-numbered checkpoints of {state, ema} every
-``ckpt_save_every_epochs`` epochs, resumed from the newest; at the end the
+``ckpt_save_every_epochs`` epochs, written in the background while training
+goes on (``save_checkpoint_background``; waited for before the end), resumed
+from the newest; at the end the
 student in the reference format (``epoch``, ``model_state_dict``,
 ``ema_teacher_state_dict``, ``model_config``) at
 ``<task_name>/consistency_controlnet_distilled.pth``, which the sample tool
@@ -36,7 +38,8 @@ import torch
 
 from controlnet_tpu_torch import cli, config as cfg
 from controlnet_tpu_torch.device import resolve_device
-from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
+from controlnet_tpu_torch.io.checkpoint import (restore_checkpoint, save_checkpoint_background,
+                                                save_file, wait_for_checkpoints)
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
 from controlnet_tpu_torch.models.consistency import ConsistencyDistilled
 from controlnet_tpu_torch.tools.train_ddpm import epoch_seeds
@@ -137,8 +140,9 @@ def train(config_path: str, images_path: str | None = None, hints_path: str | No
         if cli.should_save_epoch(epoch_idx, num_epochs, tp.get("ckpt_save_every_epochs", 1)):
             tree = {"state": state.state_dict(),
                     "ema": {k: v.detach() for k, v in model.ema_teacher.state_dict().items()}}
-            cli.write_once(mesh, save_checkpoint, task_name, CKPT_NAME, epoch_idx + 1, tree,
-                           max_to_keep=cli.ckpt_max_to_keep(tp))
+            cli.write_once(mesh, save_checkpoint_background, task_name, CKPT_NAME,
+                           epoch_idx + 1, tree, max_to_keep=cli.ckpt_max_to_keep(tp))
+    cli.write_once(mesh, wait_for_checkpoints)
     cli.write_once(mesh, lambda: save_file(
         reference_checkpoint(model, max(num_epochs, start_epoch), cfg.model_params(config)),
         os.path.join(task_name, CKPT_NAME)))

@@ -10,8 +10,9 @@ PNG class tree at ``im_path``, decoded on a host thread batch by batch), as
 in the JAX tool, or with ``--images`` from an ``.npy`` array of (N, H, W[,
 C]) images (uint8, or float in [0, 1]) held on the device.  Adam at ``ddpm_lr``; step-numbered
 checkpoints of the whole train state under ``<task_name>/<ddpm_ckpt_name
-minus .pth>/`` every ``ckpt_save_every_epochs`` epochs, resumed from the
-newest one; at the end the UNet's reference-format ``.pth`` at
+minus .pth>/`` every ``ckpt_save_every_epochs`` epochs, written in the
+background while training goes on (``save_checkpoint_background``; waited
+for before the end), resumed from the newest one; at the end the UNet's reference-format ``.pth`` at
 ``<task_name>/<ddpm_ckpt_name>``, where the reference trainer writes it and
 where the ControlNet trainer reads it.  Each epoch's shuffle and noise come
 from ``(seed, epoch)``, so a resumed run continues as an unbroken one would.
@@ -31,7 +32,8 @@ import torch
 from controlnet_tpu_torch import cli, config as cfg
 from controlnet_tpu_torch.device import resolve_device
 from controlnet_tpu_torch.io.checkpoint import (cpu_state_dict, restore_checkpoint,
-                                                save_checkpoint, save_file)
+                                                save_checkpoint_background, save_file,
+                                                wait_for_checkpoints)
 from controlnet_tpu_torch.models.unet import UNet
 from controlnet_tpu_torch.schedules.linear import make_linear_schedule
 from controlnet_tpu_torch.train.loops import make_ddpm_train_step
@@ -86,8 +88,9 @@ def train(config_path: str, images_path: str | None = None, device=None) -> dict
         history["epochs"].append(epoch_idx + 1)
         history["losses"].append(timer.mean_loss())
         if cli.should_save_epoch(epoch_idx, num_epochs, tp.get("ckpt_save_every_epochs", 1)):
-            cli.write_once(mesh, save_checkpoint, task_name, ckpt_name, epoch_idx + 1,
-                           state.state_dict(), max_to_keep=cli.ckpt_max_to_keep(tp))
+            cli.write_once(mesh, save_checkpoint_background, task_name, ckpt_name,
+                           epoch_idx + 1, state.state_dict(), max_to_keep=cli.ckpt_max_to_keep(tp))
+    cli.write_once(mesh, wait_for_checkpoints)
     cli.write_once(mesh, lambda: save_file(cpu_state_dict(unet),
                                            os.path.join(task_name, ckpt_name)))
     cli.say(mesh, "Done Training ...")

@@ -19,9 +19,11 @@ nothing.  The teacher is the port ControlNet ``.pth`` at
 ``<task_name>/<controlnet_ckpt_name>``.  Each epoch: the train steps, then the
 loss on 5 test batches in float32, then (unless ``--no_plots``, and when PIL
 imports) student-vs-teacher x0 grids at t in {50, 200, 500}.  Step-numbered
-checkpoints of the train state every epoch, resumed from the newest; a new
-best validation loss is saved under its own name, and only after that save
-is in place is ``dmd_best_val.json`` written, which a resume reads.  At the
+checkpoints of the train state every epoch, written in the background while
+training goes on (``save_checkpoint_background``), resumed from the newest; a
+new best validation loss is saved under its own name, also in the
+background, and only after every save has committed is ``dmd_best_val.json``
+written, which a resume reads.  At the
 end the student in the reference format (``epoch``, ``model_state_dict``,
 ``config``) at ``<task_name>/distribution_matching_controlnet_distilled_ckpt.pth``
 and the best one at ``..._best_ckpt.pth``; loss curves when matplotlib
@@ -48,7 +50,8 @@ import torch
 
 from controlnet_tpu_torch import cli, config as cfg
 from controlnet_tpu_torch.device import resolve_device
-from controlnet_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint, save_file
+from controlnet_tpu_torch.io.checkpoint import (restore_checkpoint, save_checkpoint_background,
+                                                save_file, wait_for_checkpoints)
 from controlnet_tpu_torch.io.jax_params import load_reference_checkpoint
 from controlnet_tpu_torch.models.dmd import DistributionMatchingDistilled
 from controlnet_tpu_torch.sample.common import global_batch, rank_rows
@@ -253,16 +256,17 @@ def train(config_path: str, images_path: str | None = None,
         if not no_plots:  # the grid's draws come last in the epoch's generator
             cli.write_once(mesh, save_grid, model, val_src, batch_size, epoch_idx, generator,
                            os.path.join(task_name, "dmd_training_samples"))
-        cli.write_once(mesh, save_checkpoint, task_name, CKPT_NAME, epoch_idx + 1,
+        cli.write_once(mesh, save_checkpoint_background, task_name, CKPT_NAME, epoch_idx + 1,
                        {"state": state.state_dict()}, max_to_keep=keep)
         if val_mean < best_val:
             best_val = val_mean
 
             def save_best():
-                # the save is in place (written, then renamed) before the sidecar
+                save_checkpoint_background(task_name, BEST_CKPT_NAME, epoch_idx + 1,
+                                           {"state": state.state_dict()}, max_to_keep=keep)
+                # the save has committed (written, then renamed) before the sidecar
                 # records it, so a resume never trusts a best that is not on disk
-                save_checkpoint(task_name, BEST_CKPT_NAME, epoch_idx + 1,
-                                {"state": state.state_dict()}, max_to_keep=keep)
+                wait_for_checkpoints()
                 with open(best_val_path, "w") as f:
                     json.dump({"best_val": best_val, "epoch": epoch_idx + 1}, f)
                 print(f"New best model (val {best_val:.4f})")
@@ -272,6 +276,7 @@ def train(config_path: str, images_path: str | None = None,
     def save_final():
         save_file(reference_checkpoint(model.student.state_dict(), max(num_epochs, start_epoch),
                                        config), os.path.join(task_name, REF_CKPT))
+        # waits for the background saves, the last epoch's included
         best = restore_checkpoint(task_name, BEST_CKPT_NAME, map_location="cpu")
         if best is not None:
             save_file(reference_checkpoint(best[0]["state"]["params"], best[1], config),

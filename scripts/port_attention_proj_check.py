@@ -4,7 +4,8 @@ tensor-core instructions, then hold the fused projection + attention kernel
 (kernel d, controlnet_tpu_torch/csrc/attention_proj.cuh) against its plain
 version, and time it beside the split path, F.multi_head_attention_forward and
 its bound, at the six MNIST and the seven latent self-attention shapes on one
-CUDA card, with the launch plan (rows per block, cluster, shared memory) of
+CUDA card (and check it at the six CIFAR-10 ones and at head dims 72-128 off
+the model paths), with the launch plan (rows per block, cluster, shared memory) of
 each shape.
 
     python3 scripts/port_attention_proj_check.py [--batch 16] [--serve] [--phases] [--attention]
@@ -56,28 +57,14 @@ A_SHAPES = ([(l, l, dh, 256) for l, dh, _ in A_MNIST + A_LATENT + A_CIFAR]
 def check_only(device) -> None:
     """Each kernel once against its plain version at every shape; no timing."""
     from controlnet_tpu_torch.ops import cuda_attention
-    from controlnet_tpu_torch.ops import cuda_attention_proj as proj
 
-    failed = []
     for batch, shapes in ((chip_smoke.SERVE_BATCH, chip_smoke.MNIST_PROJ_SHAPES),
                           (chip_smoke.BATCH, chip_smoke.MNIST_PROJ_SHAPES),
-                          (chip_smoke.LDM_BATCH, chip_smoke.LDM_PROJ_SHAPES)):
-        for l, c, heads, _ in shapes:
-            for dtype in (torch.float32, torch.bfloat16):
-                xt, *params = chip_smoke.proj_inputs(batch, l, c, dtype, device)
-                x = xt.transpose(1, 2)
-                with torch.inference_mode():
-                    ref = proj.fused_attention_proj_plain(x, *params, heads).float()
-                    errs = [(proj.fused_attention_proj(t, *params, heads).float() - ref)
-                            .abs().max().item() for t in (x, x.contiguous())]
-                torch.cuda.synchronize()
-                scale = ref.abs().max().item()
-                ok = max(errs) <= chip_smoke.PROJ_TOL[dtype] * scale
-                print(f"d {str(dtype)[6:]:8s} B {batch:2d} L {l:4d} C {c:3d} heads {heads}: plan "
-                      f"{proj.launch_plan(l, c, c, heads, dtype)}, rel err {max(errs) / scale:.3g} "
-                      f"(tol {chip_smoke.PROJ_TOL[dtype]:g}) {'ok' if ok else 'FAIL'}", flush=True)
-                if not ok:
-                    failed.append(("d", batch, l, c, dtype))
+                          (chip_smoke.LDM_BATCH, chip_smoke.LDM_PROJ_SHAPES),
+                          (chip_smoke.BATCH, chip_smoke.CIFAR_PROJ_SHAPES),
+                          (chip_smoke.SERVE_BATCH, chip_smoke.PROJ_WIDE_SHAPES)):
+        chip_smoke.phase_proj_checks(shapes, batch, device)  # raises on a disagreement
+    failed = []
     for lq, lk, dh, bh in A_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
@@ -132,7 +119,8 @@ def phases(batch: int, device) -> None:
     """Kernel d's cycles per block by phase (thread 0's clock64), each shape."""
     from controlnet_tpu_torch.ops import cuda_attention_proj as proj
 
-    for l, c, heads, _ in chip_smoke.MNIST_PROJ_SHAPES + chip_smoke.LDM_PROJ_SHAPES:
+    for l, c, heads, _ in (chip_smoke.MNIST_PROJ_SHAPES + chip_smoke.LDM_PROJ_SHAPES
+                           + chip_smoke.CIFAR_PROJ_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             xt, *params = chip_smoke.proj_inputs(batch, l, c, dtype, device)
             proj.phase_profile(xt.transpose(1, 2), *params, heads)  # warm
@@ -161,7 +149,7 @@ def main() -> None:
     device = torch.device("cuda")
     print(f"card: {chip_smoke.nvidia_smi_line()}; torch {torch.__version__}", flush=True)
     _build.build(verbose=True)
-    chip_smoke.phase_sass(str(_build.LIB_PATH), _build._nvcc())
+    chip_smoke.phase_sass(chip_smoke.start_sass(str(_build.LIB_PATH), _build._nvcc()))
     if args.check_only:
         check_only(device)
         return

@@ -67,7 +67,7 @@ def main() -> None:
     device = torch.device("cuda")
     print(f"card: {chip_smoke.nvidia_smi_line()}; torch {torch.__version__}", flush=True)
     _build.build(verbose=True)
-    chip_smoke.phase_sass(str(_build.LIB_PATH), _build._nvcc())
+    chip_smoke.phase_sass(chip_smoke.start_sass(str(_build.LIB_PATH), _build._nvcc()))
     shapes = chip_smoke.hint_conv_shapes(1024, 3, 256, 32, args.batch)
     if args.check_only:
         check_only(shapes + [chip_smoke.RAGGED_CONV_SHAPE[:4] + (args.batch,)], device)

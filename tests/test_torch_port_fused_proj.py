@@ -16,6 +16,7 @@ reference, which rounds elsewhere.)
 """
 
 import collections
+import os
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,8 @@ from _torch_port_util import MNIST_CONFIG, random_params, to_nchw, to_nhwc
 from controlnet_tpu.models.controlnet import ControlNet as JaxControlNet
 from controlnet_tpu.nn import layers as jax_layers
 from controlnet_tpu.ops.pallas_attention import fused_attention_proj as jax_fused_attention_proj
+from controlnet_tpu.ops.pallas_attention import fused_proj_fits
+from controlnet_tpu_torch import config as port_config
 from controlnet_tpu_torch.io import jax_params
 from controlnet_tpu_torch.models.controlnet import ControlNet
 from controlnet_tpu_torch.nn import layers
@@ -35,9 +38,10 @@ from controlnet_tpu_torch.ops import cuda_attention, cuda_attention_proj
 TOL = {"float32": 3e-5, "bfloat16": 6e-3}
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (batch, heads, L, head_dim): the JAX test's two shapes, head dims 8 and 64,
-# an L past one 128-lane tile, and a head dim of 24 as at the latent widths
+# an L past one 128-lane tile, a head dim of 24 as at the latent widths, and
+# head dims past 64 (72 runs as 96; 128 as at CIFAR-10's 512-channel levels)
 CASES = [(2, 2, 49, 16), (1, 4, 64, 32), (2, 2, 40, 8), (1, 2, 33, 64), (1, 2, 130, 8),
-         (1, 2, 20, 24)]
+         (1, 2, 20, 24), (1, 4, 49, 72), (1, 2, 33, 96), (1, 2, 20, 128)]
 
 
 def _layer_inputs(seed, b, heads, l, dh):
@@ -169,6 +173,35 @@ def test_full_width_forward_dispatch_with_switch_on(monkeypatch):
     assert sum(fused.values()) == 24 and sum(split.values()) == 2
 
 
+def test_full_width_cifar_dispatch_matches_jax(monkeypatch):
+    """At config/cifar.yaml's full width the switch sends 24 of the 26
+    self-attention calls to kernel d (head dims 16-128) and the two
+    head-dim-4 calls to the split path: the same layers as the JAX layer's
+    rule (head dim a multiple of 8 and ``fused_proj_fits``) on the same
+    shapes, in float32 and in bfloat16."""
+    mp = port_config.model_params(port_config.load_config(
+        os.path.join(os.path.dirname(__file__), "..", "config", "cifar.yaml")))
+    torch.manual_seed(0)
+    cn = ControlNet(mp["im_channels"], mp).eval()
+    layers.set_attn_fused_proj(cn, True)
+    fused, split = _spies(monkeypatch)
+    with torch.no_grad():
+        out = cn(torch.zeros(1, 3, 32, 32), torch.tensor([5]), torch.zeros(1, 3, 32, 32))
+    assert out.shape == (1, 3, 32, 32) and bool(torch.isfinite(out).all())
+    heads = mp["num_heads"]
+    assert fused == {(1024, 128): 4, (256, 256): 4, (64, 512): 8, (64, 256): 4, (64, 128): 2,
+                     (256, 64): 2}
+    assert split == {(1024, 4): 2}
+    assert sum(fused.values()) == 24 and sum(split.values()) == 2
+    calls = list(fused) + [(l, dh * heads) for l, dh in split]
+    for dtype in (torch.float32, torch.bfloat16):
+        jax_fuses = {(l, c) for l, c in calls
+                     if c // heads % 8 == 0 and fused_proj_fits(l, c, c, dtype.itemsize)}
+        port_fuses = {(l, c) for l, c in calls
+                      if cuda_attention_proj.fused_proj_supported(l, c, c, heads, dtype)}
+        assert port_fuses == jax_fuses == set(fused), dtype
+
+
 def test_switch_is_off_by_default_and_set_below_a_model(tiny_model_config, monkeypatch):
     cn = ControlNet(1, tiny_model_config).eval()
     mhas = [m for m in cn.modules() if isinstance(m, layers.MultiheadAttention)]
@@ -222,7 +255,8 @@ def test_a_tensor_that_requires_grad_raises(which):
     (1024, 384, 384, 16, torch.bfloat16, True),
     (64, 768, 768, 16, torch.float32, True),
     (784, 16, 16, 4, torch.float32, False),      # head dim 4
-    (49, 288, 288, 4, torch.float32, False),     # head dim 72 > 64
+    (49, 288, 288, 4, torch.float32, True),      # head dim 72, run as 96
+    (49, 544, 544, 4, torch.float32, False),     # head dim 136 > 128
     (49, 48, 48, 4, torch.float32, False),       # head dim 12, no multiple of 8
     (49, 64, 64, 4, torch.float16, False),       # float32 and bfloat16 only
     (49, 64, 64, 3, torch.float32, False),       # heads do not divide D

@@ -236,7 +236,9 @@ def test_kernel_library_is_not_built_on_import():
     assert _build._lib is None
     assert [p.name for p in _build.sources()] == [
         "attention_bwd.cu", "attention_bwd_bf16.cu", "attention_fwd.cu", "attention_fwd_bf16.cu",
-        "attention_proj.cu", "attention_proj_bf16.cu", "conv3x3_tl.cu", "conv3x3_tl_bf16.cu"]
+        "attention_proj.cu", "attention_proj_bf16.cu", "attention_proj_bf16_128.cu",
+        "attention_proj_bf16_64_96.cu", "attention_proj_f32_128.cu", "attention_proj_f32_64_96.cu",
+        "conv3x3_tl.cu", "conv3x3_tl_bf16.cu"]
     assert [p.name for p in _build.headers()] == ["attention_proj.cuh", "mma_attention.cuh"]
 
 

@@ -53,6 +53,9 @@ PLANS = {
     (1024, 384, 16): (64, 16, 1), (1024, 128, 16): (64, 16, 1), (256, 512, 16): (32, 8, 2),
     (256, 256, 16): (32, 8, 2), (64, 768, 16): (16, 4, 4), (64, 384, 16): (16, 4, 4),
     (16, 512, 16): (16, 1, 16),
+    # config/cifar.yaml's six fused layers: head dims 32, 64, 128, 64, 32, 16
+    (1024, 128, 4): (64, 16, 1), (256, 256, 4): (32, 8, 2), (64, 512, 4): (16, 4, 4),
+    (64, 256, 4): (16, 4, 4), (64, 128, 4): (16, 4, 4), (256, 64, 4): (32, 8, 2),
 }
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -83,6 +86,32 @@ def test_launch_plan_at_the_model_shapes(l, c, heads, dtype):
 def test_launch_plan_refuses_what_a_cluster_cannot_hold(l, c, heads, dtype):
     assert cuda_attention_proj.launch_plan(l, c, c, heads, dtype) is None
     assert not cuda_attention_proj.fused_proj_supported(l, c, c, heads, dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("dh", [136, 192, 256])
+def test_launch_plan_is_none_past_head_dim_128(dh, dtype):
+    """Past the widest instantiation the planner answers None (it raised
+    StopIteration before head dim 128 was instantiated) and the layer takes
+    the split path."""
+    assert cuda_attention_proj.launch_plan(49, 2 * dh, 2 * dh, 2, DTYPES[dtype]) is None
+    assert not cuda_attention_proj.fused_proj_supported(49, 2 * dh, 2 * dh, 2, DTYPES[dtype])
+
+
+def test_head_dims_past_64_pad_to_96_and_128():
+    """72-96 run in the 96 instantiation, 104-128 in the 128 one; past 64 a
+    projection pass spans the whole q tile (DP / 8 n-tiles) so the q columns
+    lie in one pass, and float32 at 64 rows has no plan there (the C side
+    builds none)."""
+    pad = cuda_attention_proj._padded_head_dim
+    assert [pad(d) for d in (64, 72, 88, 96, 104, 120, 128)] == [64, 96, 96, 96, 128, 128, 128]
+    assert pad(136) is None and cuda_attention_proj.MAX_HEAD_DIM == 128
+    assert [cuda_attention_proj.proj_tiles(r, 64) for r in (16, 32, 64)] == [12, 12, 12]
+    assert [cuda_attention_proj.proj_tiles(r, 96) for r in (16, 32, 64)] == [12, 12, 12]
+    assert [cuda_attention_proj.proj_tiles(r, 128) for r in (16, 32, 64)] == [16, 16, 16]
+    for l, c, heads in ((1024, 96, 1), (1024, 128, 1), (300, 256, 2)):
+        assert cuda_attention_proj.launch_plan(l, c, c, heads, torch.float32) is None
+        assert cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16)[0] == 64
 
 
 @pytest.mark.parametrize("dh,lq,expect", [
@@ -215,8 +244,9 @@ def _proj_inputs(seed, b, l, c):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("b,l,c,heads", [(2, 49, 256, 4), (1, 196, 128, 4), (1, 64, 384, 16)],
-                         ids=["mnist-L49", "mnist-L196", "latent-L64"])
+@pytest.mark.parametrize("b,l,c,heads", [(2, 49, 256, 4), (1, 196, 128, 4), (1, 64, 384, 16),
+                                         (1, 64, 512, 4)],
+                         ids=["mnist-L49", "mnist-L196", "latent-L64", "cifar-L64-dh128"])
 def test_kernel_d_model_against_jax_and_plain(b, l, c, heads, dtype):
     arrays = _proj_inputs(l + c, b, l, c)
     dt = DTYPES[dtype]
