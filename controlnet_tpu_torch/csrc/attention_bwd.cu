@@ -340,39 +340,51 @@ cudaError_t dispatch(const BwdArgs& a) {
 }  // namespace
 
 cudaError_t controlnet_attention_bwd_t_bf16(const void* q, const void* k, const void* v,
-                                            const void* dout, const float* lse, float* delta,
-                                            void* dq, void* dk, void* dv, int batch, int heads,
-                                            int dh, int lq, int lk, long long q_bs,
-                                            long long k_bs, long long v_bs, int warps_q,
-                                            int warps_k, cudaStream_t stream);
+                                            const float* o32, const void* dout, const float* lse,
+                                            float* delta, void* dq, void* dk, void* dv,
+                                            float* scratch, int batch, int heads, int dh, int lq,
+                                            int lk, long long q_bs, long long k_bs,
+                                            long long v_bs, int split, int q_vec, int k_vec,
+                                            unsigned long long* cycles, cudaStream_t stream);
 
 // q: (B, H, dh, Lq), k and v: (B, H, dh, Lk), each (dh, L) panel contiguous and
 // batches `*_bstride` elements apart.  o (the forward's output), dout, dq:
 // contiguous (B, H, dh, Lq); dk, dv: contiguous (B, H, dh, Lk).  lse: the
 // forward's float32 (B, H, Lq) row log-sum-exp, natural log.  delta: float32
-// (B, H, Lq), where D is written.  dtype: 0 float32, 1 bfloat16 (o, kv_tile and
-// q_tile unused: the tensor-core kernels form D from P and tile by 32).
-// threads_q / threads_k: threads per block of the dq / dkv kernels (32..128, a
-// multiple of 32).
+// (B, H, Lq), where D is written.  dtype 0 float32: threads_q / threads_k
+// threads per block of the dq / dkv kernels (32..128, a multiple of 32); part,
+// split, q_vec, k_vec and cycles unused.  dtype 1 bfloat16
+// (attention_bwd_bf16.cu): o is the forward's output before its rounding, in
+// float32; kv_tile and q_tile unused; threads_q and threads_k 160 (one
+// consumer warpgroup and the producer warp); split: blocks a key tile along
+// the query axis; part: the float32 scratch (the dQ accumulator, B*H * query
+// tiles of 64 * DP * 64, then where split > 1 the partial dK and dV, 2 *
+// split * B*H * dh * Lk); q_vec / k_vec: the loading route of the q and dO /
+// k and v panels (8 TMA, 4 8-byte cp.async, 2 4-byte cp.async, 1 element
+// loads); cycles: null or the phase counters.
 // Returns a cudaError_t (0 on success).
 extern "C" int controlnet_attention_bwd_t(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const void* lse, void* delta, void* dq, void* dk, void* dv, int batch, int heads, int dh,
-    int lq, int lk, long long q_bstride, long long k_bstride, long long v_bstride, int dtype,
-    int kv_tile, int q_tile, int threads_q, int threads_k, void* stream) {
+    const void* lse, void* delta, void* dq, void* dk, void* dv, void* part, int batch,
+    int heads, int dh, int lq, int lk, long long q_bstride, long long k_bstride,
+    long long v_bstride, int dtype, int kv_tile, int q_tile, int threads_q, int threads_k,
+    int split, int q_vec, int k_vec, void* stream, void* cycles) {
   auto bad_threads = [](int t) { return t < 32 || t > 128 || t % 32 != 0; };
-  if (batch < 1 || heads < 1 || dh < 1 || dh > 128 || lq < 1 || lk < 1 || kv_tile < 1 ||
-      q_tile < 1 || bad_threads(threads_q) || bad_threads(threads_k)) {
+  if (batch < 1 || heads < 1 || dh < 1 || dh > 128 || lq < 1 || lk < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
                   dq, dk, dv, batch * heads, heads, dh, lq, lk, (int64_t)q_bstride,
                   (int64_t)k_bstride, (int64_t)v_bstride, kv_tile, q_tile, threads_q, threads_k, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)dispatch<float>(a);
-  if (dtype == 1) {
+  if (dtype == 0 && kv_tile >= 1 && q_tile >= 1 && !bad_threads(threads_q) &&
+      !bad_threads(threads_k)) {
+    return (int)dispatch<float>(a);
+  }
+  if (dtype == 1 && threads_q == 160 && threads_k == 160) {
     return (int)controlnet_attention_bwd_t_bf16(
-        q, k, v, dout, a.lse, a.delta, dq, dk, dv, batch, heads, dh, lq, lk, q_bstride,
-        k_bstride, v_bstride, threads_q / 32, threads_k / 32, a.stream);
+        q, k, v, static_cast<const float*>(o), dout, a.lse, a.delta, dq, dk, dv,
+        static_cast<float*>(part), batch, heads, dh, lq, lk, q_bstride, k_bstride, v_bstride,
+        split, q_vec, k_vec, static_cast<unsigned long long*>(cycles), a.stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -223,35 +223,41 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 
 // The bfloat16 kernel (attention_fwd_bf16.cu).
 cudaError_t controlnet_attention_fwd_t_bf16(const void* q, const void* k, const void* v, void* o,
-                                            float* lse, int batch, int heads, int dh, int lq,
-                                            int lk, long long q_bs, long long k_bs,
-                                            long long v_bs, int warps, cudaStream_t stream);
+                                            float* o32, float* lse, int batch, int heads, int dh,
+                                            int lq, int lk, long long q_bs, long long k_bs,
+                                            long long v_bs, int nwg, int q_vec, int k_vec,
+                                            unsigned long long* cycles, cudaStream_t stream);
 
 // q: (B, H, dh, Lq), k and v: (B, H, dh, Lk), each (dh, L) panel contiguous and
 // batches `*_bstride` elements apart; o: contiguous (B, H, dh, Lq); lse: null or
 // contiguous float32 (B, H, Lq), natural log.  dtype 0 float32: `kv_tile` keys
 // per shared-memory tile and `threads` per block (= query rows up to dh 64, 8
-// threads a row above); dtype 1
-// bfloat16: `kv_tile` must be 64 (the tensor-core kernel's key tile) and
-// `threads` is 32 per warp of 16 query rows (32..128).  Returns a cudaError_t
-// (0 on success).
+// threads a row above); o32, q_vec, k_vec and cycles unused.  dtype 1 bfloat16
+// (attention_fwd_bf16.cu): `kv_tile` must be 64 (the key tile) and `threads`
+// 160 or 288 (one or two consumer warpgroups and the producer warp); o32: null
+// or contiguous float32 (B, H, dh, Lq), the output before its rounding;
+// q_vec / k_vec: the loading route of the query / key-value panels (8 TMA, 4
+// 8-byte cp.async, 2 4-byte cp.async, 1 element loads); cycles: null or the phase counters.
+// Returns a cudaError_t (0 on success).
 extern "C" int controlnet_attention_fwd_t(
-    const void* q, const void* k, const void* v, void* o, void* lse_out, int batch,
+    const void* q, const void* k, const void* v, void* o, void* lse_out, void* o32, int batch,
     int heads, int dh, int lq, int lk, long long q_bstride, long long k_bstride,
-    long long v_bstride, int dtype, int kv_tile, int threads, void* stream) {
-  if (batch < 1 || heads < 1 || dh < 1 || dh > 128 || lq < 1 || lk < 1 ||
-      kv_tile < 1 || threads < 32 || threads > 128 || threads % 32 != 0) {
+    long long v_bstride, int dtype, int kv_tile, int threads, int q_vec, int k_vec,
+    void* stream, void* cycles) {
+  if (batch < 1 || heads < 1 || dh < 1 || dh > 128 || lq < 1 || lk < 1 || kv_tile < 1) {
     return (int)cudaErrorInvalidValue;
   }
   float* lse = static_cast<float*>(lse_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (dtype == 0 && threads >= 32 && threads <= 128 && threads % 32 == 0) {
     return (int)dispatch<float>(q, k, v, o, lse, batch * heads, heads, dh, lq, lk, q_bstride,
                                 k_bstride, v_bstride, kv_tile, threads, s);
   }
-  if (dtype == 1 && kv_tile == 64) {
-    return (int)controlnet_attention_fwd_t_bf16(q, k, v, o, lse, batch, heads, dh, lq, lk,
-                                                q_bstride, k_bstride, v_bstride, threads / 32, s);
+  if (dtype == 1 && kv_tile == 64 && (threads == 160 || threads == 288)) {
+    return (int)controlnet_attention_fwd_t_bf16(
+        q, k, v, o, static_cast<float*>(o32), lse, batch, heads, dh, lq, lk, q_bstride,
+        k_bstride, v_bstride, (threads - 32) / 128, q_vec, k_vec,
+        static_cast<unsigned long long*>(cycles), s);
   }
   return (int)cudaErrorInvalidValue;
 }

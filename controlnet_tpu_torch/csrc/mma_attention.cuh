@@ -1,7 +1,8 @@
-// The mma core on Hopper's tensor cores, shared by the bf16 attention forward
-// (attention_fwd_bf16.cu, kernel a) and backward (attention_bwd_bf16.cu,
-// kernel b), the fused projection + attention layer (attention_proj.cuh,
-// kernel d) and the bf16 3x3 conv (conv3x3_tl_bf16.cu, kernel c).
+// The mma core on Hopper's tensor cores, shared by the fused projection +
+// attention layer (attention_proj.cuh, kernel d) and the bf16 3x3 conv
+// (conv3x3_tl_bf16.cu, kernel c); the wgmma kernels a and b
+// (hopper_attention.cuh) take its online softmax, hi + lo packing and 4-byte
+// cp.async, whose fragment layout is a warpgroup accumulator's per warp.
 //
 // Everything here works on the fragments of one warp's mma.sync.m16n8k16:
 // a 16 x 8 float32 accumulator tile is held as c[4] per thread, with thread
@@ -235,60 +236,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x;
-}
-
-// load_tile's copies of W values (W = 8: 16 bytes, W = 2: 4 bytes) by
-// cp.async; a chunk past dh or L is zero-filled.  W is a template parameter
-// so that the chunk arithmetic folds to shifts for a constant ncols.
-template <int DP, int W>
-__device__ __forceinline__ void copy_chunks(__nv_bfloat16* dst, int pitch,
-                                            const __nv_bfloat16* src, int L, int dh, int col0,
-                                            int ncols) {
-  const int chunks = ncols / W;
-  for (int idx = threadIdx.x; idx < DP * chunks; idx += blockDim.x) {
-    const int d = idx / chunks, c = idx - (idx / chunks) * chunks;
-    const int col = col0 + W * c;
-    const bool ok = d < dh && col < L;  // L % W == 0: a chunk is all in or all out
-    const __nv_bfloat16* from = ok ? src + (int64_t)d * L + col : src;
-    if (W == 8) {
-      cp_async16(dst + d * pitch + 8 * c, from, ok ? 16 : 0);
-    } else {
-      cp_async4(dst + d * pitch + 2 * c, from, ok ? 4 : 0);
-    }
-  }
-}
-
-// rows [0, DP) x columns [col0, col0 + ncols) of a (dh, L) bf16 panel into
-// dst (row pitch `pitch`, even); rows >= dh and columns >= L are zeros.  vec
-// is the values one copy moves: 8 (16-byte cp.async: L a multiple of 8, the
-// panel 16-byte aligned), 2 (4-byte cp.async: L even, the panel 4-byte
-// aligned) or 1 (element loads, for an odd L); the caller commits the
-// copies.  ncols and col0 are multiples of 8.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int pitch, const __nv_bfloat16* src,
-                                          int L, int dh, int col0, int ncols, int vec) {
-  if (vec == 8) {
-    copy_chunks<DP, 8>(dst, pitch, src, L, dh, col0, ncols);
-  } else if (vec == 2) {
-    copy_chunks<DP, 2>(dst, pitch, src, L, dh, col0, ncols);
-  } else {
-    for (int idx = threadIdx.x; idx < DP * ncols; idx += blockDim.x) {
-      const int d = idx / ncols, c = idx - (idx / ncols) * ncols;
-      const int col = col0 + c;
-      dst[d * pitch + c] = (d < dh && col < L) ? src[(int64_t)d * L + col] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// The widest copy load_tile may use for panels of lengths lq and lk at these
-// batch strides (in values of 2 bytes), with `ptrs` the OR of the panels'
-// addresses.
-__host__ inline int tile_copy_width(long long lq, long long lk, long long q_bs, long long k_bs,
-                                    long long v_bs, uintptr_t ptrs) {
-  const long long all = lq | lk | q_bs | k_bs | v_bs;
-  if (all % 8 == 0 && ptrs % 16 == 0) return 8;
-  if (all % 2 == 0 && ptrs % 4 == 0) return 2;
-  return 1;
 }
 
 // A shared-memory row pitch, in elements of `itemsize` bytes, for rows of

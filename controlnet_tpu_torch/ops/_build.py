@@ -110,7 +110,8 @@ def _compile_and_link(verbose: bool = False) -> Path:
     for tmp, obj in zip(tmp_objs, objs):
         os.replace(tmp, obj)
     tmp = LIB_PATH.with_suffix(tag)
-    _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]])
+    # -ldl: the bf16 attention kernels look up cuTensorMapEncodeTiled in libcuda
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-ldl", "-o", str(tmp)]])
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
 
@@ -134,15 +135,16 @@ def load() -> ctypes.CDLL:
                     _compile_and_link()
                 lib = ctypes.CDLL(str(LIB_PATH))
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            # (q, k, v, o, lse), (batch, heads, dh, lq, lk), batch strides,
-            # (dtype, kv_tile, threads), stream
+            # (q, k, v, o, lse, o32), (batch, heads, dh, lq, lk), batch
+            # strides, (dtype, kv_tile, threads, q_vec, k_vec), stream, phase
+            # counters
             lib.controlnet_attention_fwd_t.argtypes = (
-                [ptr] * 5 + [i32] * 5 + [i64] * 3 + [i32] * 3 + [ptr])
-            # (q, k, v, o, dout, lse, delta, dq, dk, dv), (batch, heads, dh,
-            # lq, lk), batch strides, (dtype, kv_tile, q_tile, threads_q,
-            # threads_k), stream
+                [ptr] * 6 + [i32] * 5 + [i64] * 3 + [i32] * 5 + [ptr] * 2)
+            # (q, k, v, o, dout, lse, delta, dq, dk, dv, part), (batch, heads,
+            # dh, lq, lk), batch strides, (dtype, kv_tile, q_tile, threads_q,
+            # threads_k, split, q_vec, k_vec), stream, phase counters
             lib.controlnet_attention_bwd_t.argtypes = (
-                [ptr] * 10 + [i32] * 5 + [i64] * 3 + [i32] * 5 + [ptr])
+                [ptr] * 11 + [i32] * 5 + [i64] * 3 + [i32] * 8 + [ptr] * 2)
             # (x, w, bias, out), (cin, cout, batch, h, w), (channel, batch)
             # strides of x, (dtype, channel groups), stream
             lib.controlnet_conv3x3_tl.argtypes = (

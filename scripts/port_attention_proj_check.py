@@ -13,9 +13,14 @@ each shape.
 
 ``--serve`` also runs the full-width MNIST forward with the fused layer on
 and the serve tool's phase; ``--phases`` prints kernel d's clock cycles per
-block by phase (``cuda_attention_proj.phase_profile``) at every shape;
-``--attention`` checks and times kernel a (both types) at the MNIST and latent
-shapes beside SDPA.  ``--check-only`` times nothing: it holds kernel d
+block by phase (``cuda_attention_proj.phase_profile``) at every shape, and
+with ``--attention`` kernels a's and b's in bf16 (``cuda_attention.
+phase_profile`` / ``phase_profile_bwd``) at the MNIST (784, 784, 16), latent
+(1024, 1024, 24) and cross (1024, 77, 24) shapes; ``--attention`` prints
+the host cost of a bf16 launch of kernel a on the TMA and cp.async routes
+(``host_cost``: the tensor maps' encoding), then checks and times kernel a
+(both types) at the MNIST and latent shapes beside SDPA, and kernel b at the
+same shapes beside SDPA's backward.  ``--check-only`` times nothing: it holds kernel d
 against its plain version once at every shape (batch 16 and 64), kernel a
 (both types, with its saved log-sum-exp) at the MNIST, latent and CIFAR-10
 attention shapes, and kernel b (both types, with its row term D against rowsum(dP o P)
@@ -71,9 +76,8 @@ def check_only(device) -> None:
             q = torch.randn((bh // 4, 4, dh, lq), generator=g, device=device).to(dtype)
             k, v = (torch.randn((bh // 4, 4, dh, lk), generator=g, device=device).to(dtype)
                     for _ in range(2))
-            lse = torch.empty((bh // 4, 4, lq), device=device)
             with torch.inference_mode():
-                out = cuda_attention._launch(q, k, v, lse)
+                out, _, lse = cuda_attention.forward_for_backward(q, k, v)
                 ref = cuda_attention.fused_attention_t_plain(q, k, v)
                 s = torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float()) / dh ** 0.5
                 lse_err = (lse - torch.logsumexp(s, -1)).abs().max().item()
@@ -94,9 +98,9 @@ def check_only(device) -> None:
                        for _ in range(2))
             k, v = (torch.randn((64, bh // 64, dh, lk), generator=g, device=device).to(dtype)
                     for _ in range(2))
-            lse, delta = (torch.empty((64, bh // 64, lq), device=device) for _ in range(2))
-            out = cuda_attention._launch(q, k, v, lse)
-            got = cuda_attention._launch_bwd(q, k, v, out, lse, dout, delta)
+            delta = torch.empty((64, bh // 64, lq), device=device)
+            _, saved, lse = cuda_attention.forward_for_backward(q, k, v)
+            got = cuda_attention._launch_bwd(q, k, v, saved, lse, dout, delta)
             ref = cuda_attention.fused_attention_t_bwd_plain(q, k, v, dout)
             probs = torch.softmax(torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float())
                                   / dh ** 0.5, -1)
@@ -105,10 +109,10 @@ def check_only(device) -> None:
             err = max(((a.float() - r.float()).abs().max() / r.float().abs().max()).item()
                       for a, r in zip(got, ref))
             d_err = ((delta - d_ref).abs().max() / d_ref.abs().max()).item()
-            ok = err <= chip_smoke.BWD_KERNEL_TOL[dtype]
+            ok = err <= chip_smoke.BWD_KERNEL_TOL[dtype] and d_err <= chip_smoke.D_TOL
             print(f"b {str(dtype)[6:]:8s} Lq {lq:4d} Lk {lk:4d} dh {dh:2d} BH {bh}: rel err "
                   f"{err:.3g} (tol {chip_smoke.BWD_KERNEL_TOL[dtype]:g}), D err {d_err:.3g} of "
-                  f"max|D| {'ok' if ok else 'FAIL'}", flush=True)
+                  f"max|D| (tol {chip_smoke.D_TOL:g}) {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failed.append(("b", lq, lk, dh, dtype))
     if failed:
@@ -132,6 +136,61 @@ def phases(batch: int, device) -> None:
                   flush=True)
 
 
+# kernels a and b's phase profiles: (what, Lq, Lk, head dim), B*H 256 as on the
+# MNIST (batch 64) and latent / conditional (batch 16) paths
+ATTENTION_PHASE_SHAPES = (("MNIST", 784, 784, 16), ("latent", 1024, 1024, 24),
+                          ("cross", 1024, 77, 24))
+
+
+def attention_phases(device) -> None:
+    """Kernels a's and b's bf16 cycles per block by phase (thread 0's
+    clock64; ``cuda_attention.phase_profile`` / ``phase_profile_bwd``)."""
+    from controlnet_tpu_torch.ops import cuda_attention as ca
+
+    def line(name: str, prof: dict, phases: tuple) -> str:
+        total = sum(prof[p] for p in phases)
+        return (f"{name}: {prof['blocks']} blocks, {total:.0f} cycles a block: " + ", ".join(
+            f"{p} {prof[p]:.0f} ({prof[p] / total:.0%})" for p in phases))
+
+    for what, lq, lk, dh in ATTENTION_PHASE_SHAPES:
+        g = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
+        q, dout = (torch.randn((64, 4, dh, lq), generator=g, device=device).bfloat16()
+                   for _ in range(2))
+        k, v = (torch.randn((64, 4, dh, lk), generator=g, device=device).bfloat16()
+                for _ in range(2))
+        ca.phase_profile(q, k, v)  # warm
+        shape = f"Lq {lq:4d} Lk {lk:4d} dh {dh}"
+        print("phases a bf16 " + line(f"{what} {shape}", ca.phase_profile(q, k, v), ca.PHASES_A),
+              flush=True)
+        print("phases b bf16 " + line(f"{what} {shape}", ca.phase_profile_bwd(q, k, v, dout),
+                                      ca.PHASES_B), flush=True)
+
+
+def host_cost(device, calls: int = 2000) -> None:
+    """Host microseconds a bf16 launch of kernel a takes (no synchronise; the
+    device work at these shapes is shorter), on the TMA route (L 64: three
+    tensor maps encoded a call) and on the 8-byte cp.async route (L 60: none):
+    the difference is the encoding's cost."""
+    import time
+
+    from controlnet_tpu_torch.ops import cuda_attention
+
+    for length in (64, 60, 64, 60):
+        q, k, v = (torch.randn((1, 4, 16, length), device=device).bfloat16() for _ in range(3))
+        for _ in range(50):
+            cuda_attention._launch(q, k, v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            cuda_attention._launch(q, k, v)
+        host_us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        route = cuda_attention.ROUTES[cuda_attention.loader_vec(length, [4 * 16 * length],
+                                                                [q.data_ptr()])]
+        print(f"host a bf16 L {length} ({route}): {host_us:.2f} us a launch over {calls}",
+              flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="check and time the fused layer kernel alone")
     parser.add_argument("--batch", type=int, default=chip_smoke.SERVE_BATCH)
@@ -140,7 +199,8 @@ def main() -> None:
     parser.add_argument("--check-only", action="store_true",
                         help="kernels d and a against their plain versions once; no timing")
     parser.add_argument("--phases", action="store_true",
-                        help="also print kernel d's cycles per block by phase at every shape")
+                        help="also print kernel d's cycles per block by phase at every shape "
+                             "(with --attention also kernels a's and b's, bf16)")
     parser.add_argument("--attention", action="store_true",
                         help="also check and time kernel a at the MNIST and latent shapes")
     args = parser.parse_args()
@@ -155,11 +215,19 @@ def main() -> None:
         return
     if args.phases:
         phases(args.batch, device)
+        if args.attention:
+            attention_phases(device)
     if args.attention:
+        host_cost(device)
         for what, mix in (("MNIST", A_MNIST), ("latent", A_LATENT)):
+            shapes = [(l, l, dh, 256) for l, dh, n in mix for _ in range(n)]
+            batch = 64 if what == "MNIST" else 16
+            cross = ((1024, 77, 24),) if what == "latent" else ()
             print(f"kernel a, {what} forward:", flush=True)
-            chip_smoke.phase_kernels([(l, l, dh, 256) for l, dh, n in mix for _ in range(n)],
-                                     device, batch=64 if what == "MNIST" else 16, cross=())
+            chip_smoke.phase_kernels(shapes, device, batch=batch, cross=cross)
+            print(f"kernel b, {what} forward's shapes:", flush=True)
+            chip_smoke.phase_kernels_bwd(shapes, device, batch=batch, cross=cross,
+                                         per=f"{what} forward's shapes")
     chip_smoke.phase_proj_kernels(chip_smoke.MNIST_PROJ_SHAPES, args.batch, device,
                                   "MNIST forward")
     chip_smoke.phase_proj_kernels(chip_smoke.LDM_PROJ_SHAPES, args.batch, device,

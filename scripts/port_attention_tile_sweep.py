@@ -3,7 +3,7 @@
 csrc/attention_fwd.cu) at the main-path shapes under a few shared-memory
 key/value tile budgets (controlnet_tpu_torch.ops.cuda_attention
 .KV_TILE_BYTES), batch*heads 256.  The bf16 path runs on the tensor cores with
-a fixed 64-key tile (csrc/attention_fwd_bf16.cu, ``MMA_KV_TILE``) and takes no
+a fixed 64-key tile (csrc/attention_fwd_bf16.cu, ``MMA_TILE``) and takes no
 budget; scripts/port_attention_proj_check.py --attention times it.  Needs one
 CUDA card:
 

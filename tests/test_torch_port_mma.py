@@ -9,12 +9,15 @@ Three kinds of test:
   the query tiles partition L (each key row's K and V is projected by exactly
   one block: projection work 1.0), one cluster of at most 16 blocks per batch
   element, shared memory within a block's 227 KB;
-* kernel a's bf16 launch configuration at the MNIST and latent shapes, and
+* kernels a and b's bf16 launch plan (``cuda_attention.mma_plan``: padded
+  head dim, warpgroups, ring stages, the dkv query split, TMA or cp.async,
+  shared memory) at the MNIST, latent, CIFAR-10 and cross shapes, and
   kernel c's (``cuda_conv.mma_launch_config``) at the 7 hint-encode shapes
   and a ragged one;
 * a model of each kernel's arithmetic written in torch on the CPU (bf16
   operands, float32 sums; for a and d the online softmax over the kernel's
-  key tiles, for b the two sweeps over key tiles and the query tiles, for c
+  key tiles, for b D from a's float32 output, dQ over key tiles, dK and dV
+  over the query shares and tiles, for c
   the halo tiles, taps and 16-channel slabs; every float32 probability or
   gradient that enters a product split into bf16 hi + lo), held against the
   JAX functions (Pallas kernels in interpret mode) and the port's plain
@@ -114,48 +117,101 @@ def test_head_dims_past_64_pad_to_96_and_128():
         assert cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16)[0] == 64
 
 
-@pytest.mark.parametrize("dh,lq,expect", [
-    # MNIST forward (26 calls)
-    (16, 784, (16, 4)), (4, 784, (16, 4)), (32, 196, (32, 4)), (8, 196, (16, 4)),
-    (64, 49, (64, 4)), (32, 49, (32, 4)), (16, 49, (16, 4)),
-    # latent forward (22 calls)
-    (24, 1024, (32, 4)), (8, 1024, (16, 4)), (32, 256, (32, 4)), (16, 256, (16, 4)),
-    (48, 64, (48, 4)), (24, 64, (32, 4)), (32, 16, (32, 1)),
-])
-def test_bf16_launch_config(dh, lq, expect):
-    """Kernel a in bf16: dh padded with zeros to a multiple of 16 (4 and 8 ->
-    16, 24 -> 32); one warp per 16 query rows, up to 4 a block; the tiles fit
-    well inside a block's shared memory, so several blocks share an SM."""
-    dp, warps, smem = cuda_attention.mma_launch_config(dh, lq)
-    assert (dp, warps) == expect
-    assert dp % 16 == 0 and dh <= dp < dh + 16
-    assert smem <= 48 * 1024
+# (dh, Lq, Lk, B*H) -> (padded head dim, a's consumer warpgroups, a's and b's
+# ring stages, b's query split, route of the query panels, route of the key
+# panels), the panels contiguous or slices of one packed projection, 16-byte
+# aligned
+MMA_PLANS = [
+    # MNIST forward and training step (B*H 256)
+    (16, 784, 784, 256, (16, 2, 3, 3, 1, "tma", "tma")),
+    (4, 784, 784, 256, (16, 2, 3, 3, 1, "tma", "tma")),
+    (32, 196, 196, 256, (32, 2, 3, 3, 1, "cp.async8", "cp.async8")),
+    (8, 196, 196, 256, (16, 2, 3, 3, 1, "cp.async8", "cp.async8")),
+    (64, 49, 49, 256, (64, 1, 1, 1, 1, "elements", "elements")),
+    (32, 49, 49, 256, (32, 1, 1, 1, 1, "elements", "elements")),
+    (16, 49, 49, 256, (16, 1, 1, 1, 1, "elements", "elements")),
+    # latent forward (B*H 256)
+    (24, 1024, 1024, 256, (32, 2, 3, 3, 1, "tma", "tma")),
+    (8, 1024, 1024, 256, (16, 2, 3, 3, 1, "tma", "tma")),
+    (32, 256, 256, 256, (32, 2, 3, 3, 1, "tma", "tma")),
+    (16, 256, 256, 256, (16, 2, 3, 3, 1, "tma", "tma")),
+    (48, 64, 64, 256, (48, 1, 1, 1, 1, "tma", "tma")),
+    (24, 64, 64, 256, (32, 1, 1, 1, 1, "tma", "tma")),
+    (32, 16, 16, 256, (32, 1, 1, 1, 1, "tma", "tma")),
+    # CIFAR-10 (config/cifar.yaml: 512 channels at 4 heads) and head dims past 64
+    (128, 64, 64, 256, (128, 1, 1, 1, 1, "tma", "tma")),
+    (100, 64, 64, 256, (128, 1, 1, 1, 1, "tma", "tma")),
+    (96, 64, 64, 256, (96, 1, 1, 1, 1, "tma", "tma")),
+    (80, 49, 49, 256, (96, 1, 1, 1, 1, "elements", "elements")),
+    (65, 1024, 1024, 256, (96, 2, 2, 2, 1, "tma", "tma")),
+    (128, 16, 16, 256, (128, 1, 1, 1, 1, "tma", "tma")),
+    # few slices (one batch element): b splits the query axis
+    (4, 784, 784, 4, (16, 2, 3, 3, 5, "tma", "tma")),
+    (8, 196, 196, 4, (16, 2, 3, 3, 4, "cp.async8", "cp.async8")),
+    (16, 784, 784, 4, (16, 2, 3, 3, 5, "tma", "tma")),
+    (24, 1024, 1024, 16, (32, 2, 3, 3, 2, "tma", "tma")),
+    (32, 196, 196, 4, (32, 2, 3, 3, 4, "cp.async8", "cp.async8")),
+    (48, 64, 64, 16, (48, 1, 1, 1, 1, "tma", "tma")),
+    (64, 49, 49, 4, (64, 1, 1, 1, 1, "elements", "elements")),
+    # cross-attention: the conditional LDM's 77 text tokens, chip_smoke's CROSS_SHAPE
+    (24, 1024, 77, 256, (32, 2, 2, 3, 1, "tma", "elements")),
+    (32, 16, 77, 256, (32, 1, 2, 1, 1, "tma", "elements")),
+    (16, 49, 7, 256, (16, 1, 1, 1, 1, "elements", "elements")),
+]
 
 
-@pytest.mark.parametrize("dh,tile", [(4, 64), (8, 64), (16, 64), (24, 64), (32, 64), (48, 32),
-                                     (64, 32)])
-def test_bf16_backward_tile(dh, tile):
-    """Kernel b in bf16 takes 64 keys (dq pass) or queries (dkv pass) a tile
-    up to a padded head dim of 32, 32 beyond, where S, dP and two gradient
-    accumulators of 16 rows would not fit a warp's registers."""
-    assert cuda_attention.mma_bwd_tile(dh) == tile
+@pytest.mark.parametrize("dh,lq,lk,bh,expect", MMA_PLANS,
+                         ids=[f"dh{s[0]}-{s[1]}x{s[2]}-bh{s[3]}" for s in MMA_PLANS])
+def test_mma_plan(dh, lq, lk, bh, expect):
+    """Kernels a and b in bf16 (wgmma): dh padded with zeros to a multiple of
+    16 up to 64, then 96 or 128; a's blocks one consumer warpgroup of 64
+    query rows where Lq <= 64, else two; 64-wide tiles in a 3-stage ring (2
+    past DP 64, no more than the streamed tiles); b's query split only where the slices' key tiles fill less
+    than two waves of 132 SMs, every share non-empty; TMA where L is a
+    multiple of 8, 8-byte cp.async where it is a multiple of 4, element
+    loads where it is odd; every block's shared memory within the card's 232,448 bytes,
+    with room for a second block an SM at DP <= 64."""
+    plan = cuda_attention.mma_plan(dh, lq, lk, bh)
+    packed = [3 * 4 * dh * length for length in (lq, lk)]  # q|k|v of 4 heads
+    routes = tuple(cuda_attention.ROUTES[cuda_attention.loader_vec(length, [stride], [256])]
+                   for length, stride in zip((lq, lk), packed))
+    assert (plan.dp, plan.warpgroups, plan.fwd_stages, plan.bwd_stages, plan.split) + routes \
+        == expect
+    assert plan.dp % 16 == 0 and dh <= plan.dp and plan.dp == cuda_attention.mma_head_dim(dh)
+    assert plan.q_tiles * 64 >= lq > (plan.q_tiles - 1) * 64
+    assert plan.k_tiles * 64 >= lk > (plan.k_tiles - 1) * 64
+    per = -(-plan.q_tiles // plan.split)
+    assert (plan.split - 1) * per < plan.q_tiles <= plan.split * per
+    if plan.split > 1:
+        assert bh * plan.k_tiles < 2 * cuda_attention.SMS
+    for smem in (plan.fwd_smem, plan.bwd_smem):
+        assert smem <= cuda_attention.SMEM_LIMIT
+        if plan.dp <= 64:
+            assert 2 * smem <= cuda_attention.SMEM_LIMIT
+    tile = plan.dp * 128
+    staged = [2 * (2 * tile + 16) if n % 2 and n <= 128 else 0 for n in (lq, lk)]
+    assert plan.fwd_smem == 1024 + tile * (plan.warpgroups + 2 * plan.fwd_stages) + \
+        8 * (2 * plan.fwd_stages + 1) + staged[1]
+    assert plan.bwd_smem == 1024 + tile * (2 + 2 * plan.bwd_stages) + 2 * 8192 + \
+        plan.dp * 256 + 512 * plan.bwd_stages + 8 * (2 * plan.bwd_stages + 1) + staged[0]
+    assert (plan.fwd_stages, plan.bwd_stages) == tuple(
+        min(3 if plan.dp <= 64 else 2, n) for n in (plan.k_tiles, plan.q_tiles))
+    # b's float32 scratch: the dQ accumulator of every query tile, and the
+    # split's partial dK and dV
+    partials = 2 * plan.split * bh * dh * lk if plan.split > 1 else 0
+    assert plan.bwd_scratch == bh * plan.q_tiles * plan.dp * 64 + partials
 
 
-@pytest.mark.parametrize("dh,lq,expect", [
-    # CIFAR-10 forward (config/cifar.yaml: 512 channels at 4 heads, L 64)
-    (128, 64, (128, 4)), (100, 64, (128, 4)), (96, 64, (96, 4)), (80, 49, (96, 4)),
-    (65, 1024, (96, 4)), (128, 16, (128, 1)),
-])
-def test_bf16_launch_config_past_dh64(dh, lq, expect):
-    """Kernel a in bf16 past head dim 64: dh padded to 96 or 128 (its two
-    wide instantiations); the double-buffered K and V tiles then take more
-    than 48 KB, which the launcher allows, and stay far inside a block's
-    232,448 bytes (two blocks an SM at 4 warps)."""
-    dp, warps, smem = cuda_attention.mma_launch_config(dh, lq)
-    assert (dp, warps) == expect
-    assert smem == 2 * dp * (cuda_attention.mma_launch_config(16, lq)[2] // 32)
-    assert smem <= 232_448 // 2
-    assert cuda_attention.mma_bwd_tile(dh) == 32
+@pytest.mark.parametrize("length,strides,ptrs,vec", [
+    (784, [3 * 64 * 784], [0, 2 * 64 * 784], 8), (784, [64 * 784], [8], 4),
+    (784, [64 * 784], [4], 2), (196, [3 * 128 * 196], [0, 256], 4),
+    (198, [3 * 198 * 8], [0], 2), (200, [3 * 200 + 2], [0], 2), (49, [49 * 64], [0], 1),
+    (64, [64], [2], 1), (77, [77 * 24], [0], 1)])
+def test_loader_vec_follows_tma_and_cp_async_rules(length, strides, ptrs, vec):
+    """TMA needs 16-byte global strides and a 16-byte aligned panel, the
+    8-byte cp.async L and the strides multiples of 4 and 8-byte alignment,
+    the 4-byte one even ones and 4-byte alignment."""
+    assert cuda_attention.loader_vec(length, strides, ptrs) == vec
 
 
 def test_f32_split_past_dh64():
@@ -194,16 +250,18 @@ def _online_softmax_pv(s, v, tile, round_p):
 
 
 def model_attention_a(qt, kt, vt):
-    """Kernel a: (B, H, dh, L) in; bf16 on the tensor cores (P split into
-    bf16 hi + lo for P V, row sums from the float32 P), float32 as float32.
-    Returns the output in the input type and the natural-log lse."""
+    """Kernel a: (B, H, dh, L) in; bf16 on the tensor cores (the keys in
+    tiles of ``MMA_TILE``, P split into bf16 hi + lo for P V, row sums from
+    the float32 P), float32 as float32.  Returns the output in the input
+    type, the natural-log lse, and the float32 output before its rounding
+    (what kernel a writes for kernel b's D)."""
     dh = qt.shape[2]
     q, k, v = (t.float().transpose(-1, -2) for t in (qt, kt, vt))
     s = (q @ k.transpose(-1, -2)) * (math.log2(math.e) / math.sqrt(dh))
     round_p = _hi_lo if qt.dtype == torch.bfloat16 else (lambda p: p)
-    o, l, m = _online_softmax_pv(s, v, cuda_attention.MMA_KV_TILE, round_p)
-    out = (o / l[..., None]).to(qt.dtype).transpose(-1, -2)
-    return out, m * math.log(2.0) + torch.log(l)
+    o, l, m = _online_softmax_pv(s, v, cuda_attention.MMA_TILE, round_p)
+    out32 = (o / l[..., None]).transpose(-1, -2)
+    return out32.to(qt.dtype), m * math.log(2.0) + torch.log(l), out32
 
 
 def _hi_lo(p):
@@ -295,7 +353,7 @@ def test_kernel_a_model_against_jax_and_plain(b, h, dh, lq, lk, dtype):
     k, v = (rng.standard_normal((b, h, dh, lk)).astype(np.float32) for _ in range(2))
     dt = DTYPES[dtype]
     qt, kt, vt = (torch.from_numpy(a).to(dt) for a in (q, k, v))
-    out, lse = model_attention_a(qt, kt, vt)
+    out, lse, _ = model_attention_a(qt, kt, vt)
     plain = cuda_attention.fused_attention_t_plain(qt, kt, vt)
     ref = jax_fused_attention_t(*(jnp.asarray(a, dtype) for a in (q, k, v)), interpret=True)
     ref = torch.from_numpy(np.asarray(ref, np.float32))
@@ -313,35 +371,40 @@ def test_kernel_a_model_against_jax_and_plain(b, h, dh, lq, lk, dtype):
     assert (lse - torch.logsumexp(s, -1)).abs().max().item() < LSE_TOL
 
 
-def model_attention_bwd_b(qt, kt, vt, dout, lse):
-    """Kernel b: (B, H, dh, L) in, (dq, dk, dv) in the input type.  P from the
-    saved lse in float32; the dq pass sums D = rowsum(dP o P) over the
-    kernel's key tiles (``mma_bwd_tile``), then forms dS = P o (dP - D) and
-    dQ over the same tiles; the dkv pass takes the queries in tiles of the
-    same size for dV and dK.  In bf16 P and dS enter their products as
-    hi + lo."""
-    tile = cuda_attention.mma_bwd_tile(qt.shape[2])
+def model_attention_bwd_b(qt, kt, vt, dout, lse, out32):
+    """Kernel b: (B, H, dh, L) in, (dq, dk, dv) in the input type.  D =
+    rowsum(dO o O) from kernel a's float32 output before its rounding; P from
+    the saved lse in float32 and dS = P o (dP - D); dQ summed over key tiles
+    of ``MMA_TILE`` (each key block's float32 product added into the
+    accumulator, in whatever order they arrive); dV and dK summed over query
+    tiles of the same size within each of the plan's query shares, then the
+    shares in order.  In bf16 P and dS enter their products as hi + lo."""
+    b, h, dh, lq = qt.shape
+    lk = kt.shape[3]
+    tile = cuda_attention.MMA_TILE
+    plan = cuda_attention.mma_plan(dh, lq, lk, b * h)
     split = _hi_lo if qt.dtype == torch.bfloat16 else (lambda x: x)
-    scale = 1.0 / math.sqrt(qt.shape[2])
+    scale = 1.0 / math.sqrt(dh)
     q, k, v, do = (t.float() for t in (qt, kt, vt, dout))
+    d = (do * out32).sum(2)
     s = torch.einsum("bhdq,bhdk->bhqk", q, k)
     p = torch.exp2(s * (scale * math.log2(math.e)) - lse[..., None] * math.log2(math.e))
     dp = torch.einsum("bhdq,bhdk->bhqk", do, v)
-    lk, lq = k.shape[3], q.shape[3]
-    d = torch.zeros(p.shape[:-1])
-    for k0 in range(0, lk, tile):
-        d = d + (dp[..., k0:k0 + tile] * p[..., k0:k0 + tile]).sum(-1)
     ds = p * (dp - d[..., None])
     dq = torch.zeros_like(q)
     for k0 in range(0, lk, tile):
         dq = dq + torch.einsum("bhdk,bhqk->bhdq", k[..., k0:k0 + tile],
                                split(ds[..., k0:k0 + tile]))
+    per = -(-plan.q_tiles // plan.split) * tile
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for q0 in range(0, lq, tile):
-        rows = slice(q0, q0 + tile)
-        dv = dv + torch.einsum("bhdq,bhqk->bhdk", do[..., rows], split(p[:, :, rows]))
-        dk = dk + torch.einsum("bhdq,bhqk->bhdk", q[..., rows], split(ds[:, :, rows]))
-    grads = (dq * scale, dk * scale, dv)
+    for z0 in range(0, lq, per):
+        pk, pv = torch.zeros_like(k), torch.zeros_like(v)
+        for q0 in range(z0, min(lq, z0 + per), tile):
+            rows = slice(q0, q0 + tile)
+            pv = pv + torch.einsum("bhdq,bhqk->bhdk", do[..., rows], split(p[:, :, rows]))
+            pk = pk + torch.einsum("bhdq,bhqk->bhdk", q[..., rows], split(ds[:, :, rows]))
+        dk, dv = dk + pk * scale, dv + pv
+    grads = (dq * scale, dk, dv)
     return tuple(g.to(qt.dtype) for g in grads), d
 
 
@@ -357,15 +420,17 @@ def test_kernel_b_model_against_jax_vjp_and_plain(b, h, dh, lq, lk, dtype):
     ``_attn_bwd_kernel_t``, interpret mode) and against the plain backward,
     each relative to max|grad| of the reference: bf16 within one bf16 ulp of
     the largest gradient (2^-7; chip_smoke.py's BWD_KERNEL_TOL), float32 to
-    reassociation (1e-5).  D, formed from float32 P, within 1e-5 of max|D| of
-    the plain rowsum(dP o P) in both types."""
+    reassociation (1e-5).  D, formed as rowsum(dO o O) over kernel a's
+    float32 output before its rounding (P as hi + lo in it), within 1e-5 of
+    max|D| of the plain rowsum(dP o P) in both types.  Two slices a case:
+    b splits the query axis."""
     rng = np.random.default_rng(dh + lq + lk)
     q, dout = (rng.standard_normal((b, h, dh, lq)).astype(np.float32) for _ in range(2))
     k, v = (rng.standard_normal((b, h, dh, lk)).astype(np.float32) for _ in range(2))
     dt = DTYPES[dtype]
     qt, kt, vt, dot = (torch.from_numpy(a).to(dt) for a in (q, k, v, dout))
-    _, lse = model_attention_a(qt, kt, vt)
-    got, d = model_attention_bwd_b(qt, kt, vt, dot, lse)
+    _, lse, out32 = model_attention_a(qt, kt, vt)
+    got, d = model_attention_bwd_b(qt, kt, vt, dot, lse, out32)
     plain = cuda_attention.fused_attention_t_bwd_plain(qt, kt, vt, dot)
     _, vjp = jax.vjp(lambda *a: jax_fused_attention_t(*a, interpret=True),
                      *(jnp.asarray(a, dtype) for a in (q, k, v)))
@@ -383,13 +448,13 @@ def test_kernel_b_model_against_jax_vjp_and_plain(b, h, dh, lq, lk, dtype):
 
 def test_kernel_b_d_from_float32_p_not_the_rounded_output():
     """In bf16, rowsum(dO o O) over the bf16 output (how kernel b formed D
-    before) is off rowsum(dP o P) by the output's rounding, far more than
-    D from float32 P is."""
+    once) is off rowsum(dP o P) by the output's rounding, far more
+    than D over the float32 output before its rounding (kernel b's form) is."""
     rng = np.random.default_rng(7)
     q, k, v, dout = (torch.from_numpy(rng.standard_normal((1, 2, 16, 196)).astype(np.float32))
                      .bfloat16() for _ in range(4))
-    out, lse = model_attention_a(q, k, v)
-    _, d = model_attention_bwd_b(q, k, v, dout, lse)
+    out, lse, out32 = model_attention_a(q, k, v)
+    _, d = model_attention_bwd_b(q, k, v, dout, lse, out32)
     probs = torch.softmax(torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float()) / 4.0, -1)
     d_ref = (torch.einsum("bhdq,bhdk->bhqk", dout.float(), v.float()) * probs).sum(-1)
     scale = d_ref.abs().max()
