@@ -23,9 +23,10 @@ Phases (each one that fails makes the script exit non-zero):
 1. Print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from the sources in this checkout (``build/kernels/``); count the
    tensor-core instructions of each kernel in ``cuobjdump -sass`` of the
-   library: every bfloat16 instantiation of kernels a and b must have
-   warpgroup MMAs (HGMMA) and TMA loads (UTMALDG), every one of c and d
-   mma.sync (HMMA), and no float32 one any (float32 means float32, no TF32).
+   library: every bfloat16 instantiation of kernels a, b and d must have
+   warpgroup MMAs (HGMMA) and TMA loads (UTMALDG), and d's no mma.sync
+   (HMMA), every one of c mma.sync (HMMA), and no float32 one any (float32
+   means float32, no TF32).
 2. Full-width MNIST ControlNet forward at batch 64 with weights from a
    seeded reference-format ``.pth``: through the kernel against the same
    model with the attention's plain version, f32 and bf16.  The kernel's
@@ -102,9 +103,10 @@ Phases (each one that fails makes the script exit non-zero):
    bf16; device times of the kernel, the plain version, the split path the
    port runs with the switch off (projection, attention kernel, projection)
    and ``F.multi_head_attention_forward`` (a yardstick the port never
-   calls), beside the least time the card could take; the launch plan
-   (rows, cluster, shared memory, clusters the card holds at once) and the
-   kernel's clock cycles a block by phase.
+   calls), beside the least time the card could take; two kernel calls
+   bit-equal; the launch plan (rows or packing, cluster, shared memory,
+   clusters the card holds at once) and the kernel's clock cycles a block by
+   phase.
 16. The serving main path: the serve tool's ``make_server`` on a free port,
    ``dpm_controlnet`` from the seeded ``.pth``, buckets up to 16, up to 20
    steps, switch on.  ``/healthz``; ``/generate_batch`` of 16 rows at 4, 10
@@ -168,7 +170,10 @@ Phases (each one that fails makes the script exit non-zero):
    and bf16, 26 launches; the same forward with the fused layer on (24 kernel
    d launches at head dims 16-128, 2 of a at head dim 4) against the switch
    off and the plain versions; kernel d against its plain version at head
-   dims 72-128 off the model paths (``PROJ_WIDE_SHAPES``); then, in a process
+   dims 72-128 off the model paths (``PROJ_WIDE_SHAPES``), and in bf16 at
+   ``PROJ_EDGE_SHAPES`` (packed L 16 / 49 / 33 at batches that are not a
+   multiple of the packing, ragged L 100 / 300, head dims 8-120) on three
+   layouts of x, each call twice and bit-equal; then, in a process
    of its own, kernel a against its plain version at the forward's shapes,
    timed as in phase 3, and kernel d at its six CIFAR shapes, timed as in
    phase 15.
@@ -427,6 +432,13 @@ CIFAR_PROJ_SHAPES = [(1024, 128, 4, 4), (256, 256, 4, 4), (64, 512, 4, 8), (64, 
 # tiles, a bf16 plan only
 PROJ_WIDE_SHAPES = [(49, 288, 4, 1), (33, 192, 2, 1), (100, 192, 2, 1), (100, 120, 1, 1),
                     (20, 256, 2, 1), (300, 256, 2, 1)]
+# Kernel d in bf16 off the model paths, (L, C, heads, batch): L 16 and 49
+# packed across batch elements (4 and 5 a cluster) at batches that are not a
+# multiple of the packing, L 33 packed (7 in 4 tiles), L 100 and 300 in ragged
+# tiles; head dims 8, 24, 72, 120, 32
+PROJ_EDGE_SHAPES = ((16, 64, 8, 3), (16, 192, 8, 5), (49, 576, 8, 3), (49, 240, 2, 5),
+                    (49, 128, 4, 7), (33, 96, 4, 3), (100, 192, 8, 2), (100, 144, 2, 2),
+                    (300, 480, 4, 2))
 LDM_BATCH = 16      # train_params.ldm_batch_size of config/celebhq.yaml
 TRAIN_STEPS = 3     # timed steps of the training main paths (8, 19, 25, 30), per compute type
 TRAIN_WARMUP = 1
@@ -543,10 +555,11 @@ def record_proj_shapes(into: list):
 
 # (label, parts of the kernel's mangled name ("!part": a part it must not
 # have), whether its template type is bf16: True / False / None for either,
-# the SASS instructions each instantiation must have) -> cuobjdump's functions
-# of the kernel.  Kernels a and b in bf16 run their products as warpgroup
-# MMA (HGMMA) and can load by TMA (UTMALDG); c and d as mma.sync (HMMA); no
-# "f32" kernel has a tensor-core instruction.
+# the SASS instructions each instantiation must have, "!OP" one it must not)
+# -> cuobjdump's functions of the kernel.  Kernels a, b and d in bf16 run
+# their products as warpgroup MMA (HGMMA) and load by TMA (UTMALDG), d with no
+# mma.sync left; c as mma.sync (HMMA); no "f32" kernel has a tensor-core
+# instruction.
 SASS_KERNELS = (
     ("a bf16 (attention_fwd_bf16.cu)", ("attention_fwd_hopper_kernel",), None,
      ("HGMMA", "UTMALDG")),
@@ -556,7 +569,8 @@ SASS_KERNELS = (
     ("b f32 (attention_bwd.cu)", ("attention_bwd_", "!_hopper_kernel", "!partial_sum"), None, ()),
     ("c bf16 (conv3x3_tl_bf16.cu)", ("conv3x3_tl_bf16_kernel",), None, ("HMMA",)),
     ("c f32 (conv3x3_tl.cu)", ("conv3x3_tl_kernel",), None, ()),
-    ("d bf16 (attention_proj.cuh)", ("attention_proj_kernel",), True, ("HMMA",)),
+    ("d bf16 (attention_proj_hopper.cuh)", ("attention_proj_hopper_kernel",), None,
+     ("HGMMA", "UTMALDG", "!HMMA")),
     ("d f32 (attention_proj.cuh)", ("attention_proj_kernel",), False, ()),
 )
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
@@ -575,9 +589,9 @@ def start_sass(lib_path: str, nvcc: str) -> tuple:
 def phase_sass(job: tuple) -> dict:
     """Tensor-core (HMMA, HGMMA) and TMA (UTMALDG) instructions per kernel in
     the built library's SASS (``job`` from ``start_sass``): every bf16
-    instantiation of kernels a and b runs its products as wgmma and holds a
-    TMA load, every bf16 one of c and d has mma.sync, and no float32
-    instantiation has a tensor-core instruction."""
+    instantiation of kernels a, b and d runs its products as wgmma and holds
+    a TMA load (d no mma.sync), every bf16 one of c has mma.sync, and no
+    float32 instantiation has a tensor-core instruction."""
     proc, out = job
     _, err = proc.communicate(timeout=300)
     if proc.returncode != 0:
@@ -613,7 +627,10 @@ def phase_sass(job: tuple) -> dict:
         if not mine:
             raise SystemExit(f"kernel {label}: missing from the library")
         for op in needs:
-            if c[f"min_{op.lower()}"] == 0:
+            if op.startswith("!"):
+                if c[op[1:].lower()] != 0:
+                    raise SystemExit(f"kernel {label}: {op[1:]} in its SASS")
+            elif c[f"min_{op.lower()}"] == 0:
                 raise SystemExit(f"kernel {label}: an instantiation without {op} in its SASS")
         if " f32 " in label and c["hmma"] + c["hgmma"] != 0:
             raise SystemExit(f"kernel {label}: tensor-core instructions in float32")
@@ -1809,6 +1826,26 @@ def phase_ldm(device, extra: tuple = ()) -> dict:
     return dict(conv=kern_conv, attn=kern_attn, proj=kern_proj, runs=runs, extra=more)
 
 
+def is_kernel_d(name: str) -> bool:
+    return "attention_proj_kernel" in name or "attention_proj_hopper_kernel" in name
+
+
+def proj_plan_text(l: int, c: int, heads: int, dtype: torch.dtype, batch: int) -> str:
+    """Kernel d's launch plan at a self-attention shape (D = C), in words."""
+    from controlnet_tpu_torch.ops import cuda_attention_proj as proj
+
+    plan = proj.launch_plan(l, c, c, heads, dtype, batch)
+    if dtype == torch.bfloat16:
+        return (f"{plan.elems} elements in {plan.tiles} 64-row tiles, {plan.warpgroups} a block, "
+                f"x {plan.groups} head groups a cluster, {plan.heads_per_tile} heads a "
+                f"projection tile, {plan.out_cols} "
+                f"output channels a tile, rings {plan.wstages} / {plan.kvstages}, {plan.smem} B "
+                f"shared")
+    rows, q_tiles, groups, smem = plan
+    return (f"{rows} rows per block, cluster {q_tiles} tiles x {groups} head groups, {smem} B "
+            f"shared")
+
+
 def proj_inputs(b: int, l: int, c: int, dtype: torch.dtype, device):
     """Seeded inputs of one fused layer call: channel-major (B, C, L) unit
     normal activations, as the GroupNorm before the layer leaves them, and
@@ -1859,6 +1896,7 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
 
             with torch.inference_mode():
                 out = proj.fused_attention_proj(x, *args)
+                equal = torch.equal(out, proj.fused_attention_proj(x, *args))
                 ref = proj.fused_attention_proj_plain(x, *args)
                 torch.cuda.synchronize()
                 scale = ref.float().abs().max().item()
@@ -1869,7 +1907,7 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
                 err_split = (split().transpose(1, 2).float() - ref.float()).abs().max().item()
                 err_lib = (library().transpose(0, 1).float() - ref.float()).abs().max().item()
                 phases = proj.phase_profile(x, *args)
-                ok = (max(err, err_tok) <= PROJ_TOL[dtype] * scale
+                ok = (max(err, err_tok) <= PROJ_TOL[dtype] * scale and equal
                       and bool(torch.isfinite(out).all()) and out.shape == x.shape
                       and out.stride() == x.stride())
                 del ref
@@ -1879,26 +1917,17 @@ def phase_proj_kernels(cases: list, batch: int, device, what: str) -> dict:
             ms = t["ms"]
             bound_ms, bound_by = proj_bound_ms(batch, l, c, dtype)
             flops = (8.0 * l * c * c + 4.0 * l * l * c) * batch
-            rows, q_tiles, groups, smem = proj.launch_plan(l, c, c, heads, dtype)
-            clusters = proj.max_active_clusters(l, c, c, heads, dtype)
-            # The query tiles partition L, and each block projects K and V for
-            # its own rows only: each key's K and V is projected once per batch
-            # element (the kernel's projection flops over the layer's own
-            # 8*L*C^2, tiles padded to whole rows apart).
-            projections_per_key = 1 if rows * (q_tiles - 1) < l <= rows * q_tiles else q_tiles
-            recompute = (4 + 4 * projections_per_key) / 8
+            clusters = proj.max_active_clusters(l, c, c, heads, dtype, batch)
             log(f"attention_proj {str(dtype)[6:]:8s} L {l:4d} C {c:3d} dh {c // heads:2d} B {batch}: "
                 f"err {err:.3g}, on contiguous tokens {err_tok:.3g} (tol {PROJ_TOL[dtype]:g} x "
-                f"max|out| {scale:.3g}) {'ok' if ok else 'FAIL'}; split path vs plain "
-                f"{err_split:.3g}, library vs plain {err_lib:.3g} | device: kernel {ms:.4f} ms "
-                f"({flops / ms / 1e9:.2f} TFLOP/s of the layer's flops; {rows} rows per block, "
-                f"cluster {q_tiles} tiles x {groups} head groups, {clusters} clusters at once for "
-                f"{batch}, {smem} B shared, projection "
-                f"work x{recompute:.1f}, padded rows x{rows * q_tiles / l:.2f}), plain "
+                f"max|out| {scale:.3g}), two calls bit-equal {equal} {'ok' if ok else 'FAIL'}; "
+                f"split path vs plain {err_split:.3g}, library vs plain {err_lib:.3g} | device: "
+                f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s of the layer's flops; "
+                f"{proj_plan_text(l, c, heads, dtype, batch)}, {clusters} clusters at once), plain "
                 f"{t['plain_ms']:.4f} ms, split path {t['split_ms']:.4f} ms, F.mha "
                 f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | x{n} per "
                 f"{what} | cycles a block by phase: "
-                + ", ".join(f"{p} {phases[p]:.0f}" for p in proj.PHASES))
+                + ", ".join(f"{p} {phases[p]:.0f}" for p in proj.phases(dtype)))
             if not ok:
                 raise SystemExit("fused projection + attention kernel disagrees with its "
                                  "plain version")
@@ -2007,7 +2036,7 @@ def phase_proj_checks(cases: list, batch: int, device) -> dict:
             rel = err / ref.abs().max().item()
             ok = rel <= PROJ_TOL[dtype]
             log(f"attention_proj check {str(dtype)[6:]:8s} B {batch:2d} L {l:4d} C {c:3d} dh "
-                f"{c // heads:3d}: plan {proj.launch_plan(l, c, c, heads, dtype)}, err "
+                f"{c // heads:3d}: plan: {proj_plan_text(l, c, heads, dtype, batch)}; err "
                 f"{rel:.3g} of max|out| (tol {PROJ_TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit("fused projection + attention kernel disagrees with its "
@@ -2016,6 +2045,54 @@ def phase_proj_checks(cases: list, batch: int, device) -> dict:
             entry["max_rel_err"] = max(entry["max_rel_err"], rel)
             entry["shapes"].append([l, c, heads])
     return out
+
+
+def proj_layouts(xt: torch.Tensor) -> dict:
+    """Three layouts of the same (B, L, C) tokens from channel-major xt (B, C,
+    L): the transposed view the model passes, contiguous tokens, and tokens
+    whose rows are C + 4 channels apart (no TMA: the copy route)."""
+    b, c, l = xt.shape
+    x = xt.transpose(1, 2)
+    padded = torch.zeros((b, l, c + 4), dtype=xt.dtype, device=xt.device)
+    padded[:, :, :c] = x
+    return {"channel-major": x, "tokens": x.contiguous(), "tokens, rows C + 4 apart":
+            padded[:, :, :c]}
+
+
+def phase_proj_edges(device) -> dict:
+    """Kernel d in bf16 against its plain version at ``PROJ_EDGE_SHAPES`` on
+    the three layouts of ``proj_layouts``, each call twice and the two
+    outputs bit-equal.  Returns the worst error over max|out|, the calls and
+    the routes x took."""
+    from controlnet_tpu_torch.ops import cuda_attention_proj as proj
+
+    dtype = torch.bfloat16
+    res = {"max_rel_err": 0.0, "calls": 0, "routes": collections.Counter()}
+    for l, c, heads, b in PROJ_EDGE_SHAPES:
+        xt, *params = proj_inputs(b, l, c, dtype, device)
+        plan = proj.launch_plan(l, c, c, heads, dtype, b)
+        with torch.inference_mode():
+            ref = proj.fused_attention_proj_plain(xt.transpose(1, 2), *params, heads).float()
+            scale = ref.abs().max().item()
+            for name, x in proj_layouts(xt).items():
+                route, vec = proj.x_route(tuple(x.shape), x.stride(), x.data_ptr(), plan.elems)
+                one = proj.fused_attention_proj(x, *params, heads)
+                two = proj.fused_attention_proj(x, *params, heads)
+                torch.cuda.synchronize()
+                rel = (one.float() - ref).abs().max().item() / scale
+                equal = torch.equal(one, two)
+                ok = rel <= PROJ_TOL[dtype] and equal and bool(torch.isfinite(one).all())
+                log(f"attention_proj edge bf16 B {b} L {l:4d} C {c:3d} dh {c // heads:3d}, {name}"
+                    f" (x by {proj.X_ROUTES[route]}, {vec} a copy): "
+                    f"{proj_plan_text(l, c, heads, dtype, b)}; err {rel:.3g} of max|out| (tol "
+                    f"{PROJ_TOL[dtype]:g}), two calls bit-equal {equal} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("fused projection + attention kernel fails at an edge shape")
+                res["max_rel_err"] = max(res["max_rel_err"], rel)
+                res["calls"] += 2
+                res["routes"][proj.X_ROUTES[route]] += 1
+    res["routes"] = dict(res["routes"])
+    return res
 
 
 # The concurrent clients of phase 16, run as ``python -c`` in a process of
@@ -2284,7 +2361,7 @@ def phase_serve(config: dict, ckpt: str, device) -> dict:
             torch.cuda.synchronize()
         kernels = device_events(prof)
         dev_ms = device_span_ms(kernels)
-        d_ms = sum(_device_ms(e) for e in kernels if "attention_proj_kernel" in e.name)
+        d_ms = sum(_device_ms(e) for e in kernels if is_kernel_d(e.name))
         a_ms = sum(_device_ms(e) for e in kernels if is_kernel_a(e.name))
         res[f"profile_{name}"] = dict(wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms,
                                       kernels=len(kernels), d_ms=d_ms, a_ms=a_ms)
@@ -3665,6 +3742,7 @@ def run_cifar_phases(device) -> dict:
     shapes = phase_forward(cn, device, channels=3, size=32, what="CIFAR forward")
     fused = phase_pixel_fused_forward(cn, device, 3, 32, CIFAR_PROJ_SHAPES, "CIFAR")
     wide = phase_proj_checks(PROJ_WIDE_SHAPES, SERVE_BATCH, device)
+    edges = phase_proj_edges(device)
     del cn
     torch.cuda.empty_cache()
     base = seeded_unet_state_dict(config)
@@ -3687,7 +3765,8 @@ def run_cifar_phases(device) -> dict:
     fused_sampling = phase_cifar_fused_sampling(config, ckpt, device)
     tools = phase_cifar_tools(config, trees, device)
     celeb = phase_celeb_tree_tools(device)
-    res = dict(fwd=kern, bwd=kern_bwd, proj=proj, fused=fused, wide=wide, parity=parity,
+    res = dict(fwd=kern, bwd=kern_bwd, proj=proj, fused=fused, wide=wide, edges=edges,
+               parity=parity,
                train=train, sampling=sampling, fused_sampling=fused_sampling, tools=tools,
                celeb=celeb, seconds=time.perf_counter() - start)
     log(f"CIFAR phases 27-31: {res['seconds']:.1f} s")
@@ -6247,6 +6326,8 @@ def main() -> int:
         **{f"forward_{n}": d for n, d in cifar["fused"].items()},
         "sample_float32": cifar["fused_sampling"]["on"]["launches_d"]}
     proj_entry["wide_shapes"] = cifar["wide"]
+    proj_entry["bf16_edge_shapes"] = cifar["edges"]
+    proj_entry["bf16"]["source"] = "controlnet_tpu_torch/csrc/attention_proj_bf16.cu"
     proj_entry["served"] = {k: served[k] for k in (
         *(f"steps{n}" for n in SERVE_STEPS), "on_ms", "off_ms", "ddim_ms", "batched",
         "unbatched", "profile_on", "profile_off")}

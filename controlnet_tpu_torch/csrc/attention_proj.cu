@@ -1,7 +1,8 @@
-// Kernel d's C entry point and its float32 instantiations at head dims 8-48
-// (64-128 in attention_proj_f32_64_96.cu and attention_proj_f32_128.cu); the
-// kernel itself, and what it replaces and why it is built so, is in
-// attention_proj.cuh.
+// Kernel d's float32 C entry point and its float32 instantiations at head
+// dims 8-48 (64-128 in attention_proj_f32_64_96.cu and
+// attention_proj_f32_128.cu); the kernel itself, and what it replaces and why
+// it is built so, is in attention_proj.cuh.  The bfloat16 route has its own
+// kernel and entry point (attention_proj_bf16.cu).
 //
 // Launch from the host through `controlnet_attention_proj` below (plain C, no
 // PyTorch headers): it launches on the caller's stream, allocates nothing and
@@ -32,12 +33,11 @@ int run(const void* x, const void* in_w, const void* in_b, const void* out_w, co
       (rows != 16 && rows != 32 && rows != 64) || q_tiles != (l + rows - 1) / rows ||
       head_groups < 1 || heads % head_groups != 0 || c % head_groups != 0 ||
       (c / head_groups) % 8 != 0 || q_tiles * head_groups > kMaxCluster ||
-      smem_bytes > kMaxSharedBytes || !aligned(in_w) || !aligned(out_w) ||
-      (dtype != 0 && dtype != 1)) {
+      smem_bytes > kMaxSharedBytes || !aligned(in_w) || !aligned(out_w) || dtype != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int dh = d / heads;
-  const int itemsize = dtype == 0 ? 4 : 2;
+  const int itemsize = 4;
   const controlnet_proj::Layout lay = controlnet_proj::make_layout(
       rows, controlnet_proj::padded_head_dim(dh), dh, d, heads, head_groups, itemsize);
   if (lay.bytes != smem_bytes) return (int)cudaErrorInvalidValue;
@@ -46,32 +46,21 @@ int run(const void* x, const void* in_w, const void* in_b, const void* out_w, co
   const int vec = 16 / itemsize;
   const int x_vec =
       aligned(x) && x_bs % vec == 0 && x_rs == 1 && x_cs % vec == 0 && l % vec == 0 ? 1 : 0;
-  if (dtype == 0) {
-    controlnet_proj::Args<float> a = {
-        static_cast<const float*>(x), static_cast<const float*>(in_w),
-        static_cast<const float*>(in_b), static_cast<const float*>(out_w),
-        static_cast<const float*>(out_b), static_cast<float*>(y), l, c, d, heads, dh,
-        head_groups, q_tiles, x_bs, x_rs, x_cs, y_bs, y_rs, y_cs, scale_log2, x_vec,
-        phase_cycles};
-    return (int)controlnet_proj::dispatch<float>(a, batch, rows, smem_bytes, stream,
-                                                 max_clusters);
-  }
-  using bf16 = __nv_bfloat16;
-  controlnet_proj::Args<bf16> a = {
-      static_cast<const bf16*>(x), static_cast<const bf16*>(in_w),
-      static_cast<const bf16*>(in_b), static_cast<const bf16*>(out_w),
-      static_cast<const bf16*>(out_b), static_cast<bf16*>(y), l, c, d, heads, dh,
+  controlnet_proj::Args<float> a = {
+      static_cast<const float*>(x), static_cast<const float*>(in_w),
+      static_cast<const float*>(in_b), static_cast<const float*>(out_w),
+      static_cast<const float*>(out_b), static_cast<float*>(y), l, c, d, heads, dh,
       head_groups, q_tiles, x_bs, x_rs, x_cs, y_bs, y_rs, y_cs, scale_log2, x_vec,
-        phase_cycles};
-  return (int)controlnet_attention_proj_bf16(a, batch, rows, smem_bytes, stream, max_clusters);
+      phase_cycles};
+  return (int)controlnet_proj::dispatch<float>(a, batch, rows, smem_bytes, stream, max_clusters);
 }
 
 }  // namespace
 
 // x: (B, L, C) and y: (B, L, C), each addressed by its (batch, row, channel)
 // strides in elements; in_w: contiguous (3D, C); in_b: (3D); out_w: contiguous
-// (C, D); out_b: (C); all of one type (dtype 0 float32, 1 bfloat16), the two
-// weights 16-byte aligned.  The launch plan comes from the caller's planner
+// (C, D); out_b: (C); all float32 (dtype 0, the only one this entry takes), the
+// two weights 16-byte aligned.  The launch plan comes from the caller's planner
 // (`launch_plan` in ops/cuda_attention_proj.py): `rows` query rows per block
 // (16, 32 or 64), `q_tiles` = ceil(L / rows) blocks per batch element and head
 // group, `head_groups` groups of heads, one cluster of q_tiles * head_groups

@@ -1,10 +1,10 @@
-// Kernel d, the whole self-attention layer in one launch, for Hopper (sm_90a):
-// the packed q|k|v projection, per-head softmax attention and the output
-// projection.  The template is instantiated for float32 in attention_proj.cu
-// (which also holds the C entry point; head dims 8-48),
-// attention_proj_f32_64_96.cu and attention_proj_f32_128.cu, and for bfloat16
-// in attention_proj_bf16.cu (8-48), attention_proj_bf16_64_96.cu and
-// attention_proj_bf16_128.cu, so that nvcc builds the six in parallel.
+// Kernel d in float32, the whole self-attention layer in one launch, for
+// Hopper (sm_90a): the packed q|k|v projection, per-head softmax attention and
+// the output projection on the CUDA cores.  The template is instantiated in
+// attention_proj.cu (which also holds the float32 C entry point; head dims
+// 8-48), attention_proj_f32_64_96.cu and attention_proj_f32_128.cu, so that
+// nvcc builds them in parallel.  The bfloat16 route is a kernel of its own on
+// wgmma and TMA (attention_proj_hopper.cuh).
 //
 // Replaces the TPU kernel `_attn_proj_kernel` (controlnet_tpu/ops/pallas_attention.py,
 // reached through `fused_attention_proj`).  Forward only.  For tokens x (B, L, C),
@@ -16,16 +16,13 @@
 //                out_h = round_T((e v_h) / rowsum(e))   e is never normalised or rounded
 //   y     = round_T(out out_w^T + out_b)             float32 sums, one rounding
 //
-// with T the input type (float32: no rounding bites; bfloat16: all three do).
-// The (B, 3D, L) projection and the (B, D, L) attention output never reach
-// global memory.
+// with T = float32, where no rounding bites.  The (B, 3D, L) projection and
+// the (B, D, L) attention output never reach global memory.
 //
 // What bounds it on this card.  The layer reads and writes 2*B*L*C values but
-// does (8*L*C^2 + 4*L^2*C)*B flops: operations bound at every model shape.  In
-// bfloat16 all three products run on the tensor cores (mma.sync m16n8k16, bf16
-// operands, float32 accumulators; ldmatrix fragment loads; weights staged by
-// cp.async).  In float32 they run on the CUDA cores (FFMA on the same fragment
-// layout): float32 means float32, no TF32.
+// does (8*L*C^2 + 4*L^2*C)*B flops: operations bound at every model shape.  The
+// three products run on the CUDA cores (FFMA on mma.sync's fragment layout):
+// float32 means float32, no TF32.
 //
 // Design.  The n = ceil(L / R) blocks that own one batch element's query tiles
 // (R = 16, 32 or 64 rows each), times G head groups, form one thread-block
@@ -50,8 +47,8 @@
 // its tile (distributed shared memory) and projects them through its C/G
 // slice of out_w, so every output value is one float32 sum in one fixed
 // order, and meets the cluster once more before it exits.  At the model
-// shapes a bf16 block needs at most 113.5 KB of shared memory, so two share
-// an SM (PERF.md has the clock cycles by phase, `phase_profile`).
+// shapes a block needs at most 227 KB of shared memory (PERF.md has the clock
+// cycles by phase, `phase_profile`).
 //
 // Warps: a block has 4; warp w owns row block w % (R/16) and, where R < 64,
 // shares it with the other (4*16/R - 1) warps: in a product they split the
@@ -59,20 +56,13 @@
 // s % split == its index), whose partial softmax states are merged in warp
 // order, so the result does not depend on timing.
 //
-// The e V product.  In bfloat16, e must not be rounded (the plain version and
-// the TPU kernel never do): e = hi + lo with hi = bf16(e) and lo = bf16(e - hi),
-// two mmas per step, which keeps ~16 bits of e (relative error ~2^-17).
-//
 // x and y are addressed by (batch, row, channel) strides, so the channel-major
-// (B, C, L) activation the model holds is read and written in place (in bf16
-// the x slabs keep that layout and feed the mma through ldmatrix.trans).  Head
+// (B, C, L) activation the model holds is read and written in place.  Head
 // dimensions 8, 16, 24, 32, 48, 64, 96 and 128 are instantiated (40, 56, 72-88
-// and 104-120 run in the next size up with zero columns); in bfloat16 the q.k
-// depth is padded with zeros to a multiple of 16 (24 -> 32, 48 stays).  Past
-// 64 the attention holds 16 n-tiles of output a thread's quad (64 float32
-// registers), and the projection passes widen to DP / 8 tiles so that the q
-// columns stay in one pass (the last, whose epilogue writes the q tile over
-// the slabs).
+// and 104-120 run in the next size up with zero columns).  Past 64 the
+// attention holds 16 n-tiles of output a thread's quad (64 float32 registers),
+// and the projection passes widen to DP / 8 tiles so that the q columns stay
+// in one pass (the last, whose epilogue writes the q tile over the slabs).
 
 #pragma once
 
@@ -84,7 +74,6 @@ namespace controlnet_proj {
 
 namespace cg = cooperative_groups;
 using namespace controlnet_mma;
-using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -111,8 +100,8 @@ __host__ __device__ constexpr int weight_rows(int R, int DP) {
   return 8 * (proj_tiles(R, DP) > kOutTiles ? proj_tiles(R, DP) : kOutTiles);
 }
 
-// One x slab: R rows x kSlab channels, row-major, or (bf16, channel-major x)
-// kSlab channels x R rows, channel-major.
+// One x slab: R rows x kSlab channels, row-major (the larger of that and the
+// transposed slab, as the planner has always counted it).
 __host__ __device__ constexpr int x_slab_elems(int R, int itemsize) {
   return R * row_pitch(kSlab, itemsize) > kSlab * row_pitch(R, itemsize)
              ? R * row_pitch(kSlab, itemsize)
@@ -132,7 +121,7 @@ struct Layout {
 __host__ __device__ inline Layout make_layout(int R, int DP, int dh, int D, int heads, int hg,
                                               int itemsize) {
   Layout p;
-  const int DK = itemsize == 2 ? round16(DP) : DP;
+  const int DK = DP;
   const int Dg = dh * (heads / hg);
   p.p_slab = row_pitch(kSlab, itemsize);
   p.p_k = row_pitch(DK, itemsize);
@@ -178,13 +167,10 @@ enum Phase {
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
 __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float v) { return __float2bfloat16(v); }
 
 // Element i of the 16 bytes v, read as T.
 __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
@@ -196,46 +182,17 @@ template <>
 __device__ __forceinline__ float element<float>(const uint4& v, int i) {
   return __uint_as_float(word(v, i));
 }
-template <>
-__device__ __forceinline__ bf16 element<bf16>(const uint4& v, int i) {
-  return __ushort_as_bfloat16((unsigned short)(word(v, i >> 1) >> (16 * (i & 1))));
-}
 
 // acc[u] += A (16 rows from a, row pitch lda) times the rows of n-tile
 // nt = sp + SPLIT * u of B (8 rows from b + 8 nt ldb, pitch ldb), over depth
-// klen (a multiple of 16); only tiles nt < ntc are meaningful (ntc >= 1).
-// bf16: ldmatrix and mma.sync.
-template <int NTW, int SPLIT>
-__device__ __forceinline__ void warp_product(const bf16* a, int lda, const bf16* b, int ldb,
-                                             int sp, int ntc, int klen, float (&acc)[NTW][4],
-                                             int lane, bool a_kmajor = false) {
-  // No branch per n-tile, so that ptxas can overlap the fragment loads with
-  // the mmas: tiles past ntc recompute the last real one and are not stored.
-  // a_kmajor: A's k index runs down the rows of a (element (m, k) at a + k lda + m).
-  for (int k = 0; k < klen; k += 16) {
-    uint32_t af[4], bf[NTW][2];
-    if (a_kmajor) {
-      load_a_kmajor(af, a + k * lda, lda, lane);
-    } else {
-      load_a_rowmajor(af, a + k, lda, lane);
-    }
-#pragma unroll
-    for (int u = 0; u < NTW; ++u) {
-      const int nt = min(sp + SPLIT * u, ntc - 1);
-      load_b_nmajor(bf[u][0], bf[u][1], b + nt * 8 * ldb + k, ldb, lane);
-    }
-#pragma unroll
-    for (int u = 0; u < NTW; ++u) mma_bf16(acc[u], af, bf[u][0], bf[u][1]);
-  }
-}
-
-// The same in float32 on the CUDA cores, on the same fragment layout: thread
-// (g, t) sums rows g and g + 8 against columns 2t and 2t + 1, four deep at a
-// time from float4 loads.
+// klen; only tiles nt < ntc are meaningful (ntc >= 1), on the CUDA cores, on
+// mma.sync's fragment layout: thread (g, t) sums rows g and g + 8 against
+// columns 2t and 2t + 1, four deep at a time from float4 loads.  No branch per
+// n-tile: tiles past ntc recompute the last real one and are not stored.
 template <int NTW, int SPLIT>
 __device__ __forceinline__ void warp_product(const float* a, int lda, const float* b, int ldb,
                                              int sp, int ntc, int klen, float (&acc)[NTW][4],
-                                             int lane, bool = false) {
+                                             int lane) {
   const int g = lane >> 2, t = lane & 3;
   for (int k = 0; k < klen; k += 4) {
     const float4 a0 = *reinterpret_cast<const float4*>(a + g * lda + k);
@@ -287,11 +244,10 @@ __device__ __forceinline__ void pv_ffma(const float (&p)[NS][4], const float* v,
 // (A_X; rows >= rows_valid and channels >= K read as zeros), or a resident
 // shared tile `as` (pitch a_pitch, zero from column K up to round16(K)).  The
 // slabs go round a ring of kStages buffers, kStages - 1 slabs ahead of the
-// product, with one barrier a slab: the weights by cp.async, x by cp.async
-// too where it is bf16 and channel-major (the slab then keeps x's layout),
-// else through registers one slab ahead, 16 bytes a load where x's layout
-// allows (a.x_vec), element by element otherwise (contiguous tokens, and L not
-// a multiple of 16 bytes).
+// product, with one barrier a slab: the weights by cp.async, x through
+// registers one slab ahead, 16 bytes a load where x's layout allows
+// (a.x_vec), element by element otherwise (contiguous tokens, and L not a
+// multiple of 16 bytes).
 template <typename T, int R, int NTC, bool A_X, class WRow, class Epi>
 __device__ __forceinline__ void block_gemm(const Args<T>& a, const T* xb, int rows_valid,
                                            const T* as, int a_pitch, int K, const T* w, int ldw,
@@ -306,11 +262,7 @@ __device__ __forceinline__ void block_gemm(const Args<T>& a, const T* xb, int ro
   constexpr int CPR = SLAB / VEC;                 // chunks per slab row
   constexpr int NV = (R * CPR + kThreads - 1) / kThreads;  // x chunks per thread per slab
   constexpr int XBUF = x_slab_elems(R, sizeof(T));
-  constexpr int P_XK = row_pitch(R, sizeof(T));   // pitch of a channel-major x slab
-  // bf16, channel-major x: the slab keeps x's layout (channel-major) and is
-  // filled by cp.async like the weights; A fragments come by ldmatrix.trans.
-  const bool xk = sizeof(T) == 2 && A_X && a.x_vec;
-  const bool x_regs = A_X && !xk;  // x through registers
+  const bool x_regs = A_X;  // x through registers
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rb = warp % RB, sp = warp / RB;
   const int kp = round16(K);
@@ -340,16 +292,6 @@ __device__ __forceinline__ void block_gemm(const Args<T>& a, const T* xb, int ro
           const bool ok = k < K;  // K % 8 == 0: a chunk is all in or all out
           const T* src = w + (int64_t)wrow(n0 + n) * ldw + (ok ? k : 0);
           cp_async16(dst + n * p_slab + c * VEC, src, ok ? 16 : 0);
-        }
-        if (xk) {  // VEC rows of one channel per chunk, consecutive threads along rows
-          T* xdst = xslab + buf * XBUF;
-          constexpr int RC = R / VEC;
-          for (int idx = tid; idx < RC * SLAB; idx += kThreads) {
-            const int kk = idx / RC, rc = idx - kk * RC;
-            const bool ok = rc * VEC < rows_valid && k0 + kk < K;
-            cp_async16(xdst + kk * P_XK + rc * VEC, ok ? xb + rc * VEC + (k0 + kk) * a.x_cs : xb,
-                       ok ? 16 : 0);
-          }
         }
       }
       cp_async_commit();
@@ -409,10 +351,9 @@ __device__ __forceinline__ void block_gemm(const Args<T>& a, const T* xb, int ro
       stage(s + kStages - 1);  // into the buffers of slab s - 1
       const int buf = s % kStages;
       const T* ap = !A_X ? as + rb * 16 * a_pitch + s * SLAB
-                         : xslab + buf * XBUF + rb * 16 * (xk ? 1 : p_slab);
-      warp_product<NTW, SPLIT>(ap, !A_X ? a_pitch : (xk ? P_XK : p_slab),
-                               wslab + buf * w_stage, p_slab, sp, ntc,
-                               min(SLAB, kp - s * SLAB), acc, lane, xk);
+                         : xslab + buf * XBUF + rb * 16 * p_slab;
+      warp_product<NTW, SPLIT>(ap, !A_X ? a_pitch : p_slab, wslab + buf * w_stage, p_slab, sp,
+                               ntc, min(SLAB, kp - s * SLAB), acc, lane);
       // slab s + 1's x (its buffer last held slab s + 1 - kStages, long done)
       if (x_regs && s + 1 < nslabs) store_x(s + 1);
     }
@@ -434,10 +375,9 @@ __device__ __forceinline__ void block_gemm(const Args<T>& a, const T* xb, int ro
 
 template <typename T, int DP, int R>
 __global__ void __launch_bounds__(kThreads) attention_proj_kernel(const Args<T> a) {
-  constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int RB = R / 16;
   constexpr int SPLIT = kWarps / RB;
-  constexpr int DK = kBf16 ? round16(DP) : DP;
+  constexpr int DK = DP;
   constexpr int NDT = DP / 8;
   constexpr int NS = 2 * RB;  // 8-key tiles per peer tile
   extern __shared__ uint4 smem4[];
@@ -523,13 +463,6 @@ __global__ void __launch_bounds__(kThreads) attention_proj_kernel(const Args<T> 
 
     // 3. online softmax over every peer's keys
     const T* qrow = qs + rb * 16 * PK;
-    uint32_t qa[kBf16 ? DK / 16 : 1][4];
-    if constexpr (kBf16) {
-#pragma unroll
-      for (int kk = 0; kk < DK / 16; ++kk) {
-        load_a_rowmajor(qa[kk], reinterpret_cast<const bf16*>(qrow) + kk * 16, PK, lane);
-      }
-    }
     float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
     float l[2] = {0.f, 0.f};
     float o[NDT][4];
@@ -576,25 +509,9 @@ __global__ void __launch_bounds__(kThreads) attention_proj_kernel(const Args<T> 
         float s[NS][4];
 #pragma unroll
         for (int nt = 0; nt < NS; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        if constexpr (kBf16) {
-#pragma unroll
-          for (int kk = 0; kk < DK / 16; ++kk) {
-#pragma unroll
-            for (int nt = 0; nt < NS; ++nt) {
-              uint32_t b0, b1;
-              load_b_nmajor(b0, b1, ks + nt * 8 * PK + kk * 16, PK, lane);
-              mma_bf16(s[nt], qa[kk], b0, b1);
-            }
-          }
-        } else {
-          warp_product<NS, 1>(qrow, PK, ks, PK, 0, NS, DK, s, lane);
-        }
+        warp_product<NS, 1>(qrow, PK, ks, PK, 0, NS, DK, s, lane);
         online_softmax<NS, NDT>(s, j * R, a.L, a.scale_log2, m, l, o, lane);
-        if constexpr (kBf16) {
-          pv_mma<NS, NDT, true>(s, vs, PV, o, lane);
-        } else {
-          pv_ffma<NS, NDT>(s, vs, PV, o, lane);
-        }
+        pv_ffma<NS, NDT>(s, vs, PV, o, lane);
       }
       mark(kAttendMath);
       if (step + 1 < a.q_tiles) put(step + 1);
@@ -738,7 +655,7 @@ cudaError_t launch_rows(const Args<T>& a, int batch, int rows, int smem, cudaStr
   if (rows == 32) return launch_kernel<T, DP, 32>(a, batch, smem, stream, max_clusters);
   // No float32 plan of 64 rows past DP 64 fits a block's shared memory (its
   // own K|V alone take 150 KB at DP 96), so none is built.
-  if constexpr (sizeof(T) == 2 || DP <= 64) {
+  if constexpr (DP <= 64) {
     if (rows == 64) return launch_kernel<T, DP, 64>(a, batch, smem, stream, max_clusters);
   }
   return cudaErrorInvalidValue;
@@ -759,7 +676,6 @@ cudaError_t launch_rows(const Args<T>& a, int batch, int rows, int smem, cudaStr
   CONTROLNET_PROJ_LAUNCH_ROWS(EXTERN, T, 96)                                              \
   CONTROLNET_PROJ_LAUNCH_ROWS(EXTERN, T, 128)
 CONTROLNET_PROJ_EACH_HEAD_DIM(extern, float)
-CONTROLNET_PROJ_EACH_HEAD_DIM(extern, bf16)
 #define CONTROLNET_PROJ_INSTANTIATE(T, DP) \
   namespace controlnet_proj {              \
   CONTROLNET_PROJ_LAUNCH_ROWS(, T, DP)     \
@@ -789,8 +705,3 @@ inline int padded_head_dim(int dh) {
 }
 
 }  // namespace controlnet_proj
-
-// The bfloat16 instantiation (attention_proj_bf16.cu).
-cudaError_t controlnet_attention_proj_bf16(const controlnet_proj::Args<__nv_bfloat16>& a,
-                                           int batch, int rows, int smem, cudaStream_t stream,
-                                           int* max_clusters);

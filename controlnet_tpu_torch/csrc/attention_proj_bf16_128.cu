@@ -1,6 +1,7 @@
-// Kernel d's bfloat16 instantiation at head dim 128 (attention_proj.cuh), a
-// source of its own so that nvcc builds it beside the others.
+// Kernel d's bfloat16 instantiation at padded head dim 128
+// (attention_proj_hopper.cuh), a source of its own so that nvcc builds it
+// beside the others.
 
-#include "attention_proj.cuh"
+#include "attention_proj_hopper.cuh"
 
-CONTROLNET_PROJ_INSTANTIATE(__nv_bfloat16, 128)
+CONTROLNET_PROJ_HOPPER_INSTANTIATE(128)

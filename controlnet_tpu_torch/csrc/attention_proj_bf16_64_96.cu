@@ -1,7 +1,8 @@
-// Kernel d's bfloat16 instantiations at head dims 64 and 96 (attention_proj.cuh),
-// a source of their own so that nvcc builds them beside the others.
+// Kernel d's bfloat16 instantiations at padded head dims 64 and 96
+// (attention_proj_hopper.cuh), a source of their own so that nvcc builds them
+// beside the others.
 
-#include "attention_proj.cuh"
+#include "attention_proj_hopper.cuh"
 
-CONTROLNET_PROJ_INSTANTIATE(__nv_bfloat16, 64)
-CONTROLNET_PROJ_INSTANTIATE(__nv_bfloat16, 96)
+CONTROLNET_PROJ_HOPPER_INSTANTIATE(64)
+CONTROLNET_PROJ_HOPPER_INSTANTIATE(96)

@@ -1,6 +1,8 @@
 // Hopper building blocks of the bf16 attention kernels a (attention_fwd_bf16.cu)
-// and b (attention_bwd_bf16.cu): TMA tensor maps and loads, mbarriers, the
-// producer warp's copy routes, and wgmma on 128-byte-swizzled tiles.
+// and b (attention_bwd_bf16.cu) and of the bf16 fused layer d
+// (attention_proj_hopper.cuh): TMA tensor maps and loads, mbarriers, cluster
+// barriers, the producer warp's copy routes, and wgmma on 128-byte-swizzled
+// tiles.
 //
 // Tiles.  Every operand tile is a (DP, 64) block of a (dh, L) panel: DP rows
 // (head dims, zero past dh) of 64 consecutive L values, one 128-byte row per
@@ -107,6 +109,25 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Order this thread's generic-proxy accesses, to global and shared memory,
+// before its later async-proxy ones (TMA reads of what other blocks wrote).
+__device__ __forceinline__ void fence_proxy_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// Every thread of every block of the cluster meets here; writes before it
+// (global and shared) are visible to reads after it anywhere in the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
 // Barrier `id` (1..15) over `threads` threads (a warpgroup's 128).
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -122,6 +143,16 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col0), "r"(0), "r"(h),
       "r"(b)
+      : "memory");
+}
+
+// One box of a 3-D tensor map at (c0, c1, c2) into this block's shared memory.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -293,6 +324,13 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most N of this warpgroup's committed product groups are
+// still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keep the compiler from moving accumulator reads or writes across the
@@ -590,6 +628,26 @@ __device__ __forceinline__ void wgmma_split(float (&acc)[DP / 8][4], const uint3
   }
 }
 
+// A warpgroup's 64 x N float32 accumulator as bf16 into the (N, 64) swizzled
+// tile at st, column n as row n (so N = DP is a (DP, 64) operand tile, and N =
+// k DP is k of them one after another): element (row, n) becomes f(n, value).
+// The caller brackets it with named barriers (the tile must be free).
+template <int N, class F>
+__device__ __forceinline__ void stage_columns(const float (&acc)[N / 8][4], bf16* st,
+                                              const F& f) {
+  const int lane = threadIdx.x & 31, w4 = (threadIdx.x & 127) >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  char* base = reinterpret_cast<char*>(st);
+#pragma unroll
+  for (int dt = 0; dt < N / 8; ++dt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = dt * 8 + 2 * t + (e & 1), row = w4 * 16 + g + 8 * (e >> 1);
+      *reinterpret_cast<bf16*>(base + swz(n, 2 * row)) = __float2bfloat16(f(n, acc[dt][e]));
+    }
+  }
+}
+
 // Stage a warpgroup's 64 x DP accumulator, times `mul`, as bf16 into the
 // (DP, 64) swizzled tile st (head dim d as the row), then store rows d < dh of
 // it to columns [col0, col0 + 64) of the (dh, L) panel dst, coalesced.  Named
@@ -597,23 +655,31 @@ __device__ __forceinline__ void wgmma_split(float (&acc)[DP / 8][4], const uint3
 template <int DP>
 __device__ __forceinline__ void store_rows(const float (&acc)[DP / 8][4], float mul, bf16* st,
                                            bf16* dst, int dh, int L, int col0, int bar) {
-  const int wtid = threadIdx.x & 127, lane = threadIdx.x & 31, w4 = wtid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  char* base = reinterpret_cast<char*>(st);
+  const int wtid = threadIdx.x & 127;
+  const char* base = reinterpret_cast<const char*>(st);
   named_sync(bar, 128);
-#pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = dt * 8 + 2 * t + (e & 1), row = w4 * 16 + g + 8 * (e >> 1);
-      *reinterpret_cast<bf16*>(base + swz(d, 2 * row)) = __float2bfloat16(acc[dt][e] * mul);
-    }
-  }
+  stage_columns<DP>(acc, st, [mul](int, float v) { return v * mul; });
   named_sync(bar, 128);
   for (int idx = wtid; idx < dh * kTile; idx += 128) {
     const int d = idx >> 6, c = idx & 63;
     if (col0 + c < L) {
       dst[(int64_t)d * L + col0 + c] = *reinterpret_cast<const bf16*>(base + swz(d, 2 * c));
+    }
+  }
+}
+
+// Keys outside [lo[r], hi[r]) of row r (this thread's rows g and g + 8) out of
+// the scores s of 64 keys from key0 (-inf, which online_softmax turns into a
+// zero probability).
+__device__ __forceinline__ void mask_keys(float (&s)[8][4], int key0, const int (&lo)[2],
+                                          const int (&hi)[2], int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + nt * 8 + 2 * t + (e & 1), r = e >> 1;
+      if (key < lo[r] || key >= hi[r]) s[nt][e] = -CUDART_INF_F;
     }
   }
 }
@@ -663,23 +729,31 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A `rank`-D tensor map of bf16 values at p (dims innermost first, strides of
+// dims 1.. in bytes, boxes of `box`): 128-byte swizzle (the innermost box is
+// 64 values), zeros outside.  Returns false where TMA cannot describe it.
+inline bool tiled_map(CUtensorMap* map, const void* p, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(p),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The tensor map of the (batch, heads, dh, L) bf16 panels at p, batches
 // `bstride` values apart: boxes of 64 L values by dp head dims, swizzled
 // 128 bytes, zeros outside.  Returns false where TMA cannot describe them.
 inline bool panel_map(CUtensorMap* map, const void* p, int batch, int heads, int dh, int L,
                       long long bstride, int dp) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)L, (cuuint64_t)dh, (cuuint64_t)heads,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)L * 2, (cuuint64_t)dh * L * 2,
                                  (cuuint64_t)bstride * 2};
   const cuuint32_t box[4] = {(cuuint32_t)kTile, (cuuint32_t)dp, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tiled_map(map, p, 4, dims, strides, box);
 }
 
 // Dynamic shared memory above 48 KB needs the kernel's attribute raised.

@@ -1,7 +1,8 @@
-// The mma core on Hopper's tensor cores, shared by the fused projection +
-// attention layer (attention_proj.cuh, kernel d) and the bf16 3x3 conv
-// (conv3x3_tl_bf16.cu, kernel c); the wgmma kernels a and b
-// (hopper_attention.cuh) take its online softmax, hi + lo packing and 4-byte
+// The mma core on Hopper's tensor cores, used by the bf16 3x3 conv
+// (conv3x3_tl_bf16.cu, kernel c); the float32 fused projection + attention
+// layer (attention_proj.cuh, kernel d) runs its FFMA products, online softmax
+// and cp.async staging on the same fragment layout, and the wgmma kernels a,
+// b and d (hopper_attention.cuh) take its online softmax, bf16 packing and
 // cp.async, whose fragment layout is a warpgroup accumulator's per warp.
 //
 // Everything here works on the fragments of one warp's mma.sync.m16n8k16:
@@ -9,8 +10,8 @@
 // lane = 4 g + t holding rows g and g + 8, columns 2t and 2t + 1:
 //   c[0] = (g, 2t)   c[1] = (g, 2t + 1)   c[2] = (g + 8, 2t)   c[3] = (g + 8, 2t + 1).
 // A 16 x 16 bf16 A operand is a[4] (row-major), a 16 x 8 B operand b[2]
-// ("col-major": two k-rows per register).  ldmatrix fills both from shared
-// memory, with .trans where the operand is stored the other way round.
+// ("col-major": two k-rows per register); ldmatrix fills them from shared
+// memory.
 //
 // The online softmax runs on the score fragments of 16 query rows: scores
 // are scaled into log2 units in float32, the running max m and running sum l
@@ -44,27 +45,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
                : "r"(smem_addr(p))
                : "memory");
 }
@@ -106,29 +86,6 @@ __device__ __forceinline__ void load_a_rowmajor(uint32_t (&a)[4], const __nv_bfl
                                                 int pitch, int lane) {
   const int mi = lane >> 3, r = lane & 7;
   ldmatrix_x4(a, p + ((mi & 1) * 8 + r) * pitch + (mi >> 1) * 8);
-}
-
-// The same operand from a k-major tile (k index k at p + k * pitch, 16 rows
-// from p): the transposed load.
-__device__ __forceinline__ void load_a_kmajor(uint32_t (&a)[4], const __nv_bfloat16* p,
-                                              int pitch, int lane) {
-  const int mi = lane >> 3, r = lane & 7;
-  ldmatrix_x4_trans(a, p + ((mi >> 1) * 8 + r) * pitch + (mi & 1) * 8);
-}
-
-// The B operand (k 16, n 8) from an n-major tile (n index n at p + n * pitch,
-// 16 k values from p): b0, b1.
-__device__ __forceinline__ void load_b_nmajor(uint32_t& b0, uint32_t& b1,
-                                              const __nv_bfloat16* p, int pitch, int lane) {
-  const int l = lane & 15;
-  ldmatrix_x2(b0, b1, p + (l & 7) * pitch + (l >> 3) * 8);
-}
-
-// The same operand from a k-major tile (k index k at p + k * pitch, 8 n
-// values from p).
-__device__ __forceinline__ void load_b_kmajor(uint32_t& b0, uint32_t& b1,
-                                              const __nv_bfloat16* p, int pitch, int lane) {
-  ldmatrix_x2_trans(b0, b1, p + (lane & 15) * pitch);
 }
 
 // 2^x on the special-function unit (ex2.approx.ftz: relative error ~2^-22;
@@ -190,43 +147,6 @@ __device__ __forceinline__ void online_softmax(float (&s)[NS][4], int key0, int 
       const float p = fast_exp2(fmaf(s[nt][e], scale_log2, -base[e >> 1]));
       s[nt][e] = p;
       l[e >> 1] += p;
-    }
-  }
-}
-
-// o += p v over NS / 2 steps of 16 keys on the tensor cores.  p is a float32
-// accumulator tile (16 rows x 8 NS columns: exponentiated scores, or in the
-// backward P and dS); V is bf16, key-major (key j at v + j * pitch,
-// KEY_MAJOR) or d-major (column d at v + d * pitch).  p enters as bf16
-// hi + lo, hi = bf16(p) and lo = bf16(p - hi), two products per step: p
-// keeps ~16 bits (relative error ~2^-17), as the TPU kernels contract
-// float32 probabilities and gradients (kernels a, b and d).
-template <int NS, int NDT, bool KEY_MAJOR>
-__device__ __forceinline__ void pv_mma(const float (&p)[NS][4], const __nv_bfloat16* v,
-                                       int pitch, float (&o)[NDT][4], int lane) {
-  static_assert(NS % 2 == 0, "keys come in steps of 16");
-#pragma unroll
-  for (int ks = 0; ks < NS / 2; ++ks) {
-    const float* p0 = p[2 * ks];
-    const float* p1 = p[2 * ks + 1];
-    const float r[8] = {p0[0], p0[1], p0[2], p0[3], p1[0], p1[1], p1[2], p1[3]};
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      hi[q] = pack_bf16(r[2 * q], r[2 * q + 1]);
-      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi[q]);
-      lo[q] = pack_bf16(r[2 * q] - __low2float(h), r[2 * q + 1] - __high2float(h));
-    }
-#pragma unroll
-    for (int dt = 0; dt < NDT; ++dt) {
-      uint32_t b0, b1;
-      if (KEY_MAJOR) {
-        load_b_kmajor(b0, b1, v + (ks * 16) * pitch + dt * 8, pitch, lane);
-      } else {
-        load_b_nmajor(b0, b1, v + (dt * 8) * pitch + ks * 16, pitch, lane);
-      }
-      mma_bf16(o[dt], hi, b0, b1);
-      mma_bf16(o[dt], lo, b0, b1);
     }
   }
 }

@@ -110,7 +110,7 @@ def _compile_and_link(verbose: bool = False) -> Path:
     for tmp, obj in zip(tmp_objs, objs):
         os.replace(tmp, obj)
     tmp = LIB_PATH.with_suffix(tag)
-    # -ldl: the bf16 attention kernels look up cuTensorMapEncodeTiled in libcuda
+    # -ldl: the bf16 kernels a, b and d look up cuTensorMapEncodeTiled in libcuda
     _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-ldl", "-o", str(tmp)]])
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
@@ -158,9 +158,23 @@ def load() -> ctypes.CDLL:
             # bytes), out: clusters the card holds at once
             lib.controlnet_attention_proj_clusters.argtypes = (
                 [i32] * 9 + [ctypes.POINTER(ctypes.c_int)])
+            # (x, in_w, in_b, out_w, out_b, y, qkv scratch, head-output
+            # scratch), (batch, l, c, d, heads), strides of x and of y,
+            # (elems, tiles, groups, heads a projection tile, output columns
+            # a tile, weight stages, K|V stages, warpgroups a block, x route,
+            # x vec, shared bytes), stream, phase counters
+            lib.controlnet_attention_proj_bf16.argtypes = (
+                [ptr] * 8 + [i32] * 5 + [i64] * 6 + [i32] * 11 + [ptr] * 2)
+            # (l, c, d, heads, elems, tiles, groups, heads a projection tile,
+            # output columns a tile, weight stages, K|V stages, warpgroups a
+            # block, shared bytes), out: clusters the card holds at once
+            lib.controlnet_attention_proj_bf16_clusters.argtypes = (
+                [i32] * 13 + [ctypes.POINTER(ctypes.c_int)])
             for fn in (lib.controlnet_attention_fwd_t, lib.controlnet_attention_bwd_t,
                        lib.controlnet_conv3x3_tl, lib.controlnet_attention_proj,
-                       lib.controlnet_attention_proj_clusters):
+                       lib.controlnet_attention_proj_clusters,
+                       lib.controlnet_attention_proj_bf16,
+                       lib.controlnet_attention_proj_bf16_clusters):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -1,5 +1,6 @@
-"""The whole self-attention layer as one kernel: the wrapper of
-``csrc/attention_proj.cu`` (kernel d) and its plain PyTorch version.
+"""The whole self-attention layer as one kernel: the wrapper of kernel d
+(``csrc/attention_proj.cu`` in float32, ``csrc/attention_proj_bf16.cu`` on
+wgmma and TMA in bfloat16) and its plain PyTorch version.
 
 Counterpart of ``controlnet_tpu/ops/pallas_attention.py``'s
 ``fused_attention_proj`` (``_attn_proj_kernel``): packed q|k|v projection,
@@ -21,8 +22,11 @@ calls).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+
+from controlnet_tpu_torch.ops import cuda_attention
 
 launches = 0
 
@@ -32,11 +36,23 @@ MAX_HEAD_DIM = 128
 HEAD_DIMS = (8, 16, 24, 32, 48, 64, 96, 128)   # the kernel's instantiations
 MAX_SHARED_BYTES = 232448             # what one block may use on an H100
 MAX_CLUSTER = 16                      # blocks of one cluster (past 8: non-portable)
-# constants of csrc/attention_proj.cuh
+BF16_CLUSTER = 8                      # bf16 d's head groups stop at 8 blocks a cluster ...
+BF16_BLOCKS = 256                     # ... or, past 8 tiles, add groups up to this many blocks
+# constants of csrc/attention_proj.cuh (float32)
 _THREADS = 128
 _SLAB = 32                            # depth of the x and weight slabs
 _STAGES = 3                           # slabs in the cp.async ring
 _OUT_TILES = 8                        # n-tiles per pass of the output projection
+
+
+# constants of csrc/attention_proj_hopper.cuh (bfloat16)
+TILE = 64                             # rows of a block: one wgmma tile
+_X_TILE = TILE * 128                  # one swizzled 64 x 64 tile of x or of head outputs
+_MAX_N = 128                          # widest product tile
+_STAGE_BYTES = 17408                  # a warpgroup's epilogue staging (128 x 66 bf16, aligned)
+OUT_COLS = (16, 32, 48, 64, 96, 128)  # output channels a tile of the output projection
+TWO_PER_SM = 115712                   # shared memory that lets two blocks share an SM
+X_ROUTES = ("tma token-major", "tma channel-major", "copy token-major", "copy channel-major")
 
 
 def _padded_head_dim(dh: int) -> int | None:
@@ -62,8 +78,9 @@ def _row_pitch(k: int, itemsize: int) -> int:
     return k + (16 // itemsize) * (1 if (k * itemsize // 16) % 2 == 0 else 2)
 
 
-def shared_bytes(rows: int, dh: int, d: int, heads: int, head_groups: int, itemsize: int) -> int:
-    """Shared memory of one block: a ring of x and weight slabs (the q tile
+def shared_bytes(rows: int, dh: int, d: int, heads: int, head_groups: int,
+                 itemsize: int = 4) -> int:
+    """Shared memory of one float32 block: a ring of x and weight slabs (the q tile
     reuses the x slabs), its own K|V for two heads and a peer's (the other stage
     buffer is its own K|V of the other head), the head outputs of its group,
     all heads' outputs of its rows where there are head groups, and the
@@ -88,12 +105,108 @@ def shared_bytes(rows: int, dh: int, d: int, heads: int, head_groups: int, items
     return elems * itemsize + scratch
 
 
-def launch_plan(l: int, c: int, d: int, heads: int,
-                dtype: torch.dtype) -> tuple[int, int, int, int] | None:
-    """(rows, q_tiles, head_groups, smem_bytes) of kernel d for one layer, or
-    None where the kernel has no instantiation for its head dim or the
-    cluster cannot hold it.
+class Bf16Plan(NamedTuple):
+    """Kernel d's launch plan in bfloat16 (csrc/attention_proj_hopper.cuh)."""
+    elems: int           # batch elements a cluster: 1 where L >= 64, packed below
+    tiles: int           # 64-row tiles a head group and cluster
+    warpgroups: int      # 64-row tiles (warpgroups) a block: 1 or 2
+    groups: int          # head groups (ceil(tiles / warpgroups) * groups <= 16 blocks)
+    heads_per_tile: int  # heads of one projection tile (N = heads_per_tile * DP)
+    out_cols: int        # output channels of one output-projection tile
+    wstages: int         # weight ring
+    kvstages: int        # K|V ring
+    smem: int            # shared memory of a block
 
+
+def packing(l: int) -> tuple[int, int]:
+    """(elems, tiles): the batch elements one cluster holds and the 64-row
+    tiles they fill.  From L = 64 up, one element in ceil(L / 64) tiles;
+    below, the flattened rows of consecutive elements share tiles: the fewest
+    tiles (up to 4) that fill at least 90% of their rows, else the fullest."""
+    if l >= TILE:
+        return 1, -(-l // TILE)
+    best = None
+    for tiles in range(1, 5):
+        elems = TILE * tiles // l
+        fill = elems * l / (TILE * tiles)
+        if fill >= 0.9:
+            return elems, tiles
+        if best is None or fill > best[0]:
+            best = (fill, elems, tiles)
+    return best[1], best[2]
+
+
+def shared_bytes_bf16(c: int, d: int, dp: int, heads_per_tile: int, out_cols: int, wstages: int,
+                      kvstages: int, warpgroups: int = 1) -> int:
+    """Shared memory of one bfloat16 block: 1 KB of alignment slack, each
+    warpgroup's x tiles (64 rows of all C channels; later the head outputs,
+    all D), the weight ring, the attention region (two Q tiles a warpgroup
+    and the K|V ring, or each warpgroup's epilogue staging), the barriers.
+    The same sum as ``make_layout`` in csrc/attention_proj_hopper.cuh (the
+    kernel refuses a plan whose sum differs)."""
+    x = -(-max(c, d) // TILE) * _X_TILE
+    slot = max(heads_per_tile * dp, out_cols) * 128
+    attn = max((2 * warpgroups + 2 * kvstages) * dp * 128, warpgroups * _STAGE_BYTES)
+    return (1024 + warpgroups * x + wstages * slot + attn
+            + 8 * (2 + wstages + 2 * warpgroups + kvstages))
+
+
+def _bf16_plan(l: int, c: int, d: int, heads: int, batch: int | None) -> Bf16Plan | None:
+    dh = d // heads
+    dp = cuda_attention.mma_head_dim(dh)  # kernel a's padding
+    elems, tiles = packing(l)
+    for nwg in (2, 1) if tiles > 1 else (1,):
+        blocks = -(-tiles // nwg)
+        if blocks > MAX_CLUSTER:
+            continue
+        fits = [g for g in range(1, heads + 1)
+                if heads % g == 0 and c % g == 0 and (c // g) % 8 == 0
+                and blocks * g <= MAX_CLUSTER]
+        if not fits:
+            continue
+        groups = max(g for g in fits if blocks * g <= max(BF16_CLUSTER, blocks))
+        if tiles > 8 and batch is not None:
+            # a long sequence: as few groups as give the card BF16_BLOCKS blocks
+            clusters = -(-batch // elems)
+            groups = next((g for g in fits if clusters * blocks * g >= BF16_BLOCKS), fits[-1])
+        hpg = heads // groups
+        uses = hpg * tiles  # K|V tiles a block loads, at most
+        nb = max(n for n in (1, 2, 4, 8) if hpg % n == 0 and n * dp <= _MAX_N)
+        cg = c // groups
+        no = min(OUT_COLS, key=lambda n: (-(-cg // n) * n, -n))
+        # one warpgroup: two blocks an SM where they fit; two: one block
+        for limit in (TWO_PER_SM, MAX_SHARED_BYTES) if nwg == 1 else (MAX_SHARED_BYTES,):
+            for ws, ks in ((4, 3), (3, 3), (2, 3), (2, 2)):
+                ks = min(ks, uses)
+                smem = shared_bytes_bf16(c, d, dp, nb, no, ws, ks, nwg)
+                if smem <= limit:
+                    return Bf16Plan(elems, tiles, nwg, groups, nb, no, ws, ks, smem)
+    return None
+
+
+def launch_plan(l: int, c: int, d: int, heads: int, dtype: torch.dtype,
+                batch: int | None = None) -> tuple[int, int, int, int] | Bf16Plan | None:
+    """Kernel d's launch plan for one layer, or None where the kernel has no
+    instantiation for its head dim or a cluster cannot hold it.  bfloat16: a
+    ``Bf16Plan``.  float32: (rows, q_tiles, head_groups, smem_bytes).
+
+    In bfloat16 (csrc/attention_proj_hopper.cuh): 64-row tiles, one element's
+    ceil(L / 64) tiles a cluster from L = 64 up and elements packed into tiles
+    below (``packing``); two tiles (warpgroups) a block where there are two
+    and they fit one block an SM, else one; the most head groups that keep a
+    cluster within 8 blocks, or one group where a group's tiles need more
+    (and C into slices of 8 or more channels: the card holds 14 clusters of
+    16 blocks at once but 16 or more of 8), except past 8 tiles with
+    ``batch`` given, where the fewest groups (cluster up to 16 blocks) that
+    give ``BF16_BLOCKS`` blocks in all: at L 1,024 and batch 16 one group
+    leaves 128 blocks of 16 heads each;
+    projection tiles of the most heads that divide a group and stay within
+    128 columns; the output-projection tile that pads a group's channels
+    least; ring stages (weights / K|V) 4 / 3, 3 / 3, 2 / 3 or 2 / 2 (K|V no
+    more than the tiles a block loads), the first that lets two
+    one-warpgroup blocks share an SM, else the first that fits.
+
+    In float32 (csrc/attention_proj.cuh):
     rows: query rows per block, 64 past L = 256, 32 past 64, else 16;
     q_tiles = ceil(L / rows) blocks share one batch element's K and V (each
     projects its own rows' keys and values once); head_groups: the largest
@@ -104,6 +217,8 @@ def launch_plan(l: int, c: int, d: int, heads: int,
     if (dtype not in _ITEMSIZE or heads < 1 or d % heads or l < 1
             or _padded_head_dim(d // heads) is None):
         return None
+    if dtype == torch.bfloat16:
+        return _bf16_plan(l, c, d, heads, batch)
     rows = 64 if l > 256 else (32 if l > 64 else 16)
     q_tiles = -(-l // rows)
     if q_tiles > MAX_CLUSTER:
@@ -113,7 +228,7 @@ def launch_plan(l: int, c: int, d: int, heads: int,
                   and q_tiles * g <= MAX_CLUSTER), default=0)
     if not groups:
         return None
-    smem = shared_bytes(rows, d // heads, d, heads, groups, _ITEMSIZE[dtype])
+    smem = shared_bytes(rows, d // heads, d, heads, groups)
     if smem > MAX_SHARED_BYTES:
         return None
     return rows, q_tiles, groups, smem
@@ -126,7 +241,8 @@ def fused_proj_supported(l: int, c: int, d: int, heads: int, dtype: torch.dtype)
     too); a channel count that is a multiple of 8; and a
     launch plan (``launch_plan``): L up to 1,024 (16 blocks of 64 rows in one
     cluster) and a block's shared memory within 227 KB (D up to ~1,600 in
-    float32).  A layer outside this rule takes the split path (projection,
+    float32; in bfloat16 C and D up to ~1,300, the x tile of all C channels
+    resident).  A layer outside this rule takes the split path (projection,
     attention kernel, projection)."""
     if dtype not in _DTYPE_CODE or heads < 1 or d % heads or l < 1:
         return False
@@ -136,17 +252,25 @@ def fused_proj_supported(l: int, c: int, d: int, heads: int, dtype: torch.dtype)
     return launch_plan(l, c, d, heads, dtype) is not None
 
 
-def max_active_clusters(l: int, c: int, d: int, heads: int, dtype: torch.dtype) -> int:
+def max_active_clusters(l: int, c: int, d: int, heads: int, dtype: torch.dtype,
+                        batch: int | None = None) -> int:
     """How many of kernel d's clusters, at this layer's launch plan, the
     current CUDA card holds at once (cudaOccupancyMaxActiveClusters): with
     ``launch_plan``'s cluster size, how much of the card one wave fills.
     Needs a CUDA card; a diagnostic, not on any path."""
     from controlnet_tpu_torch.ops import _build
 
-    rows, q_tiles, groups, smem = launch_plan(l, c, d, heads, dtype)
+    plan = launch_plan(l, c, d, heads, dtype, batch)
     count = ctypes.c_int(0)
-    err = _build.load().controlnet_attention_proj_clusters(
-        l, c, d, heads, _DTYPE_CODE[dtype], rows, q_tiles, groups, smem, ctypes.byref(count))
+    if dtype == torch.bfloat16:
+        err = _build.load().controlnet_attention_proj_bf16_clusters(
+            l, c, d, heads, plan.elems, plan.tiles, plan.groups, plan.heads_per_tile,
+            plan.out_cols, plan.wstages, plan.kvstages, plan.warpgroups, plan.smem,
+            ctypes.byref(count))
+    else:
+        rows, q_tiles, groups, smem = plan
+        err = _build.load().controlnet_attention_proj_clusters(
+            l, c, d, heads, _DTYPE_CODE[dtype], rows, q_tiles, groups, smem, ctypes.byref(count))
     if err != 0:
         raise RuntimeError(f"cluster occupancy query failed: cudaError {err}")
     return count.value
@@ -155,14 +279,15 @@ def max_active_clusters(l: int, c: int, d: int, heads: int, dtype: torch.dtype) 
 def phase_profile(x: torch.Tensor, in_w: torch.Tensor, in_b: torch.Tensor,
                   out_w: torch.Tensor, out_b: torch.Tensor, num_heads: int) -> dict:
     """Mean clock cycles per block of one launch of kernel d by phase
-    (``PHASES``, as thread 0 of each block sees them), and the block count.
-    Needs a CUDA card; a diagnostic, not on any path."""
-    counters = torch.zeros(len(PHASES) + 1, dtype=torch.int64, device=x.device)
+    (``phases(x.dtype)``, as thread 0 of each block sees them), and the block
+    count.  Needs a CUDA card; a diagnostic, not on any path."""
+    names = phases(x.dtype)
+    counters = torch.zeros(len(names) + 1, dtype=torch.int64, device=x.device)
     with torch.inference_mode():
         _launch(x, in_w, in_b, out_w, out_b, num_heads, counters)
     counts = counters.tolist()
     blocks = max(counts[-1], 1)
-    return {**{p: c / blocks for p, c in zip(PHASES, counts)}, "blocks": counts[-1]}
+    return {**{p: c / blocks for p, c in zip(names, counts)}, "blocks": counts[-1]}
 
 
 def fused_attention_proj_plain(x: torch.Tensor, in_w: torch.Tensor, in_b: torch.Tensor,
@@ -213,8 +338,38 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
+# where a block's cycles go (phase_profile): float32 (attention_proj.cuh) and
+# bfloat16 (attention_proj_hopper.cuh, hopper_attention.cuh's PhaseClock)
 PHASES = ("zero", "project", "project_sync", "attend_wait", "attend_math", "attend_put", "merge",
           "gather", "out_project")
+PHASES_BF16 = ("wait", "sync", "project", "scores", "softmax", "pv", "out_project", "epilogue")
+
+
+def phases(dtype: torch.dtype) -> tuple[str, ...]:
+    return PHASES_BF16 if dtype == torch.bfloat16 else PHASES
+
+
+def x_route(shape: tuple, strides: tuple, ptr: int, elems: int) -> tuple[int, int]:
+    """How the bfloat16 kernel loads x (B, L, C) of these strides (in
+    elements) at address ``ptr``: (route, elements a copy), route an index of
+    ``X_ROUTES``.  TMA where its 16-byte stride rule holds (token-major x; or
+    channel-major x with L a multiple of 8 and one element a cluster),
+    else the warpgroup copies it, 16, 8 or 4 bytes a copy where the strides
+    and L let no copy straddle two elements, else element by element."""
+    _, l, c = shape
+    bs, rs, cs = strides
+    if cs == 1 and c > 1:  # token-major: rows of contiguous channels
+        if (rs % 8 == 0 and bs % 8 == 0 and ptr % 16 == 0
+                and (elems == 1 or bs == l * rs or shape[0] == 1)):
+            return 0, 8
+        vec = next((v for v in (8, 4, 2) if rs % v == 0 and bs % v == 0 and ptr % (2 * v) == 0),
+                   1)
+        return 2, vec
+    if elems == 1 and cs % 8 == 0 and bs % 8 == 0 and ptr % 16 == 0:
+        return 1, 8
+    vec = next((v for v in (8, 4, 2) if l % v == 0 and cs % v == 0 and bs % v == 0
+                and ptr % (2 * v) == 0), 1)
+    return 3, vec
 
 
 def _launch(x: torch.Tensor, in_w: torch.Tensor, in_b: torch.Tensor, out_w: torch.Tensor,
@@ -246,7 +401,10 @@ def _launch(x: torch.Tensor, in_w: torch.Tensor, in_b: torch.Tensor, out_w: torc
                          f"view of a (B, C, L) tensor; got strides {x.stride()}")
     for name, p in (("in_proj weight", in_w), ("out_proj weight", out_w)):
         if p.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel stages it by cp.async)")
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel loads it by "
+                             "cp.async or TMA)")
+    if x.dtype == torch.bfloat16:
+        return _launch_bf16(x, in_w, in_b, out_w, out_b, num_heads, out, phase_cycles)
     rows, q_tiles, groups, smem = launch_plan(l, c, d, num_heads, x.dtype)
     lib = _build.load()
     with torch.cuda.device(x.device):
@@ -260,6 +418,39 @@ def _launch(x: torch.Tensor, in_w: torch.Tensor, in_b: torch.Tensor, out_w: torc
                            f"(x{tuple(x.shape)} strides {x.stride()}, D {d}, {num_heads} heads, "
                            f"{x.dtype}; plan: {rows} rows per block, {q_tiles} query tiles x "
                            f"{groups} head groups per cluster, {smem} bytes of shared memory)")
+    launches += 1
+    return out
+
+
+def _launch_bf16(x: torch.Tensor, in_w: torch.Tensor, in_b: torch.Tensor, out_w: torch.Tensor,
+                 out_b: torch.Tensor, num_heads: int, out: torch.Tensor,
+                 phase_cycles: torch.Tensor | None) -> torch.Tensor:
+    """Kernel d in bfloat16 into ``out``, with its two scratch buffers: q|k|v
+    of every head in kernel a's (dh, L) panels, and the head outputs."""
+    global launches
+    from controlnet_tpu_torch.ops import _build
+
+    b, l, c = x.shape
+    d = out_w.shape[1]
+    plan = launch_plan(l, c, d, num_heads, x.dtype, b)
+    clusters = -(-b // plan.elems)
+    rows = -(-plan.tiles // plan.warpgroups) * plan.warpgroups * TILE
+    qkv = torch.empty(clusters * 3 * d * rows, dtype=x.dtype, device=x.device)
+    heads_out = torch.empty(clusters * rows * d, dtype=x.dtype, device=x.device)
+    route, vec = x_route(tuple(x.shape), x.stride(), x.data_ptr(), plan.elems)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.controlnet_attention_proj_bf16(
+            x.data_ptr(), in_w.data_ptr(), in_b.data_ptr(), out_w.data_ptr(), out_b.data_ptr(),
+            out.data_ptr(), qkv.data_ptr(), heads_out.data_ptr(), b, l, c, d, num_heads,
+            *x.stride(), *out.stride(), plan.elems, plan.tiles, plan.groups,
+            plan.heads_per_tile, plan.out_cols, plan.wstages, plan.kvstages,
+            plan.warpgroups, route, vec, plan.smem, _stream(x),
+            None if phase_cycles is None else phase_cycles.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"fused projection + attention kernel launch failed: cudaError {err} "
+                           f"(x{tuple(x.shape)} strides {x.stride()}, D {d}, {num_heads} heads, "
+                           f"bfloat16; plan {plan}, x route {X_ROUTES[route]} by {vec})")
     launches += 1
     return out
 

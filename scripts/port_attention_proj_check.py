@@ -21,13 +21,14 @@ the host cost of a bf16 launch of kernel a on the TMA and cp.async routes
 (``host_cost``: the tensor maps' encoding), then checks and times kernel a
 (both types) at the MNIST and latent shapes beside SDPA, and kernel b at the
 same shapes beside SDPA's backward.  ``--check-only`` times nothing: it holds kernel d
-against its plain version once at every shape (batch 16 and 64), kernel a
-(both types, with its saved log-sum-exp) at the MNIST, latent and CIFAR-10
+against its plain version once at every shape (batch 16 and 64) and in bf16
+at ``chip_smoke.PROJ_EDGE_SHAPES`` (three layouts of x, two calls bit-equal),
+kernel a (both types, with its saved log-sum-exp) at the MNIST, latent and CIFAR-10
 attention shapes, and kernel b (both types, with its row term D against rowsum(dP o P)
 from float32 P) at the MNIST and CIFAR-10 attention shapes and the cross
 shape; both also at head dims 80, 100 and 128 off the model paths, which is
-the quick first call after a change to any of the three.  The shapes and the
-checks are chip_smoke.py's.
+the quick first call after a change to any of the three.
+``scripts/port_proj_units.py`` times d at its four units.  The shapes and the checks are chip_smoke.py's.
 """
 
 import argparse
@@ -69,6 +70,7 @@ def check_only(device) -> None:
                           (chip_smoke.BATCH, chip_smoke.CIFAR_PROJ_SHAPES),
                           (chip_smoke.SERVE_BATCH, chip_smoke.PROJ_WIDE_SHAPES)):
         chip_smoke.phase_proj_checks(shapes, batch, device)  # raises on a disagreement
+    chip_smoke.phase_proj_edges(device)
     failed = []
     for lq, lk, dh, bh in A_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -129,10 +131,10 @@ def phases(batch: int, device) -> None:
             xt, *params = chip_smoke.proj_inputs(batch, l, c, dtype, device)
             proj.phase_profile(xt.transpose(1, 2), *params, heads)  # warm
             prof = proj.phase_profile(xt.transpose(1, 2), *params, heads)
-            total = sum(prof[p] for p in proj.PHASES)
+            total = sum(prof[p] for p in proj.phases(dtype))
             print(f"phases d {str(dtype)[6:]:8s} L {l:4d} C {c:3d}: {prof['blocks']} blocks, "
                   f"{total:.0f} cycles a block: " + ", ".join(
-                      f"{p} {prof[p]:.0f} ({prof[p] / total:.0%})" for p in proj.PHASES),
+                      f"{p} {prof[p]:.0f} ({prof[p] / total:.0%})" for p in proj.phases(dtype)),
                   flush=True)
 
 

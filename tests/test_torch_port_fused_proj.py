@@ -267,23 +267,51 @@ def test_fused_proj_supported(l, c, d, heads, dtype, ok):
 
 
 @pytest.mark.parametrize("l,c,heads,rows_f32,rows_bf16", [
-    (784, 64, 4, 64, 64), (196, 128, 4, 32, 32), (196, 32, 4, 32, 32),
-    (49, 256, 4, 16, 16), (49, 128, 4, 16, 16), (49, 64, 4, 16, 16),
-    (1024, 384, 16, 64, 64), (1024, 128, 16, 64, 64), (256, 512, 16, 32, 32),
-    (256, 256, 16, 32, 32), (64, 768, 16, 16, 16), (64, 384, 16, 16, 16),
-    (16, 512, 16, 16, 16),
+    (784, 64, 4, 64, 64), (196, 128, 4, 32, 64), (196, 32, 4, 32, 64),
+    (49, 256, 4, 16, 64), (49, 128, 4, 16, 64), (49, 64, 4, 16, 64),
+    (1024, 384, 16, 64, 64), (1024, 128, 16, 64, 64), (256, 512, 16, 32, 64),
+    (256, 256, 16, 32, 64), (64, 768, 16, 16, 64), (64, 384, 16, 16, 64),
+    (16, 512, 16, 16, 64),
 ])
 def test_tile_rows_at_the_model_shapes(l, c, heads, rows_f32, rows_bf16):
     """Rows per block at the 13 self-attention shapes of the two models, as
-    the launch planner picks them: 64 past L = 256, 32 past 64, else 16, so
-    that one batch element's query tiles fit one cluster of at most 16
-    blocks; the plan's shared memory fits one block."""
-    for dtype, rows in ((torch.float32, rows_f32), (torch.bfloat16, rows_bf16)):
-        got_rows, q_tiles, groups, smem = cuda_attention_proj.launch_plan(l, c, c, heads, dtype)
-        assert got_rows == rows and q_tiles == -(-l // rows)
-        itemsize = torch.tensor([], dtype=dtype).element_size()
-        assert (cuda_attention_proj.shared_bytes(rows, c // heads, c, heads, groups, itemsize)
-                == smem <= cuda_attention_proj.MAX_SHARED_BYTES)
+    the launch planner picks them.  float32: 64 past L = 256, 32 past 64,
+    else 16, so that one batch element's query tiles fit one cluster of at
+    most 16 blocks.  bfloat16: always one 64-row wgmma tile, one element's
+    ceil(L / 64) tiles a cluster from L = 64 up, and below it the rows of
+    consecutive elements packed into the tiles (L 49: 5 elements in 4 tiles,
+    L 16: 4 in 1).  The plan's shared memory fits one block."""
+    rows, q_tiles, groups, smem = cuda_attention_proj.launch_plan(l, c, c, heads, torch.float32)
+    assert rows == rows_f32 and q_tiles == -(-l // rows)
+    assert (cuda_attention_proj.shared_bytes(rows, c // heads, c, heads, groups, 4)
+            == smem <= cuda_attention_proj.MAX_SHARED_BYTES)
+    plan = cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16)
+    assert cuda_attention_proj.TILE == rows_bf16 == 64
+    if l >= 64:
+        assert plan.elems == 1 and plan.tiles == -(-l // 64)
+    else:
+        assert (plan.elems, plan.tiles) == {49: (5, 4), 16: (4, 1)}[l]
+    assert plan.elems * l <= plan.tiles * rows_bf16
+    assert plan.smem <= cuda_attention_proj.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("shape,strides,ptr,elems,route", [
+    ((16, 1024, 384), (384 * 1024, 1, 1024), 0, 1, ("tma channel-major", 8)),   # latent, L % 8 == 0
+    ((64, 784, 64), (64 * 784, 1, 784), 0, 1, ("tma channel-major", 8)),
+    ((64, 196, 128), (128 * 196, 1, 196), 0, 1, ("copy channel-major", 4)),    # 392-byte rows
+    ((64, 49, 256), (256 * 49, 1, 49), 0, 5, ("copy channel-major", 1)),       # odd L, packed
+    ((16, 16, 512), (512 * 16, 1, 16), 0, 4, ("copy channel-major", 8)),       # packed rows
+    ((16, 16, 512), (512 * 16, 512, 1), 0, 4, ("tma token-major", 8)),         # packed, flattened
+    ((3, 49, 576), (49 * 580, 580, 1), 0, 5, ("copy token-major", 4)),         # rows C + 4 apart
+    ((2, 100, 144), (100 * 144, 144, 1), 8, 1, ("copy token-major", 4)),       # 8-byte aligned
+])
+def test_x_route_follows_tma_and_copy_rules(shape, strides, ptr, elems, route):
+    """bf16 kernel d loads x by TMA where its 16-byte stride rule holds
+    (token-major rows; channel-major rows of one element a cluster with L a
+    multiple of 8), else copies it 16, 8 or 4 bytes at a time where no copy
+    can straddle two elements, else element by element."""
+    r, vec = cuda_attention_proj.x_route(shape, strides, ptr, elems)
+    assert (cuda_attention_proj.X_ROUTES[r], vec) == route
 
 
 def test_wrapper_checks_and_has_no_cpu_fallback(monkeypatch):

@@ -4,11 +4,13 @@ before any card sees them.
 
 Three kinds of test:
 
-* kernel d's launch planner (``cuda_attention_proj.launch_plan``) at the 13
-  self-attention shapes of the MNIST and latent models, float32 and bfloat16:
-  the query tiles partition L (each key row's K and V is projected by exactly
-  one block: projection work 1.0), one cluster of at most 16 blocks per batch
-  element, shared memory within a block's 227 KB;
+* kernel d's launch planner (``cuda_attention_proj.launch_plan``) at the
+  self-attention shapes of the MNIST, latent and CIFAR-10 models, float32
+  and bfloat16: the query tiles partition L (each key row's K and V is
+  projected by exactly one block: projection work 1.0), one cluster of at
+  most 16 blocks, shared memory within a block's 227 KB; in bfloat16 the
+  packing of short sequences into 64-row tiles covers each (element, token)
+  once and every row attends to the keys of its own element only;
 * kernels a and b's bf16 launch plan (``cuda_attention.mma_plan``: padded
   head dim, warpgroups, ring stages, the dkv query split, TMA or cp.async,
   shared memory) at the MNIST, latent, CIFAR-10 and cross shapes, and
@@ -49,7 +51,7 @@ BWD_TOL_BF16 = 1e-2    # relative to max|grad|: one bf16 ulp, at most 2^-7
 CONV_TOL_BF16 = 1e-2   # relative to max|out|: one bf16 ulp, at most 2^-7
 LSE_TOL = 1e-4
 
-# (L, C, heads) -> (rows, q_tiles, head_groups), the same in both types
+# (L, C, heads) -> float32 (rows, q_tiles, head_groups)
 PLANS = {
     (784, 64, 4): (64, 13, 1), (196, 128, 4): (32, 7, 2), (196, 32, 4): (32, 7, 2),
     (49, 256, 4): (16, 4, 4), (49, 128, 4): (16, 4, 4), (49, 64, 4): (16, 4, 4),
@@ -60,7 +62,55 @@ PLANS = {
     (1024, 128, 4): (64, 16, 1), (256, 256, 4): (32, 8, 2), (64, 512, 4): (16, 4, 4),
     (64, 256, 4): (16, 4, 4), (64, 128, 4): (16, 4, 4), (256, 64, 4): (32, 8, 2),
 }
+# (L, C, heads) -> bfloat16 (elements a cluster, 64-row tiles a head group,
+# tiles (warpgroups) a block, head groups, heads a projection tile, output
+# channels a tile)
+BF16_PLANS = {
+    (784, 64, 4): (1, 13, 2, 1, 4, 64),
+    (196, 128, 4): (1, 4, 2, 4, 1, 32),
+    (196, 32, 4): (1, 4, 2, 4, 1, 16),
+    (49, 256, 4): (5, 4, 2, 4, 1, 64),
+    (49, 128, 4): (5, 4, 2, 4, 1, 32),
+    (49, 64, 4): (5, 4, 2, 4, 1, 16),
+    (1024, 384, 16): (1, 16, 2, 1, 4, 128),
+    (1024, 128, 16): (1, 16, 2, 1, 8, 128),
+    (256, 512, 16): (1, 4, 2, 4, 4, 128),
+    (256, 256, 16): (1, 4, 2, 4, 4, 64),
+    (64, 768, 16): (1, 1, 1, 8, 2, 96),
+    (64, 384, 16): (1, 1, 1, 8, 2, 48),
+    (16, 512, 16): (4, 1, 1, 8, 2, 64),
+    (1024, 128, 4): (1, 16, 2, 1, 4, 128),
+    (256, 256, 4): (1, 4, 2, 4, 1, 64),
+    (64, 512, 4): (1, 1, 1, 4, 1, 128),
+    (64, 256, 4): (1, 1, 1, 4, 1, 64),
+    (64, 128, 4): (1, 1, 1, 4, 1, 32),
+    (256, 64, 4): (1, 4, 2, 4, 1, 16),
+}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_bf16_plan(l, c, heads, plan):
+    """What every bf16 plan of kernel d holds (csrc/attention_proj_hopper.cuh)."""
+    dh = c // heads
+    dp = cuda_attention.mma_head_dim(dh)
+    if l >= 64:  # one element a cluster, its tiles partition L
+        assert plan.elems == 1 and plan.tiles == -(-l // 64)
+    else:  # packed: the elements' flattened rows fill at least 90% of the tiles, or the most
+        assert plan.elems * l <= plan.tiles * 64 < (plan.elems + 1) * l
+        assert plan.tiles <= 4
+    blocks = -(-plan.tiles // plan.warpgroups)
+    assert plan.warpgroups == (2 if plan.tiles > 1 else 1)
+    assert blocks * plan.groups <= cuda_attention_proj.MAX_CLUSTER
+    assert heads % plan.groups == 0 and (c // plan.groups) % 8 == 0
+    hpg = heads // plan.groups
+    assert hpg % plan.heads_per_tile == 0 and plan.heads_per_tile * dp <= 128
+    assert plan.out_cols in cuda_attention_proj.OUT_COLS
+    assert plan.smem == cuda_attention_proj.shared_bytes_bf16(
+        c, c, dp, plan.heads_per_tile, plan.out_cols, plan.wstages, plan.kvstages,
+        plan.warpgroups)
+    assert plan.smem <= cuda_attention_proj.MAX_SHARED_BYTES == 232448
+    # each warpgroup's x tile of all C channels stays resident, then its head outputs
+    assert plan.smem >= 1024 + plan.warpgroups * -(-c // 64) * 8192
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -69,6 +119,10 @@ def test_launch_plan_at_the_model_shapes(l, c, heads, dtype):
     plan = cuda_attention_proj.launch_plan(l, c, c, heads, DTYPES[dtype])
     assert plan is not None and cuda_attention_proj.fused_proj_supported(
         l, c, c, heads, DTYPES[dtype])
+    if dtype == "bfloat16":
+        assert plan[:6] == BF16_PLANS[(l, c, heads)]
+        check_bf16_plan(l, c, heads, plan)
+        return
     rows, q_tiles, groups, smem = plan
     assert (rows, q_tiles, groups) == PLANS[(l, c, heads)]
     # the tiles partition the sequence: every key row lies in exactly one
@@ -103,18 +157,98 @@ def test_launch_plan_is_none_past_head_dim_128(dh, dtype):
 
 def test_head_dims_past_64_pad_to_96_and_128():
     """72-96 run in the 96 instantiation, 104-128 in the 128 one; past 64 a
-    projection pass spans the whole q tile (DP / 8 n-tiles) so the q columns
-    lie in one pass, and float32 at 64 rows has no plan there (the C side
-    builds none)."""
+    float32 projection pass spans the whole q tile (DP / 8 n-tiles) so the q
+    columns lie in one pass, and float32 at 64 rows has no plan there (the C
+    side builds none); bf16 pads as kernel a (a multiple of 16 up to 64, then
+    96 or 128), one head a projection tile past 64, and plans 64-row tiles
+    at every L up to 1,024."""
     pad = cuda_attention_proj._padded_head_dim
     assert [pad(d) for d in (64, 72, 88, 96, 104, 120, 128)] == [64, 96, 96, 96, 128, 128, 128]
+    assert [cuda_attention.mma_head_dim(d) for d in (8, 24, 40, 72, 104, 120)] == [
+        16, 32, 48, 96, 128, 128]
     assert pad(136) is None and cuda_attention_proj.MAX_HEAD_DIM == 128
     assert [cuda_attention_proj.proj_tiles(r, 64) for r in (16, 32, 64)] == [12, 12, 12]
     assert [cuda_attention_proj.proj_tiles(r, 96) for r in (16, 32, 64)] == [12, 12, 12]
     assert [cuda_attention_proj.proj_tiles(r, 128) for r in (16, 32, 64)] == [16, 16, 16]
     for l, c, heads in ((1024, 96, 1), (1024, 128, 1), (300, 256, 2)):
         assert cuda_attention_proj.launch_plan(l, c, c, heads, torch.float32) is None
-        assert cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16)[0] == 64
+        plan = cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16)
+        assert plan.tiles == -(-l // 64) and plan.heads_per_tile == 1
+        check_bf16_plan(l, c, heads, plan)
+
+
+@pytest.mark.parametrize("l,c,heads,batch,groups", [
+    (1024, 384, 16, 16, 2), (1024, 128, 16, 16, 2), (1024, 128, 4, 64, 1),
+    (784, 64, 4, 64, 1), (784, 64, 4, 16, 2), (256, 512, 16, 16, 4), (49, 256, 4, 16, 4)])
+def test_bf16_head_groups_follow_the_batch_past_8_tiles(l, c, heads, batch, groups):
+    """Past 8 tiles (L > 512) the bf16 planner takes the fewest head groups
+    whose blocks fill the card (``BF16_BLOCKS``), within 16 blocks a cluster;
+    at 8 tiles or fewer the batch changes nothing."""
+    plan = cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16, batch)
+    assert plan.groups == groups
+    check_bf16_plan(l, c, heads, plan)
+    blocks = -(-plan.tiles // plan.warpgroups)
+    clusters = -(-batch // plan.elems)
+    if plan.tiles > 8:
+        smaller = [g for g in range(1, groups) if heads % g == 0]
+        assert all(clusters * blocks * g < cuda_attention_proj.BF16_BLOCKS for g in smaller)
+    else:
+        assert plan == cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16)
+
+
+@pytest.mark.parametrize("l", [1, 2, 7, 16, 20, 33, 48, 49, 50, 63, 64, 100, 196, 300, 1024])
+@pytest.mark.parametrize("b", [1, 3, 5, 16])
+def test_packing_covers_each_token_once_and_fills_its_tiles(l, b):
+    """bf16 kernel d's packing (``packing``, which ``launch_plan`` takes at
+    every batch): the ceil(B / elems) clusters hold each batch element once
+    (the last one fewer where B is no multiple of elems); a cluster's
+    elements fit its tiles, with no room for one more; from L = 64 up one
+    element in ceil(L / 64) tiles; below, the fewest tiles (at most 4) that
+    fill at least 90% of their rows, else the fullest.  That a packed row
+    attends only to its own element's keys is the kernel's to show: the
+    packed cases of ``test_kernel_d_model_against_jax_and_plain`` hold its
+    model against JAX, and ``chip_smoke.phase_proj_edges`` the kernel
+    against its plain version."""
+    elems, tiles = cuda_attention_proj.packing(l)
+    plan = cuda_attention_proj.launch_plan(l, 64, 64, 4, torch.bfloat16, b)
+    assert (plan.elems, plan.tiles) == (elems, tiles)
+    clusters = -(-b // elems)
+    held = [min(elems, b - k * elems) for k in range(clusters)]
+    assert sum(held) == b and all(1 <= n <= elems for n in held)
+    assert elems * l <= tiles * 64 < (elems + 1) * l
+    if l >= 64:
+        assert elems == 1 and tiles == -(-l // 64)
+        return
+    fill = {n: n * 64 // l * l / (64 * n) for n in range(1, 5)}
+    full = [n for n in fill if fill[n] >= 0.9]
+    assert tiles == (full[0] if full else max(fill, key=fill.get))
+    assert elems == tiles * 64 // l
+
+
+# chip_smoke.py's four lists of kernel d's shapes, (L, C, heads, calls)
+MNIST_PROJ_SHAPES = [(784, 64, 4, 4), (196, 128, 4, 4), (196, 32, 4, 2), (49, 256, 4, 8),
+                     (49, 128, 4, 4), (49, 64, 4, 2)]
+LDM_PROJ_SHAPES = [(1024, 384, 16, 4), (1024, 128, 16, 2), (256, 512, 16, 4),
+                   (256, 256, 16, 2), (64, 768, 16, 4), (64, 384, 16, 2), (16, 512, 16, 4)]
+CIFAR_PROJ_SHAPES = [(1024, 128, 4, 4), (256, 256, 4, 4), (64, 512, 4, 8), (64, 256, 4, 4),
+                     (64, 128, 4, 2), (256, 64, 4, 2)]
+PROJ_WIDE_SHAPES = [(49, 288, 4, 1), (33, 192, 2, 1), (100, 192, 2, 1), (100, 120, 1, 1),
+                    (20, 256, 2, 1), (300, 256, 2, 1)]
+
+
+@pytest.mark.parametrize("l,c,heads,_", MNIST_PROJ_SHAPES + LDM_PROJ_SHAPES + CIFAR_PROJ_SHAPES
+                         + PROJ_WIDE_SHAPES)
+def test_bf16_support_is_unchanged_at_the_listed_shapes(l, c, heads, _):
+    """The bf16 kernel takes every shape the mma.sync one took: all four of
+    chip_smoke.py's lists, and L up to 1,024 at head dims up to 128; float32
+    answers as before (no 64-row plan past head dim 64: (300, 256, 2) takes
+    the split path in float32 only)."""
+    assert cuda_attention_proj.fused_proj_supported(l, c, c, heads, torch.bfloat16)
+    check_bf16_plan(l, c, heads, cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16))
+    f32 = cuda_attention_proj.fused_proj_supported(l, c, c, heads, torch.float32)
+    assert f32 == ((l, c, heads) != (300, 256, 2))
+    for dh in (8, 24, 48, 72, 96, 120, 128):
+        assert cuda_attention_proj.fused_proj_supported(1024, 2 * dh, 2 * dh, 2, torch.bfloat16)
 
 
 # (dh, Lq, Lk, B*H) -> (padded head dim, a's consumer warpgroups, a's and b's
@@ -269,22 +403,89 @@ def _hi_lo(p):
     return hi + _as_bf16(p - hi)
 
 
+def packed_rows(plan, b, l):
+    """The model's layout of bf16 kernel d's rows, after the kernel's: for
+    each cluster, its first batch element, its element count, and for each
+    of its tiles' 64 rows the flattened row (element e, token t) -> e * L + t
+    of the cluster, valid below ec * L."""
+    for first in range(0, b, plan.elems):
+        ec = min(plan.elems, b - first)
+        yield first, ec, [range(tile * 64, tile * 64 + 64) for tile in range(plan.tiles)]
+
+
+def row_keys(plan, l, ec, tile):
+    """The model's key range of each row of a tile (the keys of its own
+    element; padding rows take the last element's) and the key tiles it
+    sweeps, after csrc/attention_proj_hopper.cuh's phase 2."""
+    rows = torch.arange(tile * 64, tile * 64 + 64)
+    e = torch.clamp(rows // l, max=ec - 1)
+    e0, e1 = min(tile * 64 // l, ec - 1), min((tile * 64 + 63) // l, ec - 1)
+    return e * l, e * l + l, range(e0 * l // 64, (e1 * l + l - 1) // 64 + 1)
+
+
+def _masked_online_softmax_pv(s, v, lo, hi, key_tiles):
+    """The bf16 kernel's sweep: key tiles of 64 in order, keys outside a row's
+    [lo, hi) at -inf, exp2 against a running max that is 0 while a row has
+    seen no key (as the kernel does), P as bf16 hi + lo into P V."""
+    m = torch.full(s.shape[:-1], -math.inf)
+    lsum = torch.zeros(s.shape[:-1])
+    o = torch.zeros(*s.shape[:-1], v.shape[-1])
+    for j in key_tiles:
+        keys = torch.arange(j * 64, j * 64 + 64)
+        st = s[..., j * 64:j * 64 + 64]
+        st = st.masked_fill((keys[None, :] < lo[:, None]) | (keys[None, :] >= hi[:, None]),
+                            -math.inf)
+        m_new = torch.maximum(m, st.amax(-1))
+        base = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)
+        corr = torch.exp2(m - base)
+        p = torch.exp2(st - base[..., None])
+        lsum = lsum * corr + p.sum(-1)
+        o = o * corr[..., None] + _hi_lo(p) @ v[..., j * 64:j * 64 + 64, :]
+        m = m_new
+    return o, lsum
+
+
 def model_attention_proj_d(x, in_w, in_b, out_w, out_b, heads):
     """Kernel d: x (B, L, C) in the input type; q|k|v summed in float32 and
-    rounded once; per head an online softmax over the launch plan's key
-    tiles, e never rounded in float32 and split into bf16 hi + lo in bf16;
-    head outputs rounded; y summed in float32 and rounded once."""
+    rounded once; per head an online softmax over the key tiles the launch
+    plan gives, e never rounded in float32 and split into bf16 hi + lo in
+    bf16; head outputs rounded; y summed in float32 and rounded once.  In
+    bf16 the rows of ``plan.elems`` consecutive elements share a cluster's
+    64-row tiles (``packed_rows``) and each row's keys are its own element's,
+    masked per row in the key tiles of its tile (``row_keys``)."""
     dt = x.dtype
     b, l, c = x.shape
     d = out_w.shape[1]
     dh = d // heads
-    rows = cuda_attention_proj.launch_plan(l, c, d, heads, dt)[0]
+    plan = cuda_attention_proj.launch_plan(l, c, d, heads, dt)
     w, bias, wo, bo = (p.float() for p in (in_w, in_b, out_w, out_b))
     qkv = (x.float() @ w.t() + bias).to(dt).float()
-    q, k, v = (t.reshape(b, l, heads, dh).transpose(1, 2) for t in qkv.split(d, dim=-1))
-    s = (q @ k.transpose(-1, -2)) * (math.log2(math.e) / math.sqrt(dh))
-    o, lsum, _ = _online_softmax_pv(s, v, rows, _hi_lo if dt == torch.bfloat16 else (lambda p: p))
-    out = (o / lsum[..., None]).to(dt).float().transpose(1, 2).reshape(b, l, d)
+    scale = math.log2(math.e) / math.sqrt(dh)
+    if dt == torch.float32:
+        q, k, v = (t.reshape(b, l, heads, dh).transpose(1, 2) for t in qkv.split(d, dim=-1))
+        s = (q @ k.transpose(-1, -2)) * scale
+        o, lsum, _ = _online_softmax_pv(s, v, plan[0], lambda p: p)
+        out = (o / lsum[..., None]).transpose(1, 2).reshape(b, l, d)
+    else:
+        out = torch.zeros(b, l, d)
+        for first, ec, tiles in packed_rows(plan, b, l):
+            n = plan.tiles * 64
+            # the cluster's flattened rows, padded to whole tiles with the
+            # bias alone (a zero x row), per head (heads, n, dh)
+            flat = torch.zeros(n, 3 * d)
+            flat[:] = bias.to(dt).float()
+            flat[:ec * l] = qkv[first:first + ec].reshape(ec * l, 3 * d)
+            q, k, v = (t.reshape(n, heads, dh).transpose(0, 1) for t in flat.split(d, dim=-1))
+            s = (q @ k.transpose(-1, -2)) * scale
+            for tile, rows in enumerate(tiles):
+                lo, hi, key_tiles = row_keys(plan, l, ec, tile)
+                o, lsum = _masked_online_softmax_pv(s[:, rows.start:rows.stop], v, lo, hi,
+                                                    key_tiles)
+                res = (o / lsum[..., None]).transpose(0, 1).reshape(64, d)
+                for r in rows:
+                    if r < ec * l:
+                        out[first + r // l, r % l] = res[r - rows.start]
+    out = out.to(dt).float()
     return (out @ wo.t() + bo).to(dt)
 
 
@@ -303,8 +504,10 @@ def _proj_inputs(seed, b, l, c):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("b,l,c,heads", [(2, 49, 256, 4), (1, 196, 128, 4), (1, 64, 384, 16),
-                                         (1, 64, 512, 4)],
-                         ids=["mnist-L49", "mnist-L196", "latent-L64", "cifar-L64-dh128"])
+                                         (1, 64, 512, 4), (7, 49, 64, 4), (5, 16, 128, 4),
+                                         (3, 33, 96, 4)],
+                         ids=["mnist-L49", "mnist-L196", "latent-L64", "cifar-L64-dh128",
+                              "packed-L49-B7", "packed-L16-B5", "packed-L33-B3"])
 def test_kernel_d_model_against_jax_and_plain(b, l, c, heads, dtype):
     arrays = _proj_inputs(l + c, b, l, c)
     dt = DTYPES[dtype]
