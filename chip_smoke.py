@@ -1836,9 +1836,9 @@ def proj_plan_text(l: int, c: int, heads: int, dtype: torch.dtype, batch: int) -
 
     plan = proj.launch_plan(l, c, c, heads, dtype, batch)
     if dtype == torch.bfloat16:
-        return (f"{plan.elems} elements in {plan.tiles} 64-row tiles, {plan.warpgroups} a block, "
-                f"x {plan.groups} head groups a cluster, {plan.heads_per_tile} heads a "
-                f"projection tile, {plan.out_cols} "
+        return (f"{plan.elems} elements in {plan.tiles} 64-row tiles, {plan.warpgroups} a block "
+                f"({plan.per_sm} an SM), x {plan.groups} head groups a cluster, "
+                f"{plan.heads_per_tile} heads a projection tile, {plan.out_cols} "
                 f"output channels a tile, rings {plan.wstages} / {plan.kvstages}, {plan.smem} B "
                 f"shared")
     rows, q_tiles, groups, smem = plan

@@ -10,8 +10,8 @@
 
 #include "attention_proj_hopper.cuh"
 
-CONTROLNET_PROJ_HOPPER_INSTANTIATE(16)
-CONTROLNET_PROJ_HOPPER_INSTANTIATE(32)
+CONTROLNET_PROJ_HOPPER_INSTANTIATE_LEAN(16)
+CONTROLNET_PROJ_HOPPER_INSTANTIATE_LEAN(32)
 CONTROLNET_PROJ_HOPPER_INSTANTIATE(48)
 
 namespace {
@@ -64,11 +64,15 @@ bool make_maps(CUtensorMap (&maps)[5], const Args& a, const void* in_w, const vo
 
 // Checks the plan and launches (or, with max_clusters, only asks the card how
 // many of the kernel's clusters it holds at once; no tensor map is made).
-int run(Args a, const void* in_w, const void* out_w, int smem_bytes, cudaStream_t stream,
-        int* max_clusters) {
+int run(Args a, const void* in_w, const void* out_w, int per_sm, int smem_bytes,
+        cudaStream_t stream, int* max_clusters) {
   const int dh = a.heads > 0 ? a.D / a.heads : 0;
   const int dp = padded_dim(dh);
   const bool packed = a.elems > 1;
+  // blocks an SM the launch bounds ask for: 1 at two warpgroups, 2 at one,
+  // 3 (lean) at one and DP 16 or 32
+  const bool per_sm_ok = a.nwg == 2 ? per_sm == 1 : (per_sm == 2 || (per_sm == 3 && dp <= 32));
+  const int cap = max_n(per_sm, dp);
   const bool plan_ok =
       a.batch >= 1 && a.batch <= 65535 * a.elems && a.L >= 1 && a.C >= 8 && a.C % 8 == 0 &&
       a.heads >= 1 && a.D % a.heads == 0 && dh % 8 == 0 && dh >= 8 && dh <= 128 &&
@@ -77,8 +81,9 @@ int run(Args a, const void* in_w, const void* out_w, int smem_bytes, cudaStream_
       (a.tiles + a.nwg - 1) / a.nwg * a.groups <= kMaxCluster &&
       a.elems >= 1 && a.elems * a.L <= a.tiles * kTile &&
       (packed ? a.L < kTile : a.tiles == (a.L + kTile - 1) / kTile) &&
-      (a.nb == 1 || a.nb == 2 || a.nb == 4 || a.nb == 8) && a.nb * dp <= kMaxN &&
+      per_sm_ok && (a.nb == 1 || a.nb == 2 || a.nb == 4 || a.nb == 8) && a.nb * dp <= cap &&
       (a.no == 16 || a.no == 32 || a.no == 48 || a.no == 64 || a.no == 96 || a.no == 128) &&
+      a.no <= cap &&
       a.ws >= 1 && a.ws <= 8 && a.ks >= 1 && a.ks <= 4 &&
       a.x_route >= kXTmaK && a.x_route <= kXCopyMN &&
       (a.x_vec == 1 || a.x_vec == 2 || a.x_vec == 4 || a.x_vec == 8) &&
@@ -95,17 +100,17 @@ int run(Args a, const void* in_w, const void* out_w, int smem_bytes, cudaStream_
       return (int)cudaErrorInvalidValue;
     }
   }
-  const auto go = [&](auto one, auto two) {
-    return (int)(a.nwg == 1 ? one(a, maps, clusters, smem_bytes, stream, max_clusters)
-                            : two(a, maps, clusters, smem_bytes, stream, max_clusters));
+  const auto go = [&](auto one, auto two, auto lean) {
+    const auto f = a.nwg == 2 ? two : (per_sm == 3 ? lean : one);
+    return (int)f(a, maps, clusters, smem_bytes, stream, max_clusters);
   };
   switch (dp) {
-    case 16: return go(launch<16, 1>, launch<16, 2>);
-    case 32: return go(launch<32, 1>, launch<32, 2>);
-    case 48: return go(launch<48, 1>, launch<48, 2>);
-    case 64: return go(launch<64, 1>, launch<64, 2>);
-    case 96: return go(launch<96, 1>, launch<96, 2>);
-    default: return go(launch<128, 1>, launch<128, 2>);
+    case 16: return go(launch<16, 1, 2>, launch<16, 2, 1>, launch<16, 1, 3>);
+    case 32: return go(launch<32, 1, 2>, launch<32, 2, 1>, launch<32, 1, 3>);
+    case 48: return go(launch<48, 1, 2>, launch<48, 2, 1>, launch<48, 1, 2>);
+    case 64: return go(launch<64, 1, 2>, launch<64, 2, 1>, launch<64, 1, 2>);
+    case 96: return go(launch<96, 1, 2>, launch<96, 2, 1>, launch<96, 1, 2>);
+    default: return go(launch<128, 1, 2>, launch<128, 2, 1>, launch<128, 1, 2>);
   }
 }
 
@@ -156,7 +161,9 @@ Args make_args(const void* x, const void* in_b, const void* out_b, void* y, void
 // nwg * 64).  The launch plan comes from the caller's planner (`launch_plan`
 // in ops/cuda_attention_proj.py): `elems` batch elements a cluster (1 where
 // L >= 64), `tiles` 64-row tiles a head group, `nwg` warpgroups (tiles) a
-// block, `groups` head groups (ceil(tiles / nwg) * groups <= 16 blocks a
+// block, `per_sm` blocks an SM its instantiation is built for (1 at two
+// warpgroups; 2, or 3 at DP 16 and 32 with every product tile at most 64
+// columns wide, at one), `groups` head groups (ceil(tiles / nwg) * groups <= 16 blocks a
 // cluster), `nb` heads a projection tile, `no` output channels a tile of the
 // output projection, `ws` / `ks` stages of the weight and K|V rings,
 // `x_route` (0 TMA token-major, 1 TMA
@@ -170,12 +177,12 @@ extern "C" int controlnet_attention_proj_bf16(
     const void* x, const void* in_w, const void* in_b, const void* out_w, const void* out_b,
     void* y, void* qkv, void* ho, int batch, int l, int c, int d, int heads, long long x_bs,
     long long x_rs, long long x_cs, long long y_bs, long long y_rs, long long y_cs, int elems,
-    int tiles, int groups, int nb, int no, int ws, int ks, int nwg, int x_route,
+    int tiles, int groups, int nb, int no, int ws, int ks, int nwg, int per_sm, int x_route,
     int x_vec, int smem_bytes, void* stream, void* cycles) {
   const Args a = make_args(x, in_b, out_b, y, qkv, ho, batch, l, c, d, heads, x_bs, x_rs, x_cs,
                            y_bs, y_rs, y_cs, elems, tiles, groups, nb, no, ws, ks, nwg,
                            x_route, x_vec, cycles);
-  return run(a, in_w, out_w, smem_bytes, static_cast<cudaStream_t>(stream), nullptr);
+  return run(a, in_w, out_w, per_sm, smem_bytes, static_cast<cudaStream_t>(stream), nullptr);
 }
 
 // How many clusters of the kernel, at this plan, the card holds at once
@@ -183,10 +190,10 @@ extern "C" int controlnet_attention_proj_bf16(
 // cudaError_t.
 extern "C" int controlnet_attention_proj_bf16_clusters(int l, int c, int d, int heads, int elems,
                                                         int tiles, int groups, int nb, int no,
-                                                        int ws, int ks, int nwg, int smem_bytes,
-                                                        int* max_clusters) {
+                                                        int ws, int ks, int nwg, int per_sm,
+                                                        int smem_bytes, int* max_clusters) {
   const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, elems, l, c, d,
                            heads, 0, 1, l, 0, 1, l, elems, tiles, groups, nb, no, ws, ks, nwg,
                            kXTmaMN, 8, nullptr);
-  return run(a, nullptr, nullptr, smem_bytes, nullptr, max_clusters);
+  return run(a, nullptr, nullptr, per_sm, smem_bytes, nullptr, max_clusters);
 }

@@ -224,9 +224,11 @@ struct Block {
 // cluster's rows.  vec: elements a load along x's contiguous axis (8: 16-byte
 // cp.async, 4: 8, 2: 4, 1: element loads, kUnroll in flight a thread).  The
 // planner picks vec so that a load never straddles two elements or the end of
-// the rows.
+// the rows.  KUNROLL element loads in flight a thread: 32, or 16 in the lean
+// instantiation, whose registers 32 would outgrow.
+template <int KUNROLL>
 __device__ __forceinline__ void copy_x(const Args& a, uint8_t* xs, const Rows& rw) {
-  constexpr int kUnroll = 32;
+  constexpr int kUnroll = KUNROLL;
   const int kt_n = (a.C + kTile - 1) / kTile, wtid = threadIdx.x & (kWarpgroup - 1);
   const bool mn = a.x_route == kXCopyMN;
   const int vec = a.x_vec, per_row = kTile / vec;
@@ -353,25 +355,34 @@ __device__ __forceinline__ void project_tile(Block<DP, NWG>& bk, const uint8_t* 
   clk.mark(kEpilogue);
 }
 
-template <int DP, int NWG>
+// The widest product tile of an instantiation: kMaxN, or where the launch
+// bounds ask for three blocks an SM (MINB) kLeanN, and half of it at DP 16
+// (64 spilled 20 bytes there), so that the accumulators stay within the
+// register budget without spilling.
+constexpr int kLeanN = 64;
+__host__ __device__ constexpr int max_n(int minb, int dp) {
+  return minb > 2 ? (dp <= 16 ? kLeanN / 2 : kLeanN) : kMaxN;
+}
+
+template <int DP, int NWG, int MAXN>
 __device__ __forceinline__ void project(Block<DP, NWG>& bk, const uint8_t* xs, uint8_t* stage,
                                         bool mn, PhaseClock<kPhases>& clk) {
   const int nb = bk.a.nb;
   for (int seg = 0; seg < 3; ++seg) {
     for (int hb = 0; hb < bk.hpg; hb += nb) {
-      if constexpr (DP * 8 <= kMaxN) {
+      if constexpr (DP * 8 <= MAXN) {
         if (nb == 8) {
           project_tile<DP, NWG, DP * 8>(bk, xs, stage, seg, hb, mn, clk);
           continue;
         }
       }
-      if constexpr (DP * 4 <= kMaxN) {
+      if constexpr (DP * 4 <= MAXN) {
         if (nb == 4) {
           project_tile<DP, NWG, DP * 4>(bk, xs, stage, seg, hb, mn, clk);
           continue;
         }
       }
-      if constexpr (DP * 2 <= kMaxN) {
+      if constexpr (DP * 2 <= MAXN) {
         if (nb == 2) {
           project_tile<DP, NWG, DP * 2>(bk, xs, stage, seg, hb, mn, clk);
           continue;
@@ -551,11 +562,15 @@ __device__ __forceinline__ void out_project(Block<DP, NWG>& bk, const uint8_t* h
   }
 }
 
-// One warpgroup a block: two blocks an SM; two: one block.  Either way two
-// warpgroups an SM with up to 255 registers a thread (capped at 128 for four,
-// the kernel spilled 3.4 KB and ran at half speed).
-template <int DP, int NWG>
-__global__ void __launch_bounds__(NWG * kWarpgroup, 2 / NWG)
+// One warpgroup a block: two blocks an SM (MINB 2); two: one block (MINB 1).
+// Either way two warpgroups an SM with up to 255 registers a thread (capped
+// at 128 for four, the full-width kernel spilled 3.4 KB and ran at half
+// speed).  The lean instantiation (MINB 3, one warpgroup, DP 16 and 32) caps
+// every product at max_n columns, so that three blocks share an SM at up to
+// 168 registers a thread: the short MNIST layers at small batches, where one
+// or two blocks an SM left most of a block's time in latency.
+template <int DP, int NWG, int MINB>
+__global__ void __launch_bounds__(NWG * kWarpgroup, MINB)
     attention_proj_hopper_kernel(const __grid_constant__ CUtensorMap tx,
                                  const __grid_constant__ CUtensorMap tw_in,
                                  const __grid_constant__ CUtensorMap tqkv,
@@ -652,13 +667,13 @@ __global__ void __launch_bounds__(NWG * kWarpgroup, 2 / NWG)
   PhaseClock<kPhases> clk(threadIdx.x == 0 ? a.cycles : nullptr);
   const bool mn = a.x_route == kXTmaMN || a.x_route == kXCopyMN;
   if (a.x_route == kXCopyK || a.x_route == kXCopyMN) {
-    copy_x(a, xs, rw);
+    copy_x<(MINB > 2 ? 16 : 32)>(a, xs, rw);
     named_sync(1, kThreads);
   } else {
     mbar_wait(xbar, 0);
   }
   clk.mark(kSync);
-  project<DP, NWG>(bk, xs, stage, mn, clk);
+  project<DP, NWG, max_n(MINB, DP)>(bk, xs, stage, mn, clk);
   fence_proxy_async_all();  // the scratch writes, before the cluster's TMA reads
   cluster_sync();           // 1: the cluster's q|k|v are in the scratch
   if (threadIdx.x == 0) {
@@ -685,24 +700,37 @@ __global__ void __launch_bounds__(NWG * kWarpgroup, 2 / NWG)
   }
   mbar_wait(hbar, 0);
   clk.mark(kSync);
+  constexpr int kMaxNo = max_n(MINB, DP);  // the widest output tile
   switch (a.no) {
     case 16: out_project<DP, NWG, 16>(bk, xs, stage, clk); break;
     case 32: out_project<DP, NWG, 32>(bk, xs, stage, clk); break;
-    case 48: out_project<DP, NWG, 48>(bk, xs, stage, clk); break;
-    case 64: out_project<DP, NWG, 64>(bk, xs, stage, clk); break;
-    case 96: out_project<DP, NWG, 96>(bk, xs, stage, clk); break;
-    default: out_project<DP, NWG, 128>(bk, xs, stage, clk); break;
+    default:
+      if constexpr (kMaxNo >= 64) {
+        if (a.no == 48) {
+          out_project<DP, NWG, 48>(bk, xs, stage, clk);
+        } else if (a.no == 64) {
+          out_project<DP, NWG, 64>(bk, xs, stage, clk);
+        } else if constexpr (kMaxNo >= 128) {
+          if (a.no == 96) {
+            out_project<DP, NWG, 96>(bk, xs, stage, clk);
+          } else {
+            out_project<DP, NWG, 128>(bk, xs, stage, clk);
+          }
+        }
+      }
+      break;
   }
   clk.flush();  // no block reads another's shared memory: each may leave when done
 }
 
-// Launches the kernel at one padded head dim and warpgroup count, or with
-// max_clusters set only asks how many of its clusters the card holds at once.
-// maps: x, in_w, the qkv scratch, the head-output scratch, out_w.
-template <int DP, int NWG>
+// Launches the kernel at one padded head dim, warpgroup count and blocks an
+// SM, or with max_clusters set only asks how many of its clusters the card
+// holds at once.  maps: x, in_w, the qkv scratch, the head-output scratch,
+// out_w.
+template <int DP, int NWG, int MINB>
 cudaError_t launch(const Args& a, const CUtensorMap (&maps)[5], int clusters, int smem,
                    cudaStream_t stream, int* max_clusters) {
-  auto kernel = attention_proj_hopper_kernel<DP, NWG>;
+  auto kernel = attention_proj_hopper_kernel<DP, NWG, MINB>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -727,17 +755,21 @@ cudaError_t launch(const Args& a, const CUtensorMap (&maps)[5], int clusters, in
   return cudaGetLastError();
 }
 
-// Each padded head dim is instantiated, at one and two warpgroups a block, in
+// Each padded head dim is instantiated, at one warpgroup a block (two blocks
+// an SM; at DP 16 and 32 also three, lean) and at two (one block an SM), in
 // one source file (CONTROLNET_PROJ_HOPPER_INSTANTIATE there), and nowhere
 // else.
-#define CONTROLNET_PROJ_HOPPER_LAUNCH(EXTERN, DP, NWG)                                         \
-  EXTERN template cudaError_t launch<DP, NWG>(const Args&, const CUtensorMap (&)[5], int, int, \
-                                              cudaStream_t, int*);
+#define CONTROLNET_PROJ_HOPPER_LAUNCH(EXTERN, DP, NWG, MINB)                                 \
+  EXTERN template cudaError_t launch<DP, NWG, MINB>(const Args&, const CUtensorMap (&)[5], \
+                                                    int, int, cudaStream_t, int*);
 #define CONTROLNET_PROJ_HOPPER_EACH_NWG(EXTERN, DP) \
-  CONTROLNET_PROJ_HOPPER_LAUNCH(EXTERN, DP, 1)      \
-  CONTROLNET_PROJ_HOPPER_LAUNCH(EXTERN, DP, 2)
-CONTROLNET_PROJ_HOPPER_EACH_NWG(extern, 16)
-CONTROLNET_PROJ_HOPPER_EACH_NWG(extern, 32)
+  CONTROLNET_PROJ_HOPPER_LAUNCH(EXTERN, DP, 1, 2)   \
+  CONTROLNET_PROJ_HOPPER_LAUNCH(EXTERN, DP, 2, 1)
+#define CONTROLNET_PROJ_HOPPER_EACH_LEAN(EXTERN, DP) \
+  CONTROLNET_PROJ_HOPPER_EACH_NWG(EXTERN, DP)        \
+  CONTROLNET_PROJ_HOPPER_LAUNCH(EXTERN, DP, 1, 3)
+CONTROLNET_PROJ_HOPPER_EACH_LEAN(extern, 16)
+CONTROLNET_PROJ_HOPPER_EACH_LEAN(extern, 32)
 CONTROLNET_PROJ_HOPPER_EACH_NWG(extern, 48)
 CONTROLNET_PROJ_HOPPER_EACH_NWG(extern, 64)
 CONTROLNET_PROJ_HOPPER_EACH_NWG(extern, 96)
@@ -745,6 +777,10 @@ CONTROLNET_PROJ_HOPPER_EACH_NWG(extern, 128)
 #define CONTROLNET_PROJ_HOPPER_INSTANTIATE(DP) \
   namespace controlnet_proj_hopper {           \
   CONTROLNET_PROJ_HOPPER_EACH_NWG(, DP)        \
+  }
+#define CONTROLNET_PROJ_HOPPER_INSTANTIATE_LEAN(DP) \
+  namespace controlnet_proj_hopper {                \
+  CONTROLNET_PROJ_HOPPER_EACH_LEAN(, DP)            \
   }
 
 }  // namespace controlnet_proj_hopper

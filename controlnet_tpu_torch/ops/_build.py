@@ -161,15 +161,16 @@ def load() -> ctypes.CDLL:
             # (x, in_w, in_b, out_w, out_b, y, qkv scratch, head-output
             # scratch), (batch, l, c, d, heads), strides of x and of y,
             # (elems, tiles, groups, heads a projection tile, output columns
-            # a tile, weight stages, K|V stages, warpgroups a block, x route,
-            # x vec, shared bytes), stream, phase counters
+            # a tile, weight stages, K|V stages, warpgroups a block, blocks
+            # an SM, x route, x vec, shared bytes), stream, phase counters
             lib.controlnet_attention_proj_bf16.argtypes = (
-                [ptr] * 8 + [i32] * 5 + [i64] * 6 + [i32] * 11 + [ptr] * 2)
+                [ptr] * 8 + [i32] * 5 + [i64] * 6 + [i32] * 12 + [ptr] * 2)
             # (l, c, d, heads, elems, tiles, groups, heads a projection tile,
             # output columns a tile, weight stages, K|V stages, warpgroups a
-            # block, shared bytes), out: clusters the card holds at once
+            # block, blocks an SM, shared bytes), out: clusters the card holds
+            # at once
             lib.controlnet_attention_proj_bf16_clusters.argtypes = (
-                [i32] * 13 + [ctypes.POINTER(ctypes.c_int)])
+                [i32] * 14 + [ctypes.POINTER(ctypes.c_int)])
             for fn in (lib.controlnet_attention_fwd_t, lib.controlnet_attention_bwd_t,
                        lib.controlnet_conv3x3_tl, lib.controlnet_attention_proj,
                        lib.controlnet_attention_proj_clusters,

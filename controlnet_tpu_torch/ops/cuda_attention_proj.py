@@ -37,7 +37,8 @@ HEAD_DIMS = (8, 16, 24, 32, 48, 64, 96, 128)   # the kernel's instantiations
 MAX_SHARED_BYTES = 232448             # what one block may use on an H100
 MAX_CLUSTER = 16                      # blocks of one cluster (past 8: non-portable)
 BF16_CLUSTER = 8                      # bf16 d's head groups stop at 8 blocks a cluster ...
-BF16_BLOCKS = 256                     # ... or, past 8 tiles, add groups up to this many blocks
+BF16_BLOCKS = 256                     # ... or, past 8 tiles and in lean plans, reach this many
+FEW_BLOCKS = 64                       # packed bf16 rows giving fewer blocks take one element a cluster
 # constants of csrc/attention_proj.cuh (float32)
 _THREADS = 128
 _SLAB = 32                            # depth of the x and weight slabs
@@ -49,9 +50,11 @@ _OUT_TILES = 8                        # n-tiles per pass of the output projectio
 TILE = 64                             # rows of a block: one wgmma tile
 _X_TILE = TILE * 128                  # one swizzled 64 x 64 tile of x or of head outputs
 _MAX_N = 128                          # widest product tile
+LEAN_N = 64                           # ... of the lean instantiation (half of it at DP 16)
 _STAGE_BYTES = 17408                  # a warpgroup's epilogue staging (128 x 66 bf16, aligned)
 OUT_COLS = (16, 32, 48, 64, 96, 128)  # output channels a tile of the output projection
 TWO_PER_SM = 115712                   # shared memory that lets two blocks share an SM
+THREE_PER_SM = 76800                  # ... three
 X_ROUTES = ("tma token-major", "tma channel-major", "copy token-major", "copy channel-major")
 
 
@@ -116,6 +119,8 @@ class Bf16Plan(NamedTuple):
     wstages: int         # weight ring
     kvstages: int        # K|V ring
     smem: int            # shared memory of a block
+    per_sm: int          # blocks an SM its instantiation is built for: 1 at two warpgroups a
+                         # block, 2 at one, 3 in the lean one (DP 16 or 32, products <= LEAN_N)
 
 
 def packing(l: int) -> tuple[int, int]:
@@ -151,36 +156,90 @@ def shared_bytes_bf16(c: int, d: int, dp: int, heads_per_tile: int, out_cols: in
             + 8 * (2 + wstages + 2 * warpgroups + kvstages))
 
 
+def head_fits(blocks: int, c: int, heads: int) -> list[int]:
+    """The head-group counts, in rising order, of a cluster whose head group
+    spans ``blocks`` blocks: divisors of the heads that cut C into slices of
+    a multiple of 8 channels, at most ``MAX_CLUSTER`` blocks a cluster."""
+    return [g for g in range(1, heads + 1)
+            if heads % g == 0 and c % g == 0 and (c // g) % 8 == 0 and blocks * g <= MAX_CLUSTER]
+
+
+def head_groups(blocks: int, c: int, heads: int, clusters: int | None = None) -> int | None:
+    """bf16 d's head groups of a cluster whose head group spans ``blocks``
+    blocks: with ``clusters`` given, the fewest that give the card
+    ``BF16_BLOCKS`` blocks in all (or the most that fit); else the most that
+    keep the cluster within ``BF16_CLUSTER`` blocks (or one group, where its
+    blocks need more).  None where no cluster holds one group."""
+    fits = head_fits(blocks, c, heads)
+    if not fits:
+        return None
+    if clusters is not None:
+        return next((g for g in fits if clusters * blocks * g >= BF16_BLOCKS), fits[-1])
+    return max(g for g in fits if blocks * g <= max(BF16_CLUSTER, blocks))
+
+
+def pass_cols(width: int, widths: tuple = OUT_COLS) -> int:
+    """The output-projection tile (of ``widths``) that pads ``width``
+    channels least, the wider of two that pad alike."""
+    return min(widths, key=lambda n: (-(-width // n) * n, -n))
+
+
+def max_n(per_sm: int, dp: int) -> int:
+    """``max_n`` of csrc/attention_proj_hopper.cuh: the widest product tile
+    of an instantiation, ``LEAN_N`` (half of it at DP 16) in the lean one."""
+    return (LEAN_N // 2 if dp <= 16 else LEAN_N) if per_sm > 2 else _MAX_N
+
+
+# (weight, K|V) ring stages in the order tried, and the shared memory a
+# block may take for its blocks an SM, in the order tried
+_RINGS = ((4, 3), (3, 3), (2, 3), (2, 2))
+_LIMITS = {1: (MAX_SHARED_BYTES,), 2: (TWO_PER_SM, MAX_SHARED_BYTES), 3: (THREE_PER_SM,)}
+
+
+def _bf16_tiling(c: int, d: int, heads: int, dp: int, elems: int, tiles: int, warpgroups: int,
+                 per_sm: int, groups: int) -> Bf16Plan | None:
+    """The bf16 plan of one tiling: projection tiles of the most heads that
+    divide a group within ``max_n`` columns, the output tile of ``pass_cols``
+    within them, and the first ring stages (K|V no more than the tiles a block
+    loads) whose shared memory fits a limit of ``_LIMITS``, tried in order."""
+    hpg = heads // groups
+    cap = max_n(per_sm, dp)
+    nb = max(n for n in (1, 2, 4, 8) if hpg % n == 0 and n * dp <= cap)
+    no = pass_cols(c // groups, tuple(n for n in OUT_COLS if n <= cap))
+    for limit in _LIMITS[per_sm]:
+        for ws, ks in _RINGS:
+            ks = min(ks, hpg * tiles)
+            smem = shared_bytes_bf16(c, d, dp, nb, no, ws, ks, warpgroups)
+            if smem <= limit:
+                return Bf16Plan(elems, tiles, warpgroups, groups, nb, no, ws, ks, smem, per_sm)
+    return None
+
+
 def _bf16_plan(l: int, c: int, d: int, heads: int, batch: int | None) -> Bf16Plan | None:
-    dh = d // heads
-    dp = cuda_attention.mma_head_dim(dh)  # kernel a's padding
+    dp = cuda_attention.mma_head_dim(d // heads)  # kernel a's padding
+    whole = (1, -(-l // TILE))  # one element a cluster
+    if dp <= 32 and l <= 784:
+        # the lean instantiation, where it fits: one element a cluster, the
+        # fewest head groups that give the card BF16_BLOCKS blocks
+        groups = head_groups(whole[1], c, heads, batch or 1)
+        plan = groups and _bf16_tiling(c, d, heads, dp, *whole, 1, 3, groups)
+        if plan:
+            return plan
     elems, tiles = packing(l)
+    clusters = None if batch is None else -(-batch // elems)
     for nwg in (2, 1) if tiles > 1 else (1,):
         blocks = -(-tiles // nwg)
-        if blocks > MAX_CLUSTER:
+        groups = head_groups(blocks, c, heads, clusters if tiles > 8 else None)
+        if groups is None:
             continue
-        fits = [g for g in range(1, heads + 1)
-                if heads % g == 0 and c % g == 0 and (c // g) % 8 == 0
-                and blocks * g <= MAX_CLUSTER]
-        if not fits:
-            continue
-        groups = max(g for g in fits if blocks * g <= max(BF16_CLUSTER, blocks))
-        if tiles > 8 and batch is not None:
-            # a long sequence: as few groups as give the card BF16_BLOCKS blocks
-            clusters = -(-batch // elems)
-            groups = next((g for g in fits if clusters * blocks * g >= BF16_BLOCKS), fits[-1])
-        hpg = heads // groups
-        uses = hpg * tiles  # K|V tiles a block loads, at most
-        nb = max(n for n in (1, 2, 4, 8) if hpg % n == 0 and n * dp <= _MAX_N)
-        cg = c // groups
-        no = min(OUT_COLS, key=lambda n: (-(-cg // n) * n, -n))
-        # one warpgroup: two blocks an SM where they fit; two: one block
-        for limit in (TWO_PER_SM, MAX_SHARED_BYTES) if nwg == 1 else (MAX_SHARED_BYTES,):
-            for ws, ks in ((4, 3), (3, 3), (2, 3), (2, 2)):
-                ks = min(ks, uses)
-                smem = shared_bytes_bf16(c, d, dp, nb, no, ws, ks, nwg)
-                if smem <= limit:
-                    return Bf16Plan(elems, tiles, nwg, groups, nb, no, ws, ks, smem)
+        if clusters is not None and elems > 1 and clusters * blocks * groups < FEW_BLOCKS:
+            # packed rows would leave most of the card idle: one element a
+            # cluster (L < 64: one tile), one warpgroup a block
+            return _bf16_tiling(c, d, heads, dp, *whole, 1, 2,
+                                head_groups(whole[1], c, heads))
+        plan = _bf16_tiling(c, d, heads, dp, elems, tiles, nwg, 2 // nwg, groups)
+        if plan:
+            return plan
     return None
 
 
@@ -190,21 +249,28 @@ def launch_plan(l: int, c: int, d: int, heads: int, dtype: torch.dtype,
     instantiation for its head dim or a cluster cannot hold it.  bfloat16: a
     ``Bf16Plan``.  float32: (rows, q_tiles, head_groups, smem_bytes).
 
-    In bfloat16 (csrc/attention_proj_hopper.cuh): 64-row tiles, one element's
-    ceil(L / 64) tiles a cluster from L = 64 up and elements packed into tiles
-    below (``packing``); two tiles (warpgroups) a block where there are two
-    and they fit one block an SM, else one; the most head groups that keep a
-    cluster within 8 blocks, or one group where a group's tiles need more
-    (and C into slices of 8 or more channels: the card holds 14 clusters of
-    16 blocks at once but 16 or more of 8), except past 8 tiles with
-    ``batch`` given, where the fewest groups (cluster up to 16 blocks) that
-    give ``BF16_BLOCKS`` blocks in all: at L 1,024 and batch 16 one group
-    leaves 128 blocks of 16 heads each;
-    projection tiles of the most heads that divide a group and stay within
-    128 columns; the output-projection tile that pads a group's channels
-    least; ring stages (weights / K|V) 4 / 3, 3 / 3, 2 / 3 or 2 / 2 (K|V no
-    more than the tiles a block loads), the first that lets two
-    one-warpgroup blocks share an SM, else the first that fits.
+    In bfloat16 (csrc/attention_proj_hopper.cuh): 64-row tiles.  At padded
+    head dims 16 and 32 and L up to 784 the lean instantiation where its
+    shared memory lets three blocks share an SM: one warpgroup a block, one
+    element's ceil(L / 64) tiles a cluster, the fewest head groups that give
+    ``BF16_BLOCKS`` blocks in all (``batch`` or 1 clusters), products at most
+    ``max_n`` columns wide.  Else one element's tiles a cluster from L = 64
+    up and elements packed into tiles below (``packing``); two tiles
+    (warpgroups) a block where there are two and they fit one block an SM,
+    else one; ``head_groups``: the most head groups that keep a cluster
+    within 8 blocks, or one group where a group's tiles need more (and C
+    into slices of 8 or more channels: the card holds 14 clusters of 16
+    blocks at once but 16 or more of 8), except past 8 tiles with ``batch``
+    given, where the fewest groups (cluster up to 16 blocks) that give
+    ``BF16_BLOCKS`` blocks in all: at L 1,024 and batch 16 one group leaves
+    128 blocks of 16 heads each; where packed rows would give the batch
+    fewer than ``FEW_BLOCKS`` blocks, one element a cluster and one tile a
+    block instead.  Then (``_bf16_tiling``) projection tiles of the most
+    heads that divide a group and stay within ``max_n`` columns; the
+    output-projection tile that pads a group's channels least; ring stages
+    (weights / K|V) 4 / 3, 3 / 3, 2 / 3 or 2 / 2 (K|V no more than the tiles
+    a block loads), the first that lets the instantiation's blocks share an
+    SM (one-warpgroup blocks: two, else the first that fits one block).
 
     In float32 (csrc/attention_proj.cuh):
     rows: query rows per block, 64 past L = 256, 32 past 64, else 16;
@@ -221,11 +287,7 @@ def launch_plan(l: int, c: int, d: int, heads: int, dtype: torch.dtype,
         return _bf16_plan(l, c, d, heads, batch)
     rows = 64 if l > 256 else (32 if l > 64 else 16)
     q_tiles = -(-l // rows)
-    if q_tiles > MAX_CLUSTER:
-        return None
-    groups = max((g for g in range(1, heads + 1)
-                  if heads % g == 0 and c % g == 0 and (c // g) % 8 == 0
-                  and q_tiles * g <= MAX_CLUSTER), default=0)
+    groups = max(head_fits(q_tiles, c, heads), default=0)
     if not groups:
         return None
     smem = shared_bytes(rows, d // heads, d, heads, groups)
@@ -265,7 +327,7 @@ def max_active_clusters(l: int, c: int, d: int, heads: int, dtype: torch.dtype,
     if dtype == torch.bfloat16:
         err = _build.load().controlnet_attention_proj_bf16_clusters(
             l, c, d, heads, plan.elems, plan.tiles, plan.groups, plan.heads_per_tile,
-            plan.out_cols, plan.wstages, plan.kvstages, plan.warpgroups, plan.smem,
+            plan.out_cols, plan.wstages, plan.kvstages, plan.warpgroups, plan.per_sm, plan.smem,
             ctypes.byref(count))
     else:
         rows, q_tiles, groups, smem = plan
@@ -445,7 +507,7 @@ def _launch_bf16(x: torch.Tensor, in_w: torch.Tensor, in_b: torch.Tensor, out_w:
             out.data_ptr(), qkv.data_ptr(), heads_out.data_ptr(), b, l, c, d, num_heads,
             *x.stride(), *out.stride(), plan.elems, plan.tiles, plan.groups,
             plan.heads_per_tile, plan.out_cols, plan.wstages, plan.kvstages,
-            plan.warpgroups, route, vec, plan.smem, _stream(x),
+            plan.warpgroups, plan.per_sm, route, vec, plan.smem, _stream(x),
             None if phase_cycles is None else phase_cycles.data_ptr())
     if err != 0:
         raise RuntimeError(f"fused projection + attention kernel launch failed: cudaError {err} "

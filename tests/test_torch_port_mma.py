@@ -66,25 +66,25 @@ PLANS = {
 # tiles (warpgroups) a block, head groups, heads a projection tile, output
 # channels a tile)
 BF16_PLANS = {
-    (784, 64, 4): (1, 13, 2, 1, 4, 64),
-    (196, 128, 4): (1, 4, 2, 4, 1, 32),
-    (196, 32, 4): (1, 4, 2, 4, 1, 16),
+    (784, 64, 4): (1, 13, 1, 1, 2, 32),   # the lean instantiation: three blocks an SM
+    (196, 128, 4): (1, 4, 1, 4, 1, 32),
+    (196, 32, 4): (1, 4, 1, 4, 1, 16),
     (49, 256, 4): (5, 4, 2, 4, 1, 64),
-    (49, 128, 4): (5, 4, 2, 4, 1, 32),
-    (49, 64, 4): (5, 4, 2, 4, 1, 16),
+    (49, 128, 4): (1, 1, 1, 4, 1, 32),
+    (49, 64, 4): (1, 1, 1, 4, 1, 16),
     (1024, 384, 16): (1, 16, 2, 1, 4, 128),
     (1024, 128, 16): (1, 16, 2, 1, 8, 128),
     (256, 512, 16): (1, 4, 2, 4, 4, 128),
-    (256, 256, 16): (1, 4, 2, 4, 4, 64),
+    (256, 256, 16): (1, 4, 1, 4, 2, 32),
     (64, 768, 16): (1, 1, 1, 8, 2, 96),
-    (64, 384, 16): (1, 1, 1, 8, 2, 48),
+    (64, 384, 16): (1, 1, 1, 16, 1, 32),
     (16, 512, 16): (4, 1, 1, 8, 2, 64),
     (1024, 128, 4): (1, 16, 2, 1, 4, 128),
     (256, 256, 4): (1, 4, 2, 4, 1, 64),
     (64, 512, 4): (1, 1, 1, 4, 1, 128),
     (64, 256, 4): (1, 1, 1, 4, 1, 64),
     (64, 128, 4): (1, 1, 1, 4, 1, 32),
-    (256, 64, 4): (1, 4, 2, 4, 1, 16),
+    (256, 64, 4): (1, 4, 1, 4, 1, 16),
 }
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -93,13 +93,20 @@ def check_bf16_plan(l, c, heads, plan):
     """What every bf16 plan of kernel d holds (csrc/attention_proj_hopper.cuh)."""
     dh = c // heads
     dp = cuda_attention.mma_head_dim(dh)
-    if l >= 64:  # one element a cluster, its tiles partition L
+    lean = plan.per_sm == 3
+    if l >= 64 or lean or plan.elems == 1:  # one element a cluster, its tiles partition L
         assert plan.elems == 1 and plan.tiles == -(-l // 64)
     else:  # packed: the elements' flattened rows fill at least 90% of the tiles, or the most
         assert plan.elems * l <= plan.tiles * 64 < (plan.elems + 1) * l
         assert plan.tiles <= 4
     blocks = -(-plan.tiles // plan.warpgroups)
-    assert plan.warpgroups == (2 if plan.tiles > 1 else 1)
+    if lean:  # one warpgroup a block, product tiles of at most 64 (DP 16: 32) columns
+        cap = 32 if dp == 16 else 64
+        assert dp <= 32 and plan.warpgroups == 1 and plan.per_sm == 3
+        assert plan.heads_per_tile * dp <= cap and plan.out_cols <= cap
+        assert plan.smem <= cuda_attention_proj.THREE_PER_SM
+    else:
+        assert plan.warpgroups == (2 if plan.tiles > 1 else 1)
     assert blocks * plan.groups <= cuda_attention_proj.MAX_CLUSTER
     assert heads % plan.groups == 0 and (c // plan.groups) % 8 == 0
     hpg = heads // plan.groups
@@ -113,6 +120,20 @@ def check_bf16_plan(l, c, heads, plan):
     assert plan.smem >= 1024 + plan.warpgroups * -(-c // 64) * 8192
 
 
+def check_f32_plan(l, c, heads, plan):
+    """What every float32 plan of kernel d holds (csrc/attention_proj.cuh):
+    the query tiles partition the sequence, so that every key row lies in
+    exactly one block's tile and its K and V are projected once (projection
+    work 1.0); one cluster of at most 16 blocks; shared memory as the kernel
+    sums it, within a block's 227 KB."""
+    rows, q_tiles, groups, smem = plan
+    assert rows * (q_tiles - 1) < l <= rows * q_tiles
+    assert q_tiles * groups <= cuda_attention_proj.MAX_CLUSTER == 16
+    assert heads % groups == 0 and (c // groups) % 8 == 0
+    assert smem == cuda_attention_proj.shared_bytes(rows, c // heads, c, heads, groups, 4)
+    assert smem <= cuda_attention_proj.MAX_SHARED_BYTES == 232448
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("l,c,heads", sorted(PLANS, reverse=True))
 def test_launch_plan_at_the_model_shapes(l, c, heads, dtype):
@@ -123,16 +144,8 @@ def test_launch_plan_at_the_model_shapes(l, c, heads, dtype):
         assert plan[:6] == BF16_PLANS[(l, c, heads)]
         check_bf16_plan(l, c, heads, plan)
         return
-    rows, q_tiles, groups, smem = plan
-    assert (rows, q_tiles, groups) == PLANS[(l, c, heads)]
-    # the tiles partition the sequence: every key row lies in exactly one
-    # block's tile, so its K and V are projected once (projection work 1.0)
-    assert rows * (q_tiles - 1) < l <= rows * q_tiles
-    assert q_tiles * groups <= cuda_attention_proj.MAX_CLUSTER == 16
-    assert heads % groups == 0 and (c // groups) % 8 == 0
-    itemsize = DTYPES[dtype].itemsize
-    assert smem == cuda_attention_proj.shared_bytes(rows, c // heads, c, heads, groups, itemsize)
-    assert smem <= cuda_attention_proj.MAX_SHARED_BYTES == 232448
+    assert plan[:3] == PLANS[(l, c, heads)]
+    check_f32_plan(l, c, heads, plan)
 
 
 @pytest.mark.parametrize("l,c,heads,dtype", [
@@ -179,39 +192,103 @@ def test_head_dims_past_64_pad_to_96_and_128():
 
 @pytest.mark.parametrize("l,c,heads,batch,groups", [
     (1024, 384, 16, 16, 2), (1024, 128, 16, 16, 2), (1024, 128, 4, 64, 1),
-    (784, 64, 4, 64, 1), (784, 64, 4, 16, 2), (256, 512, 16, 16, 4), (49, 256, 4, 16, 4)])
+    (784, 64, 4, 64, 1), (784, 64, 4, 16, 1), (256, 512, 16, 16, 4), (49, 256, 4, 16, 4)])
 def test_bf16_head_groups_follow_the_batch_past_8_tiles(l, c, heads, batch, groups):
-    """Past 8 tiles (L > 512) the bf16 planner takes the fewest head groups
-    whose blocks fill the card (``BF16_BLOCKS``), within 16 blocks a cluster;
-    at 8 tiles or fewer the batch changes nothing."""
+    """Past 8 tiles (L > 512), and in the lean plans, the bf16 planner takes
+    the fewest head groups whose blocks fill the card (``BF16_BLOCKS``),
+    within 16 blocks a cluster (at L 784 the lean plan's 13 tiles leave one
+    group); at 8 tiles or fewer the batch changes a full-width plan only
+    where packed rows would leave fewer than ``FEW_BLOCKS`` blocks, which
+    then take one element a tile."""
     plan = cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16, batch)
     assert plan.groups == groups
     check_bf16_plan(l, c, heads, plan)
     blocks = -(-plan.tiles // plan.warpgroups)
     clusters = -(-batch // plan.elems)
-    if plan.tiles > 8:
+    if plan.tiles > 8 or plan.per_sm == 3:
         smaller = [g for g in range(1, groups) if heads % g == 0]
         assert all(clusters * blocks * g < cuda_attention_proj.BF16_BLOCKS for g in smaller)
+        return
+    unbatched = cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16)
+    packed_blocks = -(-batch // unbatched.elems) * -(-unbatched.tiles // unbatched.warpgroups)
+    if unbatched.elems > 1 and packed_blocks * unbatched.groups < cuda_attention_proj.FEW_BLOCKS:
+        assert (plan.elems, plan.tiles, plan.warpgroups) == (1, 1, 1)
     else:
-        assert plan == cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16)
+        assert plan == unbatched
+
+
+# MNIST self-attention shapes at the served batch (16) and the forward's (64)
+# -> bf16 (elements a cluster, 64-row tiles a group, warpgroups a block, head
+# groups, blocks an SM)
+BF16_MNIST_PLANS = {
+    (784, 64, 4, 16): (1, 13, 1, 1, 3), (784, 64, 4, 64): (1, 13, 1, 1, 3),
+    (196, 128, 4, 16): (1, 4, 1, 4, 3), (196, 128, 4, 64): (1, 4, 1, 1, 3),
+    (196, 32, 4, 16): (1, 4, 1, 4, 3), (196, 32, 4, 64): (1, 4, 1, 1, 3),
+    (49, 256, 4, 16): (1, 1, 1, 4, 2), (49, 256, 4, 64): (5, 4, 2, 4, 1),
+    (49, 128, 4, 16): (1, 1, 1, 4, 3), (49, 128, 4, 64): (1, 1, 1, 4, 3),
+    (49, 64, 4, 16): (1, 1, 1, 4, 3), (49, 64, 4, 64): (1, 1, 1, 4, 3),
+}
+
+
+@pytest.mark.parametrize("l,c,heads,batch", sorted(BF16_MNIST_PLANS))
+def test_bf16_plans_at_the_mnist_shapes_fill_the_card(l, c, heads, batch):
+    """bf16 kernel d's plans at the MNIST shapes, where plans of two
+    warpgroups an SM were slower than the mma.sync kernel before them: at
+    head dims 16 and 32 the lean instantiation (one warpgroup a block, three
+    blocks an SM, product tiles of at most 64 columns) with one element a
+    cluster and the fewest head groups that reach ``BF16_BLOCKS`` blocks (or
+    the most that fit); at head dim 64 packed rows of five elements in four
+    tiles, unless the batch leaves those clusters fewer than ``FEW_BLOCKS``
+    blocks (batch 16: one element a tile, one warpgroup a block)."""
+    plan = cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16, batch)
+    got = (plan.elems, plan.tiles, plan.warpgroups, plan.groups, plan.per_sm)
+    assert got == BF16_MNIST_PLANS[(l, c, heads, batch)]
+    check_bf16_plan(l, c, heads, plan)
+    blocks = -(-batch // plan.elems) * -(-plan.tiles // plan.warpgroups) * plan.groups
+    assert blocks >= cuda_attention_proj.FEW_BLOCKS
+
+
+@pytest.mark.parametrize("l,c,heads,batch", [
+    (49, 384, 12, 64), (49, 512, 16, None), (49, 512, 16, 16), (22, 288, 16, None),
+    (22, 288, 16, 64), (33, 384, 12, 64), (22, 384, 12, 64), (16, 512, 16, 64),
+    (196, 512, 16, 16)])
+def test_bf16_plan_past_the_lean_budget_is_a_full_width_one(l, c, heads, batch):
+    """At head dims 16 and 32 a layer whose lean plan does not fit three
+    blocks an SM (C past ~300 with few head groups: the resident x tile)
+    takes the full-width planner's plan: its packing, or one element a
+    cluster, with rows that fit its tiles (not the lean plan's one tile
+    holding the packing's elements)."""
+    plan = cuda_attention_proj.launch_plan(l, c, c, heads, torch.bfloat16, batch)
+    assert plan.per_sm in (1, 2)
+    check_bf16_plan(l, c, heads, plan)
+    assert (plan.elems, plan.tiles) in (cuda_attention_proj.packing(l), (1, -(-l // 64)))
+    assert plan.elems * l <= plan.tiles * 64
 
 
 @pytest.mark.parametrize("l", [1, 2, 7, 16, 20, 33, 48, 49, 50, 63, 64, 100, 196, 300, 1024])
 @pytest.mark.parametrize("b", [1, 3, 5, 16])
 def test_packing_covers_each_token_once_and_fills_its_tiles(l, b):
-    """bf16 kernel d's packing (``packing``, which ``launch_plan`` takes at
-    every batch): the ceil(B / elems) clusters hold each batch element once
-    (the last one fewer where B is no multiple of elems); a cluster's
-    elements fit its tiles, with no room for one more; from L = 64 up one
-    element in ceil(L / 64) tiles; below, the fewest tiles (at most 4) that
-    fill at least 90% of their rows, else the fullest.  That a packed row
-    attends only to its own element's keys is the kernel's to show: the
-    packed cases of ``test_kernel_d_model_against_jax_and_plain`` hold its
-    model against JAX, and ``chip_smoke.phase_proj_edges`` the kernel
-    against its plain version."""
+    """bf16 kernel d's packing (``packing``, which ``launch_plan`` takes for
+    a full-width (not lean) plan, here head dim 64, unless the batch's packed
+    clusters would hold fewer than ``FEW_BLOCKS`` blocks): the ceil(B / elems)
+    clusters hold each batch element once (the last one fewer where B is no
+    multiple of elems); a cluster's elements fit its tiles, with no room for
+    one more; from L = 64 up one element in ceil(L / 64) tiles; below, the
+    fewest tiles (at most 4) that fill at least 90% of their rows, else the
+    fullest.  That a packed row attends only to its own element's keys is
+    the kernel's to show: the packed cases of
+    ``test_kernel_d_model_against_jax_and_plain`` hold its model against JAX,
+    and ``chip_smoke.phase_proj_edges`` the kernel against its plain
+    version."""
     elems, tiles = cuda_attention_proj.packing(l)
-    plan = cuda_attention_proj.launch_plan(l, 64, 64, 4, torch.bfloat16, b)
+    plan = cuda_attention_proj.launch_plan(l, 256, 256, 4, torch.bfloat16)
     assert (plan.elems, plan.tiles) == (elems, tiles)
+    batched = cuda_attention_proj.launch_plan(l, 256, 256, 4, torch.bfloat16, b)
+    packed_blocks = -(-b // elems) * -(-tiles // plan.warpgroups) * plan.groups
+    if elems > 1 and packed_blocks < cuda_attention_proj.FEW_BLOCKS:
+        assert (batched.elems, batched.tiles) == (1, 1)
+    else:
+        assert (batched.elems, batched.tiles) == (elems, tiles)
     clusters = -(-b // elems)
     held = [min(elems, b - k * elems) for k in range(clusters)]
     assert sum(held) == b and all(1 <= n <= elems for n in held)
@@ -249,6 +326,23 @@ def test_bf16_support_is_unchanged_at_the_listed_shapes(l, c, heads, _):
     assert f32 == ((l, c, heads) != (300, 256, 2))
     for dh in (8, 24, 48, 72, 96, 120, 128):
         assert cuda_attention_proj.fused_proj_supported(1024, 2 * dh, 2 * dh, 2, torch.bfloat16)
+
+
+@pytest.mark.parametrize("l,c,heads,_", MNIST_PROJ_SHAPES + LDM_PROJ_SHAPES + CIFAR_PROJ_SHAPES
+                         + PROJ_WIDE_SHAPES)
+def test_f32_support_is_unchanged_at_the_listed_shapes(l, c, heads, _):
+    """float32 kernel d takes all four of chip_smoke.py's lists but (300,
+    256, 2), head dim 128 at L > 256 (64-row blocks of that head dim outgrow
+    a block's shared memory), which keeps the split path in float32; and
+    each plan it gives, with the batch or without, holds the kernel's
+    rules."""
+    f32 = cuda_attention_proj.fused_proj_supported(l, c, c, heads, torch.float32)
+    assert f32 == ((l, c, heads) != (300, 256, 2))
+    for batch in (None, 16, 64):
+        plan = cuda_attention_proj.launch_plan(l, c, c, heads, torch.float32, batch)
+        assert (plan is not None) == f32
+        if plan is not None:
+            check_f32_plan(l, c, heads, plan)
 
 
 # (dh, Lq, Lk, B*H) -> (padded head dim, a's consumer warpgroups, a's and b's
