@@ -559,7 +559,8 @@ def record_proj_shapes(into: list):
 # -> cuobjdump's functions of the kernel.  Kernels a, b and d in bf16 run
 # their products as warpgroup MMA (HGMMA) and load by TMA (UTMALDG), d with no
 # mma.sync left; c as mma.sync (HMMA); no "f32" kernel has a tensor-core
-# instruction.
+# instruction (f32 c: the implicit GEMM and the pass that adds its split
+# partial sums).
 SASS_KERNELS = (
     ("a bf16 (attention_fwd_bf16.cu)", ("attention_fwd_hopper_kernel",), None,
      ("HGMMA", "UTMALDG")),
@@ -568,7 +569,7 @@ SASS_KERNELS = (
      ("HGMMA", "UTMALDG")),
     ("b f32 (attention_bwd.cu)", ("attention_bwd_", "!_hopper_kernel", "!partial_sum"), None, ()),
     ("c bf16 (conv3x3_tl_bf16.cu)", ("conv3x3_tl_bf16_kernel",), None, ("HMMA",)),
-    ("c f32 (conv3x3_tl.cu)", ("conv3x3_tl_kernel",), None, ()),
+    ("c f32 (conv3x3_tl.cu)", ("conv3x3_tl_f32_",), None, ()),
     ("d bf16 (attention_proj_hopper.cuh)", ("attention_proj_hopper_kernel",), None,
      ("HGMMA", "UTMALDG", "!HMMA")),
     ("d f32 (attention_proj.cuh)", ("attention_proj_kernel",), False, ()),
@@ -833,7 +834,8 @@ def phase_conv_kernels(shapes: list, device, off_path: list = (RAGGED_CONV_SHAPE
     ``shapes`` (the convs of one unit of the main path: a hint encode, a TL
     forward) and at the ``off_path`` shapes (inputs as (C, B, L) views of
     NCHW tensors, as the models pass them), f32 and bf16; device times of
-    the kernel (and of its own launch, without the wrapper's weight cast),
+    the kernel (and of its own launches, without the wrapper's weight cast:
+    f32 c's split partial sums' pass included),
     the plain version and ``F.conv2d`` on the contiguous NCHW tensor (the
     library yardstick, which the port never calls for these convs).  The
     per-unit totals sum ``shapes``, each distinct shape times its count;
@@ -871,7 +873,7 @@ def phase_conv_kernels(shapes: list, device, off_path: list = (RAGGED_CONV_SHAPE
                     ms=lambda: cuda_conv.conv3x3_tl(weight, bias, x, (h, w)),
                     plain_ms=lambda: cuda_conv.conv3x3_tl_plain(weight, bias, x, (h, w)),
                     library_ms=lambda: F.conv2d(img, wd, bd, stride=1, padding=1))
-            own = own_ms(t["ms_names"], "conv3x3_tl_kernel", "conv3x3_tl_bf16_kernel")
+            own = own_ms(t["ms_names"], "conv3x3_tl_f32_", "conv3x3_tl_bf16_kernel")
             bound_ms, bound_by = conv_bound_ms(cin, cout, b, h * w, dtype)
             flops = 2.0 * 9 * cin * cout * b * h * w
             log(f"conv3x3_tl {str(dtype)[6:]:8s} {cin:3d}->{cout:3d} @{h}x{w} B {b}: "
@@ -6284,7 +6286,7 @@ def main() -> int:
     bwd_entry["bf16"]["max_rel_err"] = kern_bwd[torch.bfloat16]["max_rel_err"]
     bwd_entry["bf16"]["source"] = "controlnet_tpu_torch/csrc/attention_bwd_bf16.cu"
     fwd_entry["bf16"]["source"] = "controlnet_tpu_torch/csrc/attention_fwd_bf16.cu"
-    conv_entry = kernel_entry("conv3x3_tl", "controlnet_tpu_torch/csrc/conv3x3_tl.cu",
+    conv_entry = kernel_entry("conv3x3_tl_f32_kernel", "controlnet_tpu_torch/csrc/conv3x3_tl.cu",
                               "controlnet_tpu/ops/pallas_conv.py:44", ldm["conv"],
                               ldm["runs"][("ancestral", "float32")]["conv_launches"],
                               ldm["runs"][("ancestral", "bfloat16")]["conv_launches"],

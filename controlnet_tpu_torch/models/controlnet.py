@@ -181,10 +181,13 @@ class ControlNet(nn.Module):
         """``hint_features`` in batch chunks.  The full-resolution encoder's
         working set grows with the batch; chunking bounds it to ``chunk``
         samples.  The encoder has no cross-batch operation, and the
-        hand-written conv kernel works image by image, so the result is
-        bit-identical to the unchunked one wherever the library's stride-2
-        convolution does not pick another algorithm for another batch size
-        (then it differs by float rounding)."""
+        hand-written conv kernel sums each output in one order whatever the
+        batch unless its planner splits the input channels another way
+        (``cuda_conv.f32_launch_plan``; the encoder's layers take no split
+        from batch 16 up), so the result is bit-identical to the unchunked
+        one wherever that holds and the library's stride-2 convolution does
+        not pick another algorithm for another batch size (else it differs
+        by float rounding)."""
         n = hint.shape[0]
         if n <= chunk:
             return self.hint_features(hint)

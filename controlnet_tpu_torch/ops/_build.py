@@ -38,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+ptxas_report = ""  # ptxas's register / spill report of the last verbose build
 
 
 def sources() -> list[Path]:
@@ -106,7 +107,9 @@ def _compile_and_link(verbose: bool = False) -> Path:
     outputs = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
                         for src, obj in zip(sources(), tmp_objs)])
     if verbose:
-        print("\n".join(outputs), flush=True)
+        global ptxas_report
+        ptxas_report = "\n".join(outputs)
+        print(ptxas_report, flush=True)
     for tmp, obj in zip(tmp_objs, objs):
         os.replace(tmp, obj)
     tmp = LIB_PATH.with_suffix(tag)
@@ -145,10 +148,12 @@ def load() -> ctypes.CDLL:
             # threads_k, split, q_vec, k_vec), stream, phase counters
             lib.controlnet_attention_bwd_t.argtypes = (
                 [ptr] * 11 + [i32] * 5 + [i64] * 3 + [i32] * 8 + [ptr] * 2)
-            # (x, w, bias, out), (cin, cout, batch, h, w), (channel, batch)
-            # strides of x, (dtype, channel groups), stream
+            # (x, w, bias, out, partial sums), (cin, cout, batch, h, w),
+            # (channel, batch) strides of x, (dtype, bf16 channel groups,
+            # f32 pixel tile, channel tile, threads, splits, weights as
+            # held), stream
             lib.controlnet_conv3x3_tl.argtypes = (
-                [ptr] * 4 + [i32] * 5 + [i64] * 2 + [i32] * 2 + [ptr])
+                [ptr] * 5 + [i32] * 5 + [i64] * 2 + [i32] * 7 + [ptr])
             # (x, in_w, in_b, out_w, out_b, y), (batch, l, c, d, heads), (batch,
             # row, channel) strides of x and of y, (dtype, rows per block,
             # query tiles, head groups, shared bytes), stream, phase counters

@@ -10,9 +10,13 @@ from one to the other.  As in the JAX package the gradient is plain tensor
 code (``torch.nn.grad``), on both devices.
 
 Weights are ``(Cout, Cin, 3, 3)`` as ``nn.Conv2d`` holds them; the wrapper
-flattens them to the kernel's ``(Cout, 9*Cin)`` tap-major order and casts
-them to the activation's type (for bfloat16 with Cin padded with zero
-channels to a multiple of 16, the tensor-core kernel's slab).  The input may
+lays them out for the kernel: for float32 the K-major ``(9*Cin, Npad)``
+matrix of the implicit GEMM (``k_major_weight``; at Cin 1 the kernel reads
+the weight as held instead, as that matrix would be its transpose), for
+bfloat16 the ``(Cout, 9*Cin)`` tap-major order cast to bf16 with Cin padded
+with zero channels to a multiple of 16, the tensor-core kernel's slab
+(``flat_weight``).  The float32 kernel's tile configuration and its split
+over the input channels come from ``f32_launch_plan``.  The input may
 be any ``(C, B, L)`` view whose rows of L values are contiguous (the
 ``to_tl`` view of an NCHW tensor is one): the kernel reads it through its
 channel and batch strides, and no copy is made.  The output is contiguous.
@@ -23,6 +27,8 @@ channel and batch strides, and no copy is made.  The output is contiguous.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -30,8 +36,19 @@ import torch.nn.functional as F
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_GRID_LIMIT = 65535  # the kernel's grid carries the batch and the channel tiles in y and z
+_GRID_LIMIT = 65535  # grid y and z: the bf16 kernel's channel tiles and batch, the f32 splits
 _GRID_X_LIMIT = 2**31 - 1  # pixel tiles
+_INT32_MAX = 2**31 - 1
+# The float32 kernel (csrc/conv3x3_tl.cu, CONV_F32_TILES): its tile
+# configurations as (pixels, output channels, threads, output channels a
+# thread, blocks an SM) of a block; every thread holds 8 pixels.
+F32_TILES = ((128, 128, 256, 8, 2), (128, 64, 128, 8, 4), (64, 64, 64, 8, 8),
+             (256, 32, 128, 8, 3), (256, 32, 256, 4, 2), (256, 16, 128, 4, 4))
+# The one tile with an instantiation that reads the weight as held, which a
+# conv of one input channel takes (K = 9: one slab, unsplit)
+F32_HELD_TILE = (256, 32, 256, 4, 2)
+F32_STAGES = 4  # slabs (one input channel's 9 taps each) in flight
+SMS = 132  # streaming multiprocessors of an H100 SXM
 # The bf16 kernel (csrc/conv3x3_tl_bf16.cu): output pixels of a block (rows,
 # columns of one image), input channels per slab, double-buffered stages.
 MMA_PIXEL_TILE = (8, 32)
@@ -76,10 +93,126 @@ def conv3x3_tl_plain(weight: torch.Tensor, bias: torch.Tensor | None, x: torch.T
     return to_tl(out.to(x.dtype)).contiguous()
 
 
+def k_major_weight(weight: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> the float32 kernel's contiguous (9*Cin, n_pad)
+    float32 matrix, row 9*c + 3*ky + kx, the columns past Cout zero."""
+    cout, cin = weight.shape[:2]
+    taps = weight.float().permute(1, 2, 3, 0).reshape(9 * cin, cout)
+    if n_pad > cout:
+        taps = F.pad(taps, (0, n_pad - cout))
+    return taps.contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """A launch of the float32 kernel: ``tile`` (pixels, output channels,
+    threads, output channels a thread, blocks an SM) of a block, ``m_tiles`` x ``n_tiles``
+    block tiles over the M = B*H*W pixels and Cout channels, the input
+    channels in ``splits`` parts of ``channels_per_split`` (gridDim.y; a
+    second kernel adds the parts when there are several), ``stages`` slabs
+    in flight and the block's static shared bytes.  ``weights_as_held``
+    (Cin 1 on ``F32_HELD_TILE``): the kernel reads the (Cout, Cin, 3, 3)
+    weight itself, whose K-major matrix would be a transposed copy costing
+    as much as the product; otherwise it reads ``k_major_weight(weight,
+    n_pad)``."""
+
+    tile: tuple
+    m_tiles: int
+    n_tiles: int
+    splits: int
+    channels_per_split: int
+    stages: int
+    shared_bytes: int
+    weights_as_held: bool
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return self.m_tiles * self.n_tiles, self.splits
+
+    @property
+    def n_pad(self) -> int:
+        """Columns of the K-major weight matrix: Cout rounded up to the channel tile."""
+        return self.n_tiles * self.tile[1]
+
+
+# The planner's model of the card, in microseconds, fitted to
+# `scripts/port_conv_check.py --sweep` on an H100 (every tile and split at the
+# 40 shapes of kernel c's units): a block's FFMAs at the tile's share of an
+# SM's 128 lanes a cycle at F32_CLOCK_MHZ (the narrower the channel tile,
+# the more gathering a product), plus a fixed cost a block and one for each
+# element a thread gathers a slab (index work, filling the ring, the
+# epilogue); the split partial sums' pass, its launch and its bytes (they
+# mostly come back out of L2).  An SM keeps its pipes busy from
+# F32_FULL_WARPS resident warps on.
+F32_CLOCK_MHZ = 1755.0
+F32_EFFICIENCY = {(128, 128, 256): 0.64, (128, 64, 128): 0.61, (64, 64, 64): 0.61,
+                  (256, 32, 128): 0.52, (256, 32, 256): 0.47, (256, 16, 128): 0.40}
+F32_BLOCK_US = 0.5
+F32_GATHER_US = 0.05
+F32_SUM_US = 0.5
+F32_SUM_BYTES_PER_US = 4e6
+F32_FULL_WARPS = 12
+F32_SPLITS = tuple(range(1, 17)) + (24, 32)  # the splits of the input channels it weighs
+
+
+def f32_plan(tile: tuple, splits: int, cin: int, cout: int, m: int) -> F32Plan:
+    """The float32 kernel's launch of ``tile`` (one of ``F32_TILES``) with the
+    input channels in ``splits`` parts, for M = B*H*W pixels."""
+    bm, bn = tile[:2]
+    cps = -(-cin // splits)
+    held = cin == 1 and tuple(tile) == F32_HELD_TILE
+    shared = 4 * F32_STAGES * 9 * (bm + bn + 4 * held)  # held weights' rows padded by 4
+    return F32Plan(tile, -(-m // bm), -(-cout // bn), splits, cps, F32_STAGES, shared, held)
+
+
+def f32_plan_us(plan: F32Plan, cout: int, m: int) -> float:
+    """The planner's estimate of a launch's device time, in microseconds."""
+    bm, bn, threads, _, per_sm = plan.tile
+    blocks = plan.grid[0] * plan.splits
+    gathered = -(-9 * bm // threads)  # elements a thread gathers a slab
+    block_us = (bm * bn * 9 * plan.channels_per_split
+                / (128 * F32_EFFICIENCY[plan.tile[:3]] * F32_CLOCK_MHZ)
+                + F32_BLOCK_US + F32_GATHER_US * gathered)
+    q = -(-blocks // SMS)  # blocks on the busiest SM
+    rate = min(1.0, min(q, per_sm) * threads / 32 / F32_FULL_WARPS)
+    us = q * block_us / rate
+    if plan.splits > 1:
+        us += F32_SUM_US + (plan.splits + 1) * cout * m * 4 / F32_SUM_BYTES_PER_US
+    return us
+
+
+@functools.lru_cache(maxsize=None)
+def f32_launch_plan(cin: int, cout: int, h: int, w: int, b: int) -> F32Plan:
+    """The float32 kernel's launch for a (Cin, Cout, H, W, B) conv: of every
+    tile configuration (``F32_TILES``) and split of the input channels
+    (``F32_SPLITS``, none empty), the one ``f32_plan_us`` puts first
+    (weighing them takes ~0.6 ms of host time, so each shape's plan is kept);
+    at Cin 1, ``F32_HELD_TILE``.
+    Raises where the pixel count, the output or the grid exceed what the
+    kernel's 32-bit indices and grid hold."""
+    m = b * h * w
+    if m > _INT32_MAX or cout * m > _INT32_MAX:
+        raise ValueError(f"conv of {cin}->{cout} @{h}x{w} B {b} beyond the kernel's 32-bit indices")
+    if cin == 1:
+        return f32_plan(F32_HELD_TILE, 1, cin, cout, m)
+    best = None
+    for tile in F32_TILES:
+        for splits in F32_SPLITS:
+            plan = f32_plan(tile, splits, cin, cout, m)
+            if (splits - 1) * plan.channels_per_split >= cin or plan.grid[0] > _GRID_X_LIMIT:
+                continue
+            us = f32_plan_us(plan, cout, m)
+            if best is None or us < best[0]:
+                best = (us, plan)
+    if best is None:
+        raise ValueError(f"conv of {cin}->{cout} @{h}x{w} B {b} beyond the kernel's grid")
+    return best[1]
+
+
 def launch_config(cout: int) -> int:
-    """Output-channel groups per block (16 channels each): 1, 2 or 4, the
-    fewest that cover ``cout`` up to the kernels' 64 channels a block.  The
-    float32 kernel's tile of pixels is 32 wide and 32 / groups high."""
+    """Output-channel groups per block (16 channels each) of the bf16
+    kernel: 1, 2 or 4, the fewest that cover ``cout`` up to its 64 channels a
+    block."""
     return 1 if cout <= 16 else 2 if cout <= 32 else 4
 
 
@@ -122,28 +255,43 @@ def _check(weight: torch.Tensor, bias: torch.Tensor | None, x: torch.Tensor,
 
 
 def _launch(weight: torch.Tensor, bias: torch.Tensor | None, x: torch.Tensor,
-            hw: tuple[int, int]) -> torch.Tensor:
-    """Kernel c on a CUDA tensor."""
+            hw: tuple[int, int], plan: F32Plan | None = None) -> torch.Tensor:
+    """Kernel c on a CUDA tensor; float32 takes ``plan``, by default
+    ``f32_launch_plan``'s."""
     global launches
     from controlnet_tpu_torch.ops import _build
 
     cin, b, l = x.shape
     cout = weight.shape[0]
-    cog = launch_config(cout)
-    if b > _GRID_LIMIT or -(-cout // (16 * cog)) > _GRID_LIMIT:
-        raise ValueError(f"batch {b} or Cout {cout} beyond the kernel's grid")
+    partial = None
     if x.dtype == torch.bfloat16:
+        cog = launch_config(cout)
+        if b > _GRID_LIMIT or -(-cout // (16 * cog)) > _GRID_LIMIT:
+            raise ValueError(f"batch {b} or Cout {cout} beyond the kernel's grid")
         mma_launch_config(cin, cout, hw[0], hw[1], b)  # raises beyond the grid
-    w_flat = flat_weight(weight, x.dtype, MMA_SLAB if x.dtype == torch.bfloat16 else 1)
+        w_mat = flat_weight(weight, x.dtype, MMA_SLAB)
+        tile_m = tile_n = threads = splits = held = 0
+    else:
+        plan = plan or f32_launch_plan(cin, cout, hw[0], hw[1], b)
+        if (b - 1) * x.stride(1) + l > _INT32_MAX:
+            raise ValueError(f"x{tuple(x.shape)} at strides {x.stride()} beyond the kernel's "
+                             "32-bit offsets in a channel plane")
+        w_mat = (weight.float().contiguous() if plan.weights_as_held
+                 else k_major_weight(weight, plan.n_pad))
+        tile_m, tile_n, threads = plan.tile[:3]
+        cog, splits, held = 0, plan.splits, int(plan.weights_as_held)
+        if splits > 1:
+            partial = torch.empty((splits, cout, b * l), dtype=torch.float32, device=x.device)
     b32 = (torch.zeros(cout, dtype=torch.float32, device=x.device) if bias is None
            else bias.float().contiguous())
     out = torch.empty((cout, b, l), dtype=x.dtype, device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.controlnet_conv3x3_tl(
-            x.data_ptr(), w_flat.data_ptr(), b32.data_ptr(), out.data_ptr(),
+            x.data_ptr(), w_mat.data_ptr(), b32.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
             cin, cout, b, hw[0], hw[1], x.stride(0), x.stride(1),
-            _DTYPE_CODE[x.dtype], cog,
+            _DTYPE_CODE[x.dtype], cog, tile_m, tile_n, threads, splits, held,
             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"conv kernel launch failed: cudaError {err} "

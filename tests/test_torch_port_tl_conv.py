@@ -25,9 +25,28 @@ from controlnet_tpu.ops.pallas_conv import pallas_conv3x3_tl
 from controlnet_tpu_torch.ops import cuda_conv, tl_conv
 
 # (b, h, w, cin, cout): the shapes of tests/test_tl_parity.py's conv3x3 and
-# Pallas tests, plus the hint encoder's 3-channel stem
+# Pallas tests, plus the hint encoder's 3-channel stem, and odd H, W with
+# B*H*W = 147 (no multiple of the float32 kernel's pixel tiles, which span
+# images)
 CONV3_SHAPES = [(2, 8, 8, 8, 16), (3, 7, 5, 4, 8), (2, 8, 8, 1, 8), (4, 6, 7, 8, 16),
-                (2, 8, 8, 3, 16)]
+                (2, 8, 8, 3, 16), (3, 7, 7, 16, 32)]
+
+# (Cin, Cout, H, W, B) of kernel c's four units on the card: the MNIST
+# ControlNet TL forward at batch 64 (its 16 shapes; the UNet TL forward's are
+# the same), the latent ControlNet TL forward at batch 16 (16), the hint
+# encode of 1024^2 hints at batch 16 (7), and chip_smoke.py's ragged shape
+UNIT_SHAPES = [
+    (1, 32, 28, 28, 64), (32, 64, 28, 28, 64), (64, 64, 28, 28, 64), (64, 128, 14, 14, 64),
+    (128, 128, 14, 14, 64), (128, 256, 7, 7, 64), (256, 256, 7, 7, 64), (256, 128, 7, 7, 64),
+    (128, 128, 7, 7, 64), (256, 64, 7, 7, 64), (64, 64, 7, 7, 64), (128, 32, 14, 14, 64),
+    (32, 32, 14, 14, 64), (64, 16, 28, 28, 64), (16, 16, 28, 28, 64), (16, 1, 28, 28, 64),
+    (4, 256, 32, 32, 16), (256, 384, 32, 32, 16), (384, 384, 32, 32, 16), (384, 512, 16, 16, 16),
+    (512, 512, 16, 16, 16), (512, 768, 8, 8, 16), (768, 768, 8, 8, 16), (768, 512, 4, 4, 16),
+    (512, 512, 4, 4, 16), (1024, 384, 8, 8, 16), (384, 384, 8, 8, 16), (768, 256, 16, 16, 16),
+    (256, 256, 16, 16, 16), (512, 128, 32, 32, 16), (128, 128, 32, 32, 16), (128, 4, 32, 32, 16),
+    (3, 16, 1024, 1024, 16), (32, 32, 512, 512, 16), (64, 64, 256, 256, 16),
+    (128, 128, 128, 128, 16), (256, 256, 64, 64, 16), (512, 512, 32, 32, 16),
+    (512, 256, 32, 32, 16), (24, 40, 30, 30, 16)]
 
 
 def _case(seed, b, h, w, cin, cout, k=3):
@@ -184,6 +203,56 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tl_conv.conv3x3_tl(wt, bt, _x_tl(x, torch.float16), (4, 4))
     with pytest.raises(ValueError, match="no conv kernel for device"):
         tl_conv.conv3x3_tl(wt.to("meta"), bt.to("meta"), _x_tl(x).to("meta"), (4, 4))
+
+
+def test_k_major_weight_is_the_float32_kernels_order():
+    """(9*Cin, Npad): row 9*c + 3*ky + kx, column o, zeros past Cout."""
+    _, w_hwio, _ = _case(10, 1, 4, 4, 3, 5)
+    wt = _oihw(w_hwio)
+    mat = cuda_conv.k_major_weight(wt, 16)
+    assert mat.shape == (27, 16) and mat.is_contiguous() and mat.dtype == torch.float32
+    for c in range(3):
+        for ky in range(3):
+            for kx in range(3):
+                torch.testing.assert_close(mat[9 * c + 3 * ky + kx, :5], wt[:, c, ky, kx],
+                                           rtol=0, atol=0)
+    assert not mat[:, 5:].any()
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", UNIT_SHAPES)
+def test_f32_launch_plan_fits_the_card_and_covers_the_call(cin, cout, h, w, b):
+    """The float32 plan: an instantiated tile, static shared memory under
+    48 KB (and the 232,448 bytes of a block), the grid within its limits;
+    its pixel tiles cover the B*H*W pixels across images, its channel tiles
+    Cout and its splits the input channels, each part once and none empty."""
+    plan = cuda_conv.f32_launch_plan(cin, cout, h, w, b)
+    tile_m, tile_n, threads, _, per_sm = plan.tile
+    assert plan.tile in cuda_conv.F32_TILES and threads * per_sm <= 2048
+    assert plan.shared_bytes <= 48 * 1024 <= cuda_conv.MAX_SHARED_BYTES
+    assert plan.grid[0] <= 2 ** 31 - 1 and 1 <= plan.grid[1] <= 65535
+    m = b * h * w
+    for tiles, size, total in ((plan.m_tiles, tile_m, m), (plan.n_tiles, tile_n, cout),
+                               (plan.splits, plan.channels_per_split, cin)):
+        starts = range(0, tiles * size, size)
+        assert sum(min(total, s + size) - s for s in starts) == total
+        assert all(s < total for s in starts)
+    assert plan.grid == (plan.m_tiles * plan.n_tiles, plan.splits)
+    assert plan.n_pad == plan.n_tiles * tile_n >= cout and plan.weights_as_held == (cin == 1)
+    assert plan.splits * cout * m <= 2 ** 31 - 1 or plan.splits == 1
+
+
+@pytest.mark.parametrize("cin,cout,h,w,b", UNIT_SHAPES)
+def test_bf16_launch_config_unchanged_at_the_unit_shapes(cin, cout, h, w, b):
+    """The bf16 kernel's plan stays as it was: 8 x 32 pixels, 16 / 32 / 64
+    channels a block, two stages."""
+    tco = 16 if cout <= 16 else 32 if cout <= 32 else 64
+    assert cuda_conv.mma_launch_config(cin, cout, h, w, b) == (
+        (8, 32), tco, 2, {16: 42368, 32: 52096, 64: 71552}[tco])
+
+
+def test_f32_launch_plan_refuses_what_32_bit_indices_cannot_hold():
+    with pytest.raises(ValueError, match="32-bit"):
+        cuda_conv.f32_launch_plan(3, 16, 1024, 1024, 4096)
 
 
 def test_launch_config_covers_the_hint_encoder_widths():
