@@ -23,10 +23,11 @@ Phases (each one that fails makes the script exit non-zero):
 1. Print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from the sources in this checkout (``build/kernels/``); count the
    tensor-core instructions of each kernel in ``cuobjdump -sass`` of the
-   library: every bfloat16 instantiation of kernels a, b and d must have
-   warpgroup MMAs (HGMMA) and TMA loads (UTMALDG), and d's no mma.sync
-   (HMMA), every one of c mma.sync (HMMA), and no float32 one any (float32
-   means float32, no TF32).
+   library: every bfloat16 instantiation of kernels a, b, c and d must have
+   warpgroup MMAs (HGMMA) and TMA loads (UTMALDG), and c's and d's no
+   mma.sync (HMMA), but for c's mma.sync kernel of images 64 wide and wider,
+   which must have HMMA; no float32 one any (float32 means float32, no
+   TF32).
 2. Full-width MNIST ControlNet forward at batch 64 with weights from a
    seeded reference-format ``.pth``: through the kernel against the same
    model with the attention's plain version, f32 and bf16.  The kernel's
@@ -556,9 +557,10 @@ def record_proj_shapes(into: list):
 # (label, parts of the kernel's mangled name ("!part": a part it must not
 # have), whether its template type is bf16: True / False / None for either,
 # the SASS instructions each instantiation must have, "!OP" one it must not)
-# -> cuobjdump's functions of the kernel.  Kernels a, b and d in bf16 run
-# their products as warpgroup MMA (HGMMA) and load by TMA (UTMALDG), d with no
-# mma.sync left; c as mma.sync (HMMA); no "f32" kernel has a tensor-core
+# -> cuobjdump's functions of the kernel.  Kernels a, b, c and d in bf16 run
+# their products as warpgroup MMA (HGMMA) and load by TMA (UTMALDG), c and d
+# with no mma.sync; c's mma.sync kernel, which the planner keeps for images
+# 64 wide and wider, runs HMMA; no "f32" kernel has a tensor-core
 # instruction (f32 c: the implicit GEMM and the pass that adds its split
 # partial sums).
 SASS_KERNELS = (
@@ -568,7 +570,10 @@ SASS_KERNELS = (
     ("b bf16 (attention_bwd_bf16.cu)", ("attention_bwd_", "_hopper_kernel"), None,
      ("HGMMA", "UTMALDG")),
     ("b f32 (attention_bwd.cu)", ("attention_bwd_", "!_hopper_kernel", "!partial_sum"), None, ()),
-    ("c bf16 (conv3x3_tl_bf16.cu)", ("conv3x3_tl_bf16_kernel",), None, ("HMMA",)),
+    ("c bf16 (conv3x3_tl_bf16.cuh)", ("conv3x3_tl_bf16_kernel",), None,
+     ("HGMMA", "UTMALDG", "!HMMA")),
+    ("c bf16 mma.sync, W >= 64 (conv3x3_tl_bf16_mma.cu)", ("conv3x3_tl_bf16_mma_kernel",), None,
+     ("HMMA",)),
     ("c f32 (conv3x3_tl.cu)", ("conv3x3_tl_f32_",), None, ()),
     ("d bf16 (attention_proj_hopper.cuh)", ("attention_proj_hopper_kernel",), None,
      ("HGMMA", "UTMALDG", "!HMMA")),
@@ -590,9 +595,9 @@ def start_sass(lib_path: str, nvcc: str) -> tuple:
 def phase_sass(job: tuple) -> dict:
     """Tensor-core (HMMA, HGMMA) and TMA (UTMALDG) instructions per kernel in
     the built library's SASS (``job`` from ``start_sass``): every bf16
-    instantiation of kernels a, b and d runs its products as wgmma and holds
-    a TMA load (d no mma.sync), every bf16 one of c has mma.sync, and no
-    float32 instantiation has a tensor-core instruction."""
+    instantiation of kernels a, b, c and d runs its products as wgmma and holds
+    a TMA load (c and d no mma.sync; c's kernel for wide images runs
+    mma.sync), and no float32 instantiation has a tensor-core instruction."""
     proc, out = job
     _, err = proc.communicate(timeout=300)
     if proc.returncode != 0:
@@ -826,14 +831,19 @@ def record_conv_shapes(into: list):
 
 
 RAGGED_CONV_SHAPE = (24, 40, 30, 30, LDM_BATCH)  # (Cin, Cout, H, W, B): every edge masked
+# M = 189 pixels, no multiple of a pixel tile, whose 64-row tiles straddle
+# 7x9 images
+STRADDLE_CONV_SHAPE = (24, 40, 7, 9, 3)
 
 
-def phase_conv_kernels(shapes: list, device, off_path: list = (RAGGED_CONV_SHAPE,),
+def phase_conv_kernels(shapes: list, device,
+                       off_path: list = (RAGGED_CONV_SHAPE, STRADDLE_CONV_SHAPE),
                        what: str = "hint encode") -> dict:
     """Kernel c against its plain version at every distinct shape of
     ``shapes`` (the convs of one unit of the main path: a hint encode, a TL
     forward) and at the ``off_path`` shapes (inputs as (C, B, L) views of
-    NCHW tensors, as the models pass them), f32 and bf16; device times of
+    NCHW tensors, as the models pass them), f32 and bf16, two calls equal
+    bit for bit (a split's parts are added in a fixed order); device times of
     the kernel (and of its own launches, without the wrapper's weight cast:
     f32 c's split partial sums' pass included),
     the plain version and ``F.conv2d`` on the contiguous NCHW tensor (the
@@ -873,12 +883,17 @@ def phase_conv_kernels(shapes: list, device, off_path: list = (RAGGED_CONV_SHAPE
                     ms=lambda: cuda_conv.conv3x3_tl(weight, bias, x, (h, w)),
                     plain_ms=lambda: cuda_conv.conv3x3_tl_plain(weight, bias, x, (h, w)),
                     library_ms=lambda: F.conv2d(img, wd, bd, stride=1, padding=1))
-            own = own_ms(t["ms_names"], "conv3x3_tl_f32_", "conv3x3_tl_bf16_kernel")
+                # two calls bit for bit (a split's parts are added in a fixed order)
+                same = bool(torch.equal(cuda_conv.conv3x3_tl(weight, bias, x, (h, w)),
+                                        cuda_conv.conv3x3_tl(weight, bias, x, (h, w))))
+                ok = ok and same
+            own = own_ms(t["ms_names"], "conv3x3_tl_f32_", "conv3x3_tl_bf16_")
             bound_ms, bound_by = conv_bound_ms(cin, cout, b, h * w, dtype)
             flops = 2.0 * 9 * cin * cout * b * h * w
             log(f"conv3x3_tl {str(dtype)[6:]:8s} {cin:3d}->{cout:3d} @{h}x{w} B {b}: "
-                f"err {err:.3g} (tol {CONV_TOL[dtype]:g} x max|out| {scale:.3g}) "
-                f"{'ok' if ok else 'FAIL'} | device: kernel {t['ms']:.4f} ms, its own launch "
+                f"err {err:.3g} (tol {CONV_TOL[dtype]:g} x max|out| {scale:.3g}), two calls "
+                f"bit-equal {same} {'ok' if ok else 'FAIL'} | device: kernel {t['ms']:.4f} ms, "
+                f"its own launch "
                 f"{own:.4f} ms ({flops / own / 1e9:.2f} TFLOP/s, {bound_ms / own:.3f} of the "
                 f"bound), plain {t['plain_ms']:.4f} ms, F.conv2d {t['library_ms']:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by})"
@@ -6293,7 +6308,9 @@ def main() -> int:
                               "hint encode (7 calls)")
     conv_entry["max_rel_err"] = ldm["conv"][torch.float32]["max_rel_err"]
     conv_entry["bf16"]["max_rel_err"] = ldm["conv"][torch.bfloat16]["max_rel_err"]
-    conv_entry["bf16"]["source"] = "controlnet_tpu_torch/csrc/conv3x3_tl_bf16.cu"
+    conv_entry["bf16"]["source"] = "controlnet_tpu_torch/csrc/conv3x3_tl_bf16.cuh"
+    # the planner's kernel for images 64 wide and wider (most of a hint encode)
+    conv_entry["bf16"]["wide_source"] = "controlnet_tpu_torch/csrc/conv3x3_tl_bf16_mma.cu"
     conv_entry["own_ms"] = ldm["conv"][torch.float32]["own_ms"]
     conv_entry["bf16"]["own_ms"] = ldm["conv"][torch.bfloat16]["own_ms"]
     conv_entry["ldm_launches"] = {f"{mode}_{name}": r["conv_launches"]

@@ -8,8 +8,8 @@
 //
 // with zeros outside the image, L = H*W flattened row-major, float32 products
 // and sums (FFMA: no TF32) and a float32 bias.  This file is the float32 path
-// and the C entry point; bfloat16 goes to the tensor-core kernel in
-// conv3x3_tl_bf16.cu.
+// and its C entry point; bfloat16 has its own wgmma kernel
+// (conv3x3_tl_bf16.cuh) and entry (conv3x3_tl_bf16.cu).
 //
 // What bounds it on this card.  A call reads Cin*B*L values and writes
 // Cout*B*L, and does 2*9*Cin*Cout*B*L operations: 18*Cin*Cout/(Cin+Cout)
@@ -410,39 +410,22 @@ cudaError_t dispatch_f32(const void* x, const void* w, const float* bias, void* 
 
 }  // namespace
 
-cudaError_t controlnet_conv3x3_tl_bf16(const void* x, const void* w, const float* bias, void* out,
-                                       int cin, int cout, int batch, int h, int wd,
-                                       long long x_cstride, long long x_bstride, int cog,
-                                       cudaStream_t stream);
-
-// x: (Cin, B, H*W) read at x_cstride / x_bstride (in values; rows of H*W values
-// contiguous); bias: float32 (Cout); out: contiguous (Cout, B, H*W) in x's
-// type.  dtype: 0 float32, 1 bfloat16.
-// float32: w is the contiguous K-major (9*Cin, Npad) matrix, row 9*c + tap,
-// Npad = Cout rounded up to tile_n, zero past Cout; with w_held the
+// x: float32 (Cin, B, H*W) read at x_cstride / x_bstride (in values; rows of
+// H*W values contiguous); bias: float32 (Cout); out: contiguous float32
+// (Cout, B, H*W).  w is the contiguous K-major (9*Cin, Npad) matrix, row
+// 9*c + tap, Npad = Cout rounded up to tile_n, zero past Cout; with w_held the
 // contiguous (Cout, Cin, 3, 3) weight instead, on the tile that has a held
-// instantiation; (tile_m, tile_n, threads) one of CONV_F32_TILES; the input channels split `splits` ways, each split
-// ceil(Cin / splits) channels and none empty; partial: float32 (splits,
-// Cout, M) scratch when splits > 1.  cog is not read.
-// bfloat16: w is contiguous (Cout, 9*Cin16), tap-major, Cin padded with zero
-// channels to a multiple of 16; cog: output channels per block in groups of
-// 16 (1, 2, 4); partial, tile_m, tile_n, threads, splits and w_held are not
-// read.
+// instantiation; (tile_m, tile_n, threads) one of CONV_F32_TILES; the input
+// channels split `splits` ways, each split ceil(Cin / splits) channels and
+// none empty; partial: float32 (splits, Cout, M) scratch when splits > 1.
+// bfloat16 has its own entry, controlnet_conv3x3_tl_bf16 (conv3x3_tl_bf16.cu).
 // Returns a cudaError_t (0 on success).
 extern "C" int controlnet_conv3x3_tl(
     const void* x, const void* w, const void* bias, void* out, void* partial, int cin, int cout,
-    int batch, int h, int wd, long long x_cstride, long long x_bstride, int dtype, int cog,
-    int tile_m, int tile_n, int threads, int splits, int w_held, void* stream) {
+    int batch, int h, int wd, long long x_cstride, long long x_bstride, int tile_m, int tile_n,
+    int threads, int splits, int w_held, void* stream) {
   if (cin < 1 || cout < 1 || batch < 1 || h < 1 || wd < 1) return (int)cudaErrorInvalidValue;
-  const float* bp = static_cast<const float*>(bias);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)dispatch_f32(x, w, bp, out, partial, cin, cout, batch, h, wd, x_cstride,
-                             x_bstride, tile_m, tile_n, threads, splits, w_held, s);
-  }
-  if (dtype == 1) {
-    return (int)controlnet_conv3x3_tl_bf16(x, w, bp, out, cin, cout, batch, h, wd, x_cstride,
-                                           x_bstride, cog, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_f32(x, w, static_cast<const float*>(bias), out, partial, cin, cout, batch,
+                           h, wd, x_cstride, x_bstride, tile_m, tile_n, threads, splits, w_held,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -1,296 +1,158 @@
-// 3x3, stride-1, pad-1 convolution in the transposed (C, B, L) layout,
-// bfloat16, on Hopper's tensor cores (sm_90a): the bf16 path of kernel c.
-//
-// Replaces the TPU kernel `_conv_kernel` (controlnet_tpu/ops/pallas_conv.py,
-// reached through `_conv3x3_fwd_impl` and `pallas_conv3x3_tl`) for bfloat16
-// inputs; conv3x3_tl.cu keeps the float32 path and the C entry point, which
-// dispatches here by type.  Same function as the TPU kernel's one MXU matmul
-// over its im2col block: an implicit GEMM
-//
-//   out[co, p] = bias[co] + sum_k W[co, k] im2col[k, p],   k = tap * Cin + c,
-//
-// bf16 operands, float32 products and sums, a float32 bias, one rounding to
-// bf16 at the end: the arithmetic of `conv3x3_tl_plain`.
-//
-// What bounds it.  A call does 18*Cin*Cout*B*L operations on (Cin + Cout)*B*L
-// values moved: from 64 -> 64 channels up the tensor cores are the limit, the
-// 3 -> 16 stem and 32 -> 32 are byte-bound (the stem writes 16 planes of
-// 1024^2 pixels a image).  The products run as mma.sync m16n8k16 bf16 with
-// float32 accumulators (mma_attention.cuh's helpers).
-//
-// Design.  A block of 8 warps owns a tile of 8 x 32 output pixels of one image
-// and TCO = 16, 32 or 64 output channels (the fewest that cover Cout, as the
-// float32 path picks them; Cout past the last tile is masked).  It walks the
-// input channels in slabs of 16 (one mma depth per tap; Cin is padded with
-// zeros to a multiple of 16, so the 3-channel stem costs one slab).  For each
-// slab the weights, (TCO, 9 taps, 16) from the wrapper's padded tap-major
-// (Cout, 9 * Cin16) matrix, come in by cp.async, and the halo tile, 10 x 34
-// pixels x 16 channels, is staged TRANSPOSED: pixel-major with the 16
-// channels of a pixel contiguous (48-byte pitch, an odd number of 16-byte
-// units, so ldmatrix's 8 rows hit 8 bank groups).  That is the choice against
-// the input's channel-planar rows: a tap shift of one pixel moves a pixel row
-// off ldmatrix's 16-byte alignment, while a pixel's channel run stays
-// aligned at every shift, so every tap's B operand is one ldmatrix.x4 per two
-// 8-pixel n-tiles, straight from the same tile.  The transpose happens in
-// registers (8 channel loads of one pixel, one 16-byte shared store), which
-// is why this operand is not a cp.async copy; the next slab's loads start
-// before the current slab's products and are stored after them, so their
-// latency hides behind the mma work.  Weights are the A operand (row-major
-// Cout x K, ldmatrix.x4 from a 152-element pitch).  A warp holds 16 or 32
-// channels x 32 or 64 pixels of float32 accumulators.  At the end the tile
-// (bias added, rounded once) is staged through shared memory as (TCO, 256
-// pixels) and written as 16-byte runs along L where W is a multiple of 8 (the
-// model's shapes), one value at a time on a ragged edge.
-//
-// The input is read through its channel and batch strides (rows of L
-// contiguous): the (C, B, L) view of an NCHW tensor needs no copy.  The
-// output is contiguous (Cout, B, L).
+// Kernel c's bf16 wgmma kernel (conv3x3_tl_bf16.cuh): the C entry point, the
+// weight tensor map, the split sum, and the instantiations of the 16- and
+// 32-channel tiles; conv3x3_tl_bf16_64.cu and conv3x3_tl_bf16_128.cu hold the
+// wider ones, so that nvcc builds them beside each other.
 
-#include "mma_attention.cuh"
+#include "conv3x3_tl_bf16.cuh"
 
-namespace {
+namespace controlnet_conv_bf16 {
 
-using namespace controlnet_mma;
-using bf16 = __nv_bfloat16;
+cudaError_t launch_n16(const BfArgs& a, const CUtensorMap& map, int nwg, int blocks,
+                       cudaStream_t stream) {
+  return launch_bn<16>(a, map, nwg, blocks, stream);
+}
 
-constexpr int kThreads = 256;
-constexpr int kTH = 8, kTW = 32;             // output pixels of a block
-constexpr int kHaloW = kTW + 2;              // 34
-constexpr int kHaloPix = (kTH + 2) * kHaloW;  // 340
-constexpr int kPix = kTH * kTW;              // 256
-constexpr int kCS = 16;                      // input channels per slab
-constexpr int kXPitch = row_pitch(kCS, 2);       // 24: one pixel's channels
-constexpr int kWPitch = row_pitch(9 * kCS, 2);   // 152: one output channel's taps
-constexpr int kOPitch = row_pitch(kPix, 2);      // 264: one output channel's pixels
-constexpr int kXTasks = kHaloPix * (kCS / 8);    // 16-byte runs of the halo tile
-constexpr int kXPerThread = (kXTasks + kThreads - 1) / kThreads;
+cudaError_t launch_n32(const BfArgs& a, const CUtensorMap& map, int nwg, int blocks,
+                       cudaStream_t stream) {
+  return launch_bn<32>(a, map, nwg, blocks, stream);
+}
 
-template <int TCO>
-struct Tile {
-  static constexpr int kWarpsCo = TCO <= 32 ? 1 : TCO / 32;  // warps along Cout
-  static constexpr int kMT = TCO / (16 * kWarpsCo);         // 16-channel m-tiles a warp
-  static constexpr int kWarpsPx = 8 / kWarpsCo;             // warps along the pixels
-  static constexpr int kNT = kPix / (8 * kWarpsPx);         // 8-pixel n-tiles a warp
-  static constexpr int kXElems = kHaloPix * kXPitch;
-  static constexpr int kStage = kXElems + TCO * kWPitch;    // elements of one stage
-  static constexpr size_t kSmem = 2 * kStage * sizeof(bf16);
-  static_assert(kNT % 2 == 0, "B operands load two n-tiles at a time");
-  static_assert(TCO * kOPitch <= 2 * kStage, "the output tile reuses the stages");
-};
-
-struct ConvArgs {
-  const bf16* x;
-  const bf16* w;  // (Cout, 9 * cinp), tap-major, channels padded with zeros
-  const float* bias;
-  bf16* out;
-  int cin, cinp, cout, batch, h, wd, tiles_x, vec_out;
-  int64_t xc, xb;  // channel and batch strides of x, in values
-};
-
-// Blocks an SM should hold: a narrow tile has few accumulators, so the
-// byte-bound stem and 32 -> 32 layers can keep more blocks, and their loads,
-// in flight.
-template <int TCO>
-__global__ void __launch_bounds__(kThreads, TCO == 16 ? 4 : TCO == 32 ? 3 : 2)
-    conv3x3_tl_bf16_kernel(ConvArgs a) {
-  using T = Tile<TCO>;
-  constexpr int MT = T::kMT, NT = T::kNT;
-  extern __shared__ uint4 smem4[];
-  bf16* smem = reinterpret_cast<bf16*>(smem4);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wco = warp % T::kWarpsCo, wpx = warp / T::kWarpsCo;
-  const int tile_y = blockIdx.x / a.tiles_x;
-  const int x0 = (blockIdx.x - tile_y * a.tiles_x) * kTW, y0 = tile_y * kTH;
-  const int co0 = blockIdx.y * TCO;
-  const int b = blockIdx.z;
-  const unsigned short* xbits =
-      reinterpret_cast<const unsigned short*>(a.x + (int64_t)b * a.xb);
-
-  // Halo tile: run idx -> (channel group of 8, halo pixel); neighbouring
-  // threads take neighbouring pixels of one channel row (coalesced loads) and
-  // store 16 bytes each at a 48-byte pitch (conflict-free).
-  uint4 staged[kXPerThread];
-  auto load_x = [&](int c0) {
-#pragma unroll
-    for (int i = 0; i < kXPerThread; ++i) {
-      const int idx = tid + i * kThreads;
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
-      const int grp = idx / kHaloPix, hp = idx - grp * kHaloPix;
-      const int hy = hp / kHaloW;
-      const int gy = y0 - 1 + hy, gx = x0 - 1 + (hp - hy * kHaloW);
-      const int c = c0 + grp * 8;
-      if (idx < kXTasks && c < a.cin && gy >= 0 && gy < a.h && gx >= 0 && gx < a.wd) {
-        const unsigned short* p = xbits + c * a.xc + (int64_t)gy * a.wd + gx;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint32_t e = c + j < a.cin ? (uint32_t)__ldg(p + j * a.xc) : 0u;
-          v[j >> 1] |= e << (16 * (j & 1));
-        }
-      }
-      staged[i] = make_uint4(v[0], v[1], v[2], v[3]);
-    }
-  };
-  auto store_x = [&](bf16* xs) {
-#pragma unroll
-    for (int i = 0; i < kXPerThread; ++i) {
-      const int idx = tid + i * kThreads;
-      if (idx < kXTasks) {
-        const int grp = idx / kHaloPix, hp = idx - grp * kHaloPix;
-        *reinterpret_cast<uint4*>(xs + hp * kXPitch + grp * 8) = staged[i];
-      }
-    }
-  };
-  // Weights of the slab: (TCO, 9, 16) as 16-byte copies, zeros past Cout.
-  auto load_w = [&](bf16* ws, int c0) {
-    for (int idx = tid; idx < TCO * 18; idx += kThreads) {
-      const int co = idx / 18, r = idx - co * 18;
-      const bool ok = co0 + co < a.cout;
-      const bf16* src = a.w + ((int64_t)(co0 + co) * 9 + (r >> 1)) * a.cinp + c0 + (r & 1) * 8;
-      cp_async16(ws + co * kWPitch + r * 8, ok ? src : a.w, ok ? 16 : 0);
-    }
-  };
-
-  // Each lane's halo pixel for ldmatrix.x4 of n-tiles (2 np, 2 np + 1): lanes
-  // 0-15 the first tile, 16-31 the second; k half (lane >> 3) & 1.
-  int hp_lane[NT / 2];
-#pragma unroll
-  for (int np = 0; np < NT / 2; ++np) {
-    const int p = wpx * NT * 8 + (2 * np + (lane >> 4)) * 8 + (lane & 7);
-    hp_lane[np] = (p / kTW) * kHaloW + (p % kTW);
-  }
-  const int khalf = ((lane >> 3) & 1) * 8;
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-    }
-  }
-
-  const int slabs = a.cinp / kCS;
-  load_w(smem + T::kXElems, 0);
-  cp_async_commit();
-  load_x(0);
-  store_x(smem);
-  for (int s = 0; s < slabs; ++s) {
-    bf16* xs = smem + (s & 1) * T::kStage;
-    bf16* ws = xs + T::kXElems;
-    cp_async_wait<0>();
-    __syncthreads();  // slab s is in place; the other stage is no longer read
-    const bool more = s + 1 < slabs;
-    bf16* next = smem + ((s + 1) & 1) * T::kStage;
-    if (more) {
-      load_w(next + T::kXElems, (s + 1) * kCS);
-      cp_async_commit();
-      load_x((s + 1) * kCS);
-    }
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int shift = (tap / 3) * kHaloW + (tap % 3);
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        load_a_rowmajor(af[mt], ws + ((wco * MT + mt) * 16) * kWPitch + tap * kCS, kWPitch, lane);
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, xs + (hp_lane[np] + shift) * kXPitch + khalf);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
-        }
-      }
-    }
-    if (more) store_x(next);
-  }
-
-  // Epilogue: bias, one rounding, the (TCO, 256) tile through shared memory,
-  // then 16-byte runs along L.
-  __syncthreads();  // every warp is done with the stages
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int col = (wco * MT + mt) * 16 + g + 8 * r;
-      const float bv = co0 + col < a.cout ? a.bias[co0 + col] : 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int p = wpx * NT * 8 + nt * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(smem + col * kOPitch + p) =
-            pack_bf16(acc[mt][nt][2 * r] + bv, acc[mt][nt][2 * r + 1] + bv);
-      }
+// out[n, m] = (partial[0, m, n] + ... + partial[S-1, m, n]) + bias[n], in
+// that order, rounded once; a (64 pixel, 32 channel) tile a block, transposed
+// through shared memory so both sides are coalesced.
+__global__ void __launch_bounds__(kSumThreads)
+    conv3x3_tl_bf16_sum_kernel(const float* __restrict__ partial, const float* __restrict__ bias,
+                               bf16* __restrict__ out, int m, int cout, int npad, int splits) {
+  __shared__ __align__(16) bf16 tile[kSumCh][kSumPix + 8];
+  const int p0 = blockIdx.x * kSumPix, n0 = blockIdx.y * kSumCh;
+  for (int idx = threadIdx.x; idx < kSumPix * kSumCh; idx += kSumThreads) {
+    const int pl = idx / kSumCh, nl = idx - pl * kSumCh;
+    const int p = p0 + pl, n = n0 + nl;
+    if (p < m && n < cout) {
+      const float* src = partial + (long long)p * npad + n;
+      float sum = src[0];
+      for (int sp = 1; sp < splits; ++sp) sum += src[(long long)sp * m * npad];
+      tile[nl][pl] = __float2bfloat16(sum + bias[n]);
     }
   }
   __syncthreads();
-  const int64_t l = (int64_t)a.h * a.wd;
-  for (int idx = tid; idx < TCO * kPix / 8; idx += kThreads) {
-    const int col = idx / (kPix / 8), run = idx - col * (kPix / 8);
-    const int row = run / (kTW / 8), x8 = (run - row * (kTW / 8)) * 8;
-    const int co = co0 + col, gy = y0 + row, gx = x0 + x8;
-    if (co >= a.cout || gy >= a.h || gx >= a.wd) continue;
-    const bf16* src = smem + col * kOPitch + row * kTW + x8;
-    bf16* dst = a.out + ((int64_t)co * a.batch + b) * l + (int64_t)gy * a.wd + gx;
-    if (a.vec_out) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  const bool vec_out = (m & 7) == 0;
+  for (int idx = threadIdx.x; idx < kSumCh * (kSumPix / 8); idx += kSumThreads) {
+    const int nl = idx / (kSumPix / 8), c8 = (idx - nl * (kSumPix / 8)) * 8;
+    const int n = n0 + nl, p = p0 + c8;
+    if (n >= cout || p >= m) continue;
+    bf16* dst = out + (long long)n * m + p;
+    if (vec_out) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(&tile[nl][c8]);
     } else {
-      for (int j = 0; j < 8 && gx + j < a.wd; ++j) dst[j] = src[j];
+      for (int j = 0; j < 8 && p + j < m; ++j) dst[j] = tile[nl][c8 + j];
     }
   }
 }
 
-template <int TCO>
-cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
-  const int tiles_y = (a.h + kTH - 1) / kTH;
-  const int64_t tiles = (int64_t)a.tiles_x * tiles_y;
-  const int co_tiles = (a.cout + TCO - 1) / TCO;
-  if (tiles > 2147483647LL || co_tiles > 65535 || a.batch > 65535) return cudaErrorInvalidValue;
-  auto kernel = conv3x3_tl_bf16_kernel<TCO>;
-  constexpr size_t smem = Tile<TCO>::kSmem;
-  if (smem > 48u * 1024u) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<dim3((unsigned)tiles, co_tiles, a.batch), kThreads, smem, stream>>>(a);
+cudaError_t launch_sum(const BfArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.m + kSumPix - 1) / kSumPix, (a.cout + kSumCh - 1) / kSumCh);
+  conv3x3_tl_bf16_sum_kernel<<<grid, kSumThreads, 0, stream>>>(a.partial, a.bias, a.out, a.m,
+                                                                a.cout, a.npad, a.splits);
   return cudaGetLastError();
 }
 
-}  // namespace
+namespace {
 
-// Called by controlnet_conv3x3_tl (conv3x3_tl.cu) for bfloat16; the shapes
-// are checked there.  w: contiguous (Cout, 9 * Cin16), Cin16 = Cin rounded up
-// to a multiple of 16, tap-major, the padding channels zero (the wrapper's
-// `flat_weight(..., channel_multiple=16)`).  cog: output channels a block in
-// units of 16 (1, 2 or 4: 16, 32 or 64).
-cudaError_t controlnet_conv3x3_tl_bf16(const void* x, const void* w, const float* bias, void* out,
-                                       int cin, int cout, int batch, int h, int wd,
-                                       long long x_cstride, long long x_bstride, int cog,
-                                       cudaStream_t stream) {
-  ConvArgs a;
+// The 5-D map of the (slabs, 9, 2, Cout16, 8) weight as (128 values = 16
+// channels x 8, Cout16 / 16, 2, 9, slabs): boxes of (128, bn / 16, 2, 9, 1),
+// no swizzle (the K-major core-matrix layout wgmma reads), zeros past Cout16.
+bool weight_map(CUtensorMap* map, const void* w, int cout16, int nslab, int bn) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[5] = {128, (cuuint64_t)cout16 / 16, 2, kTaps, (cuuint64_t)nslab};
+  const cuuint64_t strides[4] = {256, (cuuint64_t)cout16 * 16, (cuuint64_t)cout16 * 32,
+                                 (cuuint64_t)cout16 * 32 * kTaps};
+  const cuuint32_t box[5] = {128, (cuuint32_t)bn / 16, 2, kTaps, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(w), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+}  // namespace
+}  // namespace controlnet_conv_bf16
+
+using namespace controlnet_conv_bf16;
+
+// x: (Cin, B, H*W) bf16 read at x_cstride / x_bstride (in values; rows of H*W
+// values contiguous), W at most 63; w: the contiguous (ceil(Cin / 16), 9, 2,
+// Cout16, 8) bf16 weight (`cuda_conv.slab_weight`: slab, tap, channel half,
+// output channel, channel; Cout16 = Cout rounded up to 16; zeros past Cin and
+// Cout); bias: float32 (Cout); out: contiguous (Cout, B, H*W) bf16; partial:
+// float32 (splits, B*H*W, ceil(Cout / bn) * bn) scratch when splits > 1.  The
+// plan (`cuda_conv.bf16_wgmma_plan`): nwg consumer warpgroups of 64 pixels a
+// block (1, 2), bn output channels a tile (16, 32, 64, 128), `stages` ring
+// slots (2-4), the input channels in `splits` parts of ceil(slabs / splits)
+// slabs (none empty), `blocks` persistent blocks.  cycles: null, or 2 *
+// (kPhases + 1) zeroed counters that thread 0 of each block and its producer
+// warp's lane 0 add their clock64 cycles by phase to (then the block count).
+// Returns a cudaError_t (0 on success).
+extern "C" int controlnet_conv3x3_tl_bf16(const void* x, const void* w, const void* bias,
+                                          void* out, void* partial, int cin, int cout, int batch,
+                                          int h, int wd, long long x_cstride, long long x_bstride,
+                                          int nwg, int bn, int stages, int splits, int blocks,
+                                          void* stream, unsigned long long* cycles) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (cin < 1 || cout < 1 || batch < 1 || h < 1 || wd < 1 || wd > kMaxW || x_cstride < 0 ||
+      x_bstride < 0) {
+    return bad;
+  }
+  if ((nwg != 1 && nwg != 2) || (bn != 16 && bn != 32 && bn != 64 && bn != 128) || stages < 2 ||
+      stages > kMaxStages || splits < 1 || blocks < 1) {
+    return bad;
+  }
+  const long long hw = (long long)h * wd, m = hw * batch;
+  if (m > INT_MAX - 256) return bad;  // pixel indices (and a tile past the last) in 32 bits
+  BfArgs a;
+  a.nslab = (cin + kSlab - 1) / kSlab;
+  a.sps = (a.nslab + splits - 1) / splits;
+  if (splits > a.nslab || (splits - 1) * a.sps >= a.nslab) return bad;  // no empty split
+  if (splits > 1 && partial == nullptr) return bad;
+  const long long m_tiles = (m + kRows * nwg - 1) / (kRows * nwg);
+  const int n_tiles = (cout + bn - 1) / bn;
+  if (m_tiles * n_tiles * splits > INT_MAX) return bad;
+  if ((reinterpret_cast<uintptr_t>(w) & 15) != 0 || (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
+    return bad;
+  }
   a.x = static_cast<const bf16*>(x);
-  a.w = static_cast<const bf16*>(w);
-  a.bias = bias;
+  a.bias = static_cast<const float*>(bias);
   a.out = static_cast<bf16*>(out);
-  a.cin = cin;
-  a.cinp = (cin + kCS - 1) / kCS * kCS;
-  a.cout = cout;
-  a.batch = batch;
-  a.h = h;
-  a.wd = wd;
-  a.tiles_x = (wd + kTW - 1) / kTW;
+  a.partial = static_cast<float*>(partial);
   a.xc = x_cstride;
   a.xb = x_bstride;
-  a.vec_out = wd % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  if ((reinterpret_cast<uintptr_t>(w) & 15) != 0) return cudaErrorInvalidValue;
-  if (cog == 1) return launch<16>(a, stream);
-  if (cog == 2) return launch<32>(a, stream);
-  if (cog == 4) return launch<64>(a, stream);
-  return cudaErrorInvalidValue;
+  a.cin = cin;
+  a.cout = cout;
+  a.h = h;
+  a.w = wd;
+  a.hw = (int)hw;
+  a.m = (int)m;
+  a.m_tiles = (int)m_tiles;
+  a.n_tiles = n_tiles;
+  a.splits = splits;
+  a.tiles = (int)(m_tiles * n_tiles * splits);
+  a.stages = stages;
+  a.rows_p = 2 * wd + kRows + 2;
+  a.npad = n_tiles * bn;
+  a.div_hw = make_div(a.hw);
+  a.div_w = make_div(wd);
+  a.div_mt = make_div(a.m_tiles);
+  a.div_nt = make_div(n_tiles);
+  a.cycles = cycles;
+  if (smem_bytes(nwg, bn, stages, a.rows_p) > 232448) return bad;
+  CUtensorMap map;
+  if (!weight_map(&map, w, (cout + 15) / 16 * 16, a.nslab, bn)) return bad;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 16: return (int)launch_n16(a, map, nwg, blocks, s);
+    case 32: return (int)launch_n32(a, map, nwg, blocks, s);
+    case 64: return (int)launch_n64(a, map, nwg, blocks, s);
+    default: return (int)launch_n128(a, map, nwg, blocks, s);
+  }
 }

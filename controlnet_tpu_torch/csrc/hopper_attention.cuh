@@ -1,8 +1,9 @@
 // Hopper building blocks of the bf16 attention kernels a (attention_fwd_bf16.cu)
-// and b (attention_bwd_bf16.cu) and of the bf16 fused layer d
-// (attention_proj_hopper.cuh): TMA tensor maps and loads, mbarriers, cluster
-// barriers, the producer warp's copy routes, and wgmma on 128-byte-swizzled
-// tiles.
+// and b (attention_bwd_bf16.cu), of the bf16 fused layer d
+// (attention_proj_hopper.cuh) and of the bf16 conv c (conv3x3_tl_bf16.cuh,
+// which takes the mbarriers, wgmma wrappers and tensor-map encoder): TMA
+// tensor maps and loads, mbarriers, cluster barriers, the producer warp's
+// copy routes, and wgmma on 128-byte-swizzled tiles.
 //
 // Tiles.  Every operand tile is a (DP, 64) block of a (dh, L) panel: DP rows
 // (head dims, zero past dh) of 64 consecutive L values, one 128-byte row per

@@ -1,9 +1,10 @@
-// The mma core on Hopper's tensor cores, used by the bf16 3x3 conv
-// (conv3x3_tl_bf16.cu, kernel c); the float32 fused projection + attention
-// layer (attention_proj.cuh, kernel d) runs its FFMA products, online softmax
-// and cp.async staging on the same fragment layout, and the wgmma kernels a,
-// b and d (hopper_attention.cuh) take its online softmax, bf16 packing and
-// cp.async, whose fragment layout is a warpgroup accumulator's per warp.
+// The warp-level mma core: mma.sync m16n8k16 on the tensor cores, run by the
+// bf16 conv for wide images (conv3x3_tl_bf16_mma.cu, kernel c); the float32
+// fused projection + attention layer (attention_proj.cuh, kernel d) runs its
+// FFMA products and online softmax on the same fragment layout, which is a
+// warpgroup accumulator's per warp, so the wgmma kernels a, b and d
+// (hopper_attention.cuh) take its online softmax, bf16 packing and cp.async,
+// and c's (conv3x3_tl_bf16.cuh) its ldmatrix.
 //
 // Everything here works on the fragments of one warp's mma.sync.m16n8k16:
 // a 16 x 8 float32 accumulator tile is held as c[4] per thread, with thread

@@ -113,7 +113,7 @@ def _compile_and_link(verbose: bool = False) -> Path:
     for tmp, obj in zip(tmp_objs, objs):
         os.replace(tmp, obj)
     tmp = LIB_PATH.with_suffix(tag)
-    # -ldl: the bf16 kernels a, b and d look up cuTensorMapEncodeTiled in libcuda
+    # -ldl: the bf16 kernels a, b, c and d look up cuTensorMapEncodeTiled in libcuda
     _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-ldl", "-o", str(tmp)]])
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
@@ -148,12 +148,20 @@ def load() -> ctypes.CDLL:
             # threads_k, split, q_vec, k_vec), stream, phase counters
             lib.controlnet_attention_bwd_t.argtypes = (
                 [ptr] * 11 + [i32] * 5 + [i64] * 3 + [i32] * 8 + [ptr] * 2)
-            # (x, w, bias, out, partial sums), (cin, cout, batch, h, w),
-            # (channel, batch) strides of x, (dtype, bf16 channel groups,
-            # f32 pixel tile, channel tile, threads, splits, weights as
-            # held), stream
+            # float32: (x, w, bias, out, partial sums), (cin, cout, batch, h,
+            # w), (channel, batch) strides of x, (pixel tile, channel tile,
+            # threads, splits, weights as held), stream
             lib.controlnet_conv3x3_tl.argtypes = (
-                [ptr] * 5 + [i32] * 5 + [i64] * 2 + [i32] * 7 + [ptr])
+                [ptr] * 5 + [i32] * 5 + [i64] * 2 + [i32] * 5 + [ptr])
+            # bfloat16 on wgmma: the same tensors and shape, then
+            # (warpgroups, channel tile, stages, splits, blocks), stream,
+            # phase counters
+            lib.controlnet_conv3x3_tl_bf16.argtypes = (
+                [ptr] * 5 + [i32] * 5 + [i64] * 2 + [i32] * 5 + [ptr] * 2)
+            # bfloat16 on mma.sync (wide images): (x, w, bias, out), (cin,
+            # cout, batch, h, w), strides of x, output channel groups, stream
+            lib.controlnet_conv3x3_tl_bf16_mma.argtypes = (
+                [ptr] * 4 + [i32] * 5 + [i64] * 2 + [i32] + [ptr])
             # (x, in_w, in_b, out_w, out_b, y), (batch, l, c, d, heads), (batch,
             # row, channel) strides of x and of y, (dtype, rows per block,
             # query tiles, head groups, shared bytes), stream, phase counters
@@ -177,7 +185,9 @@ def load() -> ctypes.CDLL:
             lib.controlnet_attention_proj_bf16_clusters.argtypes = (
                 [i32] * 14 + [ctypes.POINTER(ctypes.c_int)])
             for fn in (lib.controlnet_attention_fwd_t, lib.controlnet_attention_bwd_t,
-                       lib.controlnet_conv3x3_tl, lib.controlnet_attention_proj,
+                       lib.controlnet_conv3x3_tl, lib.controlnet_conv3x3_tl_bf16,
+                       lib.controlnet_conv3x3_tl_bf16_mma,
+                       lib.controlnet_attention_proj,
                        lib.controlnet_attention_proj_clusters,
                        lib.controlnet_attention_proj_bf16,
                        lib.controlnet_attention_proj_bf16_clusters):

@@ -238,9 +238,11 @@ def test_kernel_library_is_not_built_on_import():
         "attention_bwd.cu", "attention_bwd_bf16.cu", "attention_fwd.cu", "attention_fwd_bf16.cu",
         "attention_proj.cu", "attention_proj_bf16.cu", "attention_proj_bf16_128.cu",
         "attention_proj_bf16_64_96.cu", "attention_proj_f32_128.cu", "attention_proj_f32_64_96.cu",
-        "conv3x3_tl.cu", "conv3x3_tl_bf16.cu"]
+        "conv3x3_tl.cu", "conv3x3_tl_bf16.cu", "conv3x3_tl_bf16_128.cu", "conv3x3_tl_bf16_64.cu",
+        "conv3x3_tl_bf16_mma.cu"]
     assert [p.name for p in _build.headers()] == ["attention_proj.cuh", "attention_proj_hopper.cuh",
-                                                  "hopper_attention.cuh", "mma_attention.cuh"]
+                                                  "conv3x3_tl_bf16.cuh", "hopper_attention.cuh",
+                                                  "mma_attention.cuh"]
 
 
 def test_distillation_entry_points_raise_on_cuda_less_host(monkeypatch):

@@ -14,13 +14,17 @@ Three kinds of test:
 * kernels a and b's bf16 launch plan (``cuda_attention.mma_plan``: padded
   head dim, warpgroups, ring stages, the dkv query split, TMA or cp.async,
   shared memory) at the MNIST, latent, CIFAR-10 and cross shapes, and
-  kernel c's (``cuda_conv.mma_launch_config``) at the 7 hint-encode shapes
-  and a ragged one;
+  kernel c's (``cuda_conv.bf16_launch_plan``: on wgmma, tiles over the
+  pixels across images, channel tiles, the split of Cin, shared memory, the
+  grid; on mma.sync for images 64 wide and wider) at the 7 hint-encode
+  shapes and a ragged one, and its TMA weight layout;
 * a model of each kernel's arithmetic written in torch on the CPU (bf16
   operands, float32 sums; for a and d the online softmax over the kernel's
   key tiles, for b D from a's float32 output, dQ over key tiles, dK and dV
-  over the query shares and tiles, for c
-  the halo tiles, taps and 16-channel slabs; every float32 probability or
+  over the query shares and tiles, for c on wgmma
+  64-row pixel tiles across images, P's shifted rows, per-tap masks,
+  16-channel slabs and the split's fixed-order sum, on mma.sync halo tiles;
+  every float32 probability or
   gradient that enters a product split into bf16 hi + lo), held against the
   JAX functions (Pallas kernels in interpret mode) and the port's plain
   versions on numpy-seeded inputs at real or small shapes, batch 1-2.  The
@@ -760,7 +764,7 @@ def test_kernel_b_d_from_float32_p_not_the_rounded_output():
     assert err_p < 1e-5 and err_o > 100 * err_p
 
 
-# --- kernel c: the bf16 3x3 conv on the tensor cores -------------------------------------
+# --- kernel c: the bf16 3x3 conv on wgmma -------------------------------------------------
 
 # (Cin, Cout, H, W, B): the hint encode's seven convs at batch 16 (1024^2
 # hints, factor 32; chip_smoke.hint_conv_shapes) and chip_smoke's ragged shape
@@ -769,36 +773,136 @@ CONV_SHAPES = [(3, 16, 1024, 1024, 16), (32, 32, 512, 512, 16), (64, 64, 256, 25
                (512, 256, 32, 32, 16), (24, 40, 30, 30, 16)]
 
 
+def check_conv_bf16_plan(cin, cout, h, w, b):
+    """The bf16 plan's invariants (tests/test_torch_port_tl_conv.py holds them
+    at the 40 unit shapes).  Images 64 wide and wider take the mma.sync
+    kernel: 8 x 32 pixels of one image and the fewest of 16 / 32 / 64
+    channels that cover Cout a block, two stages of the halo tile and the
+    slab's weights, two blocks an SM (its launch bounds), the grid within
+    its limits.  The rest take the wgmma kernel: an instantiated tile, a
+    ring of at least two slots; pixel tiles of 64 rows a warpgroup cover the
+    B*H*W pixels across images once, channel tiles Cout, splits the
+    16-channel slabs, each once and none empty; shared memory within a
+    block's and, times the blocks an SM holds, an SM's; the grid within the
+    tiles and the card; P holds every row a tap reads, in two gathering
+    tasks a thread or three; 32-bit pixel indices."""
+    plan = cuda_conv.bf16_launch_plan(cin, cout, h, w, b)
+    if w >= cuda_conv.BF16_MMA_MIN_W == 64:
+        assert isinstance(plan, cuda_conv.MmaPlan)
+        th, tw = plan.pixel_tile
+        assert (th, tw) == cuda_conv.MMA_PIXEL_TILE == (8, 32) and plan.stages == 2
+        assert plan.tco == {16: 16, 32: 32}.get(cout, 64)
+        assert plan.shared_bytes == {16: 42368, 32: 52096, 64: 71552}[plan.tco]
+        assert 2 * plan.shared_bytes <= cuda_conv.MAX_SHARED_BYTES == 232448
+        assert -(-h // th) * -(-w // tw) < 2 ** 31 and -(-cout // plan.tco) <= 65535 <= 65535
+        assert b <= 65535
+        return plan
+    m, slabs = b * h * w, -(-cin // 16)
+    assert plan.nwg in (1, 2) and plan.bn in cuda_conv.BF16_TILES_N and plan.stages >= 2
+    for tiles, size, total in ((plan.m_tiles, 64 * plan.nwg, m), (plan.n_tiles, plan.bn, cout),
+                               (plan.splits, plan.slabs_per_split, slabs)):
+        starts = range(0, tiles * size, size)
+        assert sum(min(total, s + size) - s for s in starts) == total
+        assert all(s < total for s in starts)
+    assert plan.tiles == plan.m_tiles * plan.n_tiles * plan.splits <= 2 ** 31 - 1
+    assert plan.shared_bytes == cuda_conv.bf16_shared_bytes(plan.nwg, plan.bn, plan.stages, w)
+    assert plan.shared_bytes <= cuda_conv.MAX_SHARED_BYTES == 232448
+    assert plan.per_sm >= 1 and plan.per_sm * plan.shared_bytes <= 232448
+    assert plan.per_sm * (plan.shared_bytes + 1024) <= cuda_conv.SM_SHARED_BYTES
+    assert plan.per_sm <= cuda_conv.bf16_min_blocks(plan.nwg, plan.bn)
+    assert 1 <= plan.blocks == min(plan.tiles, cuda_conv.SMS * plan.per_sm)
+    # P: a tap (ky, kx) of row r reads row ky * W + r + kx < rows_p = 2W + 66
+    assert plan.rows_p == 2 * w + 66 and 2 * w + 63 + 2 < plan.rows_p
+    assert 2 * plan.rows_p <= 3 * 128
+    assert m + 256 <= 2 ** 31 - 1
+    return plan
+
+
 @pytest.mark.parametrize("cin,cout,h,w,b", CONV_SHAPES)
-def test_conv_mma_launch_config(cin, cout, h, w, b):
-    """8 x 32 pixels and the fewest of 16 / 32 / 64 channels that cover Cout
-    a block; two stages of the halo tile and the slab's weights; two blocks
-    fit an SM (the kernel's launch bounds); the grid within its limits."""
-    (th, tw), tco, stages, smem = cuda_conv.mma_launch_config(cin, cout, h, w, b)
-    assert (th, tw) == cuda_conv.MMA_PIXEL_TILE == (8, 32) and stages == 2
-    assert tco == {16: 16, 32: 32}.get(cout, 64)
-    assert smem == {16: 42368, 32: 52096, 64: 71552}[tco]
-    assert 2 * smem <= cuda_conv.MAX_SHARED_BYTES == 232448
-    assert -(-h // th) * -(-w // tw) < 2 ** 31 and -(-cout // tco) <= 65535 and b <= 65535
+def test_conv_bf16_launch_plan(cin, cout, h, w, b):
+    """The hint encode's plans hold ``check_conv_bf16_plan`` (the 64^2 to
+    1024^2 layers on the mma.sync kernel, the 32^2 ones and the ragged 30^2
+    on wgmma); a split's float32 partial sums stay within the 40-bit sizes a
+    buffer can hold."""
+    plan = check_conv_bf16_plan(cin, cout, h, w, b)
+    assert isinstance(plan, cuda_conv.MmaPlan) == (w >= 64)
+    assert isinstance(plan, cuda_conv.MmaPlan) or plan.splits == 1 or (
+        plan.splits * b * h * w * plan.n_pad * 4 < 2 ** 40)
 
 
-def test_conv_mma_launch_config_refuses_what_the_grid_cannot_hold():
+def test_conv_bf16_launch_plan_refuses_what_32_bit_indices_cannot_hold():
+    with pytest.raises(ValueError, match="32-bit"):
+        cuda_conv.bf16_launch_plan(3, 16, 32, 32, 2 ** 21)
     with pytest.raises(ValueError, match="grid"):
-        cuda_conv.mma_launch_config(3, 16, 64, 64, 65536)
+        cuda_conv.bf16_launch_plan(3, 16, 64, 64, 65536)
+    with pytest.raises(ValueError, match="W <= 63"):
+        cuda_conv.bf16_wgmma_plan(3, 16, 8, 64, 1)
 
 
-def model_conv_c(weight, bias, x, hw):
-    """Kernel c in bf16: per block a tile of 8 x 32 output pixels and a tile
-    of output channels; the input channels in slabs of 16 (Cin padded with
-    zeros); per slab the (10, 34) halo tile, zeros outside the image, and for
-    each of the 9 taps the slab's (channels, 16) weights times the tap's
-    shifted (16, 8 x 32) window, bf16 operands and float32 sums; then the
-    float32 bias and one rounding.  (C, B, L) in, (Cout, B, L) out."""
+def model_conv_c(weight, bias, x, hw, plan=None):
+    """Kernel c in bf16 on wgmma, as ``csrc/conv3x3_tl_bf16.cuh`` computes it:
+    the pixel axis is M = B*H*W across images, a warpgroup owns 64
+    consecutive m; its P tile holds the flat pixels m0 - W - 1 + q, q <
+    2W + 66, zeros outside [0, M); tap (ky, kx) reads P row ky * W + r + kx,
+    zeroed where it leaves the pixel's image; per 16-channel slab (Cin padded
+    with zeros) the 9 taps' products into float32 sums; with a split, each
+    part's float32 sums added in split order; then the float32 bias and one
+    rounding.  (C, B, L) in, (Cout, B, L) out."""
     cin, b, _ = x.shape
     cout = weight.shape[0]
     h, w = hw
-    (th, tw), tco, _, _ = cuda_conv.mma_launch_config(cin, cout, h, w, b)
-    slab = cuda_conv.MMA_SLAB
+    plan = plan or cuda_conv.bf16_wgmma_plan(cin, cout, h, w, b)
+    m = b * h * w
+    sw = cuda_conv.slab_weight(weight).float()[:, :, :, :cout]  # (slabs, 9, 2, Cout, 8)
+    slabs = sw.shape[0]
+    wk = sw.permute(1, 3, 0, 2, 4).reshape(9, cout, slabs * 16)  # tap, o, c
+    xf = torch.zeros(slabs * 16, m)
+    xf[:cin] = x.float().reshape(cin, m)
+    q = torch.arange(plan.rows_p)
+    parts = torch.zeros(plan.splits, m, cout)
+    for m0 in range(0, m, 64):
+        pix = m0 - w - 1 + q
+        ok = (pix >= 0) & (pix < m)
+        ptile = torch.where(ok[:, None], xf[:, pix.clamp(0, m - 1)].T, torch.zeros(()))
+        r = torch.arange(64)
+        p = m0 + r
+        l = p % (h * w)
+        y, xx = l // w, l % w
+        for sp in range(plan.splits):
+            c0 = sp * plan.slabs_per_split * 16
+            c1 = min(slabs, (sp + 1) * plan.slabs_per_split) * 16
+            acc = torch.zeros(64, cout)
+            for s in range(c0, c1, 16):
+                for tap in range(9):
+                    ky, kx = divmod(tap, 3)
+                    inside = ((y + ky - 1 >= 0) & (y + ky - 1 < h) & (xx + kx - 1 >= 0)
+                              & (xx + kx - 1 < w) & (p < m))
+                    a = ptile[ky * w + r + kx, s:s + 16] * inside[:, None]
+                    acc += a @ wk[tap, :, s:s + 16].T
+            keep = p < m
+            parts[sp, p[keep]] = acc[keep]
+    total = parts[0]
+    for sp in range(1, plan.splits):
+        total = total + parts[sp]
+    out = total + bias.float()
+    return out.T.reshape(cout, b, h * w).to(torch.bfloat16)
+
+
+def model_conv_c_mma(weight, bias, x, hw):
+    """Kernel c in bf16 on mma.sync (``csrc/conv3x3_tl_bf16_mma.cu``, images
+    64 wide and wider): per block a tile of 8 x 32 output pixels of one
+    image and a tile of output channels; the input channels in slabs of 16
+    (Cin padded with zeros); per slab the (10, 34) halo tile, zeros outside
+    the image, and for each of the 9 taps the slab's (channels, 16) weights
+    times the tap's shifted (16, 8 x 32) window, bf16 operands and float32
+    sums; then the float32 bias and one rounding.  (C, B, L) in, (Cout, B,
+    L) out."""
+    cin, b, _ = x.shape
+    cout = weight.shape[0]
+    h, w = hw
+    plan = cuda_conv.mma_launch_config(cin, cout, h, w, b)
+    (th, tw), tco = plan.pixel_tile, plan.tco
+    slab = cuda_conv.BF16_SLAB
     wf = cuda_conv.flat_weight(weight, torch.bfloat16, slab).float()
     cinp = wf.shape[1] // 9
     wf = wf.reshape(cout, 9, cinp)
@@ -822,14 +926,28 @@ def model_conv_c(weight, bias, x, hw):
     return out[:, :, :h, :w].reshape(cout, b, h * w).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 12, 36, 3, 16), (1, 13, 37, 32, 32),
-                                            (2, 9, 32, 24, 40)],
-                         ids=["stem-cin3", "ragged-13x37", "cout40"])
-def test_kernel_c_model_against_pallas_and_plain(b, h, w, cin, cout):
-    """bf16, relative to max|out|: within one bf16 ulp of the largest output
-    (2^-7) of the plain version and of the Pallas kernel in interpret mode,
-    as chip_smoke.py's CONV_TOL holds the CUDA kernel; float32 sums in
-    another order are all that differs before the one rounding."""
+def test_slab_weight_is_the_bf16_kernels_order_and_fits_tma():
+    """(slabs, 9, 2, Cout16, 8): [s, 3 ky + kx, h, o, v] = w[o, 16 s + 8 h + v,
+    ky, kx], zeros past Cin and Cout; contiguous bf16 read by TMA as rows of
+    16 output channels x 8 values (256 bytes) whose outer strides are
+    multiples of 16 bytes."""
+    rng = np.random.default_rng(3)
+    weight = torch.from_numpy(rng.standard_normal((5, 20, 3, 3)).astype(np.float32))
+    sw = cuda_conv.slab_weight(weight)
+    assert sw.shape == (2, 9, 2, 16, 8) and sw.dtype == torch.bfloat16 and sw.is_contiguous()
+    assert all(st * 2 % 16 == 0 for st in sw.stride()[:-1]) and 16 * sw.shape[-1] * 2 == 256
+    assert sw.shape[3] % 16 == 0 and not sw[:, :, :, 5:].any()
+    wb = weight.bfloat16()
+    for s in range(2):
+        for tap in range(9):
+            for hf in range(2):
+                for v in range(8):
+                    c = 16 * s + 8 * hf + v
+                    want = wb[:, c, tap // 3, tap % 3] if c < 20 else torch.zeros(5)
+                    assert torch.equal(sw[s, tap, hf, :5, v].float(), want.float())
+
+
+def _conv_case(b, h, w, cin, cout):
     rng = np.random.default_rng(cin * cout + h)
     x = rng.standard_normal((b, cin, h, w)).astype(np.float32)
     bound = 1.0 / math.sqrt(9 * cin)
@@ -837,12 +955,48 @@ def test_kernel_c_model_against_pallas_and_plain(b, h, w, cin, cout):
     bias = rng.uniform(-bound, bound, cout).astype(np.float32)
     x_tl = cuda_conv.to_tl(torch.from_numpy(x).bfloat16())
     weight, bias_t = torch.from_numpy(wt), torch.from_numpy(bias)
-    got = model_conv_c(weight, bias_t, x_tl, (h, w)).float()
     plain = cuda_conv.conv3x3_tl_plain(weight, bias_t, x_tl, (h, w)).float()
     ref = pallas_conv3x3_tl(jnp.asarray(wt.transpose(2, 3, 1, 0)), jnp.asarray(bias),
                             jnp.asarray(x_tl.float().numpy(), jnp.bfloat16), (h, w),
                             interpret=True)
-    ref = torch.from_numpy(np.asarray(ref, np.float32))
+    return weight, bias_t, x_tl, plain, torch.from_numpy(np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 12, 36, 3, 16), (1, 13, 37, 32, 32),
+                                            (2, 9, 32, 24, 40), (3, 7, 7, 32, 48),
+                                            (1, 4, 4, 128, 64), (1, 5, 63, 16, 16)],
+                         ids=["stem-cin3", "ragged-13x37", "cout40", "straddle-7x7",
+                              "split-cin", "widest-63"])
+def test_kernel_c_model_against_pallas_and_plain(b, h, w, cin, cout):
+    """bf16 on wgmma, relative to max|out|: within one bf16 ulp of the largest
+    output (2^-7) of the plain version and of the Pallas kernel in interpret
+    mode, as chip_smoke.py's CONV_TOL holds the CUDA kernel; float32 sums in
+    another order are all that differs before the one rounding.  The cases:
+    the 3-channel stem, a ragged 13x37, Cout 40 (a masked channel tile), 64-row
+    tiles straddling 7x7 images (147 pixels), 128 -> 64 @4x4 which the planner
+    splits over the input channels, and W 63, the widest the kernel takes."""
+    weight, bias_t, x_tl, plain, ref = _conv_case(b, h, w, cin, cout)
+    plan = cuda_conv.bf16_wgmma_plan(cin, cout, h, w, b)
+    if (h, w) == (7, 7):
+        assert b * h * w % 64 != 0 and 64 % (h * w) != 0  # tiles straddle images
+    if cin == 128:
+        assert plan.splits > 1
+    got = model_conv_c(weight, bias_t, x_tl, (h, w), plan).float()
+    scale = plain.abs().max()
+    assert (got - plain).abs().max() <= CONV_TOL_BF16 * scale
+    assert (got - ref).abs().max() <= CONV_TOL_BF16 * scale
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(1, 9, 70, 3, 16), (1, 10, 64, 32, 32),
+                                            (2, 9, 66, 24, 40)],
+                         ids=["stem-cin3", "w64", "cout40-ragged"])
+def test_kernel_c_mma_model_against_pallas_and_plain(b, h, w, cin, cout):
+    """bf16 on mma.sync (the planner's kernel for images 64 wide and wider),
+    held as the wgmma model is: halo tiles, taps, 16-channel slabs; ragged H,
+    W and Cout."""
+    weight, bias_t, x_tl, plain, ref = _conv_case(b, h, w, cin, cout)
+    assert isinstance(cuda_conv.bf16_launch_plan(cin, cout, h, w, b), cuda_conv.MmaPlan)
+    got = model_conv_c_mma(weight, bias_t, x_tl, (h, w)).float()
     scale = plain.abs().max()
     assert (got - plain).abs().max() <= CONV_TOL_BF16 * scale
     assert (got - ref).abs().max() <= CONV_TOL_BF16 * scale

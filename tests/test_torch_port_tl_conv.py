@@ -23,6 +23,7 @@ import torch
 from controlnet_tpu.ops import tl_conv as jax_tl
 from controlnet_tpu.ops.pallas_conv import pallas_conv3x3_tl
 from controlnet_tpu_torch.ops import cuda_conv, tl_conv
+from test_torch_port_mma import check_conv_bf16_plan
 
 # (b, h, w, cin, cout): the shapes of tests/test_tl_parity.py's conv3x3 and
 # Pallas tests, plus the hint encoder's 3-channel stem, and odd H, W with
@@ -205,6 +206,36 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tl_conv.conv3x3_tl(wt.to("meta"), bt.to("meta"), _x_tl(x).to("meta"), (4, 4))
 
 
+def test_kept_weight_follows_the_weights_version():
+    """The bf16 kernel's laid-out weight is kept while the weight is unchanged
+    and made again after an in-place change (an optimizer step, a state-dict
+    load); inference tensors, which keep no version, and a result that is the
+    tensor itself are made on every call and not kept."""
+    weight = torch.randn(8, 5, 3, 3)
+    first = cuda_conv._kept(weight, "slab", cuda_conv.slab_weight)
+    assert cuda_conv._kept(weight, "slab", cuda_conv.slab_weight) is first
+    flat = cuda_conv._kept(weight, "flat16", lambda t: cuda_conv.flat_weight(t, torch.bfloat16, 16))
+    assert cuda_conv._kept(weight, "slab", cuda_conv.slab_weight) is first  # one a layout
+    with torch.no_grad():
+        weight.mul_(2.0)
+    again = cuda_conv._kept(weight, "slab", cuda_conv.slab_weight)
+    assert again is not first and torch.equal(again, cuda_conv.slab_weight(weight))
+    assert not torch.equal(
+        cuda_conv._kept(weight, "flat16", lambda t: cuda_conv.flat_weight(t, torch.bfloat16, 16)),
+        flat)
+    bias = torch.randn(8)
+    assert cuda_conv._kept(bias, "f32", lambda t: t.float()) is bias
+    assert bias not in cuda_conv._KEPT
+    with torch.inference_mode():
+        frozen = torch.randn(8, 5, 3, 3)
+    made = cuda_conv._kept(frozen, "slab", cuda_conv.slab_weight)
+    assert cuda_conv._kept(frozen, "slab", cuda_conv.slab_weight) is not made
+    del weight
+    import gc
+    gc.collect()
+    assert all(t.shape != (8, 5, 3, 3) or t is frozen for t in cuda_conv._KEPT.keys())
+
+
 def test_k_major_weight_is_the_float32_kernels_order():
     """(9*Cin, Npad): row 9*c + 3*ky + kx, column o, zeros past Cout."""
     _, w_hwio, _ = _case(10, 1, 4, 4, 3, 5)
@@ -242,12 +273,15 @@ def test_f32_launch_plan_fits_the_card_and_covers_the_call(cin, cout, h, w, b):
 
 
 @pytest.mark.parametrize("cin,cout,h,w,b", UNIT_SHAPES)
-def test_bf16_launch_config_unchanged_at_the_unit_shapes(cin, cout, h, w, b):
-    """The bf16 kernel's plan stays as it was: 8 x 32 pixels, 16 / 32 / 64
-    channels a block, two stages."""
-    tco = 16 if cout <= 16 else 32 if cout <= 32 else 64
-    assert cuda_conv.mma_launch_config(cin, cout, h, w, b) == (
-        (8, 32), tco, 2, {16: 42368, 32: 52096, 64: 71552}[tco])
+def test_bf16_launch_plan_fits_the_card_and_covers_the_call(cin, cout, h, w, b):
+    """The bfloat16 plan (``cuda_conv.bf16_launch_plan``) at every unit
+    shape: ``check_conv_bf16_plan``'s invariants (on wgmma: tiles over the
+    pixels across images, Cout and the split of Cin, each part once and none
+    empty; shared memory within a block's and an SM's; the grid), and the
+    mma.sync kernel exactly for the images 64 wide and wider (the hint
+    encoder's 64^2 to 1024^2 layers)."""
+    plan = check_conv_bf16_plan(cin, cout, h, w, b)
+    assert isinstance(plan, cuda_conv.MmaPlan) == (w >= 64)
 
 
 def test_f32_launch_plan_refuses_what_32_bit_indices_cannot_hold():
@@ -255,5 +289,12 @@ def test_f32_launch_plan_refuses_what_32_bit_indices_cannot_hold():
         cuda_conv.f32_launch_plan(3, 16, 1024, 1024, 4096)
 
 
-def test_launch_config_covers_the_hint_encoder_widths():
-    assert [cuda_conv.launch_config(c) for c in (16, 32, 64, 128, 256, 512)] == [1, 2, 4, 4, 4, 4]
+def test_bf16_launch_plan_covers_the_hint_encoder_widths():
+    """Each hint-encoder width gets a channel tile that covers it: on wgmma at
+    32x32 an instantiated tile of at most its width (16 at 16), on mma.sync
+    at 64x64 the fewest of 16 / 32 / 64 channels."""
+    for c in (16, 32, 64, 128, 256, 512):
+        plan = cuda_conv.bf16_launch_plan(c, c, 32, 32, 16)
+        assert plan.bn in cuda_conv.BF16_TILES_N and plan.bn <= max(16, c)
+        assert plan.n_tiles * plan.bn >= c
+        assert cuda_conv.bf16_launch_plan(c, c, 64, 64, 16).tco == min(c, 64)
